@@ -1,0 +1,464 @@
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+  python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) on any error:
+
+1. device: the card's name and power limit (nvidia-smi), the kernel build;
+2. kernels: every hand-written CUDA kernel of the serve path held against its
+   plain PyTorch version on the card (bf16 2e-2, fp32 2e-5, the tolerances of
+   the JAX package's kernel tests), at the serve slice's shapes, the kernel-test
+   sweeps and ragged edges; then timed at the slice's shapes with CUDA events
+   beside its plain version, one PyTorch library call and its bound;
+3. model: minitron-8b at full width and depth (seeded random weights) served
+   through ``make_serve_bundle`` and the launcher's ``greedy_generate``: batch 4,
+   a 500-token prompt, 32 greedy decode steps. The launch counters must show
+   65 rmsnorm + 32 flash launches per prefill and 65 rmsnorm + 32 decode
+   launches per decode step. A profile of one prefill and one decode step
+   splits the device time by kernel family. The same tokens, teacher-forced
+   through the plain versions with the same weights, must give logits within
+   2e-2 relative L2 at every step. Both bf16 paths are also held to the plain
+   versions in fp32 (the same weights widened): the plain bf16 path's distance
+   is the error bf16 itself makes in this model, the floor under the 2e-2, and
+   the kernel path's may not exceed 1.25 times it;
+4. launcher: ``launch/serve.py``'s command line at the same sizes on the card.
+
+``--seed`` (default 0) draws other weights and prompts for the model phase.
+
+The last two lines are a ``{"kernels": [...]}`` JSON object and
+``{"ok": true, "device": {...}}``. Without a card it exits non-zero and prints
+no result. It imports only ``repro_torch``, ``torch``, ``numpy`` and the
+standard library.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.train.steps import make_serve_bundle  # noqa: E402
+
+# NVIDIA H100 SXM data sheet (dense): the bound of every kernel is the larger of
+# bytes / HBM rate and operations / peak rate for their type, at 700 W.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+# ~0.1 s at the H100's 1.98 GHz: longer than the host takes to queue the 40
+# timed calls of the slowest plain version.
+SPIN_CYCLES = 200_000_000
+
+TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+DTYPES = (torch.bfloat16, torch.float32)
+
+B, PROMPT, STEPS = 4, 500, 32
+ARCH = "minitron-8b"
+H, HKV, D, D_MODEL = 32, 8, 128, 4096
+MAX_LEN = PROMPT + STEPS
+LOGIT_RTOL = 2e-2
+# The kernel path's distance from fp32 over the plain bf16 path's: the kernels
+# may round differently, but not add error beyond what bf16 makes.
+FLOOR_RATIO = 1.25
+
+KERNELS = {
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:44"),
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:126",
+    ),
+    "decode_attention": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:116",
+    ),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def randn(gen, *shape, dtype=torch.bfloat16):
+    return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+
+def max_abs_err(out: torch.Tensor, exp: torch.Tensor, dtype) -> float:
+    require(out.shape == exp.shape and out.dtype == exp.dtype, f"{out.shape}/{out.dtype} vs {exp.shape}/{exp.dtype}")
+    a, b = out.float(), exp.float()
+    require(bool(torch.isfinite(a).all()), "non-finite kernel output")
+    tol = TOL[dtype]
+    bad = (a - b).abs() > tol + tol * b.abs()
+    require(not bool(bad.any()), f"{int(bad.sum())} elements outside atol=rtol={tol}")
+    return float((a - b).abs().max())
+
+
+def time_ms(fn, inputs, iters: int = 40) -> float:
+    """Mean ms per call with CUDA events, cycling through ``inputs`` (copies
+    that together exceed the 50 MB L2, so each call reads device memory).
+
+    A spin kernel first keeps the card busy while the host queues all the
+    calls, so they run back to back and the host's cost per launch (tens of
+    microseconds for a wrapper) is not counted as the kernel's time."""
+    for i in range(3):
+        fn(*inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for i in range(iters):
+        fn(*inputs[i % len(inputs)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def copies(make, nbytes: int):
+    return [make() for _ in range(max(2, math.ceil(120e6 / nbytes)))]
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# ---------------------------------------------------------------------------- kernels
+
+
+def check_rmsnorm(gen) -> float:
+    worst = 0.0
+    cases = [(4, 64), (100, 128), (257, 256), (33, 100), (2000, D_MODEL), (B, D_MODEL)]
+    for dtype in DTYPES:
+        for rows, d in cases:
+            x, scale = randn(gen, rows, d, dtype=dtype), randn(gen, d, dtype=torch.float32)
+            err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
+            print(f"check rmsnorm {str(dtype)[6:]} rows={rows} d={d}: max_abs_err={err:.3e}")
+            if dtype == torch.bfloat16 and d == D_MODEL:
+                worst = max(worst, err)
+    return worst
+
+
+def check_flash(gen) -> float:
+    worst = 0.0
+    cases = [
+        # (B, H, Hkv, Sq, Sk, D, causal, window)
+        (1, 1, 1, 128, 128, 64, True, None),
+        (2, 4, 2, 256, 256, 64, True, None),
+        (1, 8, 8, 128, 128, 128, True, None),
+        (2, 4, 1, 128, 256, 32, False, None),
+        (1, 4, 2, 256, 256, 64, True, 32),
+        (1, 4, 2, 256, 256, 64, True, 64),
+        (1, 4, 2, 256, 256, 64, True, 1024),
+        (B, H, HKV, PROMPT, PROMPT, D, True, None),  # the prefill
+        (B, H, HKV, PROMPT, PROMPT, D, True, 128),
+        (B, H, HKV, 100, MAX_LEN, D, False, None),
+    ]
+    for dtype in DTYPES:
+        for b, h, hkv, sq, sk, d, causal, window in cases:
+            q = randn(gen, b, h, sq, d, dtype=dtype)
+            k, v = randn(gen, b, hkv, sk, d, dtype=dtype), randn(gen, b, hkv, sk, d, dtype=dtype)
+            out = ops.flash_attention(q, k, v, causal=causal, window=window)
+            err = max_abs_err(out, ref.attention_ref(q, k, v, causal=causal, window=window), dtype)
+            print(f"check flash_attention {str(dtype)[6:]} {(b, h, hkv, sq, sk, d)} "
+                  f"causal={causal} window={window}: max_abs_err={err:.3e}")
+            if dtype == torch.bfloat16 and (sq, sk, causal, window) == (PROMPT, PROMPT, True, None):
+                worst = max(worst, err)
+    return worst
+
+
+def check_decode(gen) -> float:
+    worst = 0.0
+    cases = [(1, 2, 1, 256, 64, 256), (2, 4, 2, 512, 64, 300), (1, 8, 8, 256, 128, 1),
+             (2, 8, 2, 1024, 64, 700), (2, 4, 1, 200, 32, 150)] + [
+                (B, H, HKV, MAX_LEN, D, v) for v in (1, 300, MAX_LEN)]
+    for dtype in DTYPES:
+        for b, h, hkv, s, d, valid in cases:
+            q = randn(gen, b, h, d, dtype=dtype)
+            k, v = randn(gen, b, s, hkv, d, dtype=dtype), randn(gen, b, s, hkv, d, dtype=dtype)
+            out = ops.decode_attention(q, k, v, valid)
+            err = max_abs_err(out, ref.decode_attention_ref(q, k, v, valid), dtype)
+            print(f"check decode_attention {str(dtype)[6:]} {(b, h, hkv, s, d)} valid={valid}: "
+                  f"max_abs_err={err:.3e}")
+            if dtype == torch.bfloat16 and s == MAX_LEN:
+                worst = max(worst, err)
+    return worst
+
+
+def time_kernels(gen) -> dict:
+    """Times at the serve slice's shapes, bf16: kernel, plain version, library call."""
+    bf = torch.bfloat16
+    rows = B * PROMPT
+    x_bytes = rows * D_MODEL * 2
+    xs = copies(lambda: (randn(gen, rows, D_MODEL), randn(gen, D_MODEL, dtype=torch.float32)), x_bytes)
+    xs = [(x, s, s.to(bf)) for x, s in xs]  # F.rms_norm takes its weight in the input dtype
+    rms = {
+        "ms": time_ms(lambda x, s, _: ops.rmsnorm(x, s), xs),
+        "plain_ms": time_ms(lambda x, s, _: ref.rmsnorm_ref(x, s), xs),
+        "library_ms": time_ms(lambda x, _, s16: F.rms_norm(x, (D_MODEL,), s16, 1e-6), xs),
+    }
+    rms["bound_ms"], rms["bound_by"] = bound(2 * x_bytes + D_MODEL * 4, 4 * rows * D_MODEL, bf)
+
+    qkv_bytes = (B * H * PROMPT * D + 2 * B * HKV * PROMPT * D) * 2
+    qkv = copies(lambda: (randn(gen, B, H, PROMPT, D), randn(gen, B, HKV, PROMPT, D),
+                          randn(gen, B, HKV, PROMPT, D)), qkv_bytes)
+    flash = {
+        "ms": time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True), qkv),
+        "plain_ms": time_ms(lambda q, k, v: ref.attention_ref(q, k, v, causal=True), qkv),
+        "library_ms": time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), qkv),
+    }
+    pairs = PROMPT * (PROMPT + 1) // 2  # visible (query, key) pairs, causal
+    flash["bound_ms"], flash["bound_by"] = bound(
+        qkv_bytes + B * H * PROMPT * D * 2, 4 * B * H * pairs * D, bf)
+
+    kv_bytes = 2 * B * MAX_LEN * HKV * D * 2
+    cache = copies(lambda: (randn(gen, B, H, D), randn(gen, B, MAX_LEN, HKV, D),
+                            randn(gen, B, MAX_LEN, HKV, D)), kv_bytes)
+    dec = {
+        "ms": time_ms(lambda q, k, v: ops.decode_attention(q, k, v, MAX_LEN), cache),
+        "plain_ms": time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, MAX_LEN), cache),
+        "library_ms": time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True), cache),
+    }
+    dec["bound_ms"], dec["bound_by"] = bound(kv_bytes + 2 * B * H * D * 2, 4 * B * H * MAX_LEN * D, bf)
+    return {"rmsnorm": rms, "flash_attention": flash, "decode_attention": dec}
+
+
+# ---------------------------------------------------------------------------- model
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def model_phase(seed: int) -> dict:
+    cfg = get_config(ARCH)
+    bundle = make_serve_bundle(cfg, max_len=MAX_LEN)
+    t0 = time.perf_counter()
+    params = bundle.model.init(seed, "cuda")
+    torch.cuda.synchronize()
+    print(f"model {ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{sum(t.numel() for t in _tensors(params)) / 1e9:.2f} B parameters, "
+          f"init {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda")
+
+    serve.greedy_generate(bundle, params, tokens, 2)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    gen_out = serve.greedy_generate(bundle, params, tokens, STEPS)  # the main path
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_norm = 2 * cfg.num_layers + 1
+    expected = {"rmsnorm": n_norm * (1 + STEPS), "flash_attention": cfg.num_layers,
+                "decode_attention": cfg.num_layers * STEPS}
+    print(f"main path launches: {counts} (expected {expected})")
+    require(counts == expected, f"launch counts {counts} != {expected}")
+    print(f"prefill {PROMPT} tokens x{B}: {gen_out.prefill_s * 1e3:.3f} ms; "
+          f"decode: {gen_out.decode_s_per_token * 1e3:.3f} ms/token "
+          f"({B / gen_out.decode_s_per_token:.1f} tokens/s); peak memory {peak_gb:.2f} GB")
+    print(f"card during run: {nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+
+    for lg in gen_out.logits:
+        require(lg.shape == (B, cfg.padded_vocab) and bool(torch.isfinite(lg).all()), "bad logits")
+    require(gen_out.tokens.shape == (B, STEPS), "bad token shape")
+
+    # Per-step launch accounting, on a second run of the same inputs.
+    ops.reset_launch_counts()
+    logits, cache = bundle.prefill_fn(params, tokens)
+    require(ops.launch_counts() == {"rmsnorm": n_norm, "flash_attention": cfg.num_layers,
+                                    "decode_attention": 0}, f"prefill launches {ops.launch_counts()}")
+    for i in range(STEPS):
+        before = ops.launch_counts()
+        logits, cache = bundle.decode_fn(params, cache, gen_out.tokens[:, i:i + 1], PROMPT + i)
+        delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        require(delta == {"rmsnorm": n_norm, "flash_attention": 0, "decode_attention": cfg.num_layers},
+                f"decode step {i} launches {delta}")
+    print(f"per-step launches: prefill {n_norm} rmsnorm + {cfg.num_layers} flash, "
+          f"each of {STEPS} decode steps {n_norm} rmsnorm + {cfg.num_layers} decode: ok")
+    del cache
+    print_breakdown(bundle, params, tokens, gen_out.tokens[:, :1])
+
+    # The same tokens, teacher-forced through the plain versions with the same
+    # weights; then, for scale, through the plain versions in fp32 (the bf16
+    # weights widened exactly), which measures how far each bf16 path is from
+    # exact arithmetic.
+    plain = make_serve_bundle(cfg, max_len=MAX_LEN, ops=ops.PLAIN)
+    ops.reset_launch_counts()
+    plain_bf16 = teacher_forced(plain, params, tokens, gen_out.tokens)
+    _to_float32(params)
+    exact = teacher_forced(plain, params, tokens, gen_out.tokens)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    errs = [rel_l2(a, b) for a, b in zip(gen_out.logits, plain_bf16)]
+    kernel_err = [rel_l2(a, b) for a, b in zip(gen_out.logits, exact)]
+    floor = [rel_l2(a, b) for a, b in zip(plain_bf16, exact)]
+    for label, e in (("kernels vs plain, bf16", errs), ("kernels bf16 vs plain fp32", kernel_err),
+                     ("plain bf16 vs plain fp32", floor)):
+        print(f"logits, relative L2, {label}: prefill {e[0]:.4e}, decode max {max(e[1:]):.4e} "
+              f"mean {np.mean(e[1:]):.4e}")
+    require(max(errs) <= LOGIT_RTOL, f"kernel-path logits differ from the plain path: {errs}")
+    require(max(kernel_err) <= FLOOR_RATIO * max(floor),
+            f"the kernel path is further from fp32 than bf16 alone explains: {kernel_err} vs {floor}")
+    print(f"kernel-path logits within {LOGIT_RTOL} relative L2 of the plain path at all "
+          f"{len(errs)} steps, and no further from fp32 than {FLOOR_RATIO} x the plain bf16 "
+          f"path: ok")
+    return counts
+
+
+def launcher_phase(seed: int) -> None:
+    """The command-line launcher on the card, at the main path's sizes."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", ARCH, "--batch", str(B), "--prompt-len", str(PROMPT),
+                    "--decode-steps", str(STEPS), "--seed", str(seed)])
+    lines = out.getvalue().strip().splitlines()
+    require(len(lines) == 3 and "ms/token" in lines[1] and lines[2].startswith("generated:"),
+            f"launcher output: {lines}")
+    print("launcher (python -m repro_torch.launch.serve): " + "; ".join(lines[:2]))
+
+
+def teacher_forced(bundle, params, prompt, generated) -> list:
+    """Logits of a prefill and one decode step per generated token."""
+    logits, cache = bundle.prefill_fn(params, prompt)
+    out = [logits]
+    for i in range(generated.shape[1]):
+        logits, cache = bundle.decode_fn(params, cache, generated[:, i:i + 1], prompt.shape[1] + i)
+        out.append(logits)
+    return out
+
+
+def _to_float32(tree) -> None:
+    """Widen every leaf to fp32 in place, one at a time (exact from bf16)."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            _to_float32(val)
+        else:
+            tree[key] = val.float()
+
+
+def print_breakdown(bundle, params, tokens, first) -> None:
+    """Device time by kernel family over one prefill and one decode step
+    (torch.profiler), beside the host clock of the same work."""
+    _, cache = profiled("prefill", lambda: bundle.prefill_fn(params, tokens))
+    profiled("decode step", lambda: bundle.decode_fn(params, cache, first, PROMPT))
+
+
+def profiled(label: str, fn):
+    """Run ``fn`` once under torch.profiler; print its host and device times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    families, kernels = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            fam = next((f for f, keys in KERNEL_FAMILIES if any(k in e.key for k in keys)), "other")
+            families[fam] = families.get(fam, 0.0) + e.self_device_time_total / 1e3
+            kernels += e.count
+    busy = sum(families.values())
+    parts = ", ".join(f"{k} {v:.3f}" for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
+    shown = f"device busy {busy:.3f} ms in {kernels} kernels ({parts})" if busy else "device time not measured"
+    print(f"profile {label}: host enqueue {enqueue * 1e3:.3f} ms, wall {wall * 1e3:.3f} ms, {shown}")
+    return out
+
+
+# Kernel-name fragments of each family in a profile (the first match wins).
+KERNEL_FAMILIES = (
+    ("rmsnorm", ("rmsnorm_kernel",)),
+    ("flash_attention", ("flash_bf16_kernel", "flash_f32_kernel")),
+    ("decode_attention", ("decode_chunk_kernel", "decode_merge_kernel")),
+    ("matmul", ("gemm", "nvjet", "cutlass", "splitK", "sm90_xmma")),
+)
+
+
+def _tensors(tree):
+    for v in tree.values():
+        yield from (_tensors(v) if isinstance(v, dict) else (v,))
+
+
+# ---------------------------------------------------------------------------- main
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0, help="seed of the model phase's weights and prompts")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs an NVIDIA card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 stays fp32 in the plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    name_power = nvidia_smi("name,power.limit")
+    print(name_power)
+    t0 = time.perf_counter()
+    _build.library()
+    built = _build.build_seconds
+    print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
+          f"torch {torch.__version__} CUDA {torch.version.cuda}; kernels ready in "
+          f"{time.perf_counter() - t0:.1f} s ({'built' if built is not None else 'cached build'})")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    errs = {"rmsnorm": check_rmsnorm(gen), "flash_attention": check_flash(gen),
+            "decode_attention": check_decode(gen)}
+    torch.cuda.synchronize()
+    times = time_kernels(gen)
+    torch.cuda.synchronize()
+
+    counts = model_phase(args.seed)
+    launcher_phase(args.seed)
+
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        t = times[name]
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": counts[name], "max_abs_err": errs[name], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+               "library_ms": t["library_ms"]}
+        print(f"kernel {name}: max_abs_err {row['max_abs_err']:.3e}, {row['ms']:.4f} ms "
+              f"(plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}), {row['launches']} launches "
+              f"[{name_power}]")
+        kernels.append(row)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

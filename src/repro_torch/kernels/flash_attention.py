@@ -1,0 +1,69 @@
+"""Flash attention: the CUDA kernel ``csrc/flash_attention.cu`` and its wrapper.
+
+Replaces the JAX package's Pallas TPU kernel ``kernels/flash_attention.py``
+(``flash_attention``, ``pallas_call`` at :126). At the serve slice's prefill
+shape (B=4, H=32, Hkv=8, S=500, D=128, bf16, causal) it is bound by bytes:
+q, k, v and o once are 41 MB (12.2 us at 3.35 TB/s) against 8.2 GFLOP
+(8.3 us at 989 TFLOP/s). bf16 runs on the tensor cores (``mma.sync``, fp32
+accumulate); fp32 is multiplied in fp32 on the CUDA cores. Causal and window
+bounds skip whole key tiles, GQA reads kv head ``h // rep`` in place, and the
+ragged edge is masked, so no sequence length has to divide a tile.
+
+The kernel reads every operand through strides: a ``(B, S, H, D)`` projection
+passed as ``.transpose(1, 2)`` is read without a copy, and the output is
+allocated ``(B, Sq, H, D)`` and returned as a ``(B, H, Sq, D)`` view, so the
+model folds it back into ``(B, S, H*D)`` for free.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+
+HEAD_DIMS = (32, 64, 128)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, H, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Sk, D)
+    v: torch.Tensor,  # (B, Hkv, Sk, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    global launches
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if k.shape != (B, Hkv, Sk, D) or v.shape != k.shape or Hkv == 0 or H % Hkv:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    if B * H > 65535:
+        raise ValueError(f"flash_attention: B*H = {B * H} exceeds the grid limit")
+    _build.check_operands("flash_attention", q, k, v)
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if out.numel() == 0:
+        return out
+    strides = _build.strides_array(
+        [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]]
+    )
+    lib = _build.library()
+    code = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        B, H, Hkv, Sq, Sk, D, int(causal), window or 0,
+        _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device),
+    )
+    _build.check(code, "flash_attention")
+    launches += 1
+    return out

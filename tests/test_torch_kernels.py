@@ -1,0 +1,267 @@
+"""The port's kernels against the JAX package's.
+
+On the CPU: the plain PyTorch versions (``repro_torch.kernels.ref``, which the
+wrappers call for CPU tensors) against ``repro.kernels.ref`` and against the
+Pallas kernels in interpret mode, over the sweeps of ``tests/test_kernels.py``,
+in bf16 and fp32 (2e-2 / 2e-5, that file's tolerances). On a card (marker
+``gpu``; ``python -m pytest -m gpu tests/test_torch_kernels.py``): each CUDA
+kernel against its plain version on the same CUDA tensors, over the same sweeps
+plus the serve slice's shapes and ragged edges.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attention as decode_mod
+from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rmsnorm as rmsnorm_mod
+
+DTYPES = ["bfloat16", "float32"]
+TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+ATTN_SHAPES = [
+    # (B, H, Hkv, Sq, Sk, D), as in tests/test_kernels.py
+    (1, 1, 1, 128, 128, 64),
+    (2, 4, 2, 256, 256, 64),
+    (1, 8, 8, 128, 128, 128),  # MHA
+    (2, 4, 1, 128, 256, 32),  # MQA, Sq != Sk
+]
+WINDOWS = [32, 64, 1024]
+DECODE_CASES = [
+    # (B, H, Hkv, S, D, valid), as in tests/test_kernels.py
+    (1, 2, 1, 256, 64, 256),
+    (2, 4, 2, 512, 64, 300),
+    (1, 8, 8, 256, 128, 1),
+    (2, 8, 2, 1024, 64, 700),
+]
+RMSNORM_CASES = [(4, 64), (100, 128), (257, 256)]
+
+# Ragged shapes no tile divides (the Pallas kernels assert divisibility).
+RAGGED_ATTN = [(1, 4, 2, 100, 100, 64), (2, 4, 1, 100, 300, 32)]
+RAGGED_DECODE = [(2, 4, 2, 300, 64, 300), (2, 4, 2, 300, 64, 123), (2, 4, 1, 200, 32, 150)]
+
+# The minitron-8b serve slice on the card: batch 4, prompt 500, 32 decode steps.
+SLICE_ATTN = [(4, 32, 8, 500, 500, 128)]
+SLICE_DECODE = [(4, 32, 8, 532, 128, v) for v in (1, 300, 532)]
+SLICE_RMSNORM = [(2000, 4096), (4, 4096)]
+
+
+def _tol(dtype: str) -> float:
+    return 2e-2 if dtype == "bfloat16" else 2e-5
+
+
+def _np(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(a, dtype, device="cpu"):
+    return torch.from_numpy(a).to(device=device, dtype=TORCH_DTYPES[dtype])
+
+
+def _f32(a):
+    return a.float().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a, np.float32)
+
+
+def _close(a, b, dtype):
+    np.testing.assert_allclose(_f32(a), _f32(b), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+def _jax():
+    """The JAX package's kernels (the tests that need them import JAX here)."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+
+    return jnp, jops, jref
+
+
+def _j(jnp, a, dtype):
+    return jnp.asarray(a, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+
+
+# ---------------------------------------------------------------- CPU: plain vs JAX
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_plain_matches_jax(shape, dtype, rng):
+    jnp, jops, jref = _jax()
+    B, H, Hkv, Sq, Sk, D = shape
+    q, k, v = _np(rng, B, H, Sq, D), _np(rng, B, Hkv, Sk, D), _np(rng, B, Hkv, Sk, D)
+    causal = Sq == Sk
+    out = ops.flash_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype), causal=causal)
+    assert out.dtype == TORCH_DTYPES[dtype] and out.shape == (B, H, Sq, D)
+    jq, jk, jv = (_j(jnp, a, dtype) for a in (q, k, v))
+    _close(out, jref.attention_ref(jq, jk, jv, causal=causal), dtype)
+    _close(out, jops.flash_attention(jq, jk, jv, causal=causal, backend="interpret"), dtype)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_flash_attention_window_plain_matches_jax(window, rng):
+    jnp, jops, jref = _jax()
+    q, k, v = _np(rng, 1, 4, 256, 64), _np(rng, 1, 2, 256, 64), _np(rng, 1, 2, 256, 64)
+    out = ops.flash_attention(*(_t(a, "bfloat16") for a in (q, k, v)), causal=True, window=window)
+    jq, jk, jv = (_j(jnp, a, "bfloat16") for a in (q, k, v))
+    _close(out, jref.attention_ref(jq, jk, jv, causal=True, window=window), "bfloat16")
+    _close(
+        out,
+        jops.flash_attention(jq, jk, jv, causal=True, window=window, backend="interpret"),
+        "bfloat16",
+    )
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_plain_matches_jax(case, dtype, rng):
+    jnp, jops, jref = _jax()
+    B, H, Hkv, S, D, valid = case
+    q, k, v = _np(rng, B, H, D), _np(rng, B, S, Hkv, D), _np(rng, B, S, Hkv, D)
+    out = ops.decode_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype), valid)
+    assert out.dtype == TORCH_DTYPES[dtype] and out.shape == (B, H, D)
+    jq, jk, jv = (_j(jnp, a, dtype) for a in (q, k, v))
+    vl = jnp.asarray(valid, jnp.int32)
+    _close(out, jref.decode_attention_ref(jq, jk, jv, vl), dtype)
+    _close(out, jops.decode_attention(jq, jk, jv, vl, backend="interpret"), dtype)
+
+
+@pytest.mark.parametrize("rows,d", RMSNORM_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_plain_matches_jax(rows, d, dtype, rng):
+    jnp, jops, jref = _jax()
+    x, scale = _np(rng, rows, d), _np(rng, d)
+    out = ops.rmsnorm(_t(x, dtype), torch.from_numpy(scale))
+    assert out.dtype == TORCH_DTYPES[dtype]
+    jx, js = _j(jnp, x, dtype), jnp.asarray(scale, jnp.float32)
+    _close(out, jref.rmsnorm_ref(jx, js), dtype)
+    _close(out, jops.rmsnorm(jx, js, backend="interpret"), dtype)
+
+
+@pytest.mark.parametrize("shape", RAGGED_ATTN)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_ragged_plain_matches_jax_ref(shape, dtype, rng):
+    jnp, _, jref = _jax()
+    B, H, Hkv, Sq, Sk, D = shape
+    q, k, v = _np(rng, B, H, Sq, D), _np(rng, B, Hkv, Sk, D), _np(rng, B, Hkv, Sk, D)
+    causal = Sq == Sk
+    out = ops.flash_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype), causal=causal)
+    jq, jk, jv = (_j(jnp, a, dtype) for a in (q, k, v))
+    _close(out, jref.attention_ref(jq, jk, jv, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("case", RAGGED_DECODE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_ragged_plain_matches_jax_ref(case, dtype, rng):
+    jnp, _, jref = _jax()
+    B, H, Hkv, S, D, valid = case
+    q, k, v = _np(rng, B, H, D), _np(rng, B, S, Hkv, D), _np(rng, B, S, Hkv, D)
+    out = ops.decode_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype), valid)
+    jq, jk, jv = (_j(jnp, a, dtype) for a in (q, k, v))
+    _close(out, jref.decode_attention_ref(jq, jk, jv, jnp.asarray(valid, jnp.int32)), dtype)
+
+
+def test_non_cuda_devices_raise(rng):
+    x = torch.from_numpy(_np(rng, 2, 64)).to("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.rmsnorm(x, torch.ones(64, device="meta"))
+
+
+# ---------------------------------------------------------------- card: kernel vs plain
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: python -m pytest -m gpu tests/test_torch_kernels.py")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 plain version must be fp32
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _on_card_attn(shape, dtype, rng, device, window=None):
+    B, H, Hkv, Sq, Sk, D = shape
+    q, k, v = (_t(a, dtype, device) for a in (
+        _np(rng, B, H, Sq, D), _np(rng, B, Hkv, Sk, D), _np(rng, B, Hkv, Sk, D)))
+    causal = Sq == Sk
+    n = flash_mod.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == n + 1
+    _close(out, ref.attention_ref(q, k, v, causal=causal, window=window), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ATTN_SHAPES + RAGGED_ATTN + SLICE_ATTN)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_matches_plain(shape, dtype, rng, cuda):
+    _on_card_attn(shape, dtype, rng, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", WINDOWS + [100])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_window_matches_plain(window, dtype, rng, cuda):
+    _on_card_attn((1, 4, 2, 256, 256, 64), dtype, rng, cuda, window=window)
+    _on_card_attn((1, 4, 2, 300, 300, 128), dtype, rng, cuda, window=window)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_reads_strided_views(rng, cuda):
+    """The model passes (B, S, H, D) projections as (B, H, S, D) views."""
+    B, S, H, Hkv, D = 2, 200, 8, 2, 128
+    q = _t(_np(rng, B, S, H, D), "bfloat16", cuda)
+    k = _t(_np(rng, B, S, Hkv, D), "bfloat16", cuda)
+    v = _t(_np(rng, B, S, Hkv, D), "bfloat16", cuda)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    exp = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    _close(out, exp, "bfloat16")
+    assert out.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_CASES + RAGGED_DECODE + SLICE_DECODE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_matches_plain(case, dtype, rng, cuda):
+    B, H, Hkv, S, D, valid = case
+    q, k, v = (_t(a, dtype, cuda) for a in (
+        _np(rng, B, H, D), _np(rng, B, S, Hkv, D), _np(rng, B, S, Hkv, D)))
+    n = decode_mod.launches
+    out = ops.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert decode_mod.launches == n + 1
+    _close(out, ref.decode_attention_ref(q, k, v, valid), dtype)
+
+
+@pytest.mark.gpu
+def test_decode_attention_kernel_empty_cache_gives_zero(rng, cuda):
+    """No valid key: 0, as the TPU kernel gives (the plain version averages V)."""
+    q = _t(_np(rng, 2, 4, 64), "bfloat16", cuda)
+    k = _t(_np(rng, 2, 100, 2, 64), "bfloat16", cuda)
+    assert not ops.decode_attention(q, k, k, 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d", RMSNORM_CASES + SLICE_RMSNORM + [(33, 100)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_matches_plain(rows, d, dtype, rng, cuda):
+    x = _t(_np(rng, rows, d), dtype, cuda)
+    scale = torch.from_numpy(_np(rng, d)).to(cuda)
+    n = rmsnorm_mod.launches
+    out = ops.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert rmsnorm_mod.launches == n + 1
+    _close(out, ref.rmsnorm_ref(x, scale), dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.ones(4, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.rmsnorm(x, torch.ones(64, device=cuda))
+    q = torch.ones(1, 2, 8, 48, device=cuda, dtype=torch.bfloat16)  # head dim 48: no kernel
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        ops.decode_attention(q[:, :, 0], q.transpose(1, 2), q.transpose(1, 2), 2)
