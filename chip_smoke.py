@@ -5,12 +5,13 @@
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. device: the card's name and power limit (nvidia-smi), the kernel build;
-2. kernels: every hand-written CUDA kernel of the serve path held against its
-   plain PyTorch version on the card (bf16 2e-2, fp32 2e-5, the tolerances of
-   the JAX package's kernel tests), at the serve slice's shapes, the kernel-test
-   sweeps and ragged edges; then timed at the slice's shapes with CUDA events
-   beside its plain version, one PyTorch library call and its bound;
-3. model: minitron-8b at full width and depth (seeded random weights) served
+2. kernels: every hand-written CUDA kernel of the serve paths held against its
+   plain PyTorch version on the card (bf16 2e-2, fp32 2e-5, SSD scan 2e-4, the
+   tolerances of the JAX package's kernel tests), at the serve slices' shapes,
+   the kernel-test sweeps and ragged edges; then timed at the slices' shapes
+   with CUDA events beside its plain version, one PyTorch library call where
+   one computes the same function, and its bound;
+3. minitron-8b at full width and depth (seeded random weights) served
    through ``make_serve_bundle`` and the launcher's ``greedy_generate``: batch 4,
    a 500-token prompt, 32 greedy decode steps. The launch counters must show
    65 rmsnorm + 32 flash launches per prefill and 65 rmsnorm + 32 decode
@@ -21,9 +22,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    versions in fp32 (the same weights widened): the plain bf16 path's distance
    is the error bf16 itself makes in this model, the floor under the 2e-2, and
    the kernel path's may not exceed 1.25 times it;
-4. launcher: ``launch/serve.py``'s command line at the same sizes on the card.
+4. mamba2-370m at full width and depth, the same way: batch 4, a 2000-token
+   prompt (7 chunks of 256 and a ragged 208), 32 greedy decode steps; 97
+   rmsnorm + 48 ssd_scan launches per prefill, 97 rmsnorm and no ssd_scan per
+   decode step. With fp32 weights the kernel path's logits must be within
+   1e-4 relative L2 of the plain path's at every step (in fp32 the two differ
+   only in the order of sums); in bf16 the kernel path may be at most 1.25
+   times as far from the fp32 plain run as the plain bf16 path;
+5. launcher: ``launch/serve.py``'s command line at each model phase's sizes.
 
-``--seed`` (default 0) draws other weights and prompts for the model phase.
+``--seed`` (default 0) draws other weights and prompts for the model phases.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and prints
@@ -51,6 +59,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ROWS as SSD_ROWS  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.train.steps import make_serve_bundle  # noqa: E402
 
@@ -75,6 +84,13 @@ LOGIT_RTOL = 2e-2
 # may round differently, but not add error beyond what bf16 makes.
 FLOOR_RATIO = 1.25
 
+# The mamba2-370m phase: batch 4, prompt 2000, 32 decode steps; SSD heads of
+# the full width (d_inner 2048 / head_dim 64), one group, state 128.
+MB_ARCH, MB_B, MB_PROMPT, MB_STEPS = "mamba2-370m", 4, 2000, 32
+SSD_H, SSD_P, SSD_G, SSD_N, SSD_CHUNK = 32, 64, 1, 128, 256
+SSD_TOL = 2e-4  # tests/test_kernels.py::test_ssd_scan
+FP32_LOGIT_RTOL = 1e-4
+
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:44"),
     "flash_attention": (
@@ -85,6 +101,7 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:116",
     ),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:98"),
 }
 
 
@@ -109,11 +126,11 @@ def randn(gen, *shape, dtype=torch.bfloat16):
     return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
 
 
-def max_abs_err(out: torch.Tensor, exp: torch.Tensor, dtype) -> float:
+def max_abs_err(out: torch.Tensor, exp: torch.Tensor, dtype, tol=None) -> float:
     require(out.shape == exp.shape and out.dtype == exp.dtype, f"{out.shape}/{out.dtype} vs {exp.shape}/{exp.dtype}")
     a, b = out.float(), exp.float()
     require(bool(torch.isfinite(a).all()), "non-finite kernel output")
-    tol = TOL[dtype]
+    tol = TOL[dtype] if tol is None else tol
     bad = (a - b).abs() > tol + tol * b.abs()
     require(not bool(bad.any()), f"{int(bad.sum())} elements outside atol=rtol={tol}")
     return float((a - b).abs().max())
@@ -153,13 +170,15 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 
 def check_rmsnorm(gen) -> float:
     worst = 0.0
-    cases = [(4, 64), (100, 128), (257, 256), (33, 100), (2000, D_MODEL), (B, D_MODEL)]
+    # the serve slices' shapes: minitron-8b (d_model), mamba2-370m (d_model, d_inner)
+    slices = [(B * PROMPT, D_MODEL), (B, D_MODEL)] + [
+        (rows, d) for rows in (MB_B * MB_PROMPT, MB_B) for d in (1024, 2048)]
     for dtype in DTYPES:
-        for rows, d in cases:
+        for rows, d in [(4, 64), (100, 128), (257, 256), (33, 100)] + slices:
             x, scale = randn(gen, rows, d, dtype=dtype), randn(gen, d, dtype=torch.float32)
             err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
             print(f"check rmsnorm {str(dtype)[6:]} rows={rows} d={d}: max_abs_err={err:.3e}")
-            if dtype == torch.bfloat16 and d == D_MODEL:
+            if dtype == torch.bfloat16 and (rows, d) in slices:
                 worst = max(worst, err)
     return worst
 
@@ -210,6 +229,79 @@ def check_decode(gen) -> float:
     return worst
 
 
+def ssd_inputs(gen, b, s, h, p, g, n, bc_dtype=torch.float32):
+    """As tests/test_kernels.py::test_ssd_scan draws them: x, B and C standard
+    normal, log_dA = -0.1 |normal|. B and C are views of one (b, s, 2gn)
+    tensor, as the model's slices of its conv output."""
+    bc = randn(gen, b, s, 2 * g * n, dtype=bc_dtype)
+    return (randn(gen, b, s, h, p, dtype=torch.float32),
+            -randn(gen, b, s, h, dtype=torch.float32).abs() * 0.1,
+            bc[..., : g * n].reshape(b, s, g, n), bc[..., g * n:].reshape(b, s, g, n))
+
+
+def ssd_distance(out, exp) -> float:
+    """max |out - exp| / (atol + rtol |exp|) at atol = rtol = SSD_TOL: at most 1 holds."""
+    a, b = out.double(), exp.double()
+    return float(((a - b).abs() / (SSD_TOL + SSD_TOL * b.abs())).max())
+
+
+def check_ssd(gen) -> float:
+    """The kernel against the exact recurrence ``ssd_ref`` and the plain
+    ``ssd_chunked``, y and final state, at 2e-4; returns the max abs error
+    against ``ssd_ref`` over three draws at the slice shape."""
+    cases = [  # (B, S, H, P, G, N, chunk, B/C dtype)
+        (1, 64, 2, 16, 1, 8, 16, torch.float32),  # the sweep of tests/test_kernels.py
+        (2, 128, 4, 16, 2, 8, 32, torch.float32),
+        (1, 256, 4, 32, 1, 16, 64, torch.float32),
+        (1, 128, 8, 64, 1, 16, 128, torch.float32),
+        (2, 100, 4, 16, 2, 8, 32, torch.float32),  # ragged
+        (MB_B, 40, SSD_H, SSD_P, SSD_G, SSD_N, SSD_CHUNK, torch.bfloat16),  # S < chunk, full width
+        (MB_B, 40, SSD_H, SSD_P, SSD_G, SSD_N, SSD_CHUNK, torch.float32),
+    ]
+    for *shape, chunk, dt in cases:
+        args = ssd_inputs(gen, *shape, bc_dtype=dt)
+        y, h = ops.ssd_scan(*args, chunk=chunk)
+        errs = []
+        for name, (ye, he) in (("ssd_ref", ref.ssd_ref(*args)), ("ssd_chunked", ref.ssd_chunked(*args, chunk))):
+            errs.append(f"{name} y {max_abs_err(y, ye, dt, SSD_TOL):.3e} h {max_abs_err(h, he, dt, SSD_TOL):.3e}")
+        print(f"check ssd_scan {str(dt)[6:]} B/C {tuple(shape)} chunk={chunk}: max_abs_err vs " + ", ".join(errs))
+
+    # The slice: the model's prefill shape, bf16 B and C, three draws. ssd_ref
+    # in fp64 is the exact answer, and each fp32 version's distance from it is
+    # printed. The plain version at the model's 256-row chunk carries fp32
+    # error of its own near the tolerance (its gates exp(L_i - L_j) take
+    # differences of L values that fall far within a chunk, against large
+    # outputs), so the kernel is gated against ssd_ref and against ssd_chunked
+    # at the kernel's own chunk length; the 256-row distances are printed.
+    worst = 0.0
+    for draw in range(3):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(draw)
+        args = ssd_inputs(g, MB_B, MB_PROMPT, SSD_H, SSD_P, SSD_G, SSD_N, bc_dtype=torch.bfloat16)
+        y, h = ops.ssd_scan(*args, chunk=SSD_CHUNK)
+        yr, hr = ref.ssd_ref(*args)
+        yc, hc = ref.ssd_chunked(*args, SSD_ROWS)
+        worst = max(worst, max_abs_err(y, yr, torch.float32, SSD_TOL))
+        max_abs_err(h, hr, torch.float32, SSD_TOL)
+        max_abs_err(y, yc, torch.float32, SSD_TOL)
+        max_abs_err(h, hc, torch.float32, SSD_TOL)
+        y256, h256 = ref.ssd_chunked(*args, SSD_CHUNK)
+        y64, h64 = ref.ssd_ref(*(t.double() for t in args))
+        pad = (-MB_PROMPT) % SSD_CHUNK  # L = cumsum(log_dA) within each 256-row chunk
+        L = F.pad(args[1], (0, 0, 0, pad)).reshape(MB_B, -1, SSD_CHUNK, SSD_H).cumsum(dim=2)
+        f64 = ", ".join(f"{name} {ssd_distance(yo, y64):.3f} {ssd_distance(ho, h64):.3f}" for name, (yo, ho) in (
+            ("kernel", (y, h)), ("ssd_ref", (yr, hr)), (f"ssd_chunked({SSD_ROWS})", (yc, hc)),
+            (f"ssd_chunked({SSD_CHUNK})", (y256, h256))))
+        print(f"check ssd_scan bf16 B/C slice (B{MB_B} S{MB_PROMPT} H{SSD_H} P{SSD_P} G{SSD_G} N{SSD_N}) "
+              f"draw {draw}: L down to {float(L.min()):.2f} within a {SSD_CHUNK}-row chunk, |y| up to "
+              f"{float(y64.abs().max()):.2f}; max_abs_err vs ssd_ref y {float((y - yr).abs().max()):.3e} "
+              f"h {float((h - hr).abs().max()):.3e}; distance / 2e-4 tolerance (y, h), gated: "
+              f"kernel~ssd_ref {ssd_distance(y, yr):.3f} {ssd_distance(h, hr):.3f}, "
+              f"kernel~ssd_chunked({SSD_ROWS}) {ssd_distance(y, yc):.3f} {ssd_distance(h, hc):.3f}; "
+              f"not gated, from ssd_ref in fp64: {f64}")
+    return worst
+
+
 def time_kernels(gen) -> dict:
     """Times at the serve slice's shapes, bf16: kernel, plain version, library call."""
     bf = torch.bfloat16
@@ -247,7 +339,25 @@ def time_kernels(gen) -> dict:
             q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True), cache),
     }
     dec["bound_ms"], dec["bound_by"] = bound(kv_bytes + 2 * B * H * D * 2, 4 * B * H * MAX_LEN * D, bf)
-    return {"rmsnorm": rms, "flash_attention": flash, "decode_attention": dec}
+
+    # The mamba2-370m prefill's scan: x and y fp32, bf16 B/C views, fp32 state.
+    # The least work of the function is the recurrence's: the state update
+    # B_t x_t^T and the readout C_t h_t, N P multiply-adds each per head and
+    # row. Every chunked form adds its Q x Q terms to these.
+    rows = MB_B * MB_PROMPT
+    x_bytes, a_bytes, bc_bytes = rows * SSD_H * SSD_P * 4, rows * SSD_H * 4, rows * 2 * SSD_G * SSD_N * 2
+    scan = copies(lambda: ssd_inputs(gen, MB_B, MB_PROMPT, SSD_H, SSD_P, SSD_G, SSD_N, torch.bfloat16),
+                  x_bytes + a_bytes + bc_bytes)
+    ssd = {
+        "ms": time_ms(lambda x, a, b, c: ops.ssd_scan(x, a, b, c, chunk=SSD_CHUNK), scan),
+        "plain_ms": time_ms(lambda x, a, b, c: ref.ssd_chunked(x, a, b, c, SSD_CHUNK), scan),
+        "library_ms": None,  # no one PyTorch call computes an SSD scan
+    }
+    flops = 4 * rows * SSD_H * SSD_N * SSD_P
+    state_bytes = MB_B * SSD_H * SSD_N * SSD_P * 4
+    ssd["bound_ms"], ssd["bound_by"] = bound(2 * x_bytes + a_bytes + bc_bytes + state_bytes, flops,
+                                             torch.float32)
+    return {"rmsnorm": rms, "flash_attention": flash, "decode_attention": dec, "ssd_scan": ssd}
 
 
 # ---------------------------------------------------------------------------- model
@@ -279,7 +389,7 @@ def model_phase(seed: int) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_norm = 2 * cfg.num_layers + 1
     expected = {"rmsnorm": n_norm * (1 + STEPS), "flash_attention": cfg.num_layers,
-                "decode_attention": cfg.num_layers * STEPS}
+                "decode_attention": cfg.num_layers * STEPS, "ssd_scan": 0}
     print(f"main path launches: {counts} (expected {expected})")
     require(counts == expected, f"launch counts {counts} != {expected}")
     print(f"prefill {PROMPT} tokens x{B}: {gen_out.prefill_s * 1e3:.3f} ms; "
@@ -295,13 +405,14 @@ def model_phase(seed: int) -> dict:
     ops.reset_launch_counts()
     logits, cache = bundle.prefill_fn(params, tokens)
     require(ops.launch_counts() == {"rmsnorm": n_norm, "flash_attention": cfg.num_layers,
-                                    "decode_attention": 0}, f"prefill launches {ops.launch_counts()}")
+                                    "decode_attention": 0, "ssd_scan": 0},
+            f"prefill launches {ops.launch_counts()}")
     for i in range(STEPS):
         before = ops.launch_counts()
         logits, cache = bundle.decode_fn(params, cache, gen_out.tokens[:, i:i + 1], PROMPT + i)
         delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
-        require(delta == {"rmsnorm": n_norm, "flash_attention": 0, "decode_attention": cfg.num_layers},
-                f"decode step {i} launches {delta}")
+        require(delta == {"rmsnorm": n_norm, "flash_attention": 0, "decode_attention": cfg.num_layers,
+                          "ssd_scan": 0}, f"decode step {i} launches {delta}")
     print(f"per-step launches: prefill {n_norm} rmsnorm + {cfg.num_layers} flash, "
           f"each of {STEPS} decode steps {n_norm} rmsnorm + {cfg.num_layers} decode: ok")
     del cache
@@ -333,16 +444,94 @@ def model_phase(seed: int) -> dict:
     return counts
 
 
-def launcher_phase(seed: int) -> None:
-    """The command-line launcher on the card, at the main path's sizes."""
+def mamba_phase(seed: int) -> dict:
+    """mamba2-370m served at full width: prefill through the SSD scan kernel,
+    recurrent decode; the launch counts, times, profile and logits gates."""
+    cfg = get_config(MB_ARCH)
+    bundle = make_serve_bundle(cfg, max_len=MB_PROMPT + MB_STEPS)
+    t0 = time.perf_counter()
+    params = bundle.model.init(seed, "cuda")
+    torch.cuda.synchronize()
+    print(f"model {MB_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, d_state {cfg.ssm.d_state}, "
+          f"{cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} SSD heads of {cfg.ssm.head_dim}, "
+          f"{sum(t.numel() for t in _tensors(params)) / 1e6:.1f} M parameters, "
+          f"init {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (MB_B, MB_PROMPT), generator=gen, device="cuda")
+
+    serve.greedy_generate(bundle, params, tokens, 2)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    gen_out = serve.greedy_generate(bundle, params, tokens, MB_STEPS)  # the main path
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_norm = 2 * cfg.num_layers + 1  # norm1 and the gated norm per layer, the final norm
+    per_prefill = {"rmsnorm": n_norm, "flash_attention": 0, "decode_attention": 0,
+                   "ssd_scan": cfg.num_layers}
+    per_step = {"rmsnorm": n_norm, "flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+    expected = {k: per_prefill[k] + MB_STEPS * per_step[k] for k in per_prefill}
+    print(f"main path launches: {counts} (expected {expected})")
+    require(counts == expected, f"launch counts {counts} != {expected}")
+    print(f"prefill {MB_PROMPT} tokens x{MB_B}: {gen_out.prefill_s * 1e3:.3f} ms; "
+          f"decode: {gen_out.decode_s_per_token * 1e3:.3f} ms/token "
+          f"({MB_B / gen_out.decode_s_per_token:.1f} tokens/s); peak memory {peak_gb:.2f} GB")
+    print(f"card during run: {nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+    for lg in gen_out.logits:
+        require(lg.shape == (MB_B, cfg.padded_vocab) and bool(torch.isfinite(lg).all()), "bad logits")
+    require(gen_out.tokens.shape == (MB_B, MB_STEPS), "bad token shape")
+
+    ops.reset_launch_counts()
+    logits, cache = bundle.prefill_fn(params, tokens)
+    require(ops.launch_counts() == per_prefill, f"prefill launches {ops.launch_counts()}")
+    for i in range(MB_STEPS):
+        before = ops.launch_counts()
+        logits, cache = bundle.decode_fn(params, cache, gen_out.tokens[:, i:i + 1], MB_PROMPT + i)
+        delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        require(delta == per_step, f"decode step {i} launches {delta}")
+    print(f"per-step launches: prefill {n_norm} rmsnorm + {cfg.num_layers} ssd_scan, "
+          f"each of {MB_STEPS} decode steps {n_norm} rmsnorm and no ssd_scan: ok")
+    del cache
+    print_breakdown(bundle, params, tokens, gen_out.tokens[:, :1], MB_PROMPT)
+
+    # Teacher-forced on the kernel path's tokens: the plain path in bf16, then
+    # both paths with the weights widened to fp32 (exact from bf16).
+    plain = make_serve_bundle(cfg, max_len=MB_PROMPT + MB_STEPS, ops=ops.PLAIN)
+    ops.reset_launch_counts()
+    plain_bf16 = teacher_forced(plain, params, tokens, gen_out.tokens)
+    _to_float32(params)
+    exact = teacher_forced(plain, params, tokens, gen_out.tokens)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    kernel_fp32 = teacher_forced(bundle, params, tokens, gen_out.tokens)
+    require(ops.launch_counts()["ssd_scan"] == cfg.num_layers, "the fp32 kernel path missed the scan")
+    fp32_err = [rel_l2(a, b) for a, b in zip(kernel_fp32, exact)]
+    errs = [rel_l2(a, b) for a, b in zip(gen_out.logits, plain_bf16)]
+    kernel_err = [rel_l2(a, b) for a, b in zip(gen_out.logits, exact)]
+    floor = [rel_l2(a, b) for a, b in zip(plain_bf16, exact)]
+    for label, e in (("kernels vs plain, fp32", fp32_err), ("kernels vs plain, bf16", errs),
+                     ("kernels bf16 vs plain fp32", kernel_err), ("plain bf16 vs plain fp32", floor)):
+        print(f"logits, relative L2, {label}: prefill {e[0]:.4e}, decode max {max(e[1:]):.4e} "
+              f"mean {np.mean(e[1:]):.4e}")
+    require(max(fp32_err) <= FP32_LOGIT_RTOL,
+            f"fp32 kernel-path logits differ from the plain path beyond {FP32_LOGIT_RTOL}: {fp32_err}")
+    require(max(kernel_err) <= FLOOR_RATIO * max(floor),
+            f"the kernel path is further from fp32 than bf16 alone explains: {kernel_err} vs {floor}")
+    print(f"fp32 kernel-path logits within {FP32_LOGIT_RTOL} relative L2 of the plain path at all "
+          f"{len(fp32_err)} steps, and the bf16 kernel path no further from fp32 than "
+          f"{FLOOR_RATIO} x the plain bf16 path: ok")
+    return counts
+
+
+def launcher_phase(arch: str, batch: int, prompt: int, steps: int, seed: int) -> None:
+    """The command-line launcher on the card, at a model phase's sizes."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        serve.main(["--arch", ARCH, "--batch", str(B), "--prompt-len", str(PROMPT),
-                    "--decode-steps", str(STEPS), "--seed", str(seed)])
+        serve.main(["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
+                    "--decode-steps", str(steps), "--seed", str(seed)])
     lines = out.getvalue().strip().splitlines()
     require(len(lines) == 3 and "ms/token" in lines[1] and lines[2].startswith("generated:"),
             f"launcher output: {lines}")
-    print("launcher (python -m repro_torch.launch.serve): " + "; ".join(lines[:2]))
+    print(f"launcher (python -m repro_torch.launch.serve --arch {arch}): " + "; ".join(lines[:2]))
 
 
 def teacher_forced(bundle, params, prompt, generated) -> list:
@@ -364,11 +553,11 @@ def _to_float32(tree) -> None:
             tree[key] = val.float()
 
 
-def print_breakdown(bundle, params, tokens, first) -> None:
+def print_breakdown(bundle, params, tokens, first, prompt_len: int = PROMPT) -> None:
     """Device time by kernel family over one prefill and one decode step
     (torch.profiler), beside the host clock of the same work."""
     _, cache = profiled("prefill", lambda: bundle.prefill_fn(params, tokens))
-    profiled("decode step", lambda: bundle.decode_fn(params, cache, first, PROMPT))
+    profiled("decode step", lambda: bundle.decode_fn(params, cache, first, prompt_len))
 
 
 def profiled(label: str, fn):
@@ -383,16 +572,20 @@ def profiled(label: str, fn):
         enqueue = time.perf_counter() - t0
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    families, kernels = {}, 0
+    families, kernels, other = {}, 0, []
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             fam = next((f for f, keys in KERNEL_FAMILIES if any(k in e.key for k in keys)), "other")
             families[fam] = families.get(fam, 0.0) + e.self_device_time_total / 1e3
             kernels += e.count
+            if fam == "other":
+                other.append((e.self_device_time_total / 1e3, e.count, e.key))
     busy = sum(families.values())
     parts = ", ".join(f"{k} {v:.3f}" for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
     shown = f"device busy {busy:.3f} ms in {kernels} kernels ({parts})" if busy else "device time not measured"
     print(f"profile {label}: host enqueue {enqueue * 1e3:.3f} ms, wall {wall * 1e3:.3f} ms, {shown}")
+    for ms, count, key in sorted(other, reverse=True)[:4]:  # what "other" is made of
+        print(f"  other: {ms:.3f} ms in {count} x {key[:90]}")
     return out
 
 
@@ -401,6 +594,7 @@ KERNEL_FAMILIES = (
     ("rmsnorm", ("rmsnorm_kernel",)),
     ("flash_attention", ("flash_bf16_kernel", "flash_f32_kernel")),
     ("decode_attention", ("decode_chunk_kernel", "decode_merge_kernel")),
+    ("ssd_scan", ("ssd_scan_kernel",)),
     ("matmul", ("gemm", "nvjet", "cutlass", "splitK", "sm90_xmma")),
 )
 
@@ -415,7 +609,7 @@ def _tensors(tree):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0, help="seed of the model phase's weights and prompts")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the model phases' weights and prompts")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA card", file=sys.stderr)
@@ -434,25 +628,29 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     errs = {"rmsnorm": check_rmsnorm(gen), "flash_attention": check_flash(gen),
-            "decode_attention": check_decode(gen)}
+            "decode_attention": check_decode(gen), "ssd_scan": check_ssd(gen)}
     torch.cuda.synchronize()
     times = time_kernels(gen)
     torch.cuda.synchronize()
 
-    counts = model_phase(args.seed)
-    launcher_phase(args.seed)
+    # Each serve path's main run, counted from 0; a kernel's launches are their sum.
+    dense_counts = model_phase(args.seed)
+    launcher_phase(ARCH, B, PROMPT, STEPS, args.seed)
+    ssm_counts = mamba_phase(args.seed)
+    launcher_phase(MB_ARCH, MB_B, MB_PROMPT, MB_STEPS, args.seed)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": counts[name], "max_abs_err": errs[name], "ms": t["ms"],
-               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-               "library_ms": t["library_ms"]}
+               "launches": dense_counts[name] + ssm_counts[name], "max_abs_err": errs[name],
+               "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
         print(f"kernel {name}: max_abs_err {row['max_abs_err']:.3e}, {row['ms']:.4f} ms "
-              f"(plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+              f"(plain {row['plain_ms']:.4f} ms, library {library}, "
               f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}), {row['launches']} launches "
-              f"[{name_power}]")
+              f"({dense_counts[name]} {ARCH}, {ssm_counts[name]} {MB_ARCH}) [{name_power}]")
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("rmsnorm.cu", "flash_attention.cu", "decode_attention.cu", "errors.cu")
+SOURCES = ("rmsnorm.cu", "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu", "errors.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +43,8 @@ _SIGNATURES = {
     "repro_flash_attention": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp),
     # q, k, v, o, strides[6], workspace, B, H, Hkv, D, valid, dtype, stream
     "repro_decode_attention": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp),
+    # x, log_dA, Bm, Cm, y, h, strides[15], B, S, H, G, N, P, dtype, stream
+    "repro_ssd_scan": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp),
 }
 
 

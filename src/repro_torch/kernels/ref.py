@@ -1,17 +1,22 @@
 """Plain PyTorch versions of the hand-written kernels (the correctness oracles).
 
-Same layouts, the same ``-1e30`` mask and the same output dtype as
-the JAX package's ``kernels/ref.py``. They are deliberately naive (the full score matrix is
-materialised, all math in fp32): the CPU tests run the model through them, and
-``chip_smoke.py`` holds each CUDA kernel against them on the card.
+Same layouts, the same ``-1e30`` mask and the same output dtype as the JAX
+package's ``kernels/ref.py``. They are deliberately naive (the full score
+matrix is materialised, the SSD scan is the step-by-step recurrence, all math
+in fp32): the CPU tests run the model through them, and ``chip_smoke.py``
+holds each CUDA kernel against them on the card. The SSD scan has two: the
+chunked ``ssd_chunked``, the plain version that the wrapper and ``ops.PLAIN``
+use (the twin of the JAX package's ``models/mamba.py`` one), and the
+step-by-step ``ssd_ref``, the exact oracle for it and for the kernel.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -59,6 +64,84 @@ def decode_attention_ref(
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bshd->bhd", p, vh.float()).to(q.dtype)
+
+
+def ssd_ref(
+    x: torch.Tensor,  # (B, S, H, P) dt-scaled inputs
+    log_dA: torch.Tensor,  # (B, S, H) fp32
+    Bm: torch.Tensor,  # (B, S, G, N)
+    Cm: torch.Tensor,  # (B, S, G, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential (step-by-step) SSD recurrence from a zero state: the exact
+    ground truth. Returns (y (B, S, H, P), final state (B, H, N, P)) in fp32,
+    or in fp64 when ``x`` is fp64."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    dt = torch.promote_types(x.dtype, torch.float32)
+    rep = H // G
+    bh = Bm.repeat_interleave(rep, dim=2) if rep > 1 else Bm  # (B, S, H, N)
+    ch = Cm.repeat_interleave(rep, dim=2) if rep > 1 else Cm
+    h = torch.zeros((B, H, N, P), dtype=dt, device=x.device)
+    ys = []
+    for t in range(S):
+        h = h * torch.exp(log_dA[:, t].to(dt))[..., None, None] + torch.einsum(
+            "bhn,bhp->bhnp", bh[:, t].to(dt), x[:, t].to(dt)
+        )
+        ys.append(torch.einsum("bhn,bhnp->bhp", ch[:, t].to(dt), h))
+    return torch.stack(ys, dim=1), h
+
+
+def ssd_chunked(
+    x: torch.Tensor,  # (B, S, H, P) already dt-scaled inputs (dt*x)
+    log_dA: torch.Tensor,  # (B, S, H) fp32, negative
+    Bm: torch.Tensor,  # (B, S, G, N)
+    Cm: torch.Tensor,  # (B, S, G, N)
+    chunk: int,
+    h_init: Optional[torch.Tensor] = None,  # (B, H, N, P)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan, the plain version of ``ops.ssd_scan``.
+    Returns (y (B, S, H, P), final state (B, H, N, P))."""
+    B, S, H, P_ = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    Q = min(chunk, S)
+    S_orig = S
+    if S % Q:
+        # pad to a chunk multiple: zero inputs with zero log-decay are exact
+        # no-ops for the recurrence (h *= exp(0); += B.0 x 0)
+        pad = Q - S % Q
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        log_dA = F.pad(log_dA, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+        S = S + pad
+    nc = S // Q
+    h = torch.zeros((B, H, N, P_), dtype=torch.float32, device=x.device) if h_init is None else h_init
+    iq = torch.arange(Q, device=x.device)
+    mask = iq[:, None] >= iq[None, :]
+    ys = []
+    for c in range(nc):
+        rows = slice(c * Q, (c + 1) * Q)
+        xq, aq, bq, cq = x[:, rows], log_dA[:, rows], Bm[:, rows], Cm[:, rows]
+        L = torch.cumsum(aq, dim=1)  # (B, Q, H) inclusive
+        # broadcast groups to heads
+        bqh = bq.repeat_interleave(rep, dim=2) if rep > 1 else bq  # (B, Q, H, N)
+        cqh = cq.repeat_interleave(rep, dim=2) if rep > 1 else cq
+        # ---- intra-chunk (quadratic in Q) ----
+        scores = torch.einsum("bihn,bjhn->bhij", cqh.float(), bqh.float())
+        decay = (L[:, :, None, :] - L[:, None, :, :]).permute(0, 3, 1, 2)  # (B, H, i, j)
+        # mask BEFORE exp: exp of the (positive) upper triangle would overflow
+        gate = torch.exp(torch.where(mask, decay, -torch.inf))
+        y_intra = torch.einsum("bhij,bjhp->bihp", scores * gate, xq.float())
+        # ---- inter-chunk: contribution of the carried state ----
+        y_inter = torch.einsum("bihn,bhnp->bihp", cqh.float(), h) * torch.exp(L)[..., None]
+        # ---- state update ----
+        seg = torch.exp(L[:, -1:, :] - L)  # decay from step j to chunk end
+        h_chunk = torch.einsum("bjhn,bjhp->bhnp", bqh.float() * seg[..., None], xq.float())
+        h = h * torch.exp(L[:, -1, :])[:, :, None, None] + h_chunk
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1)[:, :S_orig]
+    return y, h
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b \\
       --prompt-len 500 --decode-steps 32 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --prompt-len 2000 --decode-steps 32 --batch 4
 
 The flags are those of the JAX package's ``launch/serve.py`` plus ``--device`` (default
 ``cuda``). Without ``--smoke`` the full-width config runs on one card with

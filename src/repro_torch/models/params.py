@@ -42,9 +42,23 @@ def fan_in_init(scale: float = 1.0) -> Initializer:
     return init
 
 
+def zeros_init() -> Initializer:
+    def init(gen, shape, dtype, device):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return init
+
+
 def ones_init() -> Initializer:
     def init(gen, shape, dtype, device):
         return torch.ones(shape, dtype=dtype, device=device)
+
+    return init
+
+
+def const_init(value: float) -> Initializer:
+    def init(gen, shape, dtype, device):
+        return torch.full(shape, value, dtype=dtype, device=device)
 
     return init
 

@@ -3,8 +3,8 @@
 The bundle keeps the reference's contracts: ``prefill_fn(params, tokens) ->
 (logits, cache)`` and ``decode_fn(params, cache, tokens, cache_len) ->
 (logits, cache)``. PyTorch runs eagerly, so there is nothing to jit; the
-decode step updates the cache in place, which is what the reference's
-donated cache buffer amounts to.
+decode step updates the cache (a dense model's K/V, an SSM's conv windows and
+state) in place, which is what the reference's donated cache buffer amounts to.
 """
 
 from __future__ import annotations

@@ -103,11 +103,14 @@ def test_wrappers_do_not_count_cpu_launches():
     ops.rmsnorm(x, torch.ones(32))
     ops.flash_attention(x, x[:, :4], x[:, :4], causal=False)
     ops.decode_attention(x[:, :, 0], x.transpose(1, 2), x.transpose(1, 2), 2)
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+    ops.ssd_scan(x, -x[..., 0].abs(), x[:, :, :1, :8], x[:, :, :1, 8:16], chunk=4)
+    assert ops.launch_counts() == {
+        "rmsnorm": 0, "flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
+    }
 
 
 def test_every_kernel_module_names_what_it_replaces():
-    for name in ("rmsnorm", "flash_attention", "decode_attention"):
+    for name in ("rmsnorm", "flash_attention", "decode_attention", "ssd_scan"):
         mod = importlib.import_module(f"repro_torch.kernels.{name}")
         assert "Pallas TPU kernel" in mod.__doc__ and "bound by" in mod.__doc__.lower()
         assert (PORT / "kernels" / "csrc" / f"{name}.cu").exists()

@@ -3,10 +3,11 @@
 On the CPU: the plain PyTorch versions (``repro_torch.kernels.ref``, which the
 wrappers call for CPU tensors) against ``repro.kernels.ref`` and against the
 Pallas kernels in interpret mode, over the sweeps of ``tests/test_kernels.py``,
-in bf16 and fp32 (2e-2 / 2e-5, that file's tolerances). On a card (marker
-``gpu``; ``python -m pytest -m gpu tests/test_torch_kernels.py``): each CUDA
-kernel against its plain version on the same CUDA tensors, over the same sweeps
-plus the serve slice's shapes and ragged edges.
+in bf16 and fp32 (2e-2 / 2e-5, that file's tolerances; 2e-4 for the SSD scan,
+which is fp32 only). On a card (marker ``gpu``; ``python -m pytest -m gpu
+tests/test_torch_kernels.py``): each CUDA kernel against its plain version on
+the same CUDA tensors, over the same sweeps plus the serve slices' shapes and
+ragged edges.
 """
 
 import numpy as np
@@ -17,6 +18,8 @@ from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rmsnorm_mod
+from repro_torch.kernels import ssd_scan as ssd_mod
+from repro_torch.kernels.ref import ssd_chunked
 
 DTYPES = ["bfloat16", "float32"]
 TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -42,10 +45,25 @@ RMSNORM_CASES = [(4, 64), (100, 128), (257, 256)]
 RAGGED_ATTN = [(1, 4, 2, 100, 100, 64), (2, 4, 1, 100, 300, 32)]
 RAGGED_DECODE = [(2, 4, 2, 300, 64, 300), (2, 4, 2, 300, 64, 123), (2, 4, 1, 200, 32, 150)]
 
+# (B, S, H, P, G, N, chunk), as in tests/test_kernels.py::test_ssd_scan
+SSD_CASES = [
+    (1, 64, 2, 16, 1, 8, 16),
+    (2, 128, 4, 16, 2, 8, 32),
+    (1, 256, 4, 32, 1, 16, 64),
+    (1, 128, 8, 64, 1, 16, 128),
+]
+# S no chunk divides, and S shorter than the chunk (the model pads; the Pallas
+# kernel asserts S % chunk == 0).
+RAGGED_SSD = [(2, 100, 4, 16, 2, 8, 32), (1, 40, 2, 16, 1, 16, 256), (1, 1, 2, 16, 1, 8, 16)]
+SSD_TOL = 2e-4
+
 # The minitron-8b serve slice on the card: batch 4, prompt 500, 32 decode steps.
 SLICE_ATTN = [(4, 32, 8, 500, 500, 128)]
 SLICE_DECODE = [(4, 32, 8, 532, 128, v) for v in (1, 300, 532)]
 SLICE_RMSNORM = [(2000, 4096), (4, 4096)]
+# The mamba2-370m serve slice: batch 4, prompt 2000 (7 chunks of 256 + 208).
+SLICE_SSD = [(4, 2000, 32, 64, 1, 128, 256)]
+SLICE_MAMBA_RMSNORM = [(8000, 1024), (8000, 2048), (4, 1024), (4, 2048)]
 
 
 def _tol(dtype: str) -> float:
@@ -161,10 +179,89 @@ def test_decode_attention_ragged_plain_matches_jax_ref(case, dtype, rng):
     _close(out, jref.decode_attention_ref(jq, jk, jv, jnp.asarray(valid, jnp.int32)), dtype)
 
 
+def _ssd_inputs(rng, case, bc_dtype="float32", device="cpu"):
+    """As tests/test_kernels.py::test_ssd_scan draws them: x, B, C standard
+    normal, log_dA = -0.1 |normal|."""
+    B, S, H, P, G, N, _ = case
+    x = _t(_np(rng, B, S, H, P), "float32", device)
+    log_dA = _t(-np.abs(_np(rng, B, S, H)) * 0.1, "float32", device)
+    Bm = _t(_np(rng, B, S, G, N), bc_dtype, device)
+    Cm = _t(_np(rng, B, S, G, N), bc_dtype, device)
+    return x, log_dA, Bm, Cm
+
+
+def _ssd_close(a, b):
+    np.testing.assert_allclose(_f32(a), _f32(b), atol=SSD_TOL, rtol=SSD_TOL)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_plain_matches_jax(case, rng):
+    jnp, jops, jref = _jax()
+    x, log_dA, Bm, Cm = _ssd_inputs(rng, case)
+    chunk = case[-1]
+    y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=chunk)  # CPU: the plain ssd_chunked
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == x.shape and h.shape == (case[0], case[2], case[5], case[3])
+    yr, hr = ref.ssd_ref(x, log_dA, Bm, Cm)
+    jargs = [jnp.asarray(t.numpy()) for t in (x, log_dA, Bm, Cm)]
+    yj, hj = jref.ssd_ref(*jargs)
+    yk, hk = jops.ssd_scan(*jargs, chunk=chunk, backend="interpret")
+    for out in ((y, h), (yr, hr)):
+        for exp in ((yj, hj), (yk, hk)):
+            _ssd_close(out[0], exp[0])
+            _ssd_close(out[1], exp[1])
+
+
+@pytest.mark.parametrize("case", RAGGED_SSD)
+def test_ssd_ragged_plain_matches_jax_chunked(case, rng):
+    jnp, _, jref = _jax()
+    from repro.models.mamba import ssd_chunked as jax_ssd_chunked
+
+    x, log_dA, Bm, Cm = _ssd_inputs(rng, case)
+    y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=case[-1])
+    jargs = [jnp.asarray(t.numpy()) for t in (x, log_dA, Bm, Cm)]
+    yj, hj = jax_ssd_chunked(*jargs, chunk=case[-1])
+    ye, he = jref.ssd_ref(*jargs)
+    for exp in ((yj, hj), (ye, he)):
+        _ssd_close(y, exp[0])
+        _ssd_close(h, exp[1])
+
+
+@pytest.mark.parametrize("case", SSD_CASES[:2] + RAGGED_SSD[:1])
+def test_ssd_ref_float64_matches_jax(case, rng):
+    """``ssd_ref`` keeps fp64 inputs in fp64 (the exact answer that
+    ``chip_smoke.py`` holds the fp32 versions to) and agrees with JAX."""
+    jnp, _, jref = _jax()
+    args = _ssd_inputs(rng, case)
+    y, h = ref.ssd_ref(*(t.double() for t in args))
+    assert y.dtype == h.dtype == torch.float64
+    yj, hj = jref.ssd_ref(*(jnp.asarray(t.numpy()) for t in args))
+    _ssd_close(y, yj)
+    _ssd_close(h, hj)
+
+
+def test_ssd_chunked_h_init_matches_jax(rng):
+    """The optional carried state of the plain version (the kernel starts from 0)."""
+    jnp, _, _ = _jax()
+    from repro.models.mamba import ssd_chunked as jax_ssd_chunked
+
+    case = (2, 70, 4, 16, 2, 8, 32)
+    x, log_dA, Bm, Cm = _ssd_inputs(rng, case)
+    h0 = torch.from_numpy(_np(rng, 2, 4, 8, 16))
+    y, h = ssd_chunked(x, log_dA, Bm, Cm, 32, h_init=h0)
+    jargs = [jnp.asarray(t.numpy()) for t in (x, log_dA, Bm, Cm)]
+    yj, hj = jax_ssd_chunked(*jargs, chunk=32, h_init=jnp.asarray(h0.numpy()))
+    _ssd_close(y, yj)
+    _ssd_close(h, hj)
+
+
 def test_non_cuda_devices_raise(rng):
     x = torch.from_numpy(_np(rng, 2, 64)).to("meta")
     with pytest.raises(ValueError, match="no kernel"):
         ops.rmsnorm(x, torch.ones(64, device="meta"))
+    y = torch.zeros(1, 8, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.ssd_scan(y, y[..., 0], y[:, :, :1, :8], y[:, :, :1, :8])
 
 
 # ---------------------------------------------------------------- card: kernel vs plain
@@ -243,7 +340,7 @@ def test_decode_attention_kernel_empty_cache_gives_zero(rng, cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,d", RMSNORM_CASES + SLICE_RMSNORM + [(33, 100)])
+@pytest.mark.parametrize("rows,d", RMSNORM_CASES + SLICE_RMSNORM + [(33, 100)] + SLICE_MAMBA_RMSNORM)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rmsnorm_kernel_matches_plain(rows, d, dtype, rng, cuda):
     x = _t(_np(rng, rows, d), dtype, cuda)
@@ -265,3 +362,88 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ops.flash_attention(q, q, q)
     with pytest.raises(ValueError):
         ops.decode_attention(q[:, :, 0], q.transpose(1, 2), q.transpose(1, 2), 2)
+
+
+def _on_card_ssd(case, bc_dtype, rng, device):
+    x, log_dA, Bm, Cm = _ssd_inputs(rng, case, bc_dtype, device)
+    n = ssd_mod.launches
+    y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=case[-1])
+    torch.cuda.synchronize()
+    assert ssd_mod.launches == n + 1
+    assert y.dtype == h.dtype == torch.float32 and y.shape == x.shape
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    for exp in (ref.ssd_ref(x, log_dA, Bm, Cm), ssd_chunked(x, log_dA, Bm, Cm, case[-1])):
+        _ssd_close(y, exp[0])
+        _ssd_close(h, exp[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSD_CASES + RAGGED_SSD)
+@pytest.mark.parametrize("bc_dtype", DTYPES)
+def test_ssd_scan_kernel_matches_plain(case, bc_dtype, rng, cuda):
+    _on_card_ssd(case, bc_dtype, rng, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SLICE_SSD)
+def test_ssd_scan_kernel_matches_plain_at_the_slice(case, rng, cuda):
+    """At the mamba2-370m prefill shape the plain version at the model's
+    256-row chunk is itself about 1x the 2e-4 tolerance from ``ssd_ref`` in
+    fp32 (its gates take differences of L values that fall to about -24
+    within a chunk, against outputs up to ~240),
+    so the kernel is held to ``ssd_ref`` and to ``ssd_chunked`` at the
+    kernel's own chunk length (``chip_smoke.py`` prints the 256-row distances)."""
+    x, log_dA, Bm, Cm = _ssd_inputs(rng, case, "bfloat16", cuda)
+    n = ssd_mod.launches
+    y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=case[-1])
+    torch.cuda.synchronize()
+    assert ssd_mod.launches == n + 1
+    for exp in (ref.ssd_ref(x, log_dA, Bm, Cm), ssd_chunked(x, log_dA, Bm, Cm, ssd_mod.ROWS)):
+        _ssd_close(y, exp[0])
+        _ssd_close(h, exp[1])
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_reads_strided_views(rng, cuda):
+    """The model passes B and C as bf16 views of one (B, S, 2GN) conv output."""
+    B, S, H, P, G, N = 2, 300, 8, 64, 2, 32
+    x = _t(_np(rng, B, S, H, P), "float32", cuda)
+    log_dA = _t(-np.abs(_np(rng, B, S, H)), "float32", cuda)
+    bc = _t(_np(rng, B, S, 2 * G * N), "bfloat16", cuda)
+    Bm, Cm = bc[..., : G * N].reshape(B, S, G, N), bc[..., G * N :].reshape(B, S, G, N)
+    assert not Bm.is_contiguous()
+    y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=256)
+    ye, he = ref.ssd_ref(x, log_dA, Bm, Cm)
+    _ssd_close(y, ye)
+    _ssd_close(h, he)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_survives_steep_decay(rng, cuda):
+    """L falls to about -1000 within a chunk (the random-weight model's decay):
+    every exponent is of a difference <= 0, so nothing overflows."""
+    case = (1, 512, 4, 64, 1, 128, 256)
+    x, _, Bm, Cm = _ssd_inputs(rng, case, "bfloat16", cuda)
+    log_dA = _t(-4 * np.abs(_np(rng, 1, 512, 4)) - 1, "float32", cuda)
+    y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=256)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    ye, he = ref.ssd_ref(x, log_dA, Bm, Cm)
+    _ssd_close(y, ye)
+    _ssd_close(h, he)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_wrapper_raises_instead_of_falling_back(rng, cuda):
+    x, log_dA, Bm, Cm = _ssd_inputs(rng, (1, 64, 2, 16, 1, 8, 16), "float32", cuda)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x.half(), log_dA, Bm, Cm)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x, log_dA, Bm, Cm.bfloat16())
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x[..., :6], log_dA, Bm, Cm)  # P not a multiple of 4
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, log_dA, Bm[:, :10], Cm[:, :10])
+    big = _ssd_inputs(rng, (1, 64, 2, 128, 1, 256, 16), "float32", cuda)  # N x P past shared memory
+    with pytest.raises(RuntimeError, match="ssd_scan kernel launch failed"):
+        ops.ssd_scan(*big)
+    _on_card_ssd((1, 64, 2, 16, 1, 8, 16), "float32", rng, cuda)  # the refused launch left no error behind
