@@ -197,6 +197,10 @@ def check_flash(gen) -> float:
         (B, H, HKV, PROMPT, PROMPT, D, True, None),  # the prefill
         (B, H, HKV, PROMPT, PROMPT, D, True, 128),
         (B, H, HKV, 100, MAX_LEN, D, False, None),
+    ] + [  # the edges of the 128-row tiles and 64-key tiles, every head dim
+        (1, 4, 2, s, s, d, True, None) for s in (1, 127, 129, PROMPT) for d in (32, 64, 128)
+    ] + [  # windows that start inside a 128-row tile
+        (1, 4, 2, 300, 300, d, True, w) for d in (32, 64, 128) for w in (70, 100)
     ]
     for dtype in DTYPES:
         for b, h, hkv, sq, sk, d, causal, window in cases:
@@ -206,8 +210,15 @@ def check_flash(gen) -> float:
             err = max_abs_err(out, ref.attention_ref(q, k, v, causal=causal, window=window), dtype)
             print(f"check flash_attention {str(dtype)[6:]} {(b, h, hkv, sq, sk, d)} "
                   f"causal={causal} window={window}: max_abs_err={err:.3e}")
-            if dtype == torch.bfloat16 and (sq, sk, causal, window) == (PROMPT, PROMPT, True, None):
+            if dtype == torch.bfloat16 and (b, sq, sk, causal, window) == (B, PROMPT, PROMPT, True, None):
                 worst = max(worst, err)
+        # the prefill as the model passes it: (B, S, H, D) projections viewed (B, H, S, D)
+        q, k, v = (randn(gen, B, PROMPT, h, D, dtype=dtype).transpose(1, 2) for h in (H, HKV, HKV))
+        err = max_abs_err(ops.flash_attention(q, k, v), ref.attention_ref(q, k, v), dtype)
+        print(f"check flash_attention {str(dtype)[6:]} {(B, H, HKV, PROMPT, PROMPT, D)} causal=True, "
+              f"strided (B, S, H, D) views: max_abs_err={err:.3e}")
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
     return worst
 
 
@@ -215,7 +226,9 @@ def check_decode(gen) -> float:
     worst = 0.0
     cases = [(1, 2, 1, 256, 64, 256), (2, 4, 2, 512, 64, 300), (1, 8, 8, 256, 128, 1),
              (2, 8, 2, 1024, 64, 700), (2, 4, 1, 200, 32, 150)] + [
-                (B, H, HKV, MAX_LEN, D, v) for v in (1, 300, MAX_LEN)]
+                (B, H, HKV, MAX_LEN, D, v) for v in (1, 300, MAX_LEN)] + [
+                # ranges of fewer than 16 keys, ragged splits, a long cache in several stages
+                (B, H, HKV, 4096, D, v) for v in (1, 15, 17, 533)] + [(1, H, HKV, 8192, D, 8192)]
     for dtype in DTYPES:
         for b, h, hkv, s, d, valid in cases:
             q = randn(gen, b, h, d, dtype=dtype)
@@ -319,8 +332,10 @@ def time_kernels(gen) -> dict:
     qkv_bytes = (B * H * PROMPT * D + 2 * B * HKV * PROMPT * D) * 2
     qkv = copies(lambda: (randn(gen, B, H, PROMPT, D), randn(gen, B, HKV, PROMPT, D),
                           randn(gen, B, HKV, PROMPT, D)), qkv_bytes)
+    views = copies(lambda: tuple(randn(gen, B, PROMPT, h, D).transpose(1, 2) for h in (H, HKV, HKV)), qkv_bytes)
     flash = {
         "ms": time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True), qkv),
+        "ms_model_layout": time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True), views),
         "plain_ms": time_ms(lambda q, k, v: ref.attention_ref(q, k, v, causal=True), qkv),
         "library_ms": time_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), qkv),
@@ -592,8 +607,8 @@ def profiled(label: str, fn):
 # Kernel-name fragments of each family in a profile (the first match wins).
 KERNEL_FAMILIES = (
     ("rmsnorm", ("rmsnorm_kernel",)),
-    ("flash_attention", ("flash_bf16_kernel", "flash_f32_kernel")),
-    ("decode_attention", ("decode_chunk_kernel", "decode_merge_kernel")),
+    ("flash_attention", ("flash_wgmma_kernel", "flash_f32_kernel")),
+    ("decode_attention", ("decode_kernel",)),
     ("ssd_scan", ("ssd_scan_kernel",)),
     ("matmul", ("gemm", "nvjet", "cutlass", "splitK", "sm90_xmma")),
 )
@@ -647,7 +662,8 @@ def main() -> int:
                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
-        print(f"kernel {name}: max_abs_err {row['max_abs_err']:.3e}, {row['ms']:.4f} ms "
+        layout = f", {t['ms_model_layout']:.4f} ms on the model's (B, S, H, D) views" if "ms_model_layout" in t else ""
+        print(f"kernel {name}: max_abs_err {row['max_abs_err']:.3e}, {row['ms']:.4f} ms{layout} "
               f"(plain {row['plain_ms']:.4f} ms, library {library}, "
               f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}), {row['launches']} launches "
               f"({dense_counts[name]} {ARCH}, {ssm_counts[name]} {MB_ARCH}) [{name_power}]")

@@ -4,23 +4,50 @@ Replaces the JAX package's Pallas TPU kernel ``kernels/decode_attention.py``
 (``decode_attention``, ``pallas_call`` at :116). Bound by bytes: the valid part
 of the cache is read once (at the serve shape, B=4, S=532, Hkv=8, D=128 bf16,
 8.7 MB, 2.6 us at 3.35 TB/s). The grouped query heads of a kv head are served
-together, so each K/V row is read once. The valid length is cut into chunks of
-``CHUNK`` keys, one block each, so that the card has enough blocks at decode
-batch sizes; a second kernel merges the chunks (flash-decoding). ``valid_len``
-is a plain int, so no layer waits on the device for it.
+together, so each K/V row is read once. So that the card has enough blocks at
+decode batch sizes, each (batch, kv head) is served by a thread-block cluster
+of ``split`` blocks (``plan_split``), each streaming its share of the valid
+keys into shared memory with asynchronous bulk copies; the blocks merge their
+partial softmax states through distributed shared memory, so a call is one
+launch with no workspace. ``valid_len`` is a plain int, so no layer waits on
+the device for it.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-launches = 0  # calls that launched the kernel pair since the last reset (chip_smoke.py reads it)
+launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8  # query heads per kv head (csrc/decode_attention.cu kMaxRep)
-CHUNK = 64  # keys per block (csrc/decode_attention.cu kChunk)
+MAX_SPLIT = 8  # blocks per cluster, the portable cluster size (kMaxSplit)
+MIN_KEYS = 16  # keys per block at least, where the valid length allows
+BLOCKS_PER_SM = 2
+
+_sm_counts: Dict[int, int] = {}
+
+
+def plan_split(groups: int, valid: int, sms: int) -> int:
+    """Blocks per (batch, kv head): about ``BLOCKS_PER_SM`` blocks per SM over
+    the ``groups`` clusters, at most ``MAX_SPLIT``, and at least ``MIN_KEYS``
+    keys per block where ``valid`` allows (``ref.key_ranges`` gives the
+    blocks' keys). At the serve shape (32 groups, 532 keys, 132 SMs) that is
+    8 blocks of 66 or 67 keys."""
+    if valid <= 0 or groups <= 0:
+        return 1
+    return max(1, min(MAX_SPLIT, BLOCKS_PER_SM * sms // groups, valid // MIN_KEYS))
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
 
 
 def decode_attention(
@@ -47,15 +74,14 @@ def decode_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    nchunk = -(-valid // CHUNK)
-    if nchunk > 65535:
-        raise ValueError(f"decode_attention: {valid} valid keys exceed the grid limit")
-    workspace = torch.empty(B * H * nchunk * (D + 2), dtype=torch.float32, device=q.device)
+    split = plan_split(B * Hkv, valid, _sm_count(q.device))
+    if B * Hkv * split >= 2**31:
+        raise ValueError(f"decode_attention: {B * Hkv} groups exceed the grid limit")
     strides = _build.strides_array([*k.stride()[:3], *v.stride()[:3]])
     lib = _build.library()
     code = lib.repro_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, workspace.data_ptr(),
-        B, H, Hkv, D, valid, _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        B, H, Hkv, D, valid, split, _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device),
     )
     _build.check(code, "decode_attention")
     launches += 1

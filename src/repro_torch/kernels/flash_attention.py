@@ -4,10 +4,15 @@ Replaces the JAX package's Pallas TPU kernel ``kernels/flash_attention.py``
 (``flash_attention``, ``pallas_call`` at :126). At the serve slice's prefill
 shape (B=4, H=32, Hkv=8, S=500, D=128, bf16, causal) it is bound by bytes:
 q, k, v and o once are 41 MB (12.2 us at 3.35 TB/s) against 8.2 GFLOP
-(8.3 us at 989 TFLOP/s). bf16 runs on the tensor cores (``mma.sync``, fp32
-accumulate); fp32 is multiplied in fp32 on the CUDA cores. Causal and window
-bounds skip whole key tiles, GQA reads kv head ``h // rep`` in place, and the
-ragged edge is masked, so no sequence length has to divide a tile.
+(8.3 us at 989 TFLOP/s). bf16, at every head dim the wrapper takes (32, 64,
+128), runs one design: blocks of 128 query rows, a producer warp that keeps
+TMA copies of the next K/V tiles in flight in a shared-memory ring, and two
+consumer warpgroups that multiply on the tensor cores with ``wgmma`` (fp32
+accumulate); masks only on tiles that cross the causal diagonal, the window's
+first key or the ragged edge; the query tiles with the most keys start first.
+fp32 is multiplied in fp32 on the CUDA cores. Causal and window bounds skip
+whole key tiles, GQA reads kv head ``h // rep`` in place, and TMA zero-fills
+past the ragged edge, so no sequence length has to divide a tile.
 
 The kernel reads every operand through strides: a ``(B, S, H, D)`` projection
 passed as ``.transpose(1, 2)`` is read without a copy, and the output is

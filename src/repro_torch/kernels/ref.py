@@ -8,12 +8,14 @@ holds each CUDA kernel against them on the card. The SSD scan has two: the
 chunked ``ssd_chunked``, the plain version that the wrapper and ``ops.PLAIN``
 use (the twin of the JAX package's ``models/mamba.py`` one), and the
 step-by-step ``ssd_ref``, the exact oracle for it and for the kernel.
+``decode_attention_split`` repeats the decode kernel's split and merge
+arithmetic, so that the CPU tests hold that arithmetic to the JAX package.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,6 +66,49 @@ def decode_attention_ref(
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bshd->bhd", p, vh.float()).to(q.dtype)
+
+
+def key_ranges(valid: int, split: int) -> List[Tuple[int, int]]:
+    """The keys [start, end) of each of ``split`` blocks, as the decode
+    kernel's cluster cuts [0, valid): even shares, the longer ones last."""
+    return [(r * valid // split, (r + 1) * valid // split) for r in range(split)]
+
+
+def decode_attention_split(
+    q: torch.Tensor,  # (B, H, D) one new token per sequence
+    k: torch.Tensor,  # (B, S, Hkv, D) cache
+    v: torch.Tensor,
+    valid_len: int,
+    split: int,
+) -> torch.Tensor:
+    """The decode kernel's arithmetic: the valid keys cut into ``split`` ranges
+    as the kernel's cluster cuts them, each range's softmax state (m, l, o) in
+    fp32 in the log2 domain, then the merge
+    ``out = sum 2^(m_i - M) o_i / sum 2^(m_i - M) l_i``. No valid key gives 0."""
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    valid = max(0, min(int(valid_len), S))
+    qs = q.float().reshape(B, Hkv, rep, D) * (math.log2(math.e) / math.sqrt(D))
+    ms, ls, os = [], [], []
+    for lo, hi in key_ranges(valid, split):
+        if hi == lo:
+            ms.append(torch.full((B, Hkv, rep), NEG_INF, device=q.device))
+            ls.append(torch.zeros((B, Hkv, rep), device=q.device))
+            os.append(torch.zeros((B, Hkv, rep, D), device=q.device))
+            continue
+        s = torch.einsum("bgrd,bngd->bgrn", qs, k[:, lo:hi].float())
+        m = s.amax(dim=-1)
+        p = torch.exp2(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        os.append(torch.einsum("bgrn,bngd->bgrd", p, v[:, lo:hi].float()))
+    m_all = torch.stack(ms)
+    w = torch.exp2(m_all - m_all.amax(dim=0))
+    l = (torch.stack(ls) * w).sum(dim=0)
+    o = (torch.stack(os) * w[..., None]).sum(dim=0)
+    out = torch.where(l[..., None] > 0, o / torch.where(l > 0, l, 1.0)[..., None], 0.0)
+    return out.reshape(B, H, D).to(q.dtype)
 
 
 def ssd_ref(

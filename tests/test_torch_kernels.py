@@ -7,13 +7,17 @@ in bf16 and fp32 (2e-2 / 2e-5, that file's tolerances; 2e-4 for the SSD scan,
 which is fp32 only). On a card (marker ``gpu``; ``python -m pytest -m gpu
 tests/test_torch_kernels.py``): each CUDA kernel against its plain version on
 the same CUDA tensors, over the same sweeps plus the serve slices' shapes and
-ragged edges.
+ragged edges. The launchers' C signatures, the decode kernel's cluster
+planner and its split-merge arithmetic are checked on the CPU too.
 """
+
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ops, ref
@@ -56,6 +60,16 @@ SSD_CASES = [
 # kernel asserts S % chunk == 0).
 RAGGED_SSD = [(2, 100, 4, 16, 2, 8, 32), (1, 40, 2, 16, 1, 16, 256), (1, 1, 2, 16, 1, 8, 16)]
 SSD_TOL = 2e-4
+
+# The edges of the flash kernel's 128-row query tiles and 64-key tiles, every
+# head dim; the decode kernel's ranges of fewer than 16 keys, ragged splits,
+# and a long cache that each block of a cluster walks in several stages.
+EDGE_ATTN = [(1, 4, 2, s, s, d) for s in (1, 127, 129, 500) for d in (32, 64, 128)]
+EDGE_DECODE = [(4, 32, 8, 4096, 128, v) for v in (1, 15, 17, 533)] + [(1, 32, 8, 8192, 128, 8192)]
+# (groups, valid, SMs) for the cluster planner: the serve slice, small and
+# large batches, short caches, and a card of fewer SMs.
+SPLIT_PLANS = [(32, 532, 132), (32, 0, 132), (32, 1, 132), (32, 15, 132), (32, 16, 132), (32, 17, 132),
+               (8, 8192, 132), (1, 100, 132), (264, 532, 132), (1000, 4096, 132), (32, 31, 132), (3, 129, 78)]
 
 # The minitron-8b serve slice on the card: batch 4, prompt 500, 32 decode steps.
 SLICE_ATTN = [(4, 32, 8, 500, 500, 128)]
@@ -255,6 +269,62 @@ def test_ssd_chunked_h_init_matches_jax(rng):
     _ssd_close(h, hj)
 
 
+@pytest.mark.parametrize("split", range(1, 9))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_split_merge_matches_jax(split, dtype, rng):
+    """The decode kernel's arithmetic (the valid keys cut as its cluster cuts
+    them, each block's (m, l, o) merged) against the JAX package's plain
+    version, at ragged lengths."""
+    jnp, _, jref = _jax()
+    B, H, Hkv, S, D = 2, 8, 2, 300, 64
+    valid = 37 + 29 * split
+    q, k, v = _np(rng, B, H, D), _np(rng, B, S, Hkv, D), _np(rng, B, S, Hkv, D)
+    out = ref.decode_attention_split(_t(q, dtype), _t(k, dtype), _t(v, dtype), valid, split)
+    assert out.dtype == TORCH_DTYPES[dtype] and out.shape == (B, H, D)
+    jq, jk, jv = (_j(jnp, a, dtype) for a in (q, k, v))
+    _close(out, jref.decode_attention_ref(jq, jk, jv, jnp.asarray(valid, jnp.int32)), dtype)
+
+
+def test_decode_split_merge_of_no_key_is_zero(rng):
+    """No valid key gives 0, as the kernel and the TPU kernel give."""
+    q, k = torch.from_numpy(_np(rng, 2, 4, 32)), torch.from_numpy(_np(rng, 2, 50, 2, 32))
+    for split in (1, 3):
+        assert not ref.decode_attention_split(q, k, k, 0, split).any()
+
+
+@pytest.mark.parametrize("groups,valid,sms", SPLIT_PLANS)
+def test_decode_split_plan_covers_every_key_once(groups, valid, sms):
+    split = decode_mod.plan_split(groups, valid, sms)
+    assert 1 <= split <= decode_mod.MAX_SPLIT
+    ranges = ref.key_ranges(valid, split)
+    assert len(ranges) == split
+    covered = [k for lo, hi in ranges for k in range(lo, hi)]
+    assert covered == list(range(valid))  # each key once, in order
+    if valid >= decode_mod.MIN_KEYS:
+        assert min(hi - lo for lo, hi in ranges) >= decode_mod.MIN_KEYS
+    if valid <= 0:
+        assert split == 1
+    # about two blocks per SM, where the cache allows it
+    assert groups * split <= max(groups, decode_mod.BLOCKS_PER_SM * sms)
+
+
+def test_decode_split_plan_at_the_serve_slice():
+    """32 clusters (batch 4 x 8 kv heads) of 8 blocks, 66 or 67 keys each."""
+    assert decode_mod.plan_split(32, 532, 132) == 8
+    assert {hi - lo for lo, hi in ref.key_ranges(532, 8)} == {66, 67}
+
+
+def test_launchers_match_the_ctypes_signatures():
+    """Every extern "C" launcher in csrc/*.cu has a ctypes signature in
+    _build._SIGNATURES with as many arguments, and the other way round."""
+    launchers = {}
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', path.read_text()):
+            launchers[name] = len([a for a in args.split(",") if a.strip()])
+        assert path.name in _build.SOURCES
+    assert launchers == {name: len(sig) for name, sig in _build._SIGNATURES.items()}
+
+
 def test_non_cuda_devices_raise(rng):
     x = torch.from_numpy(_np(rng, 2, 64)).to("meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -305,15 +375,26 @@ def test_flash_attention_kernel_window_matches_plain(window, dtype, rng, cuda):
 
 
 @pytest.mark.gpu
-def test_flash_attention_kernel_reads_strided_views(rng, cuda):
-    """The model passes (B, S, H, D) projections as (B, H, S, D) views."""
-    B, S, H, Hkv, D = 2, 200, 8, 2, 128
-    q = _t(_np(rng, B, S, H, D), "bfloat16", cuda)
-    k = _t(_np(rng, B, S, Hkv, D), "bfloat16", cuda)
-    v = _t(_np(rng, B, S, Hkv, D), "bfloat16", cuda)
-    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-    exp = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-    _close(out, exp, "bfloat16")
+@pytest.mark.parametrize("shape", EDGE_ATTN)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_at_tile_edges(shape, dtype, rng, cuda):
+    """Sq = Sk at 1, 127, 129 and 500 for every head dim (bf16 D = 32 runs
+    in 64 padded columns), and windows that start inside a 128-row tile."""
+    _on_card_attn(shape, dtype, rng, cuda)
+    _on_card_attn(shape, dtype, rng, cuda, window=70)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 200, 8, 2, 128), (4, 500, 32, 8, 128)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_reads_strided_views(shape, dtype, rng, cuda):
+    """The model passes (B, S, H, D) projections as (B, H, S, D) views, read in
+    place; the output is a view of (B, S, H, D). The second shape is the
+    minitron-8b prefill."""
+    B, S, H, Hkv, D = shape
+    q, k, v = (_t(_np(rng, B, S, h, D), dtype, cuda).transpose(1, 2) for h in (H, Hkv, Hkv))
+    out = ops.flash_attention(q, k, v)
+    _close(out, ref.attention_ref(q, k, v), dtype)
     assert out.transpose(1, 2).is_contiguous()
 
 
@@ -329,6 +410,24 @@ def test_decode_attention_kernel_matches_plain(case, dtype, rng, cuda):
     torch.cuda.synchronize()
     assert decode_mod.launches == n + 1
     _close(out, ref.decode_attention_ref(q, k, v, valid), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", EDGE_DECODE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_at_split_edges(case, dtype, rng, cuda):
+    """Against the plain version and against the plain split-merge arithmetic
+    with the planner's split."""
+    B, H, Hkv, S, D, valid = case
+    q, k, v = (_t(a, dtype, cuda) for a in (
+        _np(rng, B, H, D), _np(rng, B, S, Hkv, D), _np(rng, B, S, Hkv, D)))
+    n = decode_mod.launches
+    out = ops.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert decode_mod.launches == n + 1
+    _close(out, ref.decode_attention_ref(q, k, v, valid), dtype)
+    split = decode_mod.plan_split(B * Hkv, valid, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    _close(out, ref.decode_attention_split(q, k, v, valid, split), dtype)
 
 
 @pytest.mark.gpu
