@@ -47,6 +47,7 @@ import io
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -137,8 +138,9 @@ def max_abs_err(out: torch.Tensor, exp: torch.Tensor, dtype, tol=None) -> float:
 
 
 def time_ms(fn, inputs, iters: int = 40) -> float:
-    """Mean ms per call with CUDA events, cycling through ``inputs`` (copies
-    that together exceed the 50 MB L2, so each call reads device memory).
+    """Mean ms per call with CUDA events, cycling through ``inputs`` (``copies``:
+    at the prefill shapes they exceed the 50 MB L2, so each call reads device
+    memory).
 
     A spin kernel first keeps the card busy while the host queues all the
     calls, so they run back to back and the host's cost per launch (tens of
@@ -156,8 +158,34 @@ def time_ms(fn, inputs, iters: int = 40) -> float:
     return start.elapsed_time(end) / iters
 
 
-def copies(make, nbytes: int):
-    return [make() for _ in range(max(2, math.ceil(120e6 / nbytes)))]
+def host_us(fn, ref_fn, inputs, iters: int = 200, repeats: int = 15) -> tuple:
+    """Host microseconds per call of ``fn`` and of ``ref_fn``, and their ratio:
+    the medians over ``repeats`` runs of ``iters`` calls each, the two
+    functions' runs taken in turns so that the host's drift reaches both. Each
+    run's calls are queued behind a spin kernel, so the host never waits for
+    the card."""
+    for i in range(3):
+        fn(*inputs[i % len(inputs)])
+        ref_fn(*inputs[i % len(inputs)])
+    runs = []
+    for _ in range(repeats):
+        pair = []
+        for f in (fn, ref_fn):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES)
+            t0 = time.perf_counter()
+            for i in range(iters):
+                f(*inputs[i % len(inputs)])
+            pair.append((time.perf_counter() - t0) / iters * 1e6)
+        runs.append((*pair, pair[0] / pair[1]))
+    torch.cuda.synchronize()
+    return tuple(statistics.median(r[k] for r in runs) for k in range(3))
+
+
+def copies(make, nbytes: int, iters: int = 40):
+    """Enough copies that together exceed the L2, at most one per timed call: a
+    decode step's few rows stay in L2, as its activations do in the model."""
+    return [make() for _ in range(min(iters, max(2, math.ceil(120e6 / nbytes))))]
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -168,18 +196,38 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 # ---------------------------------------------------------------------------- kernels
 
 
+# The serve slices' rmsnorm shapes (rows, d): minitron-8b's prefill and decode
+# step (d_model), mamba2-370m's (d_model, and d_inner for the gated norm).
+RMS_SLICES = [(B * PROMPT, D_MODEL), (B, D_MODEL)] + [
+    (rows, d) for rows in (MB_B * MB_PROMPT, MB_B) for d in (1024, 2048)]
+# Off the serve paths: a prefill at qwen3-32b's d_model, 640 vectors a row (5 a
+# thread), timed beside the path's shapes.
+RMS_OFF_PATH = [(B * PROMPT, 5120)]
+# Rows narrower than a warp at row counts that round a block up to whole warps,
+# widths of 5, 6 and 7 vectors a thread, and generic rows of 9 vectors and of
+# scalars.
+RMS_ODD = [(300, 128), (700, 64), (1200, 32), (33, 2560), (300, 5120), (257, 6144), (5, 7168),
+           (2001, 72), (7, 36)]
+
+
 def check_rmsnorm(gen) -> float:
     worst = 0.0
-    # the serve slices' shapes: minitron-8b (d_model), mamba2-370m (d_model, d_inner)
-    slices = [(B * PROMPT, D_MODEL), (B, D_MODEL)] + [
-        (rows, d) for rows in (MB_B * MB_PROMPT, MB_B) for d in (1024, 2048)]
+    # the sweep, a width no 16-byte vector divides, the slices, and ragged row
+    # counts (one row, one past a multiple of the rows a block takes)
+    ragged = [(rows, d) for d in (1024, 2048, D_MODEL) for rows in (1, B * PROMPT + 1, MB_B * MB_PROMPT + 1)]
     for dtype in DTYPES:
-        for rows, d in [(4, 64), (100, 128), (257, 256), (33, 100)] + slices:
+        for rows, d in [(4, 64), (100, 128), (257, 256), (33, 100)] + RMS_SLICES + ragged + RMS_ODD:
             x, scale = randn(gen, rows, d, dtype=dtype), randn(gen, d, dtype=torch.float32)
             err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
             print(f"check rmsnorm {str(dtype)[6:]} rows={rows} d={d}: max_abs_err={err:.3e}")
-            if dtype == torch.bfloat16 and (rows, d) in slices:
+            if dtype == torch.bfloat16 and (rows, d) in RMS_SLICES:
                 worst = max(worst, err)
+        # contiguous rows that start one element past a 16-byte boundary
+        for rows, d in RMS_SLICES:
+            flat = randn(gen, rows * d + 1, dtype=dtype)
+            x, scale = flat[1:].view(rows, d), randn(gen, d, dtype=torch.float32)
+            err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
+            print(f"check rmsnorm {str(dtype)[6:]} rows={rows} d={d} misaligned: max_abs_err={err:.3e}")
     return worst
 
 
@@ -315,19 +363,32 @@ def check_ssd(gen) -> float:
     return worst
 
 
-def time_kernels(gen) -> dict:
-    """Times at the serve slice's shapes, bf16: kernel, plain version, library call."""
+def time_rmsnorm(gen, rows: int, d: int) -> dict:
+    """rmsnorm at one shape, bf16: kernel, plain version, ``F.rms_norm``, bound;
+    and the host's time per call of the wrapper and of ``F.rms_norm``, and the
+    wrapper's over ``F.rms_norm``'s (which compares runs of two trees)."""
     bf = torch.bfloat16
-    rows = B * PROMPT
-    x_bytes = rows * D_MODEL * 2
-    xs = copies(lambda: (randn(gen, rows, D_MODEL), randn(gen, D_MODEL, dtype=torch.float32)), x_bytes)
+    x_bytes = rows * d * 2
+    xs = copies(lambda: (randn(gen, rows, d), randn(gen, d, dtype=torch.float32)), x_bytes)
     xs = [(x, s, s.to(bf)) for x, s in xs]  # F.rms_norm takes its weight in the input dtype
     rms = {
         "ms": time_ms(lambda x, s, _: ops.rmsnorm(x, s), xs),
         "plain_ms": time_ms(lambda x, s, _: ref.rmsnorm_ref(x, s), xs),
-        "library_ms": time_ms(lambda x, _, s16: F.rms_norm(x, (D_MODEL,), s16, 1e-6), xs),
+        "library_ms": time_ms(lambda x, _, s16: F.rms_norm(x, (d,), s16, 1e-6), xs),
     }
-    rms["bound_ms"], rms["bound_by"] = bound(2 * x_bytes + D_MODEL * 4, 4 * rows * D_MODEL, bf)
+    rms["bound_ms"], rms["bound_by"] = bound(2 * x_bytes + d * 4, 4 * rows * d, bf)
+    rms["host_us"], rms["library_host_us"], rms["host_ratio"] = host_us(
+        lambda x, s, _: ops.rmsnorm(x, s), lambda x, _, s16: F.rms_norm(x, (d,), s16, 1e-6), xs)
+    return rms
+
+
+def time_kernels(gen) -> dict:
+    """Times at the serve slices' shapes, bf16: kernel, plain version, library
+    call; rmsnorm at each of its shapes (under ``shapes``), the minitron-8b
+    prefill's in the kernel's row."""
+    bf = torch.bfloat16
+    rms_shapes = {shape: time_rmsnorm(gen, *shape) for shape in RMS_SLICES + RMS_OFF_PATH}
+    rms = dict(rms_shapes[(B * PROMPT, D_MODEL)], shapes=rms_shapes)
 
     qkv_bytes = (B * H * PROMPT * D + 2 * B * HKV * PROMPT * D) * 2
     qkv = copies(lambda: (randn(gen, B, H, PROMPT, D), randn(gen, B, HKV, PROMPT, D),
@@ -668,6 +729,13 @@ def main() -> int:
               f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}), {row['launches']} launches "
               f"({dense_counts[name]} {ARCH}, {ssm_counts[name]} {MB_ARCH}) [{name_power}]")
         kernels.append(row)
+    for (rows, d), t in times["rmsnorm"]["shapes"].items():
+        where = " (off the serve paths)" if (rows, d) in RMS_OFF_PATH else ""
+        print(f"kernel rmsnorm shape {rows}x{d} bf16{where}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
+              f"F.rms_norm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4g} ms by {t['bound_by']}; "
+              f"{t['bound_ms'] / t['ms']:.2f} of the bound, {t['library_ms'] / t['ms']:.2f}x F.rms_norm's "
+              f"speed); host {t['host_us']:.2f} us a call (F.rms_norm {t['library_host_us']:.2f} us, "
+              f"ratio {t['host_ratio']:.3f}) [{name_power}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -33,12 +33,13 @@ NVCC_FLAGS = (
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib: Optional[ctypes.CDLL] = None
+_sm_counts: Dict[int, int] = {}
 build_seconds: Optional[float] = None  # wall time of this process's build, if it built
 
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # x, scale, y, rows, d, eps, dtype, stream
-    "repro_rmsnorm": (_vp, _vp, _vp, _ll, _i, _f, _i, _vp),
+    # x, scale, y, rows, d, eps, dtype, vpt, tpr, threads, grid, stream
+    "repro_rmsnorm": (_vp, _vp, _vp, _ll, _i, _f, _i, _i, _i, _i, _i, _vp),
     # q, k, v, o, strides[12], B, H, Hkv, Sq, Sk, D, causal, window, dtype, stream
     "repro_flash_attention": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp),
     # q, k, v, o, strides[6], B, H, Hkv, D, valid, split, dtype, stream
@@ -132,8 +133,20 @@ def check(code: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {code} ({msg})")
 
 
+def sm_count(device: torch.device) -> int:
+    """The device's SM count, read once per device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
 def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The device's current ``cudaStream_t``, through PyTorch's raw accessor
+    (the one its own generated kernels call): no ``torch.cuda.Stream`` object
+    is built on each launch."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def strides_array(values) -> ctypes.Array:

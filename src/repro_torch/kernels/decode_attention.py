@@ -15,8 +15,6 @@ the device for it.
 
 from __future__ import annotations
 
-from typing import Dict
-
 import torch
 
 from repro_torch.kernels import _build, ref
@@ -29,8 +27,6 @@ MAX_SPLIT = 8  # blocks per cluster, the portable cluster size (kMaxSplit)
 MIN_KEYS = 16  # keys per block at least, where the valid length allows
 BLOCKS_PER_SM = 2
 
-_sm_counts: Dict[int, int] = {}
-
 
 def plan_split(groups: int, valid: int, sms: int) -> int:
     """Blocks per (batch, kv head): about ``BLOCKS_PER_SM`` blocks per SM over
@@ -41,13 +37,6 @@ def plan_split(groups: int, valid: int, sms: int) -> int:
     if valid <= 0 or groups <= 0:
         return 1
     return max(1, min(MAX_SPLIT, BLOCKS_PER_SM * sms // groups, valid // MIN_KEYS))
-
-
-def _sm_count(device: torch.device) -> int:
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _sm_counts:
-        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _sm_counts[index]
 
 
 def decode_attention(
@@ -74,7 +63,7 @@ def decode_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    split = plan_split(B * Hkv, valid, _sm_count(q.device))
+    split = plan_split(B * Hkv, valid, _build.sm_count(q.device))
     if B * Hkv * split >= 2**31:
         raise ValueError(f"decode_attention: {B * Hkv} groups exceed the grid limit")
     strides = _build.strides_array([*k.stride()[:3], *v.stride()[:3]])

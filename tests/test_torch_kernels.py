@@ -78,6 +78,23 @@ SLICE_RMSNORM = [(2000, 4096), (4, 4096)]
 # The mamba2-370m serve slice: batch 4, prompt 2000 (7 chunks of 256 + 208).
 SLICE_SSD = [(4, 2000, 32, 64, 1, 128, 256)]
 SLICE_MAMBA_RMSNORM = [(8000, 1024), (8000, 2048), (4, 1024), (4, 2048)]
+# The rmsnorm planner's rows and widths: ragged row counts beside the serve
+# slices', row counts that are odd multiples of a few rows per SM, a width that
+# is no multiple of 8, narrow widths (a row in fewer lanes than a warp), and
+# widths of the repository's configs whose vector count is not a power of two.
+PLAN_ROWS = [1, 4, 33, 300, 700, 1200, 2000, 2001, 8000, 8001]
+PLAN_WIDTHS = [32, 64, 100, 128, 1024, 2048, 2560, 4096, 5120, 6144, 7168]
+H100_SMS = 132
+# Each row-register variant at ragged row counts and a single row; rows that
+# make every block walk more than one group of rows.
+RAGGED_RMSNORM = [(r, d) for d in (1024, 2048, 4096) for r in (1, 2001, 8001)]
+WALK_RMSNORM = [(40000, 1024), (20000, 4096)]
+# Rows narrower than a warp at row counts whose rows per block must be rounded
+# up to whole warps; widths of 5, 6 and 7 vectors a thread (d_model of
+# h2o-danube, qwen3-32b, internlm2-20b, deepseek-v3); a generic width of 16-byte
+# vectors (9 a row) and of scalars.
+ODD_RMSNORM = [(300, 128), (700, 64), (1200, 32), (33, 2560), (300, 5120), (257, 6144),
+               (5, 7168), (2001, 72), (7, 36)]
 
 
 def _tol(dtype: str) -> float:
@@ -325,6 +342,70 @@ def test_launchers_match_the_ctypes_signatures():
     assert launchers == {name: len(sig) for name, sig in _build._SIGNATURES.items()}
 
 
+def _rmsnorm_block_rows(p, rows: int, block: int) -> list:
+    """The rows that block ``block`` of plan ``p`` normalises: the generic
+    kernel's one row, or the row-register kernel's grid-stride walk."""
+    if not p.vpt:
+        return [block] if block < rows else []
+    rpb = p.threads // p.tpr
+    return [base + s for base in range(block * rpb, rows, p.grid * rpb) for s in range(rpb)
+            if base + s < rows]
+
+
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+@pytest.mark.parametrize("d", PLAN_WIDTHS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_plan_covers_every_row_once(rows, d, dtype):
+    size = TORCH_DTYPES[dtype].itemsize
+    p = rmsnorm_mod.plan(rows, d, size, True, H100_SMS)
+    covered = sorted(r for b in range(p.grid) for r in _rmsnorm_block_rows(p, rows, b))
+    assert covered == list(range(rows))
+    assert p.threads % 32 == 0 and p.threads % p.tpr == 0
+    if p.vpt:  # the row-register kernel: the row split exactly, within the register budget
+        n = rmsnorm_mod.VECTOR_BYTES // size
+        assert 1 <= p.vpt <= rmsnorm_mod.MAX_VPT and p.vpt * p.tpr * n == d
+        assert p.tpr & (p.tpr - 1) == 0
+        assert p.vpt * (4 + n) <= rmsnorm_mod.REGISTER_BUDGET
+        assert p.threads <= rmsnorm_mod.MAX_THREADS
+        assert p.grid <= H100_SMS * rmsnorm_mod.THREADS_PER_SM // p.threads
+    else:
+        assert d == 100 and p.grid == rows and p.threads <= 1024
+
+
+@pytest.mark.parametrize("rows,d,size,aligned", [
+    (2000, 100, 2, True), (4, 36, 2, True), (8000, 1022, 4, True),  # d not a multiple of the vector
+    (2000, 4608, 2, True), (8, 72, 2, True),  # vectors with an odd factor above MAX_VPT (9)
+    (8000, 1024, 2, False), (4, 4096, 4, False),  # x, y or scale off 16 bytes
+    (4, 65536, 2, True),  # more vectors than MAX_THREADS threads hold
+])
+def test_rmsnorm_plan_takes_the_generic_kernel(rows, d, size, aligned):
+    p = rmsnorm_mod.plan(rows, d, size, aligned, H100_SMS)
+    n = rmsnorm_mod.VECTOR_BYTES // size
+    work = d // n if aligned and d % n == 0 else d  # 16-byte vectors where it can, else scalars
+    assert p.vpt == 0 and p.grid == rows and p.threads == min(1024, -(-work // 32) * 32)
+
+
+@pytest.mark.parametrize("d,vpt,tpr", [(2560, 5, 64), (5120, 5, 128), (6144, 6, 128), (7168, 7, 128)])
+def test_rmsnorm_plan_splits_widths_that_are_no_power_of_two(d, vpt, tpr):
+    """bf16 prefill rows of the configs' other widths take the row-register
+    kernel, with the odd factor of their vector count in each thread's share."""
+    p = rmsnorm_mod.plan(2000, d, 2, True, H100_SMS)
+    assert (p.vpt, p.tpr) == (vpt, tpr)
+
+
+def test_rmsnorm_plan_at_the_serve_shapes():
+    """bf16 on 132 SMs: a warp per row at d 1024 and 2048, two warps at 4096,
+    in blocks of 256 threads; decode's 4 rows spread to one vector a thread,
+    one row per block."""
+    got = {(r, d): tuple(rmsnorm_mod.plan(r, d, 2, True, H100_SMS)) for r, d in
+           SLICE_RMSNORM + SLICE_MAMBA_RMSNORM}
+    assert got == {
+        (2000, 4096): (8, 64, 256, 500), (4, 4096): (1, 512, 512, 4),
+        (8000, 1024): (4, 32, 256, 1000), (8000, 2048): (8, 32, 256, 1000),
+        (4, 1024): (1, 128, 128, 4), (4, 2048): (1, 256, 256, 4),
+    }
+
+
 def test_non_cuda_devices_raise(rng):
     x = torch.from_numpy(_np(rng, 2, 64)).to("meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -439,11 +520,39 @@ def test_decode_attention_kernel_empty_cache_gives_zero(rng, cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,d", RMSNORM_CASES + SLICE_RMSNORM + [(33, 100)] + SLICE_MAMBA_RMSNORM)
+@pytest.mark.parametrize("rows,d", RMSNORM_CASES + SLICE_RMSNORM + [(33, 100)] + SLICE_MAMBA_RMSNORM
+                         + RAGGED_RMSNORM + WALK_RMSNORM + ODD_RMSNORM)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rmsnorm_kernel_matches_plain(rows, d, dtype, rng, cuda):
     x = _t(_np(rng, rows, d), dtype, cuda)
     scale = torch.from_numpy(_np(rng, d)).to(cuda)
+    if (rows, d) in WALK_RMSNORM:  # every block walks more than one group of rows
+        p = rmsnorm_mod.plan(rows, d, x.element_size(), True, _build.sm_count(cuda))
+        assert p.vpt and rows >= 2 * p.grid * (p.threads // p.tpr)
+    n = rmsnorm_mod.launches
+    out = ops.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert rmsnorm_mod.launches == n + 1
+    _close(out, ref.rmsnorm_ref(x, scale), dtype)
+
+
+@pytest.mark.gpu
+def test_stream_handle_is_the_current_stream(cuda):
+    assert _build.stream_handle(cuda) == torch.cuda.current_stream(cuda).cuda_stream
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        assert _build.stream_handle(cuda) == side.cuda_stream != 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d", [(2000, 4096), (8001, 1024), (4, 2048), (1, 64)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_reads_a_misaligned_view(rows, d, dtype, rng, cuda):
+    """A contiguous x that starts one element past 16 bytes goes to the generic kernel."""
+    flat = _t(_np(rng, rows * d + 1), dtype, cuda)
+    x = flat[1:1 + rows * d].view(rows, d)
+    scale = torch.from_numpy(_np(rng, d)).to(cuda)
+    assert x.is_contiguous() and x.data_ptr() % 16
     n = rmsnorm_mod.launches
     out = ops.rmsnorm(x, scale)
     torch.cuda.synchronize()
