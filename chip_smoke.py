@@ -24,8 +24,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the kernel path's may not exceed 1.25 times it;
 4. mamba2-370m at full width and depth, the same way: batch 4, a 2000-token
    prompt (7 chunks of 256 and a ragged 208), 32 greedy decode steps; 97
-   rmsnorm + 48 ssd_scan launches per prefill, 97 rmsnorm and no ssd_scan per
-   decode step. With fp32 weights the kernel path's logits must be within
+   rmsnorm + 48 ssd_scan launches per prefill, all 48 of the tensor-core
+   variant (and with fp32 weights all 48 of the generic one), 97 rmsnorm and
+   no ssd_scan per decode step. With fp32 weights the kernel path's logits must be within
    1e-4 relative L2 of the plain path's at every step (in fp32 the two differ
    only in the order of sums); in bf16 the kernel path may be at most 1.25
    times as far from the fp32 plain run as the plain bf16 path;
@@ -60,6 +61,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.ssd_scan import ROWS as SSD_ROWS  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.train.steps import make_serve_bundle  # noqa: E402
@@ -68,6 +70,7 @@ from repro_torch.train.steps import make_serve_bundle  # noqa: E402
 # bytes / HBM rate and operations / peak rate for their type, at 700 W.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS = 495e12  # the tensor cores on TF32 operands
 
 # ~0.1 s at the H100's 1.98 GHz: longer than the host takes to queue the 40
 # timed calls of the slowest plain version.
@@ -306,26 +309,46 @@ def ssd_distance(out, exp) -> float:
     return float(((a - b).abs() / (SSD_TOL + SSD_TOL * b.abs())).max())
 
 
+def ssd_variant(fn):
+    """Run ``fn`` (one ssd_scan call); return its result and the variant it launched."""
+    before = dict(ssd_mod.variant_launches)
+    out = fn()
+    launched = [k for k, v in ssd_mod.variant_launches.items() if v != before[k]]
+    require(len(launched) == 1, f"ssd_scan launched {launched}")
+    return out, launched[0]
+
+
 def check_ssd(gen) -> float:
-    """The kernel against the exact recurrence ``ssd_ref`` and the plain
+    """Both kernels against the exact recurrence ``ssd_ref`` and the plain
     ``ssd_chunked``, y and final state, at 2e-4; returns the max abs error
     against ``ssd_ref`` over three draws at the slice shape."""
-    cases = [  # (B, S, H, P, G, N, chunk, B/C dtype)
-        (1, 64, 2, 16, 1, 8, 16, torch.float32),  # the sweep of tests/test_kernels.py
-        (2, 128, 4, 16, 2, 8, 32, torch.float32),
-        (1, 256, 4, 32, 1, 16, 64, torch.float32),
-        (1, 128, 8, 64, 1, 16, 128, torch.float32),
-        (2, 100, 4, 16, 2, 8, 32, torch.float32),  # ragged
-        (MB_B, 40, SSD_H, SSD_P, SSD_G, SSD_N, SSD_CHUNK, torch.bfloat16),  # S < chunk, full width
-        (MB_B, 40, SSD_H, SSD_P, SSD_G, SSD_N, SSD_CHUNK, torch.float32),
+    tc, generic = ssd_mod.TENSOR_CORE, ssd_mod.GENERIC
+    cases = [  # (B, S, H, P, G, N, chunk, B/C dtype, the variant the plan must pick)
+        (1, 64, 2, 16, 1, 8, 16, torch.float32, generic),  # the sweep of tests/test_kernels.py
+        (2, 128, 4, 16, 2, 8, 32, torch.float32, generic),
+        (1, 256, 4, 32, 1, 16, 64, torch.float32, generic),
+        (1, 128, 8, 64, 1, 16, 128, torch.float32, generic),
+        (2, 100, 4, 16, 2, 8, 32, torch.float32, generic),  # ragged
+        (1, 256, 4, 32, 1, 16, 64, torch.bfloat16, generic),  # N 16: below the tensor-core kernel
+        (MB_B, 40, SSD_H, SSD_P, SSD_G, SSD_N, SSD_CHUNK, torch.bfloat16, tc),  # S < chunk, full width
+        (MB_B, 40, SSD_H, SSD_P, SSD_G, SSD_N, SSD_CHUNK, torch.float32, generic),
+        # the tensor-core kernel: one chunk, one row past it, 3 heads, two groups,
+        # widths that are multiples of 16 and 8 but not of 32
+        (1, 64, SSD_H, SSD_P, SSD_G, SSD_N, SSD_CHUNK, torch.bfloat16, tc),
+        (1, 65, SSD_H, SSD_P, SSD_G, SSD_N, SSD_CHUNK, torch.bfloat16, tc),
+        (2, 300, 3, SSD_P, SSD_G, SSD_N, SSD_CHUNK, torch.bfloat16, tc),
+        (2, 300, 8, 64, 2, 32, SSD_CHUNK, torch.bfloat16, tc),
+        (1, 200, 2, 40, 1, 48, SSD_CHUNK, torch.bfloat16, tc),
     ]
-    for *shape, chunk, dt in cases:
+    for *shape, chunk, dt, want in cases:
         args = ssd_inputs(gen, *shape, bc_dtype=dt)
-        y, h = ops.ssd_scan(*args, chunk=chunk)
+        (y, h), variant = ssd_variant(lambda: ops.ssd_scan(*args, chunk=chunk))
+        require(variant == want, f"ssd_scan {tuple(shape)} {dt} took the {variant} kernel, not {want}")
         errs = []
         for name, (ye, he) in (("ssd_ref", ref.ssd_ref(*args)), ("ssd_chunked", ref.ssd_chunked(*args, chunk))):
             errs.append(f"{name} y {max_abs_err(y, ye, dt, SSD_TOL):.3e} h {max_abs_err(h, he, dt, SSD_TOL):.3e}")
-        print(f"check ssd_scan {str(dt)[6:]} B/C {tuple(shape)} chunk={chunk}: max_abs_err vs " + ", ".join(errs))
+        print(f"check ssd_scan {str(dt)[6:]} B/C {tuple(shape)} chunk={chunk} ({variant}): max_abs_err vs "
+              + ", ".join(errs))
 
     # The slice: the model's prefill shape, bf16 B and C, three draws. ssd_ref
     # in fp64 is the exact answer, and each fp32 version's distance from it is
@@ -339,7 +362,8 @@ def check_ssd(gen) -> float:
         g = torch.Generator(device="cuda")
         g.manual_seed(draw)
         args = ssd_inputs(g, MB_B, MB_PROMPT, SSD_H, SSD_P, SSD_G, SSD_N, bc_dtype=torch.bfloat16)
-        y, h = ops.ssd_scan(*args, chunk=SSD_CHUNK)
+        (y, h), variant = ssd_variant(lambda: ops.ssd_scan(*args, chunk=SSD_CHUNK))
+        require(variant == ssd_mod.TENSOR_CORE, f"the slice took the {variant} kernel")
         yr, hr = ref.ssd_ref(*args)
         yc, hc = ref.ssd_chunked(*args, SSD_ROWS)
         worst = max(worst, max_abs_err(y, yr, torch.float32, SSD_TOL))
@@ -419,7 +443,10 @@ def time_kernels(gen) -> dict:
     # The mamba2-370m prefill's scan: x and y fp32, bf16 B/C views, fp32 state.
     # The least work of the function is the recurrence's: the state update
     # B_t x_t^T and the readout C_t h_t, N P multiply-adds each per head and
-    # row. Every chunked form adds its Q x Q terms to these.
+    # row. Every chunked form adds its Q x Q terms to these. On the tensor
+    # cores, as the kernel runs them, that work is TF32 products counted twice
+    # (each fp32 operand split into two TF32 parts); below the bytes. The
+    # earlier bound, the same work on the fp32 CUDA cores, is printed beside.
     rows = MB_B * MB_PROMPT
     x_bytes, a_bytes, bc_bytes = rows * SSD_H * SSD_P * 4, rows * SSD_H * 4, rows * 2 * SSD_G * SSD_N * 2
     scan = copies(lambda: ssd_inputs(gen, MB_B, MB_PROMPT, SSD_H, SSD_P, SSD_G, SSD_N, torch.bfloat16),
@@ -431,8 +458,11 @@ def time_kernels(gen) -> dict:
     }
     flops = 4 * rows * SSD_H * SSD_N * SSD_P
     state_bytes = MB_B * SSD_H * SSD_N * SSD_P * 4
-    ssd["bound_ms"], ssd["bound_by"] = bound(2 * x_bytes + a_bytes + bc_bytes + state_bytes, flops,
-                                             torch.float32)
+    nbytes = 2 * x_bytes + a_bytes + bc_bytes + state_bytes
+    ssd["bound_ms"], ssd["bound_by"] = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                                           (2 * flops / TF32_FLOPS * 1e3, "operations"))
+    ssd["bound_tf32_ops_ms"] = 2 * flops / TF32_FLOPS * 1e3
+    ssd["bound_fp32_cores_ms"], _ = bound(nbytes, flops, torch.float32)
     return {"rmsnorm": rms, "flash_attention": flash, "decode_attention": dec, "ssd_scan": ssd}
 
 
@@ -547,8 +577,11 @@ def mamba_phase(seed: int) -> dict:
                    "ssd_scan": cfg.num_layers}
     per_step = {"rmsnorm": n_norm, "flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
     expected = {k: per_prefill[k] + MB_STEPS * per_step[k] for k in per_prefill}
-    print(f"main path launches: {counts} (expected {expected})")
+    variants = dict(ssd_mod.variant_launches)
+    print(f"main path launches: {counts} (expected {expected}); ssd_scan by kernel {variants}")
     require(counts == expected, f"launch counts {counts} != {expected}")
+    require(variants == {ssd_mod.TENSOR_CORE: cfg.num_layers, ssd_mod.GENERIC: 0},
+            f"the bf16 prefill's ssd_scan launches by kernel {variants}")
     print(f"prefill {MB_PROMPT} tokens x{MB_B}: {gen_out.prefill_s * 1e3:.3f} ms; "
           f"decode: {gen_out.decode_s_per_token * 1e3:.3f} ms/token "
           f"({MB_B / gen_out.decode_s_per_token:.1f} tokens/s); peak memory {peak_gb:.2f} GB")
@@ -580,6 +613,9 @@ def mamba_phase(seed: int) -> dict:
     require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
     kernel_fp32 = teacher_forced(bundle, params, tokens, gen_out.tokens)
     require(ops.launch_counts()["ssd_scan"] == cfg.num_layers, "the fp32 kernel path missed the scan")
+    require(ssd_mod.variant_launches == {ssd_mod.TENSOR_CORE: 0, ssd_mod.GENERIC: cfg.num_layers},
+            f"the fp32 prefill's ssd_scan launches by kernel {ssd_mod.variant_launches}")
+    print(f"ssd_scan by kernel: bf16 prefill {variants}, fp32 prefill {ssd_mod.variant_launches}: ok")
     fp32_err = [rel_l2(a, b) for a, b in zip(kernel_fp32, exact)]
     errs = [rel_l2(a, b) for a, b in zip(gen_out.logits, plain_bf16)]
     kernel_err = [rel_l2(a, b) for a, b in zip(gen_out.logits, exact)]
@@ -724,9 +760,13 @@ def main() -> int:
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
         layout = f", {t['ms_model_layout']:.4f} ms on the model's (B, S, H, D) views" if "ms_model_layout" in t else ""
+        bounds = (f"; TF32 operations {t['bound_tf32_ops_ms']:.4f} ms, on the fp32 CUDA cores "
+                  f"{t['bound_fp32_cores_ms']:.4f} ms, {t['bound_fp32_cores_ms'] / row['ms']:.2f} of it"
+                  if "bound_fp32_cores_ms" in t else "")
         print(f"kernel {name}: max_abs_err {row['max_abs_err']:.3e}, {row['ms']:.4f} ms{layout} "
               f"(plain {row['plain_ms']:.4f} ms, library {library}, "
-              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}), {row['launches']} launches "
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, {row['bound_ms'] / row['ms']:.2f} of it"
+              f"{bounds}), {row['launches']} launches "
               f"({dense_counts[name]} {ARCH}, {ssm_counts[name]} {MB_ARCH}) [{name_power}]")
         kernels.append(row)
     for (rows, d), t in times["rmsnorm"]["shapes"].items():

@@ -44,8 +44,8 @@ _SIGNATURES = {
     "repro_flash_attention": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp),
     # q, k, v, o, strides[6], B, H, Hkv, D, valid, split, dtype, stream
     "repro_decode_attention": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp),
-    # x, log_dA, Bm, Cm, y, h, strides[15], B, S, H, G, N, P, dtype, stream
-    "repro_ssd_scan": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp),
+    # x, log_dA, Bm, Cm, y, h, strides[15], B, S, H, G, N, P, dtype, variant, stream
+    "repro_ssd_scan": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp),
 }
 
 

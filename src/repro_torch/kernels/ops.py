@@ -51,3 +51,4 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         mod.launches = 0
+    _ssd_mod.variant_launches.update(dict.fromkeys(_ssd_mod.variant_launches, 0))

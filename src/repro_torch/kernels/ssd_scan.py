@@ -1,18 +1,21 @@
-"""Mamba-2 SSD chunked scan: the CUDA kernel ``csrc/ssd_scan.cu`` and its wrapper.
+"""Mamba-2 SSD chunked scan: the CUDA kernels ``csrc/ssd_scan.cu``, their plan and wrapper.
 
 Replaces the JAX package's Pallas TPU kernel ``kernels/ssd_scan.py``
-(``ssd_scan``, ``pallas_call`` at :98). Bound by fp32 operations on the H100's
-CUDA cores, not by bytes: at the mamba2-370m prefill (B4 S2000 H32 P64 G1
-N128) the least work is the recurrence's state update and readout, 4 N P
-FLOPs per head and row, 8.39 GFLOP (0.125 ms at 67 TFLOP/s), against ~140 MB
-(0.042 ms at 3.35 TB/s); the kernel takes about 10x that bound (PERF.md).
-One block per (b, h) walks the sequence in 64-row chunks with the state in
-shared memory, 4 x 4 register tiles from float4 shared-memory reads; fp32
-throughout, no TF32, to hold the reference's 2e-4. The last partial chunk is
-masked inside the kernel, so a ragged S needs no padded copy. B and C are
-read in bf16 or fp32 through their strides, so the model's views of its conv
-output are not copied. A CPU tensor goes to the plain version,
-``kernels.ref.ssd_chunked``; a CUDA tensor launches the kernel or raises.
+(``ssd_scan``, ``pallas_call`` at :98). One block per (b, h) walks the
+sequence in 64-row chunks with the fp32 state in shared memory; the last
+partial chunk is masked inside the kernel, so a ragged S needs no padded
+copy, and B and C are read through their strides, so the model's views of
+its conv output are not copied. ``plan`` picks the kernel. bf16 B and C with
+N and P of at least 32, N a multiple of 16, P of 8, 16-byte aligned rows and
+a layout that fits shared memory go to the tensor-core kernel: the chunk
+products as ``mma.sync``, C B^T in bf16 and the fp32 operands split into two
+TF32 parts each (to fp32 accuracy), the next chunk loaded by ``cp.async``
+while this one computes. At the mamba2-370m prefill (B4 S2000 H32 P64 G1
+N128) it is bound by bytes, ~140 MB (0.042 ms at 3.35 TB/s). Every other
+shape (fp32 B/C, small or odd N and P, unaligned views) goes to the generic
+kernel, fp32 on the CUDA cores (PERF.md). A CPU tensor goes to the plain
+version, ``kernels.ref.ssd_chunked``; a CUDA tensor launches a kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -25,7 +28,42 @@ from repro_torch.kernels import _build, ref
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
-ROWS = 64  # rows per chunk inside the kernel (csrc/ssd_scan.cu kT)
+TENSOR_CORE, GENERIC = "tensor_core", "generic"
+variant_launches = {TENSOR_CORE: 0, GENERIC: 0}  # the launches above, by kernel
+_VARIANT_CODES = {GENERIC: 0, TENSOR_CORE: 1}  # the launcher's `variant`
+
+ROWS = 64  # rows per chunk inside the kernels (csrc/ssd_scan.cu kT)
+SMEM_LIMIT = 232448  # bytes of shared memory a block may opt in to on the H100
+# A smaller state leaves most of the tensor-core kernel's 8 warps without a
+# tile (the sweep's N 8 and 16, P 16); the generic kernel takes it.
+TC_MIN_WIDTH = 32
+
+
+def tc_smem_bytes(N: int, P: int) -> int:
+    """Shared memory of the tensor-core kernel (csrc/ssd_scan.cu ``tc_layout``):
+    two stages of x (rows of P + 4 fp32), B and C (N + 8 bf16) and a, then the
+    state (N rows of P + 4 fp32), the two TF32 parts of G (64 rows of 72), C h
+    (64 rows of P + 4 fp32), each of the 8 warps' L (64 fp64) and two more
+    64-row vectors (fp32)."""
+    stage = ROWS * (P + 4) * 4 + 2 * ROWS * (N + 8) * 2 + ROWS * 4
+    return (2 * stage + N * (P + 4) * 4 + 2 * ROWS * (ROWS + 8) * 4 + ROWS * (P + 4) * 4
+            + 8 * ROWS * 8 + 2 * ROWS * 4)
+
+
+def plan(bc_dtype: torch.dtype, N: int, P: int, aligned: bool) -> str:
+    """The kernel for B and C of ``bc_dtype`` and an N x P state; ``aligned``
+    says that x, B and C have a contiguous last dim and 16-byte aligned starts
+    and strides (the tensor-core kernel copies 16-byte pieces of rows)."""
+    if (bc_dtype == torch.bfloat16 and aligned and N % 16 == 0 and P % 8 == 0
+            and min(N, P) >= TC_MIN_WIDTH and tc_smem_bytes(N, P) <= SMEM_LIMIT):
+        return TENSOR_CORE
+    return GENERIC
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """A contiguous last dim, and the start and every other stride on 16 bytes."""
+    elems = 16 // t.element_size()
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(s % elems == 0 for s in t.stride()[:-1])
 
 
 def ssd_scan(
@@ -40,7 +78,7 @@ def ssd_scan(
 
     ``chunk`` is the caller's chunk length (``SSMConfig.chunk``), which the
     plain version uses; in exact arithmetic the result does not depend on it,
-    and the kernel walks the sequence in its own chunks of ``ROWS`` rows. A
+    and the kernels walk the sequence in their own chunks of ``ROWS`` rows. A
     state too large for one block's shared memory makes the launcher return
     an error, on which this raises.
     """
@@ -73,11 +111,14 @@ def ssd_scan(
         h.zero_()
         return y, h
     strides = _build.strides_array([*x.stride(), *log_dA.stride(), *Bm.stride(), *Cm.stride()])
+    variant = plan(Bm.dtype, N, P, all(rows_aligned(t) for t in (x, Bm, Cm)))
     lib = _build.library()
     code = lib.repro_ssd_scan(
         x.data_ptr(), log_dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), h.data_ptr(),
-        strides, B, S, H, G, N, P, _build.DTYPE_CODES[Bm.dtype], _build.stream_handle(x.device),
+        strides, B, S, H, G, N, P, _build.DTYPE_CODES[Bm.dtype], _VARIANT_CODES[variant],
+        _build.stream_handle(x.device),
     )
     _build.check(code, "ssd_scan")
     launches += 1
+    variant_launches[variant] += 1
     return y, h

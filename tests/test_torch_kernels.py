@@ -16,6 +16,7 @@ import re
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as decode_mod
@@ -77,6 +78,13 @@ SLICE_DECODE = [(4, 32, 8, 532, 128, v) for v in (1, 300, 532)]
 SLICE_RMSNORM = [(2000, 4096), (4, 4096)]
 # The mamba2-370m serve slice: batch 4, prompt 2000 (7 chunks of 256 + 208).
 SLICE_SSD = [(4, 2000, 32, 64, 1, 128, 256)]
+# The tensor-core ssd_scan kernel at full width: less than one 64-row chunk,
+# one chunk, one row past it, a last chunk of 16; 3 heads on 8 warps, two
+# groups at N 32, widths that are multiples of 16 and 8 but not of 32, and a
+# state of fewer tiles than the block has warps.
+TC_SSD = [(4, 40, 32, 64, 1, 128, 256), (2, 64, 32, 64, 1, 128, 256), (2, 65, 32, 64, 1, 128, 256),
+          (1, 2000, 32, 64, 1, 128, 256), (2, 300, 3, 64, 1, 128, 256), (2, 300, 8, 64, 2, 32, 256),
+          (1, 200, 2, 40, 1, 48, 256), (1, 129, 2, 32, 1, 64, 256)]
 SLICE_MAMBA_RMSNORM = [(8000, 1024), (8000, 2048), (4, 1024), (4, 2048)]
 # The rmsnorm planner's rows and widths: ragged row counts beside the serve
 # slices', row counts that are odd multiples of a few rows per SM, a width that
@@ -284,6 +292,115 @@ def test_ssd_chunked_h_init_matches_jax(rng):
     yj, hj = jax_ssd_chunked(*jargs, chunk=32, h_init=jnp.asarray(h0.numpy()))
     _ssd_close(y, yj)
     _ssd_close(h, hj)
+
+
+def _ssd_model_views(B, S, G, N, dtype=torch.bfloat16, offset=0):
+    """B and C as the model passes them: views of one (B, S, 2GN) conv output,
+    starting ``offset`` elements in."""
+    bc = torch.zeros(B, S, 2 * G * N + offset, dtype=dtype)[..., offset:]
+    return bc[..., : G * N].reshape(B, S, G, N), bc[..., G * N:].reshape(B, S, G, N)
+
+
+def test_ssd_plan_takes_the_tensor_core_kernel_at_the_slice():
+    """The mamba2-370m prefill (B4 S2000 H32 P64 G1 N128), bf16 B and C as the
+    model's views of its conv output: the tensor-core kernel."""
+    x = torch.zeros(4, 2000, 32, 64)
+    Bm, Cm = _ssd_model_views(4, 2000, 1, 128)
+    assert all(ssd_mod.rows_aligned(t) for t in (x, Bm, Cm))
+    assert ssd_mod.plan(Bm.dtype, 128, 64, True) == ssd_mod.TENSOR_CORE
+    assert ssd_mod.tc_smem_bytes(128, 64) == 198656 <= ssd_mod.SMEM_LIMIT
+    for n, p in [(32, 32), (48, 40), (32, 64), (64, 64), (64, 128), (160, 48)]:  # the kernel's two tilings
+        assert ssd_mod.plan(torch.bfloat16, n, p, True) == ssd_mod.TENSOR_CORE
+
+
+@pytest.mark.parametrize("dtype,N,P,aligned", [
+    (torch.float32, 128, 64, True),  # fp32 B/C (the fp32-weight serve run)
+    (torch.bfloat16, 8, 16, True), (torch.bfloat16, 16, 16, True),  # the sweep's widths
+    (torch.bfloat16, 16, 32, True), (torch.bfloat16, 16, 64, True),
+    (torch.bfloat16, 40, 64, True), (torch.bfloat16, 136, 64, True),  # N not a multiple of 16
+    (torch.bfloat16, 128, 36, True),  # P not a multiple of 8
+    (torch.bfloat16, 128, 64, False),  # rows off 16 bytes
+    (torch.bfloat16, 128, 128, True), (torch.bfloat16, 256, 128, True),  # past shared memory
+])
+def test_ssd_plan_takes_the_generic_kernel(dtype, N, P, aligned):
+    assert ssd_mod.plan(dtype, N, P, aligned) == ssd_mod.GENERIC
+
+
+def test_ssd_rows_aligned_rejects_unaligned_views():
+    Bm, Cm = _ssd_model_views(2, 70, 1, 128, offset=1)  # bc[..., 1:]: starts 2 bytes past 16
+    assert not ssd_mod.rows_aligned(Bm) and not ssd_mod.rows_aligned(Cm)
+    Bm, _ = _ssd_model_views(2, 70, 1, 132)  # a row stride of 264 bf16, but N = 132
+    assert ssd_mod.plan(Bm.dtype, 132, 64, ssd_mod.rows_aligned(Bm)) == ssd_mod.GENERIC
+    Bm = torch.zeros(2, 70, 1, 260, dtype=torch.bfloat16)[..., :128]  # a row stride of 260
+    assert not ssd_mod.rows_aligned(Bm)
+    assert not ssd_mod.rows_aligned(torch.zeros(2, 70, 4, 64).transpose(2, 3))  # last dim strided
+    x = torch.zeros(2, 70, 4, 65)[..., :64]  # fp32 rows of 65: not on 16 bytes
+    assert not ssd_mod.rows_aligned(x)
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to the nearest TF32 (10 mantissa bits), ties away from
+    zero, on the bit pattern: what ``cvt.rna.tf32.f32`` gives, and what the
+    kernel computes in integer arithmetic."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(a: torch.Tensor):
+    """The kernel's split of an fp32 operand: big rounded to the nearest TF32,
+    small = a - big as the tensor cores read it (its low 13 bits dropped)."""
+    big = _tf32(a)
+    return big, ((a - big).view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _ssd_split_tf32(x, log_dA, Bm, Cm):
+    """The tensor-core kernel's arithmetic, chunk by chunk (64 rows), in fp32:
+    L = cumsum(a) in fp64; C B^T of bf16 values (exact products); G x as three
+    products of the TF32 parts (small big, big small, big big); C h and
+    B^T (w x) as two (B and C are exact in TF32, h and w x are split)."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = ssd_mod.ROWS
+    pad = (-S) % Q
+    x, log_dA = F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(log_dA, (0, 0, 0, pad))
+    Bm = F.pad(Bm.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(H // G, dim=2)
+    Cm = F.pad(Cm.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(H // G, dim=2)
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
+    h = torch.zeros(B, H, N, P)
+    ys = []
+    for t0 in range(0, S + pad, Q):
+        xq, bq, cq = x[:, t0:t0 + Q], Bm[:, t0:t0 + Q], Cm[:, t0:t0 + Q]
+        L = torch.cumsum(log_dA[:, t0:t0 + Q].double(), dim=1)  # (B, Q, H)
+        d = (L[:, :, None] - L[:, None]).permute(0, 3, 1, 2).float()  # (B, H, i, j)
+        g = torch.einsum("bihn,bjhn->bhij", cq, bq) * torch.exp(torch.where(mask, d, -torch.inf))
+        (gb, gs), (xb, xs) = _split(g), _split(xq)
+        y = sum(torch.einsum("bhij,bjhp->bihp", a, b) for a, b in ((gs, xb), (gb, xs), (gb, xb)))
+        hb, hs = _split(h)
+        inter = sum(torch.einsum("bihn,bhnp->bihp", cq, a) for a in (hs, hb))
+        ys.append(y + torch.exp(L.float())[..., None] * inter)
+        w = torch.exp((L[:, -1:] - L).float())  # (B, Q, H)
+        wb, ws = _split(w[..., None] * xq)
+        h = h * torch.exp(L[:, -1].float())[..., None, None] + sum(
+            torch.einsum("bjhn,bjhp->bhnp", bq, a) for a in (ws, wb))
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
+def test_ssd_split_tf32_chunk_form_stays_near_fp64(rng):
+    """At full width and a short sequence (B1 S512 H32 P64 G1 N128, B and C of
+    bf16 values) the split-TF32 form stays within half the 2e-4 tolerance of
+    the exact recurrence in fp64, in y and in the final state."""
+    x, log_dA, Bm, Cm = _ssd_inputs(rng, (1, 512, 32, 64, 1, 128, 64), "bfloat16")
+    assert _tf32(torch.tensor([1.0 + 2.0**-11, -(1.0 + 3 * 2.0**-11)])).tolist() == [
+        1.0 + 2.0**-10, -(1.0 + 2 * 2.0**-10)]  # ties away from zero
+    y, h = _ssd_split_tf32(x, log_dA, Bm, Cm)
+    ye, he = ref.ssd_ref(*(t.double() for t in (x, log_dA, Bm, Cm)))
+    for out, exp in ((y, ye), (h, he)):
+        dist = ((out.double() - exp).abs() / (SSD_TOL + SSD_TOL * exp.abs())).max()
+        assert dist <= 0.5, float(dist)
+    # a single TF32 product (no split) of the same operands is far outside it
+    one = torch.einsum("bjhn,bjhp->bhnp", Bm.float(), _tf32(x))
+    exact = torch.einsum("bjhn,bjhp->bhnp", Bm.double(), x.double())
+    assert ((one.double() - exact).abs() / (SSD_TOL + SSD_TOL * exact.abs())).max() > 1
 
 
 @pytest.mark.parametrize("split", range(1, 9))
@@ -572,12 +689,14 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ops.decode_attention(q[:, :, 0], q.transpose(1, 2), q.transpose(1, 2), 2)
 
 
-def _on_card_ssd(case, bc_dtype, rng, device):
+def _on_card_ssd(case, bc_dtype, rng, device, variant=None):
     x, log_dA, Bm, Cm = _ssd_inputs(rng, case, bc_dtype, device)
-    n = ssd_mod.launches
+    n, before = ssd_mod.launches, dict(ssd_mod.variant_launches)
     y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=case[-1])
     torch.cuda.synchronize()
     assert ssd_mod.launches == n + 1
+    if variant is not None:
+        assert ssd_mod.variant_launches[variant] == before[variant] + 1
     assert y.dtype == h.dtype == torch.float32 and y.shape == x.shape
     assert torch.isfinite(y).all() and torch.isfinite(h).all()
     for exp in (ref.ssd_ref(x, log_dA, Bm, Cm), ssd_chunked(x, log_dA, Bm, Cm, case[-1])):
@@ -593,6 +712,42 @@ def test_ssd_scan_kernel_matches_plain(case, bc_dtype, rng, cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", TC_SSD)
+def test_ssd_scan_tensor_core_kernel_matches_plain(case, rng, cuda):
+    """bf16 B and C of these widths take the tensor-core kernel (held to
+    ``ssd_ref`` and to ``ssd_chunked`` at the kernel's 64-row chunk)."""
+    x, log_dA, Bm, Cm = _ssd_inputs(rng, case, "bfloat16", cuda)
+    n = ssd_mod.variant_launches[ssd_mod.TENSOR_CORE]
+    y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=case[-1])
+    torch.cuda.synchronize()
+    assert ssd_mod.variant_launches[ssd_mod.TENSOR_CORE] == n + 1
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    for exp in (ref.ssd_ref(x, log_dA, Bm, Cm), ssd_chunked(x, log_dA, Bm, Cm, ssd_mod.ROWS)):
+        _ssd_close(y, exp[0])
+        _ssd_close(h, exp[1])
+
+
+@pytest.mark.gpu
+def test_ssd_scan_plan_on_the_card(rng, cuda):
+    """Per-kernel launch counts: the slice's bf16 views take the tensor-core
+    kernel; fp32 B and C and views that start off 16 bytes take the generic one."""
+    B, S, H, P, G, N = 2, 200, 32, 64, 1, 128
+    x = _t(_np(rng, B, S, H, P), "float32", cuda)
+    log_dA = _t(-np.abs(_np(rng, B, S, H)) * 0.1, "float32", cuda)
+    bc = _t(_np(rng, B, S, 2 * G * N + 8), "bfloat16", cuda)  # rows of 2GN + 8: 16-byte strides
+    for v, variant in [(bc[..., : 2 * G * N], ssd_mod.TENSOR_CORE), (bc[..., : 2 * G * N].float(), ssd_mod.GENERIC),
+                       (bc[..., 1 : 2 * G * N + 1], ssd_mod.GENERIC)]:
+        Bm, Cm = v[..., : G * N].reshape(B, S, G, N), v[..., G * N :].reshape(B, S, G, N)
+        ops.reset_launch_counts()
+        y, h = ops.ssd_scan(x, log_dA, Bm, Cm)
+        assert ssd_mod.variant_launches == {k: int(k == variant) for k in ssd_mod.variant_launches}
+        assert ops.launch_counts()["ssd_scan"] == 1
+        ye, he = ref.ssd_ref(x, log_dA, Bm, Cm)
+        _ssd_close(y, ye)
+        _ssd_close(h, he)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", SLICE_SSD)
 def test_ssd_scan_kernel_matches_plain_at_the_slice(case, rng, cuda):
     """At the mamba2-370m prefill shape the plain version at the model's
@@ -602,10 +757,11 @@ def test_ssd_scan_kernel_matches_plain_at_the_slice(case, rng, cuda):
     so the kernel is held to ``ssd_ref`` and to ``ssd_chunked`` at the
     kernel's own chunk length (``chip_smoke.py`` prints the 256-row distances)."""
     x, log_dA, Bm, Cm = _ssd_inputs(rng, case, "bfloat16", cuda)
-    n = ssd_mod.launches
+    n, tc = ssd_mod.launches, ssd_mod.variant_launches[ssd_mod.TENSOR_CORE]
     y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=case[-1])
     torch.cuda.synchronize()
     assert ssd_mod.launches == n + 1
+    assert ssd_mod.variant_launches[ssd_mod.TENSOR_CORE] == tc + 1
     for exp in (ref.ssd_ref(x, log_dA, Bm, Cm), ssd_chunked(x, log_dA, Bm, Cm, ssd_mod.ROWS)):
         _ssd_close(y, exp[0])
         _ssd_close(h, exp[1])
@@ -620,7 +776,9 @@ def test_ssd_scan_kernel_reads_strided_views(rng, cuda):
     bc = _t(_np(rng, B, S, 2 * G * N), "bfloat16", cuda)
     Bm, Cm = bc[..., : G * N].reshape(B, S, G, N), bc[..., G * N :].reshape(B, S, G, N)
     assert not Bm.is_contiguous()
+    n = ssd_mod.variant_launches[ssd_mod.TENSOR_CORE]
     y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=256)
+    assert ssd_mod.variant_launches[ssd_mod.TENSOR_CORE] == n + 1
     ye, he = ref.ssd_ref(x, log_dA, Bm, Cm)
     _ssd_close(y, ye)
     _ssd_close(h, he)
@@ -633,7 +791,9 @@ def test_ssd_scan_kernel_survives_steep_decay(rng, cuda):
     case = (1, 512, 4, 64, 1, 128, 256)
     x, _, Bm, Cm = _ssd_inputs(rng, case, "bfloat16", cuda)
     log_dA = _t(-4 * np.abs(_np(rng, 1, 512, 4)) - 1, "float32", cuda)
+    n = ssd_mod.variant_launches[ssd_mod.TENSOR_CORE]
     y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=256)
+    assert ssd_mod.variant_launches[ssd_mod.TENSOR_CORE] == n + 1
     assert torch.isfinite(y).all() and torch.isfinite(h).all()
     ye, he = ref.ssd_ref(x, log_dA, Bm, Cm)
     _ssd_close(y, ye)
@@ -655,3 +815,15 @@ def test_ssd_scan_wrapper_raises_instead_of_falling_back(rng, cuda):
     with pytest.raises(RuntimeError, match="ssd_scan kernel launch failed"):
         ops.ssd_scan(*big)
     _on_card_ssd((1, 64, 2, 16, 1, 8, 16), "float32", rng, cuda)  # the refused launch left no error behind
+
+
+@pytest.mark.gpu
+def test_ssd_scan_bf16_state_past_shared_memory_raises(rng, cuda):
+    """bf16 N 256 x P 128: past the tensor-core kernel's shared memory, so the
+    plan gives it to the generic kernel, whose launch is refused too."""
+    case = (1, 64, 2, 128, 1, 256, 16)
+    assert ssd_mod.plan(torch.bfloat16, 256, 128, True) == ssd_mod.GENERIC
+    big = _ssd_inputs(rng, case, "bfloat16", cuda)
+    with pytest.raises(RuntimeError, match="ssd_scan kernel launch failed"):
+        ops.ssd_scan(*big)
+    _on_card_ssd(TC_SSD[0], "bfloat16", rng, cuda, ssd_mod.TENSOR_CORE)  # no error left behind
