@@ -8,7 +8,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 2. kernels: every hand-written CUDA kernel of the serve paths held against its
    plain PyTorch version on the card (bf16 2e-2, fp32 2e-5, SSD scan 2e-4, the
    tolerances of the JAX package's kernel tests), at the serve slices' shapes,
-   the kernel-test sweeps and ragged edges; then timed at the slices' shapes
+   the kernel-test sweeps and ragged edges (the SSD scan's two kernels also
+   under steep decay at the slice, against the recurrence in fp32 and in
+   fp64); then timed at the slices' shapes
    with CUDA events beside its plain version, one PyTorch library call where
    one computes the same function, and its bound;
 3. minitron-8b at full width and depth (seeded random weights) served
@@ -329,7 +331,7 @@ def check_ssd(gen) -> float:
         (1, 256, 4, 32, 1, 16, 64, torch.float32, generic),
         (1, 128, 8, 64, 1, 16, 128, torch.float32, generic),
         (2, 100, 4, 16, 2, 8, 32, torch.float32, generic),  # ragged
-        (1, 256, 4, 32, 1, 16, 64, torch.bfloat16, generic),  # N 16: below the tensor-core kernel
+        (1, 256, 4, 32, 1, 16, 64, torch.bfloat16, tc),  # the sweep's N 16 in bf16
         (MB_B, 40, SSD_H, SSD_P, SSD_G, SSD_N, SSD_CHUNK, torch.bfloat16, tc),  # S < chunk, full width
         (MB_B, 40, SSD_H, SSD_P, SSD_G, SSD_N, SSD_CHUNK, torch.float32, generic),
         # the tensor-core kernel: one chunk, one row past it, 3 heads, two groups,
@@ -384,6 +386,23 @@ def check_ssd(gen) -> float:
               f"kernel~ssd_ref {ssd_distance(y, yr):.3f} {ssd_distance(h, hr):.3f}, "
               f"kernel~ssd_chunked({SSD_ROWS}) {ssd_distance(y, yc):.3f} {ssd_distance(h, hc):.3f}; "
               f"not gated, from ssd_ref in fp64: {f64}")
+
+    # Steep decay at the slice, both kernels: log_dA = -4 |normal| - 1, so L
+    # falls by ~270 within a 64-row chunk. Gated against ssd_ref in fp32 and
+    # in fp64 (the plain chunked form, which sums L in fp32, is not: it reads
+    # about 1 of the tolerance from fp64 here).
+    for dt, want in ((torch.bfloat16, ssd_mod.TENSOR_CORE), (torch.float32, ssd_mod.GENERIC)):
+        x, _, Bm, Cm = ssd_inputs(gen, MB_B, MB_PROMPT, SSD_H, SSD_P, SSD_G, SSD_N, bc_dtype=dt)
+        args = (x, -randn(gen, MB_B, MB_PROMPT, SSD_H, dtype=torch.float32).abs() * 4 - 1, Bm, Cm)
+        (y, h), variant = ssd_variant(lambda: ops.ssd_scan(*args, chunk=SSD_CHUNK))
+        require(variant == want, f"the steep-decay slice in {dt} took the {variant} kernel, not {want}")
+        yr, hr = ref.ssd_ref(*args)
+        y64, h64 = ref.ssd_ref(*(t.double() for t in args))
+        for out, exp in ((y, yr), (h, hr), (y, y64.float()), (h, h64.float())):
+            max_abs_err(out, exp, torch.float32, SSD_TOL)
+        print(f"check ssd_scan {str(dt)[6:]} B/C slice, steep decay ({variant}): distance / 2e-4 tolerance "
+              f"(y, h), gated: from ssd_ref {ssd_distance(y, yr):.3f} {ssd_distance(h, hr):.3f}, "
+              f"from ssd_ref in fp64 {ssd_distance(y, y64):.3f} {ssd_distance(h, h64):.3f}")
     return worst
 
 

@@ -46,6 +46,8 @@ _SIGNATURES = {
     "repro_decode_attention": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp),
     # x, log_dA, Bm, Cm, y, h, strides[15], B, S, H, G, N, P, dtype, variant, stream
     "repro_ssd_scan": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp),
+    # N, P -> bytes of shared memory of the tensor-core ssd_scan kernel
+    "repro_ssd_scan_tc_smem": (_i, _i),
 }
 
 

@@ -44,11 +44,11 @@
 // (PERF.md): each warp loads and splits every fragment it uses, and that work,
 // not the tensor cores, sets the pace.
 //
-// ssd_scan_kernel (any other B/C: fp32, small or odd N and P, unaligned
-// views): the first design, fp32 throughout on the CUDA cores in 4 x 4
-// register tiles from float4 shared-memory reads, with C, B (twice:
-// transposed for C B^T, row-major for B^T x), x, G and h in 161 KB of shared
-// memory at N = 128, P = 64. Bound: fp32 operations.
+// ssd_scan_kernel (any other B/C: fp32, odd N and P, unaligned views): the
+// first design, fp32 on the CUDA cores in 4 x 4 register tiles from float4
+// shared-memory reads, with C, B (twice: transposed for C B^T, row-major for
+// B^T x), x, G and h in 161 KB of shared memory at N = 128, P = 64; L summed
+// in fp64, as in the tensor-core kernel. Bound: fp32 operations.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -72,10 +72,11 @@ struct SsdArgs {
 
 // ---------------------------------------------------------------- generic variant
 
-// Floats of shared memory: h, C^T, B^T, B, x, G^T, then L, exp(L_last - L), exp(L).
+// Floats of shared memory: h, C^T, B^T, B, x, G^T, then L (fp64, two floats a
+// row), exp(L_last - L), exp(L).
 inline size_t smem_floats(int N, int P) {
   return static_cast<size_t>(N) * P + 3 * static_cast<size_t>(N) * kT +
-         static_cast<size_t>(kT) * P + kT * kT + 3 * kT;
+         static_cast<size_t>(kT) * P + kT * kT + 4 * kT;
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
@@ -94,8 +95,8 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(SsdArgs p) {
   float* Bs = Bt + N * kT;     // [kT][N]
   float* xs = Bs + kT * N;     // [kT][P]
   float* Gt = xs + kT * P;     // [kT][kT], Gt[j][i] = G[i][j]
-  float* Ls = Gt + kT * kT;    // [kT]
-  float* Ws = Ls + kT;         // [kT] exp(L_last - L_t)
+  double* Ls = reinterpret_cast<double*>(Gt + kT * kT);  // [kT], on 16 bytes
+  float* Ws = reinterpret_cast<float*>(Ls + kT);         // [kT] exp(L_last - L_t)
   float* Es = Ws + kT;         // [kT] exp(L_t)
 
   const int tid = threadIdx.x;
@@ -132,24 +133,24 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(SsdArgs p) {
       const int t = i / N, n = i - t * N;
       Bs[i] = t < valid ? to_float(bb[(t0 + t) * p.sb[1] + n * p.sb[3]]) : 0.f;
     }
-    if (tid < 32) {  // L = inclusive cumsum of a over the chunk, two rows per lane
+    if (tid < 32) {  // L = inclusive cumsum of a over the chunk, two rows per lane, in fp64
       const int r = 2 * tid;
-      const float a0 = r < valid ? ab[(t0 + r) * p.sa[1]] : 0.f;
-      const float a1 = r + 1 < valid ? ab[(t0 + r + 1) * p.sa[1]] : 0.f;
-      float s = a0 + a1;
+      const double a0 = r < valid ? ab[(t0 + r) * p.sa[1]] : 0.f;
+      const double a1 = r + 1 < valid ? ab[(t0 + r + 1) * p.sa[1]] : 0.f;
+      double s = a0 + a1;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
-        const float v = __shfl_up_sync(kFullMask, s, o);
+        const double v = __shfl_up_sync(kFullMask, s, o);
         if (tid >= o) s += v;
       }
-      const float l0 = s - a1, l1 = s;
-      const float last = __shfl_sync(kFullMask, s, 31);
+      const double l0 = s - a1, l1 = s;
+      const double last = __shfl_sync(kFullMask, s, 31);
       Ls[r] = l0;
       Ls[r + 1] = l1;
-      Ws[r] = expf(last - l0);
-      Ws[r + 1] = expf(last - l1);
-      Es[r] = expf(l0);
-      Es[r + 1] = expf(l1);
+      Ws[r] = expf(static_cast<float>(last - l0));
+      Ws[r + 1] = expf(static_cast<float>(last - l1));
+      Es[r] = expf(static_cast<float>(l0));
+      Es[r + 1] = expf(static_cast<float>(l1));
     }
     __syncthreads();
 
@@ -174,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(SsdArgs p) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int i = 4 * ti + r;
-          out[r] = i >= j ? acc[r][q] * expf(Ls[i] - Ls[j]) : 0.f;  // mask, then exp
+          out[r] = i >= j ? acc[r][q] * expf(static_cast<float>(Ls[i] - Ls[j])) : 0.f;  // mask, then exp
         }
         st4(Gt + j * kT + 4 * ti, make_float4(out[0], out[1], out[2], out[3]));
       }
@@ -218,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(SsdArgs p) {
     __syncthreads();  // every read of the old state is done
 
     // ---- h = exp(L_last) h + (B * exp(L_last - L))^T x ----
-    const float decay = expf(Ls[kT - 1]);  // rows past S add 0 to L
+    const float decay = expf(static_cast<float>(Ls[kT - 1]));  // rows past S add 0 to L
     for (int item = tid; item < N4 * P4; item += kThreads) {
       const int tn = item / P4, tp = item % P4;
       float acc[4][4] = {};
@@ -259,7 +260,7 @@ constexpr int kSTilesPerWarp = (kSTiles + kTcWarps - 1) / kTcWarps;
 // (x [kT][P+4] fp32, B and C [kT][N+8] bf16, a [kT] fp32), then the state h
 // [N][P+4] fp32; the TF32 parts of G [kT][kGStride] (big, then small); C h
 // [kT][P+4] fp32; each warp's L [kT] fp64; exp(L_last - L) and exp(L) [kT] fp32.
-// kernels/ssd_scan.py::tc_smem_bytes repeats `total`.
+// repro_ssd_scan_tc_smem reports `total` to kernels/ssd_scan.py::plan.
 struct TcLayout {
   int xs, bs, cs, as, stage, h, g, gs, ch, l, w, e, total;
 };
@@ -689,27 +690,18 @@ int launch_tc(const SsdArgs& args, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// What the tensor-core variant reads with 16-byte copies: a contiguous last
-// dim, 16-byte aligned starts and row strides.
-bool tc_operands_fit(const SsdArgs& a) {
-  const auto aligned = [](const void* ptr, const long long* s, int lead, long long mult) {
-    if (reinterpret_cast<uintptr_t>(ptr) % 16 || s[lead] != 1) return false;
-    for (int i = 0; i < lead; ++i)
-      if (s[i] % mult) return false;
-    return true;
-  };
-  return a.N % 16 == 0 && a.P % 8 == 0 && aligned(a.x, a.sx, 3, 4) && aligned(a.b, a.sb, 3, 8) &&
-         aligned(a.c, a.sc, 3, 8);
-}
-
 }  // namespace
 }  // namespace kern
+
+// Bytes of shared memory the tensor-core kernel takes at an N x P state.
+extern "C" int repro_ssd_scan_tc_smem(int N, int P) { return kern::tc_layout(N, P).total; }
 
 // x (B,S,H,P) and log_dA (B,S,H) fp32, Bm and Cm (B,S,G,N) of `dtype`, all read
 // through `strides` (15 element strides: x 4, log_dA 3, Bm 4, Cm 4); y (B,S,H,P)
 // and h (B,H,N,P) fp32 contiguous. N and P multiples of 4, H a multiple of G.
-// `variant` 0: the generic kernel; 1: the tensor-core kernel, which takes bf16
-// B and C, N a multiple of 16, P of 8, and 16-byte aligned rows.
+// `variant` 0: the generic kernel; 1: the tensor-core kernel, for bf16 B and C
+// where kernels/ssd_scan.py::plan allows it (N a multiple of 16, P of 8,
+// 16-byte aligned rows; more shared memory than a block may have is refused).
 extern "C" int repro_ssd_scan(const void* x, const void* log_dA, const void* bm, const void* cm,
                               void* y, void* h, const long long* strides, int B, int S, int H,
                               int G, int N, int P, int dtype, int variant, void* stream) {
@@ -733,7 +725,7 @@ extern "C" int repro_ssd_scan(const void* x, const void* log_dA, const void* bm,
   args.P = P;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
-    if (dtype != kern::kBFloat16 || !kern::tc_operands_fit(args)) return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype != kern::kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
     if (N % 32 == 0 && P % 32 == 0) return kern::launch_tc<2, 2, 4>(args, B, st);
     return kern::launch_tc<1, 1, 1>(args, B, st);
   }

@@ -6,13 +6,13 @@ sequence in 64-row chunks with the fp32 state in shared memory; the last
 partial chunk is masked inside the kernel, so a ragged S needs no padded
 copy, and B and C are read through their strides, so the model's views of
 its conv output are not copied. ``plan`` picks the kernel. bf16 B and C with
-N and P of at least 32, N a multiple of 16, P of 8, 16-byte aligned rows and
-a layout that fits shared memory go to the tensor-core kernel: the chunk
+N a multiple of 16, P of 8, 16-byte aligned rows and a layout that fits
+shared memory go to the tensor-core kernel: the chunk
 products as ``mma.sync``, C B^T in bf16 and the fp32 operands split into two
 TF32 parts each (to fp32 accuracy), the next chunk loaded by ``cp.async``
 while this one computes. At the mamba2-370m prefill (B4 S2000 H32 P64 G1
 N128) it is bound by bytes, ~140 MB (0.042 ms at 3.35 TB/s). Every other
-shape (fp32 B/C, small or odd N and P, unaligned views) goes to the generic
+shape (fp32 B/C, odd N and P, unaligned views) goes to the generic
 kernel, fp32 on the CUDA cores (PERF.md). A CPU tensor goes to the plain
 version, ``kernels.ref.ssd_chunked``; a CUDA tensor launches a kernel or
 raises.
@@ -34,28 +34,16 @@ _VARIANT_CODES = {GENERIC: 0, TENSOR_CORE: 1}  # the launcher's `variant`
 
 ROWS = 64  # rows per chunk inside the kernels (csrc/ssd_scan.cu kT)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt in to on the H100
-# A smaller state leaves most of the tensor-core kernel's 8 warps without a
-# tile (the sweep's N 8 and 16, P 16); the generic kernel takes it.
-TC_MIN_WIDTH = 32
 
 
-def tc_smem_bytes(N: int, P: int) -> int:
-    """Shared memory of the tensor-core kernel (csrc/ssd_scan.cu ``tc_layout``):
-    two stages of x (rows of P + 4 fp32), B and C (N + 8 bf16) and a, then the
-    state (N rows of P + 4 fp32), the two TF32 parts of G (64 rows of 72), C h
-    (64 rows of P + 4 fp32), each of the 8 warps' L (64 fp64) and two more
-    64-row vectors (fp32)."""
-    stage = ROWS * (P + 4) * 4 + 2 * ROWS * (N + 8) * 2 + ROWS * 4
-    return (2 * stage + N * (P + 4) * 4 + 2 * ROWS * (ROWS + 8) * 4 + ROWS * (P + 4) * 4
-            + 8 * ROWS * 8 + 2 * ROWS * 4)
-
-
-def plan(bc_dtype: torch.dtype, N: int, P: int, aligned: bool) -> str:
-    """The kernel for B and C of ``bc_dtype`` and an N x P state; ``aligned``
+def plan(bc_dtype: torch.dtype, N: int, P: int, aligned: bool, tc_smem: int) -> str:
+    """The kernel for B and C of ``bc_dtype`` and an N x P state. ``aligned``
     says that x, B and C have a contiguous last dim and 16-byte aligned starts
-    and strides (the tensor-core kernel copies 16-byte pieces of rows)."""
+    and strides (the tensor-core kernel copies 16-byte pieces of rows);
+    ``tc_smem`` is the tensor-core kernel's shared memory at this N x P, as
+    the kernel library reports it (``repro_ssd_scan_tc_smem``)."""
     if (bc_dtype == torch.bfloat16 and aligned and N % 16 == 0 and P % 8 == 0
-            and min(N, P) >= TC_MIN_WIDTH and tc_smem_bytes(N, P) <= SMEM_LIMIT):
+            and tc_smem <= SMEM_LIMIT):
         return TENSOR_CORE
     return GENERIC
 
@@ -111,8 +99,9 @@ def ssd_scan(
         h.zero_()
         return y, h
     strides = _build.strides_array([*x.stride(), *log_dA.stride(), *Bm.stride(), *Cm.stride()])
-    variant = plan(Bm.dtype, N, P, all(rows_aligned(t) for t in (x, Bm, Cm)))
     lib = _build.library()
+    aligned = all(rows_aligned(t) for t in (x, Bm, Cm))
+    variant = plan(Bm.dtype, N, P, aligned, lib.repro_ssd_scan_tc_smem(N, P))
     code = lib.repro_ssd_scan(
         x.data_ptr(), log_dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), h.data_ptr(),
         strides, B, S, H, G, N, P, _build.DTYPE_CODES[Bm.dtype], _VARIANT_CODES[variant],

@@ -301,36 +301,41 @@ def _ssd_model_views(B, S, G, N, dtype=torch.bfloat16, offset=0):
     return bc[..., : G * N].reshape(B, S, G, N), bc[..., G * N:].reshape(B, S, G, N)
 
 
+FITS = 198656  # the tensor-core kernel's shared memory at N 128, P 64 (the card's test checks it)
+
+
 def test_ssd_plan_takes_the_tensor_core_kernel_at_the_slice():
     """The mamba2-370m prefill (B4 S2000 H32 P64 G1 N128), bf16 B and C as the
-    model's views of its conv output: the tensor-core kernel."""
+    model's views of its conv output: the tensor-core kernel; and every other
+    bf16 width it tiles, the sweep's N 16 among them."""
     x = torch.zeros(4, 2000, 32, 64)
     Bm, Cm = _ssd_model_views(4, 2000, 1, 128)
     assert all(ssd_mod.rows_aligned(t) for t in (x, Bm, Cm))
-    assert ssd_mod.plan(Bm.dtype, 128, 64, True) == ssd_mod.TENSOR_CORE
-    assert ssd_mod.tc_smem_bytes(128, 64) == 198656 <= ssd_mod.SMEM_LIMIT
-    for n, p in [(32, 32), (48, 40), (32, 64), (64, 64), (64, 128), (160, 48)]:  # the kernel's two tilings
-        assert ssd_mod.plan(torch.bfloat16, n, p, True) == ssd_mod.TENSOR_CORE
+    assert ssd_mod.plan(Bm.dtype, 128, 64, True, FITS) == ssd_mod.TENSOR_CORE
+    assert ssd_mod.plan(Bm.dtype, 128, 64, True, ssd_mod.SMEM_LIMIT) == ssd_mod.TENSOR_CORE
+    for n, p in [(16, 16), (16, 32), (16, 64), (32, 32), (48, 40), (32, 64), (64, 64), (64, 128), (160, 48)]:
+        assert ssd_mod.plan(torch.bfloat16, n, p, True, FITS) == ssd_mod.TENSOR_CORE
 
 
-@pytest.mark.parametrize("dtype,N,P,aligned", [
-    (torch.float32, 128, 64, True),  # fp32 B/C (the fp32-weight serve run)
-    (torch.bfloat16, 8, 16, True), (torch.bfloat16, 16, 16, True),  # the sweep's widths
-    (torch.bfloat16, 16, 32, True), (torch.bfloat16, 16, 64, True),
-    (torch.bfloat16, 40, 64, True), (torch.bfloat16, 136, 64, True),  # N not a multiple of 16
-    (torch.bfloat16, 128, 36, True),  # P not a multiple of 8
-    (torch.bfloat16, 128, 64, False),  # rows off 16 bytes
-    (torch.bfloat16, 128, 128, True), (torch.bfloat16, 256, 128, True),  # past shared memory
+@pytest.mark.parametrize("dtype,N,P,aligned,smem", [
+    (torch.float32, 128, 64, True, FITS),  # fp32 B/C (the fp32-weight serve run)
+    (torch.bfloat16, 8, 16, True, FITS), (torch.bfloat16, 8, 64, True, FITS),  # the sweep's N 8
+    (torch.bfloat16, 24, 32, True, FITS), (torch.bfloat16, 4, 16, True, FITS),  # N not a multiple of 16
+    (torch.bfloat16, 40, 64, True, FITS), (torch.bfloat16, 136, 64, True, FITS),
+    (torch.bfloat16, 128, 36, True, FITS),  # P not a multiple of 8
+    (torch.bfloat16, 128, 64, False, FITS),  # rows off 16 bytes
+    (torch.bfloat16, 128, 64, True, ssd_mod.SMEM_LIMIT + 1),  # past shared memory
+    (torch.bfloat16, 256, 128, True, 2 * ssd_mod.SMEM_LIMIT),
 ])
-def test_ssd_plan_takes_the_generic_kernel(dtype, N, P, aligned):
-    assert ssd_mod.plan(dtype, N, P, aligned) == ssd_mod.GENERIC
+def test_ssd_plan_takes_the_generic_kernel(dtype, N, P, aligned, smem):
+    assert ssd_mod.plan(dtype, N, P, aligned, smem) == ssd_mod.GENERIC
 
 
 def test_ssd_rows_aligned_rejects_unaligned_views():
     Bm, Cm = _ssd_model_views(2, 70, 1, 128, offset=1)  # bc[..., 1:]: starts 2 bytes past 16
     assert not ssd_mod.rows_aligned(Bm) and not ssd_mod.rows_aligned(Cm)
     Bm, _ = _ssd_model_views(2, 70, 1, 132)  # a row stride of 264 bf16, but N = 132
-    assert ssd_mod.plan(Bm.dtype, 132, 64, ssd_mod.rows_aligned(Bm)) == ssd_mod.GENERIC
+    assert ssd_mod.plan(Bm.dtype, 132, 64, ssd_mod.rows_aligned(Bm), FITS) == ssd_mod.GENERIC
     Bm = torch.zeros(2, 70, 1, 260, dtype=torch.bfloat16)[..., :128]  # a row stride of 260
     assert not ssd_mod.rows_aligned(Bm)
     assert not ssd_mod.rows_aligned(torch.zeros(2, 70, 4, 64).transpose(2, 3))  # last dim strided
@@ -785,19 +790,23 @@ def test_ssd_scan_kernel_reads_strided_views(rng, cuda):
 
 
 @pytest.mark.gpu
-def test_ssd_scan_kernel_survives_steep_decay(rng, cuda):
-    """L falls to about -1000 within a chunk (the random-weight model's decay):
-    every exponent is of a difference <= 0, so nothing overflows."""
-    case = (1, 512, 4, 64, 1, 128, 256)
-    x, _, Bm, Cm = _ssd_inputs(rng, case, "bfloat16", cuda)
-    log_dA = _t(-4 * np.abs(_np(rng, 1, 512, 4)) - 1, "float32", cuda)
-    n = ssd_mod.variant_launches[ssd_mod.TENSOR_CORE]
+@pytest.mark.parametrize("case", [(1, 512, 4, 64, 1, 128, 256)] + SLICE_SSD)
+@pytest.mark.parametrize("bc_dtype,variant", [("bfloat16", ssd_mod.TENSOR_CORE), ("float32", ssd_mod.GENERIC)])
+def test_ssd_scan_kernel_survives_steep_decay(case, bc_dtype, variant, rng, cuda):
+    """L falls by ~270 within a 64-row chunk (the random-weight model's
+    decay): every exponent is of a difference <= 0, so nothing overflows, and
+    both kernels sum L in fp64, so the gates keep fp32 accuracy (held to the
+    recurrence in fp32 and in fp64)."""
+    B, S, H = case[:3]
+    x, _, Bm, Cm = _ssd_inputs(rng, case, bc_dtype, cuda)
+    log_dA = _t(-4 * np.abs(_np(rng, B, S, H)) - 1, "float32", cuda)
+    n = ssd_mod.variant_launches[variant]
     y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=256)
-    assert ssd_mod.variant_launches[ssd_mod.TENSOR_CORE] == n + 1
+    assert ssd_mod.variant_launches[variant] == n + 1
     assert torch.isfinite(y).all() and torch.isfinite(h).all()
-    ye, he = ref.ssd_ref(x, log_dA, Bm, Cm)
-    _ssd_close(y, ye)
-    _ssd_close(h, he)
+    for ye, he in (ref.ssd_ref(x, log_dA, Bm, Cm), ref.ssd_ref(*(t.double() for t in (x, log_dA, Bm, Cm)))):
+        _ssd_close(y, ye)
+        _ssd_close(h, he)
 
 
 @pytest.mark.gpu
@@ -822,7 +831,9 @@ def test_ssd_scan_bf16_state_past_shared_memory_raises(rng, cuda):
     """bf16 N 256 x P 128: past the tensor-core kernel's shared memory, so the
     plan gives it to the generic kernel, whose launch is refused too."""
     case = (1, 64, 2, 128, 1, 256, 16)
-    assert ssd_mod.plan(torch.bfloat16, 256, 128, True) == ssd_mod.GENERIC
+    smem = _build.library().repro_ssd_scan_tc_smem
+    assert smem(128, 64) == FITS <= ssd_mod.SMEM_LIMIT < smem(128, 128) < smem(256, 128)
+    assert ssd_mod.plan(torch.bfloat16, 256, 128, True, smem(256, 128)) == ssd_mod.GENERIC
     big = _ssd_inputs(rng, case, "bfloat16", cuda)
     with pytest.raises(RuntimeError, match="ssd_scan kernel launch failed"):
         ops.ssd_scan(*big)
