@@ -32,7 +32,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
    1e-4 relative L2 of the plain path's at every step (in fp32 the two differ
    only in the order of sums); in bf16 the kernel path may be at most 1.25
    times as far from the fp32 plain run as the plain bf16 path;
-5. launcher: ``launch/serve.py``'s command line at each model phase's sizes.
+5. launcher: ``launch/serve.py``'s command line at each model phase's sizes;
+6. training kernels: the three kernels of the training forward pass timed at
+   its shapes (internvl2-2b's rmsnorm and flash_attention, mamba2-370m's
+   rmsnorm and ssd_scan) beside the plain version, the library call and the
+   bound, and each autograd Function's plain backward pass timed at the same
+   shapes;
+7. internvl2-2b (its 256 frontend positions fed the trainer's seeded stand-in
+   embeddings) and mamba2-370m
+   trained at full width and depth, bf16, batch 4 x 2048 tokens from
+   ``SyntheticPipeline``, AdamW at its defaults and a constant 3e-4:
+   - a gate on one batch from the seeded weights: the per-token losses and
+     the whole gradient through the kernels, through the plain versions in
+     bf16 and in fp32 (the same weights widened); the kernel path may be at
+     most 1.25 times as far (relative L2) from fp32 as the plain bf16 path,
+     and in fp32 within 1e-4 (2e-4 for mamba) of the plain path (the mean
+     loss's distances are printed, not gated: see ``loss_gate``);
+   - 20 steps through ``make_train_bundle`` and ``Trainer`` with the kernels
+     (the main path: the launches of every step counted and asserted, per
+     layer two rmsnorms and one flash_attention or ssd_scan in the forward
+     pass and again in its recompute, and the final norm), then the same 20
+     steps through the plain versions from the same weights and batches: the
+     kernel run's losses finite and falling, each step's gap to the plain run;
+   - step time, peak memory and energy per step (``nvidia-smi``'s power
+     draw, sampled through the run) against the 8 N T bound, and a profile
+     of one step;
+8. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
+   checkpointing under ``build/`` and restarting from it.
 
 ``--seed`` (default 0) draws other weights and prompts for the model phases.
 
@@ -46,14 +72,18 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -62,11 +92,18 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticPipeline  # noqa: E402
+from repro_torch.kernels import _build, autograd, ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.ssd_scan import ROWS as SSD_ROWS  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.train.steps import make_serve_bundle  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.models.factory import build_model  # noqa: E402
+from repro_torch.optim.adamw import clip_by_global_norm  # noqa: E402
+from repro_torch.optim.schedules import constant  # noqa: E402
+from repro_torch.train.steps import loss_and_grads, loss_of, make_serve_bundle, make_train_bundle  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig, frontend_embeds  # noqa: E402
+from repro_torch.tree import leaves, tree_map  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense): the bound of every kernel is the larger of
 # bytes / HBM rate and operations / peak rate for their type, at 700 W.
@@ -96,6 +133,14 @@ MB_ARCH, MB_B, MB_PROMPT, MB_STEPS = "mamba2-370m", 4, 2000, 32
 SSD_H, SSD_P, SSD_G, SSD_N, SSD_CHUNK = 32, 64, 1, 128, 256
 SSD_TOL = 2e-4  # tests/test_kernels.py::test_ssd_scan
 FP32_LOGIT_RTOL = 1e-4
+
+# The training cells: batch 4 x 2048 tokens, bf16, AdamW's defaults, a
+# constant rate at the reference's peak (its default schedule warms up over
+# 100 steps, under which 20 steps would barely move the loss).
+TRAIN_ARCHS = ("internvl2-2b", "mamba2-370m")
+TR_B, TR_SEQ, TR_STEPS, TR_LR = 4, 2048, 20, 3e-4
+FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL}
+TRAIN_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train_ckpt")
 
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:44"),
@@ -735,6 +780,385 @@ def _tensors(tree):
         yield from (_tensors(v) if isinstance(v, dict) else (v,))
 
 
+# ---------------------------------------------------------------------------- training
+
+
+def time_backward(gen, fn, inputs, iters: int = 10) -> float:
+    """Mean ms of the backward pass of ``fn`` (an autograd Function's output
+    from inputs that require grad), CUDA events over ``iters`` passes of one
+    retained graph."""
+    out = fn(*inputs)
+    dout = randn(gen, *out.shape, dtype=out.dtype)
+    return time_ms(lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True), [()], iters)
+
+
+def time_train_kernels(gen) -> dict:
+    """The training forward's kernels at the training shapes, bf16, as
+    ``time_kernels`` times the serve shapes; and each Function's plain
+    backward pass at the same shapes (``bwd_ms``)."""
+    bf, rows = torch.bfloat16, TR_B * TR_SEQ
+    out = {}
+    for d in (2048, 1024):  # internvl2-2b's d_model (and mamba2-370m's d_inner), mamba2-370m's d_model
+        t = time_rmsnorm(gen, rows, d)
+        x, scale = randn(gen, rows, d).requires_grad_(), randn(gen, d, dtype=torch.float32).requires_grad_()
+        t["bwd_ms"] = time_backward(gen, lambda a, s: ops.rmsnorm(a, s), (x, scale))
+        out[("rmsnorm", (rows, d))] = t
+
+    h, hkv, dh = 16, 8, 128  # internvl2-2b
+    qkv_bytes = (TR_B * h * TR_SEQ * dh + 2 * TR_B * hkv * TR_SEQ * dh) * 2
+    qkv = copies(lambda: tuple(randn(gen, TR_B, TR_SEQ, n, dh).transpose(1, 2) for n in (h, hkv, hkv)), qkv_bytes)
+    flash = {
+        "ms": time_ms(lambda q, k, v: ops.flash_attention(q, k, v), qkv),
+        "plain_ms": time_ms(lambda q, k, v: ref.attention_ref(q, k, v), qkv, 10),
+        "library_ms": time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), qkv),
+    }
+    pairs = TR_SEQ * (TR_SEQ + 1) // 2
+    flash["bound_ms"], flash["bound_by"] = bound(
+        qkv_bytes + TR_B * h * TR_SEQ * dh * 2, 4 * TR_B * h * pairs * dh, bf)
+    q, k, v = (t.detach().requires_grad_() for t in qkv[0])
+    flash["bwd_ms"] = time_backward(gen, lambda q, k, v: ops.flash_attention(q, k, v), (q, k, v))
+    out[("flash_attention", (TR_B, h, hkv, TR_SEQ, dh))] = flash
+
+    x_bytes, a_bytes = rows * SSD_H * SSD_P * 4, rows * SSD_H * 4
+    bc_bytes = rows * 2 * SSD_G * SSD_N * 2
+    scan = copies(lambda: ssd_inputs(gen, TR_B, TR_SEQ, SSD_H, SSD_P, SSD_G, SSD_N, bf), x_bytes + a_bytes + bc_bytes)
+    ssd = {
+        "ms": time_ms(lambda x, a, b, c: ops.ssd_scan(x, a, b, c, chunk=SSD_CHUNK), scan),
+        "plain_ms": time_ms(lambda x, a, b, c: ref.ssd_chunked(x, a, b, c, SSD_CHUNK), scan, 10),
+        "library_ms": None,
+    }
+    nbytes = 2 * x_bytes + a_bytes + bc_bytes + TR_B * SSD_H * SSD_N * SSD_P * 4
+    flops = 4 * rows * SSD_H * SSD_N * SSD_P
+    ssd["bound_ms"], ssd["bound_by"] = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                                           (2 * flops / TF32_FLOPS * 1e3, "operations"))
+    x, a = (t.detach().requires_grad_() for t in scan[0][:2])
+    bc = randn(gen, TR_B, TR_SEQ, 2 * SSD_G * SSD_N).requires_grad_()
+    gn = SSD_G * SSD_N
+    ssd["bwd_ms"] = time_backward(gen, lambda x, a, bc: ops.ssd_scan(
+        x, a, bc[..., :gn].reshape(TR_B, TR_SEQ, SSD_G, SSD_N), bc[..., gn:].reshape(TR_B, TR_SEQ, SSD_G, SSD_N),
+        chunk=SSD_CHUNK)[0], (x, a, bc))
+    out[("ssd_scan", (TR_B, TR_SEQ, SSD_H, SSD_P, SSD_G, SSD_N))] = ssd
+    return out
+
+
+class PowerSampler:
+    """The card's power draw, read by ``nvidia-smi`` in a loop on a thread
+    while the block runs, for an nvidia-smi that reports no energy counter
+    (``total_energy_consumption``); energy = mean draw x the block's wall time."""
+
+    def __enter__(self):
+        self.samples, self._stop = [], threading.Event()
+
+        def run():
+            while True:
+                self.samples.append(float(nvidia_smi("power.draw").split()[0]))
+                if self._stop.wait(0.05):
+                    return
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self.t0 = time.perf_counter()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self.t0
+        self._stop.set()
+        self._thread.join()
+        self.watts = float(np.mean(self.samples)) if self.samples else float("nan")
+        self.joules = self.watts * self.seconds
+
+
+def train_batch(cfg, pipe, step: int) -> dict:
+    """The batch the trainer feeds at ``step``: tokens and labels from the
+    pipeline, and the stub frontend's seeded embeddings."""
+    tokens, labels = pipe.batch_at(step)
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda"), "labels": torch.from_numpy(labels).to("cuda")}
+    if cfg.frontend is not None:
+        batch["frontend_embeds"] = frontend_embeds(cfg, TR_B, pipe.cfg.seed, step, "cuda")
+    return batch
+
+
+def train_launches(cfg) -> dict:
+    """Kernel launches of one train step: each layer's two rmsnorms and its
+    flash_attention or ssd_scan, in the forward pass and again in the
+    checkpoint's recompute (``remat="full"``, both cells), and the final
+    norm; the backward passes are plain."""
+    require(cfg.remat == "full", f"{cfg.name}: remat {cfg.remat!r}")
+    ssm = cfg.family == "ssm"
+    return {"rmsnorm": 4 * cfg.num_layers + 1, "flash_attention": 0 if ssm else 2 * cfg.num_layers,
+            "decode_attention": 0, "ssd_scan": 2 * cfg.num_layers if ssm else 0}
+
+
+def free_memory() -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def grad_distance(grads, reference) -> float:
+    """Relative L2 distance of two gradient trees, flattened, summed leaf by leaf."""
+    num = den = 0.0
+    for g, r in zip(leaves(grads), leaves(reference)):
+        num += float((g.float() - r.float()).square().sum(dtype=torch.float64))
+        den += float(r.float().square().sum(dtype=torch.float64))
+    return math.sqrt(num / den)
+
+
+def token_losses(model, params, batch) -> torch.Tensor:
+    """The cross-entropy of every token (B, S) in fp32, 0 where the label is
+    ignored: ``Model.loss`` before its mean, a forward pass without autograd."""
+    tokens, labels, fe = batch["tokens"], batch["labels"], batch.get("frontend_embeds")
+    B, S = tokens.shape
+    with torch.no_grad():
+        x = model._embed_inputs(params, tokens, fe)
+        if fe is not None:
+            labels = torch.where(torch.arange(S, device=labels.device) < fe.shape[1], -100, labels)
+        x, _ = model._scan_groups(params, x, torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S))
+        h = model.ops.rmsnorm(x, params["final_norm"]["scale"])
+        head, out = model._head_weight(params), []
+        for start in range(0, S, 512):
+            logits = torch.matmul(h[:, start:start + 512], head).float()
+            logits[..., model.cfg.vocab_size:] = -1e30
+            y = labels[:, start:start + 512]
+            gold = logits.gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
+            out.append((torch.logsumexp(logits, dim=-1) - gold) * (y >= 0))
+    return torch.cat(out, dim=1)
+
+
+def loss_gate(arch, cfg, bundle, plain, params, params32, pipe) -> None:
+    """The loss through the kernels against the plain versions, per token:
+    the per-token losses of the kernel path may be at most 1.25 times as far
+    (relative L2) from the fp32 plain path's as the plain bf16 path's, the
+    rule of the serve phases' logits. The mean loss of four batches is
+    printed beside it, ungated: the rounding errors of the 8192 tokens largely
+    cancel in the mean, both bf16 paths land a few 1e-4 from fp32 (of a loss
+    near 11), and the ratio of two such distances does not tell a wrong kernel
+    from another rounding (PERF.md §6)."""
+    batch = train_batch(cfg, pipe, 0)
+    t32 = token_losses(plain.model, params32, batch)
+    tp, tk = token_losses(plain.model, params, batch), token_losses(bundle.model, params, batch)
+    tk32 = token_losses(bundle.model, params32, batch)
+    dp, dk, dk32 = rel_l2(tp, t32), rel_l2(tk, t32), rel_l2(tk32, t32)
+    with torch.no_grad():
+        loss = float(loss_of(plain.model, params32, batch)[0])
+    valid = float((batch["labels"][:, cfg.frontend_positions:] >= 0).sum())
+    mean = float(t32.sum(dtype=torch.float64)) / valid
+    require(abs(mean - loss) <= 1e-5 * abs(loss), f"{arch}: token losses average {mean}, the loss is {loss}")
+    # the same with one kernel at a time on the path, the other kernels plain
+    paths = {"all kernels": bundle.model}
+    for name, n in train_launches(cfg).items():
+        if n:
+            alone = types.SimpleNamespace(**{k: getattr(ops if k == name else ops.PLAIN, k) for k in KERNELS})
+            paths[f"{name} alone"] = build_model(cfg, ops=alone)
+    ratios = {label: [] for label in paths}
+    for step in range(4):
+        b = train_batch(cfg, pipe, step)
+        with torch.no_grad():
+            l32, lp = float(loss_of(plain.model, params32, b)[0]), float(loss_of(plain.model, params, b)[0])
+            for label, model in paths.items():
+                lk = float(loss_of(model, params, b)[0])
+                ratios[label].append(f"{abs(lk - l32) / max(abs(lp - l32), 1e-30):.3f} ({abs(lk - l32):.3e})")
+    per_path = "; ".join(f"{label}: {', '.join(r)}" for label, r in ratios.items())
+    print(f"train {arch} loss gate: per-token losses, relative L2 from fp32 plain: bf16 kernels {dk:.4e} vs "
+          f"bf16 plain {dp:.4e} (ratio {dk / dp:.4f}); fp32 kernels {dk32:.3e} (tolerance {FP32_GRAD_RTOL[arch]}); "
+          f"their mean {mean:.6f} = the loss {loss:.6f}. Not gated, batches 0-3: the mean loss's distance from "
+          f"fp32 over the plain bf16 path's (the distance), {per_path}")
+    require(dk <= FLOOR_RATIO * dp, f"{arch}: the kernel path's token losses are further from fp32 than bf16 explains")
+    require(dk32 <= FP32_GRAD_RTOL[arch], f"{arch}: fp32 kernel-path token losses differ from fp32 plain")
+
+
+def gradient_gate(arch, cfg, bundle, plain, params, pipe) -> None:
+    """One batch, the seeded weights: the loss and the whole gradient through
+    the kernels in bf16 and in fp32, and through the plain versions in bf16
+    and in fp32 (the reference: the same weights widened exactly)."""
+    n = cfg.num_layers
+    params32 = tree_map(lambda t: t.float(), params)
+    loss_gate(arch, cfg, bundle, plain, params, params32, pipe)
+    batch = train_batch(cfg, pipe, 0)
+    ops.reset_launch_counts()
+    loss32, _, ref32 = loss_and_grads(plain.model, params32, batch)
+    loss_p, _, grads = loss_and_grads(plain.model, params, batch)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    dist_p = grad_distance(grads, ref32)
+    del grads
+    free_memory()
+    ops.reset_launch_counts()
+    loss_k, _, grads = loss_and_grads(bundle.model, params, batch)
+    counts, variants = ops.launch_counts(), dict(ssd_mod.variant_launches)
+    require(counts == train_launches(cfg), f"{arch} kernel-path gradient launches {counts} != {train_launches(cfg)}")
+    dist_k = grad_distance(grads, ref32)
+    del grads
+    free_memory()
+    ops.reset_launch_counts()
+    loss_k32, _, grads = loss_and_grads(bundle.model, params32, batch)
+    counts32, variants32 = ops.launch_counts(), dict(ssd_mod.variant_launches)
+    require(counts32 == train_launches(cfg), f"{arch} fp32 kernel-path launches {counts32}")
+    dist_k32 = grad_distance(grads, ref32)
+    del grads, ref32, params32
+    free_memory()
+    if cfg.family == "ssm":
+        require(variants == {ssd_mod.TENSOR_CORE: 2 * n, ssd_mod.GENERIC: 0} and
+                variants32 == {ssd_mod.TENSOR_CORE: 0, ssd_mod.GENERIC: 2 * n},
+                f"{arch} ssd_scan by kernel: bf16 {variants}, fp32 {variants32}")
+    loss32, loss_p, loss_k, loss_k32 = (float(t) for t in (loss32, loss_p, loss_k, loss_k32))
+    loss_dk, loss_dp = abs(loss_k - loss32), abs(loss_p - loss32)
+    loss_rel32 = abs(loss_k32 - loss32) / abs(loss32)
+    tol32 = FP32_GRAD_RTOL[arch]
+    print(f"train {arch} gradient gate: loss fp32 plain {loss32:.6f}, bf16 plain {loss_p:.6f}, bf16 kernels "
+          f"{loss_k:.6f}, fp32 kernels {loss_k32:.6f} (distance from fp32 plain, not gated: bf16 kernels "
+          f"{loss_dk:.4e}, bf16 plain {loss_dp:.4e}); gradient relative L2 from fp32 plain: bf16 kernels "
+          f"{dist_k:.4e} vs bf16 plain {dist_p:.4e} (ratio {dist_k / dist_p:.4f}); "
+          f"fp32 kernels vs fp32 plain: loss {loss_rel32:.3e}, gradient {dist_k32:.3e} (tolerance {tol32}); "
+          f"launches per loss and gradient {counts}" + (f", ssd_scan by kernel bf16 {variants} fp32 {variants32}"
+                                                         if cfg.family == "ssm" else ""))
+    require(math.isfinite(loss_k), f"{arch}: non-finite kernel-path loss")
+    require(dist_k <= FLOOR_RATIO * dist_p,
+            f"{arch}: the kernel path's gradient is further from fp32 than bf16 alone explains")
+    require(loss_rel32 <= tol32 and dist_k32 <= tol32, f"{arch}: fp32 kernel path differs from fp32 plain")
+
+
+def step_phases(bundle, trainer) -> str:
+    """One more step of the trained state, its parts on the host clock, each
+    ending in a synchronize: forward and backward, clipping, the optimizer."""
+    batch = train_batch(bundle.cfg, trainer.pipeline, trainer.step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = loss_and_grads(bundle.model, trainer.params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads, _ = clip_by_global_norm(grads, 1.0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bundle.optimizer.update(grads, trainer.opt_state, trainer.params, TR_LR)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return (f"forward + backward {(t1 - t0) * 1e3:.3f} ms, clip {(t2 - t1) * 1e3:.3f} ms, "
+            f"AdamW {(t3 - t2) * 1e3:.3f} ms")
+
+
+def train_phase(arch: str, seed: int) -> dict:
+    """One training cell: the gradient gate, 20 counted steps with the
+    kernels (the main path), 20 with the plain versions, their times, memory,
+    energy and a profile. Returns the main path's launches."""
+    cfg = get_config(arch)
+    bundle = make_train_bundle(cfg, lr_schedule=constant(TR_LR))
+    plain = make_train_bundle(cfg, lr_schedule=constant(TR_LR), ops=ops.PLAIN)
+    pipe = SyntheticPipeline(DataConfig(cfg.vocab_size, TR_SEQ, TR_B, seed=seed))
+    n_params = cfg.param_count()
+    t0 = time.perf_counter()
+    params = bundle.model.init(seed, "cuda")
+    torch.cuda.synchronize()
+    print(f"train {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.4f} B parameters "
+          f"(param_count), {sum(t.numel() for t in leaves(params)) / 1e9:.4f} B in the tree, init "
+          f"{time.perf_counter() - t0:.1f} s; batch {TR_B} x {TR_SEQ}, remat {cfg.remat}")
+    gradient_gate(arch, cfg, bundle, plain, params, pipe)
+    del params
+    free_memory()
+
+    # The main path: 20 steps through the trainer, each step's launches counted.
+    per_step = train_launches(cfg)
+    deltas = []
+    step_fn = bundle.step_fn
+
+    def counted_step(*a):
+        before = ops.launch_counts()
+        out = step_fn(*a)
+        deltas.append({k: v - before[k] for k, v in ops.launch_counts().items()})
+        return out
+
+    bundle.step_fn = counted_step
+    quiet = TrainerConfig(total_steps=TR_STEPS, steps_per_epoch=10**9, ckpt_every_steps=10**9, log_every=10**9)
+    trainer = Trainer(bundle, pipe, quiet)
+    trainer.init_or_restore(seed, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with PowerSampler() as power:
+        report = trainer.train()
+    require(len(power.samples) >= 2, f"{arch}: {len(power.samples)} power samples")
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"card during run: {nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+    expected = {k: TR_STEPS * v for k, v in per_step.items()}
+    print(f"train {arch} main path launches ({TR_STEPS} steps): {counts} (expected {expected}; per step "
+          f"{per_step}); ssd_scan by kernel {dict(ssd_mod.variant_launches)}")
+    require(counts == expected and all(d == per_step for d in deltas),
+            f"{arch} train launches {counts}, per step {deltas}")
+    if cfg.family == "ssm":
+        require(ssd_mod.variant_launches[ssd_mod.GENERIC] == 0, "the bf16 training scan took the generic kernel")
+    bundle.step_fn = step_fn
+    times = [h["step_s"] for h in trainer.history]
+    losses = [h["loss"] for h in trainer.history]
+    flops = 8 * n_params * TR_B * TR_SEQ
+    bound_s = flops / PEAK_FLOPS[torch.bfloat16]
+    energy = (f"energy {power.joules / TR_STEPS:.2f} J/step ({power.watts:.1f} W mean draw over "
+              f"{len(power.samples)} samples x {power.seconds:.3f} s, {TR_STEPS} steps)")
+    steady = times[1:]
+    print(f"train {arch} step time: mean {np.mean(times) * 1e3:.3f} ms over {TR_STEPS} steps, steps 2-{TR_STEPS} "
+          f"mean {np.mean(steady) * 1e3:.3f} median {np.median(steady) * 1e3:.3f} min {min(steady) * 1e3:.3f} ms; "
+          f"bound 8 N T = {flops:.4e} FLOP at 989 TFLOP/s = {bound_s * 1e3:.3f} ms "
+          f"({bound_s / np.median(steady):.3f} of the median); {TR_B * TR_SEQ / np.median(steady):.1f} tokens/s; "
+          f"peak memory {peak_gb:.2f} GB; {energy}; rollbacks {report['rollbacks']}")
+    print(f"train {arch} step parts (one more step): {step_phases(bundle, trainer)}")
+    profiled(f"train step {arch}", lambda: bundle.step_fn(trainer.params, trainer.opt_state,
+                                                          train_batch(cfg, pipe, trainer.step)))
+    del trainer
+    free_memory()
+
+    ops.reset_launch_counts()
+    plain_trainer = Trainer(plain, pipe, quiet)
+    plain_trainer.init_or_restore(seed, "cuda")
+    plain_trainer.train()
+    require(sum(ops.launch_counts().values()) == 0, "the plain training run launched a kernel")
+    plain_losses = [h["loss"] for h in plain_trainer.history]
+    plain_times = [h["step_s"] for h in plain_trainer.history]
+    del plain_trainer
+    free_memory()
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    print(f"train {arch} losses, kernels: " + " ".join(f"{x:.5f}" for x in losses))
+    print(f"train {arch} losses, plain:   " + " ".join(f"{x:.5f}" for x in plain_losses))
+    print(f"train {arch}: largest per-step relative gap kernels vs plain {max(gaps):.4e} (step "
+          f"{int(np.argmax(gaps)) + 1}); plain step time steps 2-{TR_STEPS} median "
+          f"{np.median(plain_times[1:]) * 1e3:.3f} ms [{nvidia_smi('name,power.limit')}]")
+    require(all(math.isfinite(x) for x in losses), f"{arch}: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"{arch}: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    return counts
+
+
+def train_launcher_phase(seed: int) -> None:
+    """``launch/train.py`` on the card: internvl2-2b for 3 steps without a
+    checkpoint; mamba2-370m checkpointing under build/, then restarting."""
+
+    def run(args):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            train_launcher.main(args + ["--seed", str(seed)])
+        free_memory()
+        return out.getvalue().strip().splitlines()
+
+    t0 = time.perf_counter()
+    lines = run(["--arch", "internvl2-2b", "--batch", str(TR_B), "--seq", str(TR_SEQ), "--steps", "3"])
+    require(lines[0] == "fresh init" and lines[-1].startswith("report:") and "'steps': 3" in lines[-1],
+            f"train launcher output: {lines}")
+    print(f"train launcher (python -m repro_torch.launch.train --arch internvl2-2b --batch {TR_B} --seq "
+          f"{TR_SEQ} --steps 3): {lines[-1]} ({time.perf_counter() - t0:.1f} s)")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    common = ["--arch", "mamba2-370m", "--batch", str(TR_B), "--seq", str(TR_SEQ), "--steps-per-epoch", "4",
+              "--ckpt-dir", TRAIN_CKPT_DIR]
+    try:
+        t0 = time.perf_counter()
+        first = run(common + ["--steps", "2"])
+        second = run(common + ["--steps", "3"])
+        require(first[0] == "fresh init" and "'steps': 2" in first[-1], f"first run: {first}")
+        require(second[0].startswith("restored step 2") and "'steps': 3" in second[-1], f"second run: {second}")
+        print(f"train launcher (mamba2-370m, --ckpt-dir build/{os.path.basename(TRAIN_CKPT_DIR)}): "
+              f"{first[0]}, {first[-1]}; then {second[0].split(' from ')[0]}, {second[-1]} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------------- main
 
 
@@ -769,12 +1193,20 @@ def main() -> int:
     launcher_phase(ARCH, B, PROMPT, STEPS, args.seed)
     ssm_counts = mamba_phase(args.seed)
     launcher_phase(MB_ARCH, MB_B, MB_PROMPT, MB_STEPS, args.seed)
+    free_memory()
+
+    train_times = time_train_kernels(gen)
+    free_memory()
+    train_counts = {arch: train_phase(arch, args.seed) for arch in TRAIN_ARCHS}
+    train_launcher_phase(args.seed)
+    # a kernel's launches: the two serve paths' and the two training runs'
+    paths = [(ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [(f"train {a}", c) for a, c in train_counts.items()]
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": dense_counts[name] + ssm_counts[name], "max_abs_err": errs[name],
+               "launches": sum(c[name] for _, c in paths), "max_abs_err": errs[name],
                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
@@ -786,7 +1218,7 @@ def main() -> int:
               f"(plain {row['plain_ms']:.4f} ms, library {library}, "
               f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, {row['bound_ms'] / row['ms']:.2f} of it"
               f"{bounds}), {row['launches']} launches "
-              f"({dense_counts[name]} {ARCH}, {ssm_counts[name]} {MB_ARCH}) [{name_power}]")
+              f"({', '.join(f'{c[name]} {p}' for p, c in paths)}) [{name_power}]")
         kernels.append(row)
     for (rows, d), t in times["rmsnorm"]["shapes"].items():
         where = " (off the serve paths)" if (rows, d) in RMS_OFF_PATH else ""
@@ -795,6 +1227,12 @@ def main() -> int:
               f"{t['bound_ms'] / t['ms']:.2f} of the bound, {t['library_ms'] / t['ms']:.2f}x F.rms_norm's "
               f"speed); host {t['host_us']:.2f} us a call (F.rms_norm {t['library_host_us']:.2f} us, "
               f"ratio {t['host_ratio']:.3f}) [{name_power}]")
+    for (name, shape), t in train_times.items():
+        library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        print(f"kernel {name} train shape {shape} bf16: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
+              f"library {library}, bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
+              f"{t['bound_ms'] / t['ms']:.2f} of it); its Function's plain backward {t['bwd_ms']:.4f} ms "
+              f"[{name_power}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

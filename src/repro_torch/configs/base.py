@@ -1,15 +1,34 @@
 """Architecture configuration (the port's copy of the JAX package's ``configs/base.py``).
 
-:class:`ArchConfig` keeps every field of the reference, so a config reads the
-same in both packages, but the port runs only what the serve slice supports:
-``models.transformer.Model`` raises ``NotImplementedError`` for the rest.
-The dry-run's ``input_specs`` is not ported.
+:class:`ArchConfig` keeps every field and derived quantity of the reference
+(the shape grid ``SHAPES``, ``param_count``, ``layer_kind``, ...), so a
+config reads the same in both packages, but the port runs only the dense and
+SSM layouts: ``models.transformer.Model`` raises ``NotImplementedError`` for
+the rest. The dry-run's ``input_specs`` is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One (input-shape) cell of the assignment grid."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -98,6 +117,93 @@ class ArchConfig:
         """Vocab padded to a multiple of 256, as in the reference."""
         return _round_up(self.vocab_size, 256)
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if decode memory is bounded in seq_len (SSM / hybrid / SWA)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window is not None
+
+    def layer_kind(self, i: int) -> str:
+        """Sequence-mixer kind of layer ``i``: 'attn' or 'ssm'."""
+        if self.hybrid_pattern is not None:
+            return self.hybrid_pattern[i % len(self.hybrid_pattern)]
+        if self.family == "ssm":
+            return "ssm"
+        return "attn"
+
+    def is_moe_layer(self, i: int) -> bool:
+        if self.moe is None:
+            return False
+        if i < self.moe.first_k_dense:
+            return False
+        return (i - self.moe.first_k_dense) % self.moe.layer_freq == 0
+
+    def shape_supported(self, shape: ShapeSpec) -> Tuple[bool, str]:
+        """(supported, reason-if-not) for an assignment cell."""
+        if shape.name == "long_500k" and not self.is_subquadratic:
+            return False, (
+                "long_500k needs sub-quadratic attention; "
+                f"{self.name} uses full attention (see DESIGN.md)"
+            )
+        return True, ""
+
+    def param_count(self, active_only: bool = False) -> int:
+        """Analytic parameter count; ``active_only`` counts routed experts
+        at ``top_k`` instead of ``num_experts`` (MoE activated params)."""
+        d, L = self.d_model, self.num_layers
+        hd = self.resolved_head_dim
+        n = self.padded_vocab * d  # embeddings (+ untied output head)
+        if not self.tie_embeddings:
+            n += self.padded_vocab * d
+        enc_layers = self.encoder_layers if self.enc_dec else 0
+        for i in range(L + enc_layers):
+            dec_i = i - enc_layers
+            kind = "attn" if i < enc_layers else self.layer_kind(dec_i)
+            if kind == "attn":  # sequence mixer
+                if self.attention == "mla" and self.mla is not None:
+                    m = self.mla
+                    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+                    if m.q_lora_rank:
+                        n += d * m.q_lora_rank + m.q_lora_rank * self.num_heads * qk_head
+                    else:
+                        n += d * self.num_heads * qk_head
+                    n += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    n += m.kv_lora_rank * self.num_heads * (m.qk_nope_head_dim + m.v_head_dim)
+                    n += self.num_heads * m.v_head_dim * d
+                else:
+                    n += d * self.num_heads * hd  # q
+                    n += 2 * d * self.num_kv_heads * hd  # k, v
+                    n += self.num_heads * hd * d  # o
+                if i >= enc_layers and self.enc_dec:  # cross attention in decoder layers
+                    n += 2 * d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+            elif kind == "ssm":
+                assert self.ssm is not None
+                s = self.ssm
+                d_in = s.expand * d
+                n_heads_ssm = d_in // s.head_dim
+                conv_dim = d_in + 2 * s.n_groups * s.d_state
+                n += d * (2 * d_in + 2 * s.n_groups * s.d_state + n_heads_ssm)
+                n += conv_dim * s.conv_width
+                n += 2 * n_heads_ssm  # A_log, D
+                n += d_in * d  # out proj
+            if i >= enc_layers and self.is_moe_layer(dec_i):  # channel mixer
+                assert self.moe is not None
+                e = self.top_k_experts if active_only else self.moe.num_experts
+                n += e * 3 * d * self.moe.d_ff_expert
+                n += self.moe.num_shared_experts * 3 * d * self.moe.d_ff_expert
+                n += d * self.moe.num_experts  # router
+            else:
+                n += 3 * d * self.d_ff  # SwiGLU gate/up/down
+        if self.mtp_depth:  # each MTP depth: one extra transformer block + combiner
+            blk = 4 * d * self.num_heads * hd + 3 * d * self.d_ff + 2 * d * d
+            n += self.mtp_depth * blk
+        return n
+
+    @property
+    def top_k_experts(self) -> int:
+        return self.moe.top_k if self.moe else 0
+
 
 REGISTRY: Dict[str, ArchConfig] = {}
 
@@ -115,6 +221,12 @@ def get_config(name: str) -> ArchConfig:
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(REGISTRY)}")
     return REGISTRY[name]
+
+
+def all_configs() -> Dict[str, ArchConfig]:
+    from repro_torch import configs as _configs  # noqa: F401  (registers the configs)
+
+    return dict(REGISTRY)
 
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:

@@ -135,6 +135,15 @@ def check(code: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {code} ({msg})")
 
 
+def grad_error(kernel: str) -> RuntimeError:
+    """What a wrapper raises for an input that requires grad while grad mode is
+    on: a kernel's output has no ``grad_fn``, so returning it would drop every
+    upstream gradient. ``kernels.ops`` sends such inputs through
+    ``kernels/autograd.py``."""
+    return RuntimeError(f"{kernel}: an input requires grad; the raw kernel wrapper has no backward "
+                        "(call kernels.ops, which goes through the autograd Function)")
+
+
 def sm_count(device: torch.device) -> int:
     """The device's SM count, read once per device."""
     index = device.index if device.index is not None else torch.cuda.current_device()

@@ -46,6 +46,8 @@ def flash_attention(
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise _build.grad_error("flash_attention")
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if k.shape != (B, Hkv, Sk, D) or v.shape != k.shape or Hkv == 0 or H % Hkv:

@@ -3,7 +3,8 @@
 Same layouts, the same ``-1e30`` mask and the same output dtype as the JAX
 package's ``kernels/ref.py``. They are deliberately naive (the full score
 matrix is materialised, the SSD scan is the step-by-step recurrence, all math
-in fp32): the CPU tests run the model through them, and ``chip_smoke.py``
+in fp32, or in fp64 for fp64 inputs, which the gradient checks of
+``kernels/autograd.py`` use): the CPU tests run the model through them, and ``chip_smoke.py``
 holds each CUDA kernel against them on the card. The SSD scan has two: the
 chunked ``ssd_chunked``, the plain version that the wrapper and ``ops.PLAIN``
 use (the twin of the JAX package's ``models/mamba.py`` one), and the
@@ -34,10 +35,11 @@ def attention_ref(
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     rep = H // Hkv
+    ct = torch.promote_types(q.dtype, torch.float32)  # fp32, or fp64 for fp64 inputs
     if rep > 1:
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(D)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct)) / math.sqrt(D)
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -47,7 +49,7 @@ def attention_ref(
         mask &= kpos > qpos - window
     s = torch.where(mask, s, NEG_INF)
     p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.to(ct)).to(q.dtype)
 
 
 def decode_attention_ref(
@@ -145,8 +147,10 @@ def ssd_chunked(
     h_init: Optional[torch.Tensor] = None,  # (B, H, N, P)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan, the plain version of ``ops.ssd_scan``.
-    Returns (y (B, S, H, P), final state (B, H, N, P))."""
+    Returns (y (B, S, H, P), final state (B, H, N, P)) in fp32, or in fp64
+    when ``x`` is fp64."""
     B, S, H, P_ = x.shape
+    ct = torch.promote_types(x.dtype, torch.float32)
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
     Q = min(chunk, S)
@@ -161,7 +165,7 @@ def ssd_chunked(
         Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
         S = S + pad
     nc = S // Q
-    h = torch.zeros((B, H, N, P_), dtype=torch.float32, device=x.device) if h_init is None else h_init
+    h = torch.zeros((B, H, N, P_), dtype=ct, device=x.device) if h_init is None else h_init
     iq = torch.arange(Q, device=x.device)
     mask = iq[:, None] >= iq[None, :]
     ys = []
@@ -173,16 +177,16 @@ def ssd_chunked(
         bqh = bq.repeat_interleave(rep, dim=2) if rep > 1 else bq  # (B, Q, H, N)
         cqh = cq.repeat_interleave(rep, dim=2) if rep > 1 else cq
         # ---- intra-chunk (quadratic in Q) ----
-        scores = torch.einsum("bihn,bjhn->bhij", cqh.float(), bqh.float())
+        scores = torch.einsum("bihn,bjhn->bhij", cqh.to(ct), bqh.to(ct))
         decay = (L[:, :, None, :] - L[:, None, :, :]).permute(0, 3, 1, 2)  # (B, H, i, j)
         # mask BEFORE exp: exp of the (positive) upper triangle would overflow
         gate = torch.exp(torch.where(mask, decay, -torch.inf))
-        y_intra = torch.einsum("bhij,bjhp->bihp", scores * gate, xq.float())
+        y_intra = torch.einsum("bhij,bjhp->bihp", scores * gate, xq.to(ct))
         # ---- inter-chunk: contribution of the carried state ----
-        y_inter = torch.einsum("bihn,bhnp->bihp", cqh.float(), h) * torch.exp(L)[..., None]
+        y_inter = torch.einsum("bihn,bhnp->bihp", cqh.to(ct), h) * torch.exp(L)[..., None]
         # ---- state update ----
         seg = torch.exp(L[:, -1:, :] - L)  # decay from step j to chunk end
-        h_chunk = torch.einsum("bjhn,bjhp->bhnp", bqh.float() * seg[..., None], xq.float())
+        h_chunk = torch.einsum("bjhn,bjhp->bhnp", bqh.to(ct) * seg[..., None], xq.to(ct))
         h = h * torch.exp(L[:, -1, :])[:, :, None, None] + h_chunk
         ys.append(y_intra + y_inter)
     y = torch.cat(ys, dim=1)[:, :S_orig]
@@ -190,6 +194,6 @@ def ssd_chunked(
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)

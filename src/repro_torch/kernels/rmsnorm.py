@@ -94,6 +94,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch
         return ref.rmsnorm_ref(x, scale, eps)
     if device.type != "cuda":
         raise ValueError(f"rmsnorm: no kernel for device {device}")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        raise _build.grad_error("rmsnorm")
     d = x.shape[-1]
     if scale.shape != (d,) or scale.dtype != torch.float32 or scale.device != device:
         raise ValueError(f"rmsnorm: scale must be fp32 ({d},) on {device}")

@@ -75,6 +75,8 @@ def ssd_scan(
         return ref.ssd_chunked(x, log_dA, Bm, Cm, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, log_dA, Bm, Cm)):
+        raise _build.grad_error("ssd_scan")
     if x.dim() != 4 or log_dA.dim() != 3 or Bm.dim() != 4:
         raise ValueError("ssd_scan: x (B,S,H,P), log_dA (B,S,H), Bm and Cm (B,S,G,N) expected")
     B, S, H, P = x.shape

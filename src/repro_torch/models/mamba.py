@@ -1,8 +1,11 @@
-"""Mamba-2 (state-space duality) mixer for the serve slice (the port's half of
-the JAX package's ``models/mamba.py``: ``_dims`` .. ``mamba_decode``, :35-262).
+"""Mamba-2 (state-space duality) mixer (the port's half of the JAX package's
+``models/mamba.py``: ``_dims`` .. ``mamba_decode``, :35-262).
 
-Prefill goes through ``ops.ssd_scan``, the chunked SSD scan: on a CUDA tensor
-the hand-written kernel, on a CPU tensor (or with ``ops.PLAIN``) the plain
+The full-sequence forward (training and prefill) goes through
+``ops.ssd_scan``, the chunked SSD scan (in training through its autograd
+Function, whose gradients reach the conv output that B and C are views of):
+on a CUDA tensor the hand-written kernel, on a CPU tensor (or with
+``ops.PLAIN``) the plain
 ``kernels.ref.ssd_chunked``, the twin of the reference's. Decode is the O(1)
 recurrent update ``h = dA*h + dt*x (x) B; y = C.h + D*x``, which the reference
 computes outside any kernel and the port in plain PyTorch. The gated norm goes

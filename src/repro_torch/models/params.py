@@ -12,10 +12,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterator, Tuple, Union
+from typing import Any, Callable, Dict, Tuple, Union
 
 import numpy as np
 import torch
+
+from repro_torch.tree import leaves_with_paths
 
 Initializer = Callable[[torch.Generator, Tuple[int, ...], torch.dtype, torch.device], torch.Tensor]
 Tree = Dict[str, Any]
@@ -72,16 +74,6 @@ class ParamDef:
     dtype: torch.dtype = torch.bfloat16
 
 
-def _leaves(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(``a/b/c`` path, leaf) for every non-dict leaf of a nested dict."""
-    for key, val in tree.items():
-        path = f"{prefix}/{key}" if prefix else key
-        if isinstance(val, dict):
-            yield from _leaves(val, path)
-        else:
-            yield path, val
-
-
 def _map(fn: Callable[[str, ParamDef], Any], defs: Tree, prefix: str = "") -> Tree:
     out = {}
     for key, val in defs.items():
@@ -122,7 +114,7 @@ def init_params(defs: Tree, seed: int, device: Union[str, torch.device]) -> Tree
 def param_bytes(defs: Tree) -> int:
     return sum(
         int(np.prod(d.shape)) * torch.empty((), dtype=d.dtype).element_size()
-        for _, d in _leaves(defs)
+        for _, d in leaves_with_paths(defs)
     )
 
 
@@ -139,8 +131,8 @@ def from_jax_params(tree: Tree, device: Union[str, torch.device], *, defs: Tree)
     Keys and shapes are checked against ``defs`` (the port's ``param_defs()``);
     a mismatch raises ``ValueError``.
     """
-    got = {path for path, _ in _leaves(tree)}
-    want = {path for path, _ in _leaves(defs)}
+    got = {path for path, _ in leaves_with_paths(tree)}
+    want = {path for path, _ in leaves_with_paths(defs)}
     if got != want:
         raise ValueError(
             f"parameter trees differ: missing {sorted(want - got)}, unexpected {sorted(got - want)}"

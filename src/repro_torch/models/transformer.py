@@ -1,5 +1,6 @@
-"""Decoder-only LM for the serve slice (the port's counterpart of
-the JAX package's ``models/transformer.py`` ``Model``, dense and SSM groups).
+"""Decoder-only LM (the port's counterpart of the JAX package's
+``models/transformer.py`` ``Model``, dense and SSM groups): ``loss`` for
+training, ``prefill`` and ``decode_step`` for serving.
 
 The reference groups layers into ``lax.scan`` groups over stacked weights
 (``_layer_groups``, :56). The port keeps two of its layouts: a dense config is
@@ -7,22 +8,30 @@ one group ``"dense"`` of attention + SwiGLU layers, an SSM config one group
 ``"ssm"`` of Mamba-2 mixers with no channel mixer. Each group's single layer
 kind ``"l0"`` is stacked ``num_layers`` times; the port keeps those keys and
 the leading layer axis, and its scan is a Python loop over the stacked
-weights. Every other layout raises ``NotImplementedError``.
+weights. Training wraps each layer in ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint``, ``remat="full"``), so a layer's forward runs
+again in the backward pass. A modality frontend's embeddings replace the
+first ``frontend_positions`` rows of the token embeddings. Every other layout
+raises ``NotImplementedError``.
 
-A dense layer runs ``ops.rmsnorm`` twice and ``ops.flash_attention`` (prefill)
-or ``ops.decode_attention`` (decode) once; an SSM layer runs ``ops.rmsnorm``
-twice (``norm1`` and the mixer's gated norm) and ``ops.ssd_scan`` once per
-prefill. The final norm adds one rmsnorm. With ``ops`` left at
-``kernels.ops`` a CUDA tensor goes through the hand-written kernels;
-``ops.PLAIN`` runs the same weights through the plain versions.
+A dense layer runs ``ops.rmsnorm`` twice and ``ops.flash_attention``
+(training, prefill) or ``ops.decode_attention`` (decode) once (qk-norm adds
+two rmsnorms on rows of head_dim); an SSM layer runs ``ops.rmsnorm`` twice
+(``norm1`` and the mixer's gated norm) and ``ops.ssd_scan`` once per full
+sequence. The final norm adds one rmsnorm. With ``ops`` left at
+``kernels.ops`` a CUDA tensor goes through the hand-written kernels (in
+training through their autograd Functions); ``ops.PLAIN`` runs the same
+weights through the plain versions.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple, Union
+import functools
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
@@ -31,6 +40,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import params as pu
 from repro_torch.models.common import (
+    chunked_cross_entropy,
     embed,
     embedding_def,
     lm_head_def,
@@ -61,32 +71,45 @@ def _layer_group(cfg: ArchConfig) -> Tuple[str, LayerSpec]:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the serve slice does not port."""
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
     unsupported = {
         "a hybrid layer pattern": cfg.hybrid_pattern is not None,
         "MoE layers": cfg.moe is not None,
         "an encoder-decoder stack": cfg.enc_dec,
-        "a modality frontend": cfg.frontend is not None,
         "multi-token prediction": cfg.mtp_depth > 0,
+        # no registered config uses the selective policy (keep matmul outputs)
+        "remat 'dots'": cfg.remat == "dots",
     }
     if cfg.family != "ssm":
-        unsupported["MLA attention"] = cfg.attention != "gqa"
+        unsupported[f"{cfg.attention!r} attention"] = cfg.attention != "gqa"
     for feature, present in unsupported.items():
         if present:
             raise NotImplementedError(f"{cfg.name}: {feature} is not ported yet")
     if cfg.family == "ssm":
         mb._dims(cfg)  # raises without an SSMConfig
-    else:
-        attn.check_supported(cfg)
 
 
 def _layer(tree: Tree, i: int) -> Tree:
-    """Layer ``i`` of a stacked tree (views, no copy)."""
+    """Layer ``i`` of a stacked tree (views, no copy). Serving takes each
+    layer's views as it reaches the layer, so the card starts on the first
+    layer before the host has made the views of the others."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _unstack(tree: Tree, n: int) -> List[Tree]:
+    """The ``n`` layers of a stacked tree for training, each leaf split by
+    one ``unbind``: the backward pass stacks the layers' gradients once, where
+    indexing each layer would add a zero-filled stacked tensor per layer."""
+    layers: List[Tree] = [{} for _ in range(n)]
+    for key, val in tree.items():
+        parts = _unstack(val, n) if isinstance(val, dict) else val.unbind(0)
+        for layer, part in zip(layers, parts):
+            layer[key] = part
+    return layers
+
+
 class Model(nn.Module):
-    """Decoder-only LM: ``prefill`` and ``decode_step`` over an explicit parameter dict."""
+    """Decoder-only LM: ``loss``, ``prefill`` and ``decode_step`` over an explicit parameter dict."""
 
     def __init__(self, cfg: ArchConfig, ops=kernel_ops):
         super().__init__()
@@ -124,6 +147,67 @@ class Model(nn.Module):
         if self.cfg.tie_embeddings:
             return params["embed"]["table"].T
         return params["head"]["w"]
+
+    # -- training -----------------------------------------------------------
+
+    def _block_forward(self, p: Tree, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """One layer over the full sequence, without a cache."""
+        h = rmsnorm(p["norm1"], x, ops=self.ops)
+        if self.spec.mixer == "ssm":
+            h = mb.mamba_forward(p["mixer"], self.cfg, h, ops=self.ops)
+        else:
+            h = attn.gqa_forward(p["mixer"], self.cfg, h, positions, ops=self.ops)
+        x = x + h
+        if self.spec.channel != "none":
+            x = x + swiglu(p["channel"], rmsnorm(p["norm2"], x, ops=self.ops))
+        return x
+
+    def _remat(self, body):
+        """``remat="full"``: recompute the layer in the backward pass and keep
+        only its inputs (``"dots"`` is refused by ``check_supported``)."""
+        if self.cfg.remat == "none":
+            return body
+        # the layer draws no random numbers, so there is no RNG state to restore
+        return functools.partial(
+            torch.utils.checkpoint.checkpoint, body, use_reentrant=False, preserve_rng_state=False
+        )
+
+    def _scan_groups(self, params: Tree, x: torch.Tensor, positions: torch.Tensor):
+        """Run the layers; returns (hidden, total aux loss). Dense and SSM
+        layers have no auxiliary loss, so it is 0, as the reference's."""
+        block = self._remat(self._block_forward)
+        for p in _unstack(params[self.group], self.cfg.num_layers):
+            x = block(p["l0"], x, positions)
+        return x, x.new_zeros((), dtype=torch.float32)
+
+    def _embed_inputs(
+        self, params: Tree, tokens: torch.Tensor, frontend_embeds: Optional[torch.Tensor]
+    ) -> torch.Tensor:
+        x = embed(params["embed"], tokens.long())
+        if frontend_embeds is not None:
+            npos = frontend_embeds.shape[1]
+            x = torch.cat([frontend_embeds.to(x.dtype), x[:, npos:]], dim=1)
+        return x
+
+    def loss(
+        self,
+        params: Tree,
+        tokens: torch.Tensor,  # (B, S)
+        labels: torch.Tensor,  # (B, S), -100 ignored
+        frontend_embeds: Optional[torch.Tensor] = None,  # (B, frontend_positions, d_model)
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token cross-entropy -> (loss, {"ce", "aux"}); the
+        frontend's positions carry no label."""
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+        x = self._embed_inputs(params, tokens, frontend_embeds)
+        if frontend_embeds is not None:
+            npos = frontend_embeds.shape[1]
+            labels = torch.where(torch.arange(S, device=labels.device) < npos, -100, labels)
+        x, aux = self._scan_groups(params, x, positions)
+        h = rmsnorm(params["final_norm"], x, ops=self.ops)
+        ce = chunked_cross_entropy(self._head_weight(params), h, labels, self.cfg.vocab_size)
+        return ce, {"ce": ce, "aux": aux}
 
     # -- serving ------------------------------------------------------------
 
@@ -167,8 +251,8 @@ class Model(nn.Module):
             for key, val in c.items():
                 cache[key].copy_(val)
         else:
-            q, k, v = attn._gqa_qkv(p["mixer"], cfg, h, positions)
-            out = attn._gqa_attend(p["mixer"], q, k, v, self.ops)
+            q, k, v = attn._gqa_qkv(p["mixer"], cfg, h, positions, self.ops)
+            out = attn._gqa_attend(p["mixer"], q, k, v, self.ops, cfg.sliding_window)
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
         x = x + out

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
-launcher refuses to move to the CPU by itself, and its kernel wrappers count
-only real kernel launches."""
+launchers refuse to move to the CPU by themselves, and its kernel wrappers
+count only real kernel launches."""
 
 import importlib
 import os
@@ -51,7 +51,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 15
+    assert int(out.stdout.split()[0]) >= 30
 
 
 def test_no_source_names_jax_or_the_jax_package():
@@ -73,6 +73,31 @@ def test_serve_launcher_without_a_card_exits_nonzero():
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
     assert "prefill" not in out.stdout
+
+
+def test_train_launcher_without_a_card_exits_nonzero():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "mamba2-370m", "--smoke", "--steps", "1"],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+    assert "report" not in out.stdout and "fresh init" not in out.stdout
+
+
+def test_train_launcher_runs_on_the_cpu_when_asked(tmp_path, capsys):
+    from repro_torch.launch import train
+
+    args = ["--arch", "mamba2-370m", "--smoke", "--device", "cpu", "--batch", "2", "--seq", "32",
+            "--steps-per-epoch", "2", "--ckpt-dir", str(tmp_path)]
+    train.main(args + ["--steps", "2"])
+    out = capsys.readouterr().out
+    assert out.startswith("fresh init") and "'steps': 2" in out
+    train.main(args + ["--steps", "3"])
+    out = capsys.readouterr().out
+    assert out.startswith("restored step 2") and "'steps': 3" in out
 
 
 def test_chip_smoke_without_a_card_exits_nonzero():

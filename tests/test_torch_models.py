@@ -194,22 +194,26 @@ def test_mamba_init_follows_jax_rules():
 @pytest.mark.parametrize(
     "change",
     [
-        {"qk_norm": True},
-        {"sliding_window": 64},
+        {"remat": "dots"},
+        {"sliding_window": 8},
         {"kv_cache_dtype": "int8"},
         {"moe": MoEConfig(num_experts=8, top_k=2, d_ff_expert=64)},
         {"mtp_depth": 1},
         {"enc_dec": True},
-        {"frontend": "vision"},
+        {"attention": "none"},
         {"attention": "mla"},
         {"moe": MoEConfig(num_experts=8, top_k=2, d_ff_expert=64, first_k_dense=1)},
         {"hybrid_pattern": ("attn", "ssm")},
     ],
 )
 def test_unported_features_raise(change):
+    """The model refuses what it cannot build; a sliding-window cache longer
+    than the window (the ring buffer) and the int8 KV cache are refused when a
+    cache is made. qk-norm, sliding-window attention and frontends are ported
+    (tests/test_torch_train.py)."""
     cfg = dataclasses.replace(smoke_config(get_config("minitron-8b")), **change)
     with pytest.raises(NotImplementedError):
-        Model(cfg)
+        Model(cfg).make_cache(2, 16, device="cpu")
 
 
 @pytest.mark.parametrize(
