@@ -5,10 +5,12 @@
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. device: the card's name and power limit (nvidia-smi), the kernel build;
-2. kernels: every hand-written CUDA kernel of the serve paths held against its
-   plain PyTorch version on the card (bf16 2e-2, fp32 2e-5, SSD scan 2e-4, the
-   tolerances of the JAX package's kernel tests), at the serve slices' shapes,
-   the kernel-test sweeps and ragged edges (the SSD scan's two kernels also
+2. kernels: every hand-written CUDA kernel of the serve and training paths
+   held against its plain PyTorch version on the card (bf16 2e-2, fp32 2e-5,
+   SSD scan 2e-4, the tolerances of the JAX package's kernel tests), at the
+   serve slices' and the training forward's shapes (in bf16 and fp32, and as
+   the strided views the models pass), the kernel-test sweeps and ragged
+   edges (the SSD scan's two kernels also
    under steep decay at the slice, against the recurrence in fp32 and in
    fp64); then timed at the slices' shapes
    with CUDA events beside its plain version, one PyTorch library call where
@@ -46,8 +48,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
      the whole gradient through the kernels, through the plain versions in
      bf16 and in fp32 (the same weights widened); the kernel path may be at
      most 1.25 times as far (relative L2) from fp32 as the plain bf16 path,
-     and in fp32 within 1e-4 (2e-4 for mamba) of the plain path (the mean
-     loss's distances are printed, not gated: see ``loss_gate``);
+     and in fp32 within 1e-4 (2e-4 for mamba) of the plain path; the same
+     path with a fault planted in one kernel's output must break the 1.25
+     rule in both (the mean loss's distances are printed, not gated: see
+     ``gradient_gate``);
    - 20 steps through ``make_train_bundle`` and ``Trainer`` with the kernels
      (the main path: the launches of every step counted and asserted, per
      layer two rmsnorms and one flash_attention or ssd_scan in the forward
@@ -93,17 +97,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline  # noqa: E402
-from repro_torch.kernels import _build, autograd, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.ssd_scan import ROWS as SSD_ROWS  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
-from repro_torch.optim.adamw import clip_by_global_norm  # noqa: E402
 from repro_torch.optim.schedules import constant  # noqa: E402
-from repro_torch.train.steps import loss_and_grads, loss_of, make_serve_bundle, make_train_bundle  # noqa: E402
+from repro_torch.train.steps import loss_and_grads, make_serve_bundle, make_train_bundle  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig, frontend_embeds  # noqa: E402
-from repro_torch.tree import leaves, tree_map  # noqa: E402
+from repro_torch.tree import leaves, leaves_with_paths, tree_map  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense): the bound of every kernel is the larger of
 # bytes / HBM rate and operations / peak rate for their type, at 700 W.
@@ -139,6 +142,7 @@ FP32_LOGIT_RTOL = 1e-4
 # 100 steps, under which 20 steps would barely move the loss).
 TRAIN_ARCHS = ("internvl2-2b", "mamba2-370m")
 TR_B, TR_SEQ, TR_STEPS, TR_LR = 4, 2048, 20, 3e-4
+TR_H, TR_HKV = 16, 8  # internvl2-2b's attention heads (head_dim 128, as minitron-8b's)
 FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL}
 TRAIN_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train_ckpt")
 
@@ -258,6 +262,9 @@ RMS_OFF_PATH = [(B * PROMPT, 5120)]
 # scalars.
 RMS_ODD = [(300, 128), (700, 64), (1200, 32), (33, 2560), (300, 5120), (257, 6144), (5, 7168),
            (2001, 72), (7, 36)]
+# The training cells' rows (batch 4 x 2048 tokens): internvl2-2b's d_model and
+# mamba2-370m's d_inner, mamba2-370m's d_model.
+RMS_TRAIN = [(TR_B * TR_SEQ, 2048), (TR_B * TR_SEQ, 1024)]
 
 
 def check_rmsnorm(gen) -> float:
@@ -266,14 +273,14 @@ def check_rmsnorm(gen) -> float:
     # counts (one row, one past a multiple of the rows a block takes)
     ragged = [(rows, d) for d in (1024, 2048, D_MODEL) for rows in (1, B * PROMPT + 1, MB_B * MB_PROMPT + 1)]
     for dtype in DTYPES:
-        for rows, d in [(4, 64), (100, 128), (257, 256), (33, 100)] + RMS_SLICES + ragged + RMS_ODD:
+        for rows, d in [(4, 64), (100, 128), (257, 256), (33, 100)] + RMS_SLICES + RMS_TRAIN + ragged + RMS_ODD:
             x, scale = randn(gen, rows, d, dtype=dtype), randn(gen, d, dtype=torch.float32)
             err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
             print(f"check rmsnorm {str(dtype)[6:]} rows={rows} d={d}: max_abs_err={err:.3e}")
-            if dtype == torch.bfloat16 and (rows, d) in RMS_SLICES:
+            if dtype == torch.bfloat16 and (rows, d) in RMS_SLICES + RMS_TRAIN:
                 worst = max(worst, err)
         # contiguous rows that start one element past a 16-byte boundary
-        for rows, d in RMS_SLICES:
+        for rows, d in RMS_SLICES + RMS_TRAIN:
             flat = randn(gen, rows * d + 1, dtype=dtype)
             x, scale = flat[1:].view(rows, d), randn(gen, d, dtype=torch.float32)
             err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
@@ -295,6 +302,7 @@ def check_flash(gen) -> float:
         (B, H, HKV, PROMPT, PROMPT, D, True, None),  # the prefill
         (B, H, HKV, PROMPT, PROMPT, D, True, 128),
         (B, H, HKV, 100, MAX_LEN, D, False, None),
+        (TR_B, TR_H, TR_HKV, TR_SEQ, TR_SEQ, D, True, None),  # internvl2-2b's training forward
     ] + [  # the edges of the 128-row tiles and 64-key tiles, every head dim
         (1, 4, 2, s, s, d, True, None) for s in (1, 127, 129, PROMPT) for d in (32, 64, 128)
     ] + [  # windows that start inside a 128-row tile
@@ -308,15 +316,18 @@ def check_flash(gen) -> float:
             err = max_abs_err(out, ref.attention_ref(q, k, v, causal=causal, window=window), dtype)
             print(f"check flash_attention {str(dtype)[6:]} {(b, h, hkv, sq, sk, d)} "
                   f"causal={causal} window={window}: max_abs_err={err:.3e}")
-            if dtype == torch.bfloat16 and (b, sq, sk, causal, window) == (B, PROMPT, PROMPT, True, None):
+            if dtype == torch.bfloat16 and (b, h, sq, sk, causal, window) in (
+                    (B, H, PROMPT, PROMPT, True, None), (TR_B, TR_H, TR_SEQ, TR_SEQ, True, None)):
                 worst = max(worst, err)
-        # the prefill as the model passes it: (B, S, H, D) projections viewed (B, H, S, D)
-        q, k, v = (randn(gen, B, PROMPT, h, D, dtype=dtype).transpose(1, 2) for h in (H, HKV, HKV))
-        err = max_abs_err(ops.flash_attention(q, k, v), ref.attention_ref(q, k, v), dtype)
-        print(f"check flash_attention {str(dtype)[6:]} {(B, H, HKV, PROMPT, PROMPT, D)} causal=True, "
-              f"strided (B, S, H, D) views: max_abs_err={err:.3e}")
-        if dtype == torch.bfloat16:
-            worst = max(worst, err)
+        # the prefill and the training forward as the model passes them: (B, S, H, D)
+        # projections viewed (B, H, S, D)
+        for b, h, hkv, s in ((B, H, HKV, PROMPT), (TR_B, TR_H, TR_HKV, TR_SEQ)):
+            q, k, v = (randn(gen, b, s, n, D, dtype=dtype).transpose(1, 2) for n in (h, hkv, hkv))
+            err = max_abs_err(ops.flash_attention(q, k, v), ref.attention_ref(q, k, v), dtype)
+            print(f"check flash_attention {str(dtype)[6:]} {(b, h, hkv, s, s, D)} causal=True, "
+                  f"strided (B, S, H, D) views: max_abs_err={err:.3e}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
     return worst
 
 
@@ -397,36 +408,43 @@ def check_ssd(gen) -> float:
         print(f"check ssd_scan {str(dt)[6:]} B/C {tuple(shape)} chunk={chunk} ({variant}): max_abs_err vs "
               + ", ".join(errs))
 
-    # The slice: the model's prefill shape, bf16 B and C, three draws. ssd_ref
-    # in fp64 is the exact answer, and each fp32 version's distance from it is
-    # printed. The plain version at the model's 256-row chunk carries fp32
-    # error of its own near the tolerance (its gates exp(L_i - L_j) take
-    # differences of L values that fall far within a chunk, against large
-    # outputs), so the kernel is gated against ssd_ref and against ssd_chunked
-    # at the kernel's own chunk length; the 256-row distances are printed.
+    # The slices: the model's prefill shape, bf16 B and C, three draws; the
+    # training forward's shape (4 x 2048), bf16 B and C as the main path
+    # passes them and fp32 as the fp32 gate does. ssd_ref in fp64 is the exact
+    # answer, and each fp32 version's distance from it is printed. The plain
+    # version at the model's 256-row chunk carries fp32 error of its own near
+    # the tolerance (its gates exp(L_i - L_j) take differences of L values
+    # that fall far within a chunk, against large outputs), so the kernel is
+    # gated against ssd_ref and against ssd_chunked at the kernel's own chunk
+    # length; the 256-row distances are printed.
     worst = 0.0
-    for draw in range(3):
+    slices = [("serve", MB_PROMPT, draw, torch.bfloat16) for draw in range(3)] + [
+        ("training", TR_SEQ, 3, torch.bfloat16), ("training", TR_SEQ, 4, torch.float32)]
+    for where, s, draw, dt in slices:
         g = torch.Generator(device="cuda")
         g.manual_seed(draw)
-        args = ssd_inputs(g, MB_B, MB_PROMPT, SSD_H, SSD_P, SSD_G, SSD_N, bc_dtype=torch.bfloat16)
+        args = ssd_inputs(g, MB_B, s, SSD_H, SSD_P, SSD_G, SSD_N, bc_dtype=dt)
+        want = ssd_mod.TENSOR_CORE if dt == torch.bfloat16 else ssd_mod.GENERIC
         (y, h), variant = ssd_variant(lambda: ops.ssd_scan(*args, chunk=SSD_CHUNK))
-        require(variant == ssd_mod.TENSOR_CORE, f"the slice took the {variant} kernel")
+        require(variant == want, f"the {where} slice in {dt} took the {variant} kernel, not {want}")
         yr, hr = ref.ssd_ref(*args)
         yc, hc = ref.ssd_chunked(*args, SSD_ROWS)
-        worst = max(worst, max_abs_err(y, yr, torch.float32, SSD_TOL))
+        err = max_abs_err(y, yr, torch.float32, SSD_TOL)
+        if dt == torch.bfloat16:
+            worst = max(worst, err)
         max_abs_err(h, hr, torch.float32, SSD_TOL)
         max_abs_err(y, yc, torch.float32, SSD_TOL)
         max_abs_err(h, hc, torch.float32, SSD_TOL)
         y256, h256 = ref.ssd_chunked(*args, SSD_CHUNK)
         y64, h64 = ref.ssd_ref(*(t.double() for t in args))
-        pad = (-MB_PROMPT) % SSD_CHUNK  # L = cumsum(log_dA) within each 256-row chunk
+        pad = (-s) % SSD_CHUNK  # L = cumsum(log_dA) within each 256-row chunk
         L = F.pad(args[1], (0, 0, 0, pad)).reshape(MB_B, -1, SSD_CHUNK, SSD_H).cumsum(dim=2)
         f64 = ", ".join(f"{name} {ssd_distance(yo, y64):.3f} {ssd_distance(ho, h64):.3f}" for name, (yo, ho) in (
             ("kernel", (y, h)), ("ssd_ref", (yr, hr)), (f"ssd_chunked({SSD_ROWS})", (yc, hc)),
             (f"ssd_chunked({SSD_CHUNK})", (y256, h256))))
-        print(f"check ssd_scan bf16 B/C slice (B{MB_B} S{MB_PROMPT} H{SSD_H} P{SSD_P} G{SSD_G} N{SSD_N}) "
-              f"draw {draw}: L down to {float(L.min()):.2f} within a {SSD_CHUNK}-row chunk, |y| up to "
-              f"{float(y64.abs().max()):.2f}; max_abs_err vs ssd_ref y {float((y - yr).abs().max()):.3e} "
+        print(f"check ssd_scan {str(dt)[6:]} B/C {where} slice (B{MB_B} S{s} H{SSD_H} P{SSD_P} G{SSD_G} "
+              f"N{SSD_N}) draw {draw} ({variant}): L down to {float(L.min()):.2f} within a {SSD_CHUNK}-row "
+              f"chunk, |y| up to {float(y64.abs().max()):.2f}; max_abs_err vs ssd_ref y {err:.3e} "
               f"h {float((h - hr).abs().max()):.3e}; distance / 2e-4 tolerance (y, h), gated: "
               f"kernel~ssd_ref {ssd_distance(y, yr):.3f} {ssd_distance(h, hr):.3f}, "
               f"kernel~ssd_chunked({SSD_ROWS}) {ssd_distance(y, yc):.3f} {ssd_distance(h, hc):.3f}; "
@@ -804,7 +822,7 @@ def time_train_kernels(gen) -> dict:
         t["bwd_ms"] = time_backward(gen, lambda a, s: ops.rmsnorm(a, s), (x, scale))
         out[("rmsnorm", (rows, d))] = t
 
-    h, hkv, dh = 16, 8, 128  # internvl2-2b
+    h, hkv, dh = TR_H, TR_HKV, D  # internvl2-2b
     qkv_bytes = (TR_B * h * TR_SEQ * dh + 2 * TR_B * hkv * TR_SEQ * dh) * 2
     qkv = copies(lambda: tuple(randn(gen, TR_B, TR_SEQ, n, dh).transpose(1, 2) for n in (h, hkv, hkv)), qkv_bytes)
     flash = {
@@ -896,145 +914,197 @@ def free_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def grad_distance(grads, reference) -> float:
-    """Relative L2 distance of two gradient trees, flattened, summed leaf by leaf."""
+def grad_distances(grads, reference) -> tuple:
+    """The relative L2 distance of two gradient trees, flattened, and of each
+    leaf (a stacked tensor of all layers), by its path."""
     num = den = 0.0
-    for g, r in zip(leaves(grads), leaves(reference)):
-        num += float((g.float() - r.float()).square().sum(dtype=torch.float64))
-        den += float(r.float().square().sum(dtype=torch.float64))
-    return math.sqrt(num / den)
+    per_leaf = {}
+    for (path, g), r in zip(leaves_with_paths(grads), leaves(reference)):
+        n = float((g.float() - r.float()).square().sum(dtype=torch.float64))
+        d = float(r.float().square().sum(dtype=torch.float64))
+        num, den = num + n, den + d
+        per_leaf[path] = math.sqrt(n / d) if d else (0.0 if n == 0 else math.inf)
+    return math.sqrt(num / den), per_leaf
 
 
 def token_losses(model, params, batch) -> torch.Tensor:
-    """The cross-entropy of every token (B, S) in fp32, 0 where the label is
-    ignored: ``Model.loss`` before its mean, a forward pass without autograd."""
-    tokens, labels, fe = batch["tokens"], batch["labels"], batch.get("frontend_embeds")
-    B, S = tokens.shape
+    """The cross-entropy of every token (B, S) in fp32, 0 where no label
+    counts: ``Model.token_losses``, whose mean is the loss, without autograd."""
     with torch.no_grad():
-        x = model._embed_inputs(params, tokens, fe)
-        if fe is not None:
-            labels = torch.where(torch.arange(S, device=labels.device) < fe.shape[1], -100, labels)
-        x, _ = model._scan_groups(params, x, torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S))
-        h = model.ops.rmsnorm(x, params["final_norm"]["scale"])
-        head, out = model._head_weight(params), []
-        for start in range(0, S, 512):
-            logits = torch.matmul(h[:, start:start + 512], head).float()
-            logits[..., model.cfg.vocab_size:] = -1e30
-            y = labels[:, start:start + 512]
-            gold = logits.gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
-            out.append((torch.logsumexp(logits, dim=-1) - gold) * (y >= 0))
-    return torch.cat(out, dim=1)
+        return model.token_losses(params, batch["tokens"], batch["labels"], batch.get("frontend_embeds"))[0]
 
 
-def loss_gate(arch, cfg, bundle, plain, params, params32, pipe) -> None:
-    """The loss through the kernels against the plain versions, per token:
-    the per-token losses of the kernel path may be at most 1.25 times as far
-    (relative L2) from the fp32 plain path's as the plain bf16 path's, the
-    rule of the serve phases' logits. The mean loss of four batches is
-    printed beside it, ungated: the rounding errors of the 8192 tokens largely
-    cancel in the mean, both bf16 paths land a few 1e-4 from fp32 (of a loss
-    near 11), and the ratio of two such distances does not tell a wrong kernel
-    from another rounding (PERF.md §6)."""
-    batch = train_batch(cfg, pipe, 0)
-    t32 = token_losses(plain.model, params32, batch)
-    tp, tk = token_losses(plain.model, params, batch), token_losses(bundle.model, params, batch)
-    tk32 = token_losses(bundle.model, params32, batch)
-    dp, dk, dk32 = rel_l2(tp, t32), rel_l2(tk, t32), rel_l2(tk32, t32)
-    with torch.no_grad():
-        loss = float(loss_of(plain.model, params32, batch)[0])
-    valid = float((batch["labels"][:, cfg.frontend_positions:] >= 0).sum())
-    mean = float(t32.sum(dtype=torch.float64)) / valid
-    require(abs(mean - loss) <= 1e-5 * abs(loss), f"{arch}: token losses average {mean}, the loss is {loss}")
-    # the same with one kernel at a time on the path, the other kernels plain
-    paths = {"all kernels": bundle.model}
-    for name, n in train_launches(cfg).items():
-        if n:
-            alone = types.SimpleNamespace(**{k: getattr(ops if k == name else ops.PLAIN, k) for k in KERNELS})
-            paths[f"{name} alone"] = build_model(cfg, ops=alone)
-    ratios = {label: [] for label in paths}
-    for step in range(4):
-        b = train_batch(cfg, pipe, step)
-        with torch.no_grad():
-            l32, lp = float(loss_of(plain.model, params32, b)[0]), float(loss_of(plain.model, params, b)[0])
-            for label, model in paths.items():
-                lk = float(loss_of(model, params, b)[0])
-                ratios[label].append(f"{abs(lk - l32) / max(abs(lp - l32), 1e-30):.3f} ({abs(lk - l32):.3e})")
-    per_path = "; ".join(f"{label}: {', '.join(r)}" for label, r in ratios.items())
-    print(f"train {arch} loss gate: per-token losses, relative L2 from fp32 plain: bf16 kernels {dk:.4e} vs "
-          f"bf16 plain {dp:.4e} (ratio {dk / dp:.4f}); fp32 kernels {dk32:.3e} (tolerance {FP32_GRAD_RTOL[arch]}); "
-          f"their mean {mean:.6f} = the loss {loss:.6f}. Not gated, batches 0-3: the mean loss's distance from "
-          f"fp32 over the plain bf16 path's (the distance), {per_path}")
-    require(dk <= FLOOR_RATIO * dp, f"{arch}: the kernel path's token losses are further from fp32 than bf16 explains")
-    require(dk32 <= FP32_GRAD_RTOL[arch], f"{arch}: fp32 kernel-path token losses differ from fp32 plain")
+def planted(kernel: str, fn) -> types.SimpleNamespace:
+    """``kernels/ops`` with one kernel's entry point replaced by ``fn``."""
+    return types.SimpleNamespace(**{k: fn if k == kernel else getattr(ops, k) for k in KERNELS})
+
+
+# Faults planted in one kernel, each a bug a kernel could have. Each wraps
+# the kernel and patches its output (or cuts its gradient) in plain PyTorch,
+# so the gradient flows through both. ``gradient_gate`` holds each to the
+# gates named beside it in ``PLANTED``: those must fail on it.
+def flash_leaves_last_tile_unwritten(q, k, v, *, causal=True, window=None):
+    """The last 64 queries' output is never written (zero)."""
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    s = q.shape[2] - 64
+    return torch.cat([out[:, :, :s], torch.zeros_like(out[:, :, s:])], dim=2)
+
+
+def flash_drops_last_key_tile(q, k, v, *, causal=True, window=None):
+    """The last 64 queries (one tile) attend to every key but the last 64."""
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    s = q.shape[2] - 64
+    tail = ref.attention_ref(q[:, :, s:], k[:, :, :s], v[:, :, :s], causal=False)
+    return torch.cat([out[:, :, :s], tail], dim=2)
+
+
+def flash_drops_dk(q, k, v, *, causal=True, window=None):
+    """The backward pass gives keys no gradient."""
+    return ops.flash_attention(q, k.detach(), v, causal=causal, window=window)
+
+
+def rmsnorm_leaves_last_vector(x, scale, *, eps=1e-6):
+    """Each row's last 16-byte vector (8 bf16 values) is scaled but not normalized."""
+    out = ops.rmsnorm(x, scale, eps=eps)
+    return torch.cat([out[..., :-8], (x[..., -8:].float() * scale[-8:]).to(out.dtype)], dim=-1)
+
+
+def rmsnorm_doubles_last_row(x, scale, *, eps=1e-6):
+    """The last row (the last sequence's last token) comes out twice as large."""
+    out = ops.rmsnorm(x, scale, eps=eps).reshape(-1, x.shape[-1])
+    return torch.cat([out[:-1], out[-1:] * 2]).view(x.shape)
+
+
+def ssd_drops_carried_state(x, log_dA, Bm, Cm, *, chunk=256):
+    """The last 64 rows of y start from a zero state, as if the state carried
+    into their 64-row chunk were lost."""
+    y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=chunk)
+    s = x.shape[1] - 64
+    tail, _ = ref.ssd_chunked(x[:, s:], log_dA[:, s:], Bm[:, s:], Cm[:, s:], 64)
+    return torch.cat([y[:, :s], tail], dim=1), h
+
+
+def ssd_forgets_every_chunk(x, log_dA, Bm, Cm, *, chunk=256):
+    """Every 64-row chunk starts from a zero state (the pass between chunks is
+    lost); the sequence is a multiple of 64."""
+    _, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=chunk)
+    b, s = x.shape[:2]
+    split = lambda t: t.reshape(b * (s // 64), 64, *t.shape[2:])  # noqa: E731
+    y, _ = ref.ssd_chunked(split(x), split(log_dA), split(Bm), split(Cm), 64)
+    return y.reshape(b, s, *y.shape[2:]), h
+
+
+def ssd_drops_dbc(x, log_dA, Bm, Cm, *, chunk=256):
+    """The backward pass gives B and C no gradient."""
+    return ops.ssd_scan(x, log_dA, Bm.detach(), Cm.detach(), chunk=chunk)
+
+
+BOTH, GRADIENT, NONE = ("per-token", "gradient"), ("gradient",), ()
+PLANTED = {  # cell: (fault, the kernel it is planted in, the gates that must fail)
+    "internvl2-2b": [
+        ("flash_attention leaves the last 64 queries unwritten", "flash_attention", flash_leaves_last_tile_unwritten,
+         BOTH),
+        ("rmsnorm leaves each row's last 16-byte vector unnormalized", "rmsnorm", rmsnorm_leaves_last_vector, BOTH),
+        ("rmsnorm doubles one row of 8192", "rmsnorm", rmsnorm_doubles_last_row, GRADIENT),
+        ("flash_attention's backward drops dK", "flash_attention", flash_drops_dk, GRADIENT),
+        ("flash_attention drops the last key tile for the last 64 queries", "flash_attention",
+         flash_drops_last_key_tile, NONE),
+    ],
+    "mamba2-370m": [
+        ("rmsnorm leaves each row's last 16-byte vector unnormalized", "rmsnorm", rmsnorm_leaves_last_vector, BOTH),
+        ("rmsnorm doubles one row of 8192", "rmsnorm", rmsnorm_doubles_last_row, GRADIENT),
+        ("ssd_scan's backward drops dB and dC", "ssd_scan", ssd_drops_dbc, GRADIENT),
+        ("ssd_scan starts every 64-row chunk from a zero state", "ssd_scan", ssd_forgets_every_chunk, GRADIENT),
+        ("ssd_scan drops the state carried into the last 64 rows", "ssd_scan", ssd_drops_carried_state, NONE),
+    ],
+}
 
 
 def gradient_gate(arch, cfg, bundle, plain, params, pipe) -> None:
-    """One batch, the seeded weights: the loss and the whole gradient through
-    the kernels in bf16 and in fp32, and through the plain versions in bf16
-    and in fp32 (the reference: the same weights widened exactly)."""
-    n = cfg.num_layers
+    """One batch, the seeded weights: the per-token losses and the whole
+    gradient through the kernels in bf16 and in fp32, through the plain
+    versions in bf16 and in fp32 (the reference: the same weights widened
+    exactly), and through the kernels with each fault of ``PLANTED`` planted.
+
+    The kernel path may be at most 1.25 times as far (relative L2) from fp32
+    as the plain bf16 path, the rule of the serve phases' logits: the
+    per-token losses as one vector, the gradient leaf by leaf (which bounds
+    the flattened gradient's ratio too). Each planted fault must break the
+    rule in the gates ``PLANTED`` names; a fault named with none shows what
+    the gates cannot see (the kernel checks at the training shapes hold those
+    kernels elementwise). The mean loss's distances are printed, not gated:
+    the rounding errors of the 8192 tokens largely cancel in the mean, both
+    bf16 paths land a few 1e-4 from fp32 (of a loss near 11), and the ratio of
+    two such distances does not tell a wrong kernel from another rounding
+    (PERF.md §6)."""
+    n, tol32 = cfg.num_layers, FP32_GRAD_RTOL[arch]
     params32 = tree_map(lambda t: t.float(), params)
-    loss_gate(arch, cfg, bundle, plain, params, params32, pipe)
     batch = train_batch(cfg, pipe, 0)
+    t32 = token_losses(plain.model, params32, batch)
     ops.reset_launch_counts()
     loss32, _, ref32 = loss_and_grads(plain.model, params32, batch)
-    loss_p, _, grads = loss_and_grads(plain.model, params, batch)
-    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
-    dist_p = grad_distance(grads, ref32)
-    del grads
-    free_memory()
-    ops.reset_launch_counts()
-    loss_k, _, grads = loss_and_grads(bundle.model, params, batch)
-    counts, variants = ops.launch_counts(), dict(ssd_mod.variant_launches)
+    loss32 = float(loss32)
+
+    def distances(model, weights):
+        """The loss, the per-token losses' relative L2 distance from fp32
+        plain, the gradient's flattened and by leaf, the launches of the loss
+        and gradient and the ssd_scan launches by kernel."""
+        tokens = rel_l2(token_losses(model, weights, batch), t32)
+        ops.reset_launch_counts()
+        loss, _, grads = loss_and_grads(model, weights, batch)
+        counts, variants = ops.launch_counts(), dict(ssd_mod.variant_launches)
+        dist, per_leaf = grad_distances(grads, ref32)
+        del grads
+        free_memory()
+        return float(loss), tokens, dist, per_leaf, counts, variants
+
+    def worst_leaf(per_leaf, base):
+        return max((per_leaf[p] / max(base[p], 1e-30), p) for p in base)
+
+    loss_p, tok_p, grad_p, leaf_p, counts_p, _ = distances(plain.model, params)
+    require(sum(counts_p.values()) == 0, "the plain path launched a kernel")
+    loss_k, tok_k, grad_k, leaf_k, counts, variants = distances(bundle.model, params)
     require(counts == train_launches(cfg), f"{arch} kernel-path gradient launches {counts} != {train_launches(cfg)}")
-    dist_k = grad_distance(grads, ref32)
-    del grads
-    free_memory()
-    ops.reset_launch_counts()
-    loss_k32, _, grads = loss_and_grads(bundle.model, params32, batch)
-    counts32, variants32 = ops.launch_counts(), dict(ssd_mod.variant_launches)
+    loss_k32, tok_k32, grad_k32, _, counts32, variants32 = distances(bundle.model, params32)
     require(counts32 == train_launches(cfg), f"{arch} fp32 kernel-path launches {counts32}")
-    dist_k32 = grad_distance(grads, ref32)
-    del grads, ref32, params32
-    free_memory()
     if cfg.family == "ssm":
         require(variants == {ssd_mod.TENSOR_CORE: 2 * n, ssd_mod.GENERIC: 0} and
                 variants32 == {ssd_mod.TENSOR_CORE: 0, ssd_mod.GENERIC: 2 * n},
                 f"{arch} ssd_scan by kernel: bf16 {variants}, fp32 {variants32}")
-    loss32, loss_p, loss_k, loss_k32 = (float(t) for t in (loss32, loss_p, loss_k, loss_k32))
-    loss_dk, loss_dp = abs(loss_k - loss32), abs(loss_p - loss32)
+    del params32
+    free_memory()
+    leaf_ratio, leaf_path = worst_leaf(leaf_k, leaf_p)
+    faults = []
+    for name, kernel, fn, must_fail in PLANTED[arch]:
+        _, tok_f, grad_f, leaf_f, _, _ = distances(build_model(cfg, ops=planted(kernel, fn)), params)
+        ratios = {"per-token": tok_f / tok_p, "gradient": worst_leaf(leaf_f, leaf_p)[0]}
+        faults.append((name, ratios, grad_f / grad_p, must_fail))
+    del ref32
+    free_memory()
     loss_rel32 = abs(loss_k32 - loss32) / abs(loss32)
-    tol32 = FP32_GRAD_RTOL[arch]
-    print(f"train {arch} gradient gate: loss fp32 plain {loss32:.6f}, bf16 plain {loss_p:.6f}, bf16 kernels "
-          f"{loss_k:.6f}, fp32 kernels {loss_k32:.6f} (distance from fp32 plain, not gated: bf16 kernels "
-          f"{loss_dk:.4e}, bf16 plain {loss_dp:.4e}); gradient relative L2 from fp32 plain: bf16 kernels "
-          f"{dist_k:.4e} vs bf16 plain {dist_p:.4e} (ratio {dist_k / dist_p:.4f}); "
-          f"fp32 kernels vs fp32 plain: loss {loss_rel32:.3e}, gradient {dist_k32:.3e} (tolerance {tol32}); "
-          f"launches per loss and gradient {counts}" + (f", ssd_scan by kernel bf16 {variants} fp32 {variants32}"
-                                                         if cfg.family == "ssm" else ""))
+    shown = "; ".join(
+        f"{name}: per-token {r['per-token']:.4f}, worst leaf {r['gradient']:.4f} (flattened {flat:.4f}), caught by "
+        f"[{', '.join(g for g in BOTH if r[g] > FLOOR_RATIO)}], must be by [{', '.join(must)}]"
+        for name, r, flat, must in faults)
+    print(f"train {arch} gradient gate, relative L2 from fp32 plain: per-token losses bf16 kernels {tok_k:.4e} vs "
+          f"bf16 plain {tok_p:.4e} (ratio {tok_k / tok_p:.4f}); gradient bf16 kernels {grad_k:.4e} vs bf16 plain "
+          f"{grad_p:.4e} (ratio {grad_k / grad_p:.4f}), the worst leaf's ratio {leaf_ratio:.4f} ({leaf_path}); "
+          f"fp32 kernels vs fp32 plain: loss {loss_rel32:.3e}, per-token losses {tok_k32:.3e}, gradient "
+          f"{grad_k32:.3e} (tolerance {tol32}). Planted faults, ratios over the plain bf16 path's distance "
+          f"(a gate fails above {FLOOR_RATIO}): {shown}. Not gated: the loss fp32 plain {loss32:.6f}, bf16 plain "
+          f"{loss_p:.6f} ({abs(loss_p - loss32):.4e} from fp32), bf16 kernels {loss_k:.6f} "
+          f"({abs(loss_k - loss32):.4e}), fp32 kernels {loss_k32:.6f}; launches per loss and gradient {counts}"
+          + (f", ssd_scan by kernel bf16 {variants} fp32 {variants32}" if cfg.family == "ssm" else ""))
     require(math.isfinite(loss_k), f"{arch}: non-finite kernel-path loss")
-    require(dist_k <= FLOOR_RATIO * dist_p,
-            f"{arch}: the kernel path's gradient is further from fp32 than bf16 alone explains")
-    require(loss_rel32 <= tol32 and dist_k32 <= tol32, f"{arch}: fp32 kernel path differs from fp32 plain")
-
-
-def step_phases(bundle, trainer) -> str:
-    """One more step of the trained state, its parts on the host clock, each
-    ending in a synchronize: forward and backward, clipping, the optimizer."""
-    batch = train_batch(bundle.cfg, trainer.pipeline, trainer.step)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, _, grads = loss_and_grads(bundle.model, trainer.params, batch)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    grads, _ = clip_by_global_norm(grads, 1.0)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    bundle.optimizer.update(grads, trainer.opt_state, trainer.params, TR_LR)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    return (f"forward + backward {(t1 - t0) * 1e3:.3f} ms, clip {(t2 - t1) * 1e3:.3f} ms, "
-            f"AdamW {(t3 - t2) * 1e3:.3f} ms")
+    require(tok_k <= FLOOR_RATIO * tok_p,
+            f"{arch}: the kernel path's token losses are further from fp32 than bf16 alone explains")
+    require(leaf_ratio <= FLOOR_RATIO,
+            f"{arch}: the kernel path's gradient of {leaf_path} is further from fp32 than bf16 alone explains")
+    require(loss_rel32 <= tol32 and tok_k32 <= tol32 and grad_k32 <= tol32,
+            f"{arch}: fp32 kernel path differs from fp32 plain")
+    for name, ratios, _, must_fail in faults:
+        require(all(ratios[g] > FLOOR_RATIO for g in must_fail),
+                f"{arch}: a gate passes a planted fault ({name}): {ratios}")
 
 
 def train_phase(arch: str, seed: int) -> dict:
@@ -1100,7 +1170,6 @@ def train_phase(arch: str, seed: int) -> dict:
           f"bound 8 N T = {flops:.4e} FLOP at 989 TFLOP/s = {bound_s * 1e3:.3f} ms "
           f"({bound_s / np.median(steady):.3f} of the median); {TR_B * TR_SEQ / np.median(steady):.1f} tokens/s; "
           f"peak memory {peak_gb:.2f} GB; {energy}; rollbacks {report['rollbacks']}")
-    print(f"train {arch} step parts (one more step): {step_phases(bundle, trainer)}")
     profiled(f"train step {arch}", lambda: bundle.step_fn(trainer.params, trainer.opt_state,
                                                           train_batch(cfg, pipe, trainer.step)))
     del trainer

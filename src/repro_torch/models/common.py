@@ -77,20 +77,20 @@ def lm_head_def(d_model: int, vocab: int) -> Dict[str, ParamDef]:
     return {"w": ParamDef((d_model, vocab), fan_in_init())}
 
 
-def chunked_cross_entropy(
+def token_cross_entropy(
     head_w: torch.Tensor,
     hidden: torch.Tensor,  # (B, S, D)
     labels: torch.Tensor,  # (B, S), -100 ignored
     vocab_size: int,
     chunk: int = 512,
 ) -> torch.Tensor:
-    """Mean cross-entropy over the labels that are not -100, a chunk of the
-    sequence at a time: the (B, chunk, V) logits are computed in the head's
-    dtype and widened to fp32, the padded vocab entries masked to -1e30."""
+    """The cross-entropy of every token, (B, S) in fp32, 0 where the label is
+    -100, a chunk of the sequence at a time: the (B, chunk, V) logits are
+    computed in the head's dtype and widened to fp32, the padded vocab entries
+    masked to -1e30."""
     S = hidden.shape[1]
     chunk = min(chunk, S)
-    total = hidden.new_zeros((), dtype=torch.float32)
-    count = hidden.new_zeros((), dtype=torch.float32)
+    out = []
     for start in range(0, S, chunk):
         h, y = hidden[:, start : start + chunk], labels[:, start : start + chunk]
         logits = torch.matmul(h, head_w).float()
@@ -98,10 +98,21 @@ def chunked_cross_entropy(
         logits = torch.where(vocab < vocab_size, logits, -1e30)
         logz = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
-        valid = (y >= 0).float()
-        total = total + ((logz - gold) * valid).sum()
-        count = count + valid.sum()
-    return total / count.clamp(min=1.0)
+        out.append((logz - gold) * (y >= 0).float())
+    return torch.cat(out, dim=1)
+
+
+def chunked_cross_entropy(
+    head_w: torch.Tensor,
+    hidden: torch.Tensor,  # (B, S, D)
+    labels: torch.Tensor,  # (B, S), -100 ignored
+    vocab_size: int,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Mean cross-entropy over the labels that are not -100: the mean of
+    ``token_cross_entropy``."""
+    losses = token_cross_entropy(head_w, hidden, labels, vocab_size, chunk)
+    return losses.sum() / (labels >= 0).sum().float().clamp(min=1.0)
 
 
 def swiglu_def(d_model: int, d_ff: int) -> Dict[str, ParamDef]:

@@ -40,7 +40,6 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import params as pu
 from repro_torch.models.common import (
-    chunked_cross_entropy,
     embed,
     embedding_def,
     lm_head_def,
@@ -48,6 +47,7 @@ from repro_torch.models.common import (
     rmsnorm_def,
     swiglu,
     swiglu_def,
+    token_cross_entropy,
 )
 
 Tree = Dict[str, Any]
@@ -189,6 +189,26 @@ class Model(nn.Module):
             x = torch.cat([frontend_embeds.to(x.dtype), x[:, npos:]], dim=1)
         return x
 
+    def token_losses(
+        self,
+        params: Tree,
+        tokens: torch.Tensor,  # (B, S)
+        labels: torch.Tensor,  # (B, S), -100 ignored
+        frontend_embeds: Optional[torch.Tensor] = None,  # (B, frontend_positions, d_model)
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(the next-token cross-entropy of every token, (B, S) in fp32 and 0
+        where no label counts; the labels with the frontend's positions set to
+        -100; the auxiliary loss)."""
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+        x = self._embed_inputs(params, tokens, frontend_embeds)
+        if frontend_embeds is not None:
+            npos = frontend_embeds.shape[1]
+            labels = torch.where(torch.arange(S, device=labels.device) < npos, -100, labels)
+        x, aux = self._scan_groups(params, x, positions)
+        h = rmsnorm(params["final_norm"], x, ops=self.ops)
+        return token_cross_entropy(self._head_weight(params), h, labels, self.cfg.vocab_size), labels, aux
+
     def loss(
         self,
         params: Tree,
@@ -198,15 +218,8 @@ class Model(nn.Module):
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token cross-entropy -> (loss, {"ce", "aux"}); the
         frontend's positions carry no label."""
-        B, S = tokens.shape
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-        x = self._embed_inputs(params, tokens, frontend_embeds)
-        if frontend_embeds is not None:
-            npos = frontend_embeds.shape[1]
-            labels = torch.where(torch.arange(S, device=labels.device) < npos, -100, labels)
-        x, aux = self._scan_groups(params, x, positions)
-        h = rmsnorm(params["final_norm"], x, ops=self.ops)
-        ce = chunked_cross_entropy(self._head_weight(params), h, labels, self.cfg.vocab_size)
+        losses, labels, aux = self.token_losses(params, tokens, labels, frontend_embeds)
+        ce = losses.sum() / (labels >= 0).sum().float().clamp(min=1.0)
         return ce, {"ce": ce, "aux": aux}
 
     # -- serving ------------------------------------------------------------

@@ -100,6 +100,32 @@ def test_train_launcher_runs_on_the_cpu_when_asked(tmp_path, capsys):
     assert out.startswith("restored step 2") and "'steps': 3" in out
 
 
+def test_trajectories_without_a_card_exits_nonzero():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.train.trajectories", "--arch", "mamba2-370m", "--smoke", "--steps", "1"],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+    assert "losses" not in out.stdout
+
+
+def test_trajectories_run_on_the_cpu_when_asked(capsys):
+    """Two paths from the same weights and batches: the same first loss, a gap printed per path."""
+    from repro_torch.train import trajectories
+
+    trajectories.main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu", "--batch", "2", "--seq", "32",
+                       "--steps", "2", "--lr", "1e-3", "--paths", "kernels", "plain", "rmsnorm"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    firsts = {line.split(": losses ")[0]: line.split(": losses ")[1].split()[0] for line in lines if ": losses " in line}
+    assert len(firsts) == 3 and len(set(firsts.values())) == 1
+    assert sum("largest per-step relative gap to plain" in line for line in lines) == 2
+    with pytest.raises(ValueError):
+        trajectories.path_ops("flash")
+
+
 def test_chip_smoke_without_a_card_exits_nonzero():
     if torch.cuda.is_available():
         pytest.skip("a card is present")

@@ -210,6 +210,34 @@ def test_chunked_cross_entropy_matches_jax(rng):
     np.testing.assert_allclose(float(ours), float(theirs), rtol=1e-6)
 
 
+def test_token_cross_entropy_matches_numpy(rng):
+    """Every token's loss against a float64 log-softmax over the real vocab; 0 where ignored."""
+    h = rng.standard_normal((2, 1100, 16)).astype(np.float32)
+    w = rng.standard_normal((16, 512)).astype(np.float32) / 4
+    y = rng.integers(0, 503, (2, 1100)).astype(np.int32)
+    y[:, ::7] = -100
+    ours = common.token_cross_entropy(torch.from_numpy(w), torch.from_numpy(h), torch.from_numpy(y), 503)
+    logits = (h.astype(np.float64) @ w.astype(np.float64))[..., :503]
+    logz = np.log(np.exp(logits - logits.max(-1, keepdims=True)).sum(-1)) + logits.max(-1)
+    want = (logz - np.take_along_axis(logits, np.maximum(y, 0)[..., None], -1)[..., 0]) * (y >= 0)
+    assert ours.shape == (2, 1100) and ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "mamba2-370m"])
+def test_loss_is_the_mean_of_the_token_losses(arch):
+    """``Model.loss`` averages ``Model.token_losses`` over the labels that count (not the frontend's)."""
+    model = Model(smoke_config(get_config(arch)))
+    params = _torch_params(arch, model)
+    batch = _to_torch(_batch(arch))
+    losses, labels, _ = model.token_losses(params, **batch)
+    npos = model.cfg.frontend_positions if model.cfg.frontend is not None else 0
+    assert losses.shape == (B, S) and bool((labels[:, :npos] == -100).all())
+    assert bool((losses[labels < 0] == 0).all())
+    counted = int((batch["labels"][:, npos:] >= 0).sum())
+    torch.testing.assert_close(model.loss(params, **batch)[0], losses.sum() / counted, rtol=1e-7, atol=0)
+
+
 # ---------------------------------------------------------------- the autograd Functions
 
 
