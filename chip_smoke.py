@@ -62,9 +62,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
      draw, sampled through the run) against the 8 N T bound, and a profile
      of one step;
 8. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
-   checkpointing under ``build/`` and restarting from it.
+   checkpointing under ``build/`` and restarting from it;
+9. co-location: the two training cells as jobs of ``colocation/stepper.py``'s
+   ``TemporalStepper`` (one whole step per job per round, one process, the
+   training phase's weights and settings), observed by ``EarlyStageProfiler``
+   with the H100's peak and 8 N T FLOPs a step:
+   - each job alone (internvl2-2b, mamba2-370m, and a second mamba2-370m on
+     other data): a warm-up step, then 5 solo steps; step time, duty, J/step;
+   - internvl2-2b + mamba2-370m, then the three together, 5 rounds each from
+     fresh state: each job's step time and inflation against solo, J per round
+     and its ratio to the members' solo J/step, peak memory, and a profile of
+     one more round. Gates: exact
+     launches in every round (the live jobs' per-step counts summed); finite
+     losses; isolation (each job's first 3 losses against its solo run's from
+     the same weights and batches: step 1 equal, steps 2-3 within 1e-3);
+   - into EaCO: a ``JobProfile`` per family from its solo run, the analytic
+     ``JCTPredictor`` prediction beside each measured set inflation, both
+     recorded in a ``History`` saved under ``build/`` and loaded back, from
+     which the predictor must return them exactly;
+   - evict: mamba2-370m checkpointing every 2 steps under ``build/``, 3 steps,
+     then ``evict``: step 2, and its state equal bit for bit to a host copy
+     taken at that boundary.
 
 ``--seed`` (default 0) draws other weights and prompts for the model phases.
+
+A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the two serve
+paths', the two 20-step training runs' and the co-located rounds'.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and prints
@@ -95,7 +118,14 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch.bridge.profiles import STEPS_PER_EPOCH  # noqa: E402
+from repro_torch.cluster.colocation import set_signature  # noqa: E402
+from repro_torch.cluster.job import JobProfile  # noqa: E402
+from repro_torch.colocation.profiler import EarlyStageProfiler  # noqa: E402
+from repro_torch.colocation.stepper import ColocatedJob, TemporalStepper  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.history import History  # noqa: E402
+from repro_torch.core.predictor import JCTPredictor  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
@@ -104,15 +134,16 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
 from repro_torch.optim.schedules import constant  # noqa: E402
+from repro_torch.roofline import hw  # noqa: E402
 from repro_torch.train.steps import loss_and_grads, make_serve_bundle, make_train_bundle  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig, frontend_embeds  # noqa: E402
 from repro_torch.tree import leaves, leaves_with_paths, tree_map  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense): the bound of every kernel is the larger of
 # bytes / HBM rate and operations / peak rate for their type, at 700 W.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TF32_FLOPS = 495e12  # the tensor cores on TF32 operands
+HBM_BYTES_PER_S = hw.H100_HBM_BW
+PEAK_FLOPS = {torch.bfloat16: hw.H100_PEAK_FLOPS_BF16, torch.float32: hw.H100_PEAK_FLOPS_FP32}
+TF32_FLOPS = hw.H100_PEAK_FLOPS_TF32  # the tensor cores on TF32 operands
 
 # ~0.1 s at the H100's 1.98 GHz: longer than the host takes to queue the 40
 # timed calls of the slowest plain version.
@@ -144,7 +175,22 @@ TRAIN_ARCHS = ("internvl2-2b", "mamba2-370m")
 TR_B, TR_SEQ, TR_STEPS, TR_LR = 4, 2048, 20, 3e-4
 TR_H, TR_HKV = 16, 8  # internvl2-2b's attention heads (head_dim 128, as minitron-8b's)
 FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL}
-TRAIN_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train_ckpt")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+TRAIN_CKPT_DIR = os.path.join(BUILD_DIR, "chip_smoke_train_ckpt")
+
+# The co-location phase: the two training cells as jobs (name: family, data
+# seed offset), with a second mamba2-370m job on other data; each set
+# observed for 5 round-robin rounds after 5 solo steps of each member.
+COLO_JOBS = {"internvl2-2b": ("internvl2-2b", 0), "mamba2-370m": ("mamba2-370m", 0),
+             "mamba2-370m-2": ("mamba2-370m", 1)}
+COLO_SETS = {"2-way": ("internvl2-2b", "mamba2-370m"), "3-way": ("internvl2-2b", "mamba2-370m", "mamba2-370m-2")}
+COLO_SOLO_STEPS, COLO_ROUNDS = 5, 5
+# A co-located job's first steps against the same job's alone, from the same
+# weights and batches: step 1 equal, steps 2-3 within 1e-3 relative (the plain
+# backward passes may sum in another order).
+ISOLATION_STEPS, ISOLATION_RTOL = 3, 1e-3
+COLO_CKPT_DIR = os.path.join(BUILD_DIR, "chip_smoke_colocation_ckpt")
+COLO_HISTORY = os.path.join(BUILD_DIR, "chip_smoke_history.json")
 
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:44"),
@@ -1228,6 +1274,200 @@ def train_launcher_phase(seed: int) -> None:
         shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------- co-location
+
+
+def colocation_job(name: str, seed: int, ckpt_dir=None, steps_per_epoch: int = 10**9) -> ColocatedJob:
+    """A training cell as a co-located job in fresh state: the training
+    phase's seeded weights, the data seed of ``COLO_JOBS``, bf16, AdamW at a
+    constant 3e-4, batch 4 x 2048 from ``SyntheticPipeline``."""
+    arch, data_offset = COLO_JOBS[name]
+    cfg = get_config(arch)
+    bundle = make_train_bundle(cfg, lr_schedule=constant(TR_LR))
+    pipe = SyntheticPipeline(DataConfig(cfg.vocab_size, TR_SEQ, TR_B, seed=seed + data_offset))
+    params, opt_state = bundle.init_state(seed, "cuda")
+    return ColocatedJob(name, bundle, pipe, steps_per_epoch, 10**9, ckpt_dir, params=params, opt_state=opt_state)
+
+
+def state_gb(job: ColocatedJob) -> float:
+    """The job's resident state: parameters and optimizer state."""
+    return sum(t.numel() * t.element_size() for t in leaves((job.params, job.opt_state))) / 1e9
+
+
+def counted_rounds(stepper: TemporalStepper, rounds: list) -> None:
+    """Reset the launch counters before each of the stepper's rounds and keep
+    each round's counts and ssd_scan launches by kernel."""
+    step_round = stepper.step_round
+
+    def counted():
+        ops.reset_launch_counts()
+        out = step_round()
+        rounds.append((ops.launch_counts(), dict(ssd_mod.variant_launches)))
+        return out
+
+    stepper.step_round = counted
+
+
+def colocation_solo(name: str, seed: int, profiler: EarlyStageProfiler, name_power: str) -> dict:
+    """One job alone on the card: a warm-up step (not counted), then
+    ``profile_solo``'s steps under the power sampler."""
+    job = colocation_job(name, seed)
+    stepper = TemporalStepper([job])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stepper.step_round()  # warm-up
+    with PowerSampler() as power:
+        obs = profiler.profile_solo(stepper, steps=COLO_SOLO_STEPS)[name]
+    require(len(power.samples) >= 2, f"{name}: {len(power.samples)} power samples")
+    out = {"obs": obs, "j_per_step": power.joules / COLO_SOLO_STEPS, "losses": list(job.losses),
+           "state_gb": state_gb(job), "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    times = " ".join(f"{t * 1e3:.3f}" for t in job.step_times[1:])
+    print(f"colocation solo {name}: step ms {times}, median {obs.mean_step_s * 1e3:.3f}; duty "
+          f"{obs.duty_cycle_pct:.4f} % of {hw.H100_PEAK_FLOPS_BF16:.4g} FLOP/s (8 N T = {profiler.flops_per_step[name]:.4e}); "
+          f"energy {out['j_per_step']:.2f} J/step ({power.watts:.1f} W mean draw over {len(power.samples)} samples x "
+          f"{power.seconds:.3f} s); state {out['state_gb']:.2f} GB, peak memory {out['peak_gb']:.2f} GB; losses "
+          + " ".join(f"{x:.5f}" for x in job.losses) + f" [{name_power}]")
+    require(all(math.isfinite(x) for x in job.losses), f"{name}: non-finite solo loss {job.losses}")
+    del job, stepper
+    free_memory()
+    return out
+
+
+def colocation_set(label: str, names: tuple, seed: int, profiler: EarlyStageProfiler, solo: dict,
+                   name_power: str) -> tuple:
+    """The set co-located through ``TemporalStepper`` for ``COLO_ROUNDS``
+    rounds, observed by the profiler: exact launches in every round, finite
+    losses, the isolation gate, step times, inflations, energy and peak
+    memory. Returns the set's inflation (the mean of its members', the
+    bridge's convention) and its launches."""
+    jobs = [colocation_job(n, seed) for n in names]
+    stepper = TemporalStepper(jobs)
+    rounds = []
+    counted_rounds(stepper, rounds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with PowerSampler() as power:
+        obs = profiler.observe(stepper, rounds=COLO_ROUNDS)
+    require(len(power.samples) >= 2, f"{label}: {len(power.samples)} power samples")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_round = {k: sum(train_launches(j.bundle.cfg)[k] for j in jobs) for k in KERNELS}
+    variants = {ssd_mod.TENSOR_CORE: per_round["ssd_scan"], ssd_mod.GENERIC: 0}
+    require(len(rounds) == COLO_ROUNDS and all(c == per_round and v == variants for c, v in rounds),
+            f"{label} launches per round {rounds}, expected {per_round}, ssd_scan by kernel {variants}")
+    for job in jobs:
+        require(len(job.losses) == COLO_ROUNDS and all(math.isfinite(x) for x in job.losses),
+                f"{label} {job.name}: losses {job.losses}")
+        alone = solo[job.name]["losses"][:ISOLATION_STEPS]
+        shared = job.losses[:ISOLATION_STEPS]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(shared, alone)]
+        print(f"colocation {label} {job.name}: step ms " + " ".join(f"{t * 1e3:.3f}" for t in job.step_times)
+              + f", median {obs[job.name].mean_step_s * 1e3:.3f} (solo {solo[job.name]['obs'].mean_step_s * 1e3:.3f}),"
+              f" inflation {obs[job.name].inflation_vs_solo:.4f}, duty {obs[job.name].duty_cycle_pct:.4f} %; isolation:"
+              f" steps 1-{ISOLATION_STEPS} " + " ".join(f"{x:.6f}" for x in shared) + " vs alone "
+              + " ".join(f"{x:.6f}" for x in alone) + ", relative gaps " + " ".join(f"{g:.3e}" for g in gaps))
+        require(shared[0] == alone[0], f"{label} {job.name}: step 1 loss {shared[0]} != {alone[0]} alone")
+        require(max(gaps) <= ISOLATION_RTOL, f"{label} {job.name}: losses leave the solo run's by {gaps}")
+    j_round = power.joules / COLO_ROUNDS
+    solo_sum = sum(solo[n]["j_per_step"] for n in names)
+    inflation = float(np.mean([obs[n].inflation_vs_solo for n in names]))
+    counts = {k: sum(c[k] for c, _ in rounds) for k in KERNELS}
+    # one more round under the profiler, uncounted: the device's busy share of a round
+    profiled(f"co-located round {label}", lambda: TemporalStepper.step_round(stepper))
+    print(f"colocation {label} ({' + '.join(names)}): set inflation {inflation:.4f}; energy {j_round:.2f} J/round "
+          f"({power.watts:.1f} W mean draw over {len(power.samples)} samples x {power.seconds:.3f} s, {COLO_ROUNDS} "
+          f"rounds) against {solo_sum:.2f} J of the members' solo steps: energy ratio {j_round / solo_sum:.4f}; "
+          f"state {sum(state_gb(j) for j in jobs):.2f} GB, peak memory {peak_gb:.2f} GB; launches per round "
+          f"{per_round} in all {COLO_ROUNDS}; ssd_scan by kernel {variants} [{name_power}]")
+    del jobs, stepper
+    free_memory()
+    return inflation, counts
+
+
+def colocation_profile(name: str, solo: dict) -> JobProfile:
+    """A family's ``JobProfile`` from its solo observation on the card: epoch
+    hours from the step time, the duty as its utilization, memory from the
+    state and the peak over the card's 80 GB; one card, no host demand."""
+    o = solo[name]
+    return JobProfile(name=COLO_JOBS[name][0], epoch_hours=o["obs"].mean_step_s * STEPS_PER_EPOCH / 3600.0,
+                      epochs=1, gpu_util=o["obs"].duty_cycle_pct,
+                      mem_util=100.0 * o["state_gb"] * 1e9 / hw.H100_HBM_BYTES,
+                      peak_mem_util=100.0 * o["peak_gb"] * 1e9 / hw.H100_HBM_BYTES, n_gpus=1)
+
+
+def colocation_phase(seed: int, name_power: str) -> dict:
+    """The training cells co-located on one card (``TemporalStepper``,
+    ``EarlyStageProfiler``), the measured inflations fed to EaCO's History
+    and JCT predictor, and a mamba2-370m evict. Returns the co-located
+    rounds' launches."""
+    t0 = time.perf_counter()
+    # FLOPs per step: 8 N T, the training cells' bound (the recompute
+    # included), which a TrainBundle does not carry
+    flops = {name: 8 * get_config(arch).param_count() * TR_B * TR_SEQ for name, (arch, _) in COLO_JOBS.items()}
+    profiler = EarlyStageProfiler(flops, peak_flops=hw.H100_PEAK_FLOPS_BF16)
+    solo = {name: colocation_solo(name, seed, profiler, name_power) for name in COLO_JOBS}
+    measured, counts = {}, {k: 0 for k in KERNELS}
+    for label, names in COLO_SETS.items():
+        measured[label], set_counts = colocation_set(label, names, seed, profiler, solo, name_power)
+        counts = {k: counts[k] + set_counts[k] for k in KERNELS}
+
+    # Into EaCO: the analytic prediction, then the measurements recorded in
+    # the History (as they are: one below 1.0 is kept, not clamped), saved
+    # and loaded back; the predictor must then return them exactly.
+    profiles = {n: colocation_profile(n, solo) for n in ("internvl2-2b", "mamba2-370m")}
+    members = {label: [profiles[COLO_JOBS[n][0]] for n in names] for label, names in COLO_SETS.items()}
+    history = History()
+    for label, ps in members.items():
+        predicted = JCTPredictor(History()).predict_inflation(ps)
+        print(f"colocation {label} into EaCO: signature {set_signature(ps)}, analytic prediction "
+              f"{predicted:.4f}, measured {measured[label]:.4f}")
+        history.record(set_signature(ps), measured[label])
+    try:
+        history.save(COLO_HISTORY)
+        loaded = History.load(COLO_HISTORY)
+        for label, ps in members.items():
+            got = JCTPredictor(loaded).predict_inflation(ps)
+            require(got == measured[label], f"{label}: the loaded History predicts {got}, measured {measured[label]}")
+    finally:
+        if os.path.exists(COLO_HISTORY):
+            os.remove(COLO_HISTORY)
+    print("colocation into EaCO: profiles " + "; ".join(
+        f"{p.name} epoch {p.epoch_hours:.6f} h ({STEPS_PER_EPOCH} steps), gpu_util {p.gpu_util:.4f}, mem_util "
+        f"{p.mem_util:.2f}, peak_mem_util {p.peak_mem_util:.2f}" for p in profiles.values())
+          + f"; History saved, loaded, and the predictor returns the measured inflations exactly: ok")
+    evict_check(seed)
+    print(f"colocation phase: {time.perf_counter() - t0:.1f} s [{name_power}]")
+    return counts
+
+
+def evict_check(seed: int) -> None:
+    """mamba2-370m checkpointing every 2 steps under build/: 3 steps, then
+    ``evict``; its step must read 2 and its parameters and optimizer state
+    equal, bit for bit, a host copy taken at the step-2 boundary."""
+    shutil.rmtree(COLO_CKPT_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        job = colocation_job("mamba2-370m", seed, ckpt_dir=COLO_CKPT_DIR, steps_per_epoch=2)
+        stepper = TemporalStepper([job])
+        snapshot = None
+        for _ in range(3):
+            stepper.step_round()
+            if job.step == 2:
+                snapshot = [t.detach().to("cpu", copy=True) for t in leaves((job.params, job.opt_state))]
+        evicted = stepper.evict("mamba2-370m")
+        restored = leaves((evicted.params, evicted.opt_state))
+        require(evicted.step == 2 and stepper.jobs == [], f"evict: step {evicted.step}, jobs {stepper.jobs}")
+        require(snapshot is not None and len(restored) == len(snapshot)
+                and all(t.is_cuda and torch.equal(t.cpu(), s) for t, s in zip(restored, snapshot)),
+                "evict: the restored state differs from the epoch-2 snapshot")
+        print(f"colocation evict mamba2-370m (checkpoint every 2 steps under build/"
+              f"{os.path.basename(COLO_CKPT_DIR)}): 3 steps, evicted at step {evicted.step}, {len(restored)} "
+              f"tensors equal to the step-2 snapshot bit for bit ({time.perf_counter() - t0:.1f} s): ok")
+        del job, evicted, restored, snapshot, stepper
+    finally:
+        shutil.rmtree(COLO_CKPT_DIR, ignore_errors=True)
+    free_memory()
+
+
 # ---------------------------------------------------------------------------- main
 
 
@@ -1268,8 +1508,10 @@ def main() -> int:
     free_memory()
     train_counts = {arch: train_phase(arch, args.seed) for arch in TRAIN_ARCHS}
     train_launcher_phase(args.seed)
-    # a kernel's launches: the two serve paths' and the two training runs'
-    paths = [(ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [(f"train {a}", c) for a, c in train_counts.items()]
+    colo_counts = colocation_phase(args.seed, name_power)
+    # a kernel's launches: the two serve paths', the two training runs' and the co-located rounds'
+    paths = [(ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [(f"train {a}", c) for a, c in train_counts.items()] + [
+        ("co-located rounds", colo_counts)]
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
