@@ -34,13 +34,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    1e-4 relative L2 of the plain path's at every step (in fp32 the two differ
    only in the order of sums); in bf16 the kernel path may be at most 1.25
    times as far from the fp32 plain run as the plain bf16 path;
-5. launcher: ``launch/serve.py``'s command line at each model phase's sizes;
-6. training kernels: the three kernels of the training forward pass timed at
+5. h2o-danube-1.8b (head_dim 80, a 4096-token sliding window) at full width
+   and depth, batch 4, 32 decode steps, past its window: its kernels timed at
+   its shapes (flash with the window beside SDPA with a band mask, decode on
+   the full 4096-slot ring, rmsnorm at 2560 wide); run A with the bf16 cache
+   and a 6144-token prompt (the prefill keeps the last 4096 positions in the
+   ring, decode wraps at once), run B with the int8 cache and a 4080-token
+   prompt (the ring wraps at step 16). Each run: 49 rmsnorm + 24 flash
+   launches per prefill, 49 rmsnorm + 24 decode per step; the logits gates of
+   phase 3 at every step (the 2e-2 rule only where the plain bf16 path itself
+   stays within 2e-2 of fp32), the plain paths one sequence at a time; in run
+   A the fp32 kernel path within 1e-4 of fp32 plain, and two planted faults
+   (``DANUBE_PLANTED``) that the gates must catch;
+6. launcher: ``launch/serve.py``'s command line at each model phase's sizes;
+7. training kernels: the three kernels of the training forward pass timed at
    its shapes (internvl2-2b's rmsnorm and flash_attention, mamba2-370m's
    rmsnorm and ssd_scan) beside the plain version, the library call and the
    bound, and each autograd Function's plain backward pass timed at the same
    shapes;
-7. internvl2-2b (its 256 frontend positions fed the trainer's seeded stand-in
+8. internvl2-2b (its 256 frontend positions fed the trainer's seeded stand-in
    embeddings) and mamba2-370m
    trained at full width and depth, bf16, batch 4 x 2048 tokens from
    ``SyntheticPipeline``, AdamW at its defaults and a constant 3e-4:
@@ -61,9 +73,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    - step time, peak memory and energy per step (``nvidia-smi``'s power
      draw, sampled through the run) against the 8 N T bound, and a profile
      of one step;
-8. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
+9. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
    checkpointing under ``build/`` and restarting from it;
-9. co-location: the two training cells as jobs of ``colocation/stepper.py``'s
+10. co-location: the two training cells as jobs of ``colocation/stepper.py``'s
    ``TemporalStepper`` (one whole step per job per round, one process, the
    training phase's weights and settings), observed by ``EarlyStageProfiler``
    with the H100's peak and 8 N T FLOPs a step:
@@ -86,8 +98,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 ``--seed`` (default 0) draws other weights and prompts for the model phases.
 
-A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the two serve
-paths', the two 20-step training runs' and the co-located rounds'.
+A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the three serve
+paths' (h2o-danube-1.8b's runs A and B), the two 20-step training runs' and
+the co-located rounds'.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and prints
@@ -99,6 +112,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -167,6 +181,16 @@ MB_ARCH, MB_B, MB_PROMPT, MB_STEPS = "mamba2-370m", 4, 2000, 32
 SSD_H, SSD_P, SSD_G, SSD_N, SSD_CHUNK = 32, 64, 1, 128, 256
 SSD_TOL = 2e-4  # tests/test_kernels.py::test_ssd_scan
 FP32_LOGIT_RTOL = 1e-4
+
+# The h2o-danube-1.8b phase: 24 layers, d_model 2560, GQA 32/8, head_dim 80,
+# a 4096-token sliding window; batch 4, 32 decode steps. Run A: the bf16 cache,
+# a 6144-token prompt, so the prefill keeps the last 4096 positions in the ring
+# and decode wraps at once. Run B: the int8 cache, a 4080-token prompt, so the
+# ring fills during decode and wraps at step 16.
+DN_ARCH, DN_B, DN_STEPS = "h2o-danube-1.8b", 4, 32
+DN_H, DN_HKV, DN_D, DN_D_MODEL, DN_WINDOW = 32, 8, 80, 2560, 4096
+DN_RUNS = {"A": ("bf16", 6144), "B": ("int8", 4080)}
+DN_PROMPT = DN_RUNS["A"][1]
 
 # The training cells: batch 4 x 2048 tokens, bf16, AdamW's defaults, a
 # constant rate at the reference's peak (its default schedule warms up over
@@ -311,6 +335,8 @@ RMS_ODD = [(300, 128), (700, 64), (1200, 32), (33, 2560), (300, 5120), (257, 614
 # The training cells' rows (batch 4 x 2048 tokens): internvl2-2b's d_model and
 # mamba2-370m's d_inner, mamba2-370m's d_model.
 RMS_TRAIN = [(TR_B * TR_SEQ, 2048), (TR_B * TR_SEQ, 1024)]
+# h2o-danube-1.8b's prefill rows (run A) and decode step, d_model 2560.
+RMS_DANUBE = [(DN_B * DN_PROMPT, DN_D_MODEL), (DN_B, DN_D_MODEL)]
 
 
 def check_rmsnorm(gen) -> float:
@@ -319,14 +345,15 @@ def check_rmsnorm(gen) -> float:
     # counts (one row, one past a multiple of the rows a block takes)
     ragged = [(rows, d) for d in (1024, 2048, D_MODEL) for rows in (1, B * PROMPT + 1, MB_B * MB_PROMPT + 1)]
     for dtype in DTYPES:
-        for rows, d in [(4, 64), (100, 128), (257, 256), (33, 100)] + RMS_SLICES + RMS_TRAIN + ragged + RMS_ODD:
+        for rows, d in ([(4, 64), (100, 128), (257, 256), (33, 100)] + RMS_SLICES + RMS_TRAIN + RMS_DANUBE + ragged
+                        + RMS_ODD):
             x, scale = randn(gen, rows, d, dtype=dtype), randn(gen, d, dtype=torch.float32)
             err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
             print(f"check rmsnorm {str(dtype)[6:]} rows={rows} d={d}: max_abs_err={err:.3e}")
-            if dtype == torch.bfloat16 and (rows, d) in RMS_SLICES + RMS_TRAIN:
+            if dtype == torch.bfloat16 and (rows, d) in RMS_SLICES + RMS_TRAIN + RMS_DANUBE:
                 worst = max(worst, err)
         # contiguous rows that start one element past a 16-byte boundary
-        for rows, d in RMS_SLICES + RMS_TRAIN:
+        for rows, d in RMS_SLICES + RMS_TRAIN + RMS_DANUBE:
             flat = randn(gen, rows * d + 1, dtype=dtype)
             x, scale = flat[1:].view(rows, d), randn(gen, d, dtype=torch.float32)
             err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
@@ -350,10 +377,10 @@ def check_flash(gen) -> float:
         (B, H, HKV, 100, MAX_LEN, D, False, None),
         (TR_B, TR_H, TR_HKV, TR_SEQ, TR_SEQ, D, True, None),  # internvl2-2b's training forward
     ] + [  # the edges of the 128-row tiles and 64-key tiles, every head dim
-        (1, 4, 2, s, s, d, True, None) for s in (1, 127, 129, PROMPT) for d in (32, 64, 128)
+        (1, 4, 2, s, s, d, True, None) for s in (1, 127, 129, PROMPT) for d in (32, 64, 80, 128)
     ] + [  # windows that start inside a 128-row tile
-        (1, 4, 2, 300, 300, d, True, w) for d in (32, 64, 128) for w in (70, 100)
-    ]
+        (1, 4, 2, 300, 300, d, True, w) for d in (32, 64, 80, 128) for w in (70, 100)
+    ] + [(2, 4, 1, 128, 256, DN_D, False, None)]
     for dtype in DTYPES:
         for b, h, hkv, sq, sk, d, causal, window in cases:
             q = randn(gen, b, h, sq, d, dtype=dtype)
@@ -365,16 +392,26 @@ def check_flash(gen) -> float:
             if dtype == torch.bfloat16 and (b, h, sq, sk, causal, window) in (
                     (B, H, PROMPT, PROMPT, True, None), (TR_B, TR_H, TR_SEQ, TR_SEQ, True, None)):
                 worst = max(worst, err)
-        # the prefill and the training forward as the model passes them: (B, S, H, D)
-        # projections viewed (B, H, S, D)
-        for b, h, hkv, s in ((B, H, HKV, PROMPT), (TR_B, TR_H, TR_HKV, TR_SEQ)):
-            q, k, v = (randn(gen, b, s, n, D, dtype=dtype).transpose(1, 2) for n in (h, hkv, hkv))
-            err = max_abs_err(ops.flash_attention(q, k, v), ref.attention_ref(q, k, v), dtype)
-            print(f"check flash_attention {str(dtype)[6:]} {(b, h, hkv, s, s, D)} causal=True, "
+        # the prefills and the training forward as the model passes them: (B, S, H, D)
+        # projections viewed (B, H, S, D); h2o-danube-1.8b's with its window, D 80,
+        # held to the plain version one sequence at a time (its fp32 scores for the
+        # whole batch would be 19.3 GB)
+        for b, h, hkv, s, d, window in ((B, H, HKV, PROMPT, D, None), (TR_B, TR_H, TR_HKV, TR_SEQ, D, None),
+                                        (1, DN_H, DN_HKV, 300, DN_D, 100),
+                                        (DN_B, DN_H, DN_HKV, DN_PROMPT, DN_D, DN_WINDOW)):
+            q, k, v = (randn(gen, b, s, n, d, dtype=dtype).transpose(1, 2) for n in (h, hkv, hkv))
+            err = max_abs_err(ops.flash_attention(q, k, v, window=window), attention_by_sequence(q, k, v, window), dtype)
+            print(f"check flash_attention {str(dtype)[6:]} {(b, h, hkv, s, s, d)} causal=True window={window}, "
                   f"strided (B, S, H, D) views: max_abs_err={err:.3e}")
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and s != 300:
                 worst = max(worst, err)
     return worst
+
+
+def attention_by_sequence(q, k, v, window=None) -> torch.Tensor:
+    """``ref.attention_ref`` (causal), one sequence of the batch at a time."""
+    return torch.cat([ref.attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], window=window)
+                      for i in range(q.shape[0])])
 
 
 def check_decode(gen) -> float:
@@ -383,7 +420,10 @@ def check_decode(gen) -> float:
              (2, 8, 2, 1024, 64, 700), (2, 4, 1, 200, 32, 150)] + [
                 (B, H, HKV, MAX_LEN, D, v) for v in (1, 300, MAX_LEN)] + [
                 # ranges of fewer than 16 keys, ragged splits, a long cache in several stages
-                (B, H, HKV, 4096, D, v) for v in (1, 15, 17, 533)] + [(1, H, HKV, 8192, D, 8192)]
+                (B, H, HKV, 4096, D, v) for v in (1, 15, 17, 533)] + [(1, H, HKV, 8192, D, 8192)] + [
+                # h2o-danube-1.8b's 4096-slot ring at ragged valid lengths and full
+                (DN_B, DN_H, DN_HKV, DN_WINDOW, DN_D, v) for v in (1, 15, 17, 533, DN_WINDOW)] + [
+                (2, 4, 2, 300, DN_D, 123)]
     for dtype in DTYPES:
         for b, h, hkv, s, d, valid in cases:
             q = randn(gen, b, h, d, dtype=dtype)
@@ -392,7 +432,7 @@ def check_decode(gen) -> float:
             err = max_abs_err(out, ref.decode_attention_ref(q, k, v, valid), dtype)
             print(f"check decode_attention {str(dtype)[6:]} {(b, h, hkv, s, d)} valid={valid}: "
                   f"max_abs_err={err:.3e}")
-            if dtype == torch.bfloat16 and s == MAX_LEN:
+            if dtype == torch.bfloat16 and (s == MAX_LEN or (s, d, valid) == (DN_WINDOW, DN_D, DN_WINDOW)):
                 worst = max(worst, err)
     return worst
 
@@ -594,6 +634,63 @@ def time_kernels(gen) -> dict:
     return {"rmsnorm": rms, "flash_attention": flash, "decode_attention": dec, "ssd_scan": ssd}
 
 
+def sdpa_kernels(fn, *args) -> str:
+    """The CUDA kernels one SDPA call ran, by device time (torch.profiler):
+    which backend it took."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    found = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0), reverse=True)
+    return "; ".join(f"{key[:70]} {us / 1e3:.3f} ms" for us, key in found[:3]) or "not measured"
+
+
+def time_danube_kernels(gen) -> dict:
+    """h2o-danube-1.8b's kernels at its serve shapes, bf16, as ``time_kernels``
+    times minitron-8b's: flash on the prefill's (B, S, H, D) projections with
+    the 4096-token window (the plain version one sequence at a time, SDPA with
+    ``enable_gqa`` and a boolean band mask), decode on the full 4096-slot ring,
+    rmsnorm at the prefill's rows and a decode step's."""
+    bf, S, W = torch.bfloat16, DN_PROMPT, DN_WINDOW
+    out = {("rmsnorm", shape): time_rmsnorm(gen, *shape) for shape in RMS_DANUBE}
+
+    q_bytes, kv_bytes = DN_B * S * DN_H * DN_D * 2, DN_B * S * DN_HKV * DN_D * 2
+    qkv = copies(lambda: tuple(randn(gen, DN_B, S, n, DN_D).transpose(1, 2) for n in (DN_H, DN_HKV, DN_HKV)),
+                 q_bytes + 2 * kv_bytes)
+    pos = torch.arange(S, device=qkv[0][0].device)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)  # True: the key is visible
+    library = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=band, enable_gqa=True)  # noqa: E731
+    flash = {
+        "ms": time_ms(lambda q, k, v: ops.flash_attention(q, k, v, window=W), qkv),
+        "plain_ms": time_ms(lambda q, k, v: attention_by_sequence(q, k, v, W), qkv, 3),
+        "library_ms": time_ms(library, qkv, 10),
+        "library_kernels": sdpa_kernels(library, *qkv[0]),
+    }
+    pairs = sum(min(i + 1, W) for i in range(S))  # visible (query, key) pairs of a row of heads
+    flash["pairs"] = pairs
+    flash["bound_ms"], flash["bound_by"] = bound(2 * q_bytes + 2 * kv_bytes, 4 * DN_B * DN_H * pairs * DN_D, bf)
+    free_memory()
+    out[("flash_attention", (DN_B, DN_H, DN_HKV, S, DN_D, W))] = flash
+
+    cache_bytes = 2 * DN_B * W * DN_HKV * DN_D * 2
+    cache = copies(lambda: (randn(gen, DN_B, DN_H, DN_D), randn(gen, DN_B, W, DN_HKV, DN_D),
+                            randn(gen, DN_B, W, DN_HKV, DN_D)), cache_bytes)
+    dec = {
+        "ms": time_ms(lambda q, k, v: ops.decode_attention(q, k, v, W), cache),
+        "plain_ms": time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, W), cache),
+        "library_ms": time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True), cache),
+    }
+    dec["bound_ms"], dec["bound_by"] = bound(cache_bytes + 2 * DN_B * DN_H * DN_D * 2, 4 * DN_B * DN_H * W * DN_D, bf)
+    out[("decode_attention", (DN_B, DN_H, DN_HKV, W, DN_D))] = dec
+    return out
+
+
 # ---------------------------------------------------------------------------- model
 
 
@@ -772,6 +869,181 @@ def launcher_phase(arch: str, batch: int, prompt: int, steps: int, seed: int) ->
     require(len(lines) == 3 and "ms/token" in lines[1] and lines[2].startswith("generated:"),
             f"launcher output: {lines}")
     print(f"launcher (python -m repro_torch.launch.serve --arch {arch}): " + "; ".join(lines[:2]))
+
+
+# Faults planted in one kernel of the h2o-danube-1.8b serve path, each a bug a
+# head-dim-80 or ring-buffer kernel could have; ``danube_run`` holds each to
+# the gates named beside it in ``DANUBE_PLANTED``: those must fail on it.
+def flash_zeroes_columns_64_79(q, k, v, *, causal=True, window=None):
+    """Output columns 64-79 of every head are zero: a head-dim-80 kernel that
+    stores only its first 64-column box."""
+    out = ops.flash_attention(q, k, v, causal=causal, window=window).clone()
+    out[..., 64:80] = 0
+    return out
+
+
+def decode_skips_a_ring_slot(q, k, v, valid_len):
+    """One key fewer than valid (``valid - 1``): with the ring full, slot
+    W - 1, a position inside the window, is never read."""
+    return ops.decode_attention(q, k, v, valid_len - 1)
+
+
+# (fault, the kernel it is planted in, the gates that must fail): "bf16", the
+# 1.25x rule against fp32 plain; "fp32", the fp32 kernel path within 1e-4 of
+# fp32 plain.
+DANUBE_PLANTED = [
+    ("flash_attention zeroes output columns 64-79", "flash_attention", flash_zeroes_columns_64_79, ("bf16", "fp32")),
+    ("decode_attention skips a ring slot (valid - 1 keys)", "decode_attention", decode_skips_a_ring_slot,
+     ("bf16", "fp32")),
+]
+
+
+def danube_run(label: str, kv: str, prompt: int, seed: int, plant: bool) -> dict:
+    """h2o-danube-1.8b served at full width with the ``kv`` cache: the main
+    path's exact launches (per prefill, per decode step and per run), times,
+    peak memory and a profile; the logits gates (every step against the
+    plain versions in bf16 and fp32, the plain path one sequence at a time;
+    with the bf16 cache, the fp32 kernel path against fp32 plain); with
+    ``plant``, each fault of ``DANUBE_PLANTED`` against the gates it must
+    fail. Returns the main path's launches."""
+    cfg = dataclasses.replace(get_config(DN_ARCH), kv_cache_dtype=kv)
+    max_len = prompt + DN_STEPS
+    W = min(max_len, cfg.sliding_window)
+    bundle = make_serve_bundle(cfg, max_len=max_len)
+    t0 = time.perf_counter()
+    params = bundle.model.init(seed, "cuda")
+    torch.cuda.synchronize()
+    print(f"h2o run {label} ({DN_ARCH}): {cfg.num_layers} layers, d_model {cfg.d_model}, GQA "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.resolved_head_dim}, window {cfg.sliding_window}, "
+          f"{sum(t.numel() for t in _tensors(params)) / 1e9:.4f} B parameters, init {time.perf_counter() - t0:.1f} s; "
+          f"{kv} cache of {W} slots, prompt {prompt} x{DN_B}, {DN_STEPS} decode steps "
+          + (f"(the prefill keeps the last {W} positions; decode wraps at once)" if prompt >= W else
+             f"(the ring fills during decode and wraps at step {W - prompt})"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (DN_B, prompt), generator=gen, device="cuda")
+
+    serve.greedy_generate(bundle, params, tokens, 2)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    gen_out = serve.greedy_generate(bundle, params, tokens, DN_STEPS)  # the main path
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n, n_norm = cfg.num_layers, 2 * cfg.num_layers + 1
+    per_prefill = {"rmsnorm": n_norm, "flash_attention": n, "decode_attention": 0, "ssd_scan": 0}
+    per_step = {"rmsnorm": n_norm, "flash_attention": 0, "decode_attention": n, "ssd_scan": 0}
+    expected = {k: per_prefill[k] + DN_STEPS * per_step[k] for k in per_prefill}
+    print(f"h2o run {label} main path launches: {counts} (expected {expected})")
+    require(counts == expected, f"launch counts {counts} != {expected}")
+    print(f"h2o run {label}: prefill {prompt} tokens x{DN_B}: {gen_out.prefill_s * 1e3:.3f} ms; decode: "
+          f"{gen_out.decode_s_per_token * 1e3:.3f} ms/token ({DN_B / gen_out.decode_s_per_token:.1f} tokens/s); "
+          f"peak memory {peak_gb:.2f} GB")
+    print(f"card during run: {nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+    for lg in gen_out.logits:
+        require(lg.shape == (DN_B, cfg.padded_vocab) and bool(torch.isfinite(lg).all()), "bad logits")
+    require(gen_out.tokens.shape == (DN_B, DN_STEPS), "bad token shape")
+
+    ops.reset_launch_counts()
+    _, cache = bundle.prefill_fn(params, tokens)
+    require(ops.launch_counts() == per_prefill, f"prefill launches {ops.launch_counts()}")
+    layers = cache["dense"]["l0"]
+    want = {"k": (n, DN_B, W, DN_HKV, DN_D), "v": (n, DN_B, W, DN_HKV, DN_D)}
+    if kv == "int8":
+        want.update(k_scale=(n, DN_B, W, DN_HKV), v_scale=(n, DN_B, W, DN_HKV))
+    require({k: tuple(t.shape) for k, t in layers.items()} == want
+            and layers["k"].dtype == (torch.int8 if kv == "int8" else torch.bfloat16), f"cache {layers}")
+    for i in range(DN_STEPS):
+        before = ops.launch_counts()
+        _, cache = bundle.decode_fn(params, cache, gen_out.tokens[:, i:i + 1], prompt + i)
+        delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        require(delta == per_step, f"decode step {i} launches {delta}")
+    print(f"h2o run {label} per-step launches: prefill {n_norm} rmsnorm + {n} flash, each of {DN_STEPS} decode "
+          f"steps {n_norm} rmsnorm + {n} decode; cache {want}: ok")
+    del cache
+    print_breakdown(bundle, params, tokens, gen_out.tokens[:, :1], prompt)
+
+    # Teacher-forced on the kernel path's tokens: the plain path in bf16, the
+    # planted faults, then the weights widened to fp32 (exact from bf16): the
+    # plain path, the kernel path and the faults again.
+    plain = make_serve_bundle(cfg, max_len=max_len, ops=ops.PLAIN)
+    faulty = [(name, make_serve_bundle(cfg, max_len=max_len, ops=planted(kernel, fn)), must)
+              for name, kernel, fn, must in (DANUBE_PLANTED if plant else [])]
+    ops.reset_launch_counts()
+    plain_bf16 = teacher_forced_by_sequence(plain, params, tokens, gen_out.tokens)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    fault_bf16 = [teacher_forced(b, params, tokens, gen_out.tokens) for _, b, _ in faulty]
+    _to_float32(params)
+    ops.reset_launch_counts()
+    exact = teacher_forced_by_sequence(plain, params, tokens, gen_out.tokens)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    kernel_fp32 = teacher_forced(bundle, params, tokens, gen_out.tokens)
+    require(ops.launch_counts() == expected, f"fp32 kernel-path launches {ops.launch_counts()}")
+    fault_fp32 = [teacher_forced(b, params, tokens, gen_out.tokens) for _, b, _ in faulty]
+    del params
+    free_memory()
+
+    errs = [rel_l2(a, b) for a, b in zip(gen_out.logits, plain_bf16)]
+    kernel_err = [rel_l2(a, b) for a, b in zip(gen_out.logits, exact)]
+    floor = [rel_l2(a, b) for a, b in zip(plain_bf16, exact)]
+    fp32_err = [rel_l2(a, b) for a, b in zip(kernel_fp32, exact)]
+    for name, e in (("kernels vs plain, bf16", errs), ("kernels bf16 vs plain fp32", kernel_err),
+                    ("plain bf16 vs plain fp32", floor), ("kernels vs plain, fp32", fp32_err)):
+        print(f"h2o run {label} logits, relative L2, {name}: prefill {e[0]:.4e}, decode max {max(e[1:]):.4e} "
+              f"mean {np.mean(e[1:]):.4e}")
+    faults = []
+    for (name, _, must), fb, ff in zip(faulty, fault_bf16, fault_fp32):
+        ratios = {"bf16": max(rel_l2(a, b) for a, b in zip(fb, exact)) / max(floor),
+                  "fp32": max(rel_l2(a, b) for a, b in zip(ff, exact)) / FP32_LOGIT_RTOL}
+        faults.append((name, ratios, must))
+        print(f"h2o run {label} planted fault, {name}: bf16 distance from fp32 over the plain bf16 path's "
+              f"{ratios['bf16']:.4f} (fails above {FLOOR_RATIO}), fp32 distance from fp32 plain over "
+              f"{FP32_LOGIT_RTOL} {ratios['fp32']:.4f} (fails above 1); caught by "
+              f"[{', '.join(g for g, lim in (('bf16', FLOOR_RATIO), ('fp32', 1.0)) if ratios[g] > lim)}], "
+              f"must be by [{', '.join(must)}]")
+    if max(floor) <= LOGIT_RTOL:
+        require(max(errs) <= LOGIT_RTOL, f"kernel-path logits differ from the plain path: {errs}")
+        rule = f"within {LOGIT_RTOL} relative L2 of the plain path at all {len(errs)} steps, and "
+    else:
+        rule = (f"not held to {LOGIT_RTOL} of the plain bf16 path: the plain bf16 path alone sits "
+                f"{max(floor):.4e} from fp32, so no bf16 path can meet it; ")
+    require(max(kernel_err) <= FLOOR_RATIO * max(floor),
+            f"the kernel path is further from fp32 than bf16 alone explains: {kernel_err} vs {floor}")
+    # With the int8 cache the two fp32 paths quantize K and V each for itself:
+    # an entry whose code lies within fp32 noise of a rounding tie rounds to
+    # neighbouring codes (tests/test_torch_cache.py), so their gap is not only
+    # the order of sums; the int8 run's fp32 distance is printed, not gated.
+    if kv != "int8":
+        require(max(fp32_err) <= FP32_LOGIT_RTOL,
+                f"fp32 kernel-path logits differ from the plain path beyond {FP32_LOGIT_RTOL}: {fp32_err}")
+    for name, ratios, must in faults:
+        require(all(ratios[g] > (FLOOR_RATIO if g == "bf16" else 1.0) for g in must),
+                f"a gate passes a planted fault ({name}): {ratios}")
+    print(f"h2o run {label} kernel-path logits {rule}no further from fp32 than {FLOOR_RATIO} x the plain bf16 "
+          f"path at any step; " + (f"fp32 kernel path within {FP32_LOGIT_RTOL} of fp32 plain" if kv != "int8" else
+                                   "fp32 distance not gated (int8 codes at rounding ties)")
+          + (f"; {len(faults)} planted faults caught" if faults else "") + ": ok")
+    del bundle, plain, faulty
+    free_memory()
+    return counts
+
+
+def danube_phase(seed: int) -> dict:
+    """h2o-danube-1.8b served past its window: run A (bf16 cache, prompt 6144,
+    the planted faults) and run B (int8 cache, prompt 4080). Returns each
+    run's main-path launches."""
+    t0 = time.perf_counter()
+    counts = {label: danube_run(label, kv, prompt, seed, plant=label == "A")
+              for label, (kv, prompt) in DN_RUNS.items()}
+    print(f"h2o phase (runs A and B): {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def teacher_forced_by_sequence(bundle, params, prompt, generated) -> list:
+    """``teacher_forced`` one sequence at a time, the logits stacked back into
+    the batch: the plain attention's fp32 scores for the whole batch at
+    h2o-danube-1.8b's prompt would be 19.3 GB."""
+    runs = [teacher_forced(bundle, params, prompt[i:i + 1], generated[i:i + 1]) for i in range(prompt.shape[0])]
+    return [torch.cat(step) for step in zip(*runs)]
 
 
 def teacher_forced(bundle, params, prompt, generated) -> list:
@@ -1503,15 +1775,24 @@ def main() -> int:
     ssm_counts = mamba_phase(args.seed)
     launcher_phase(MB_ARCH, MB_B, MB_PROMPT, MB_STEPS, args.seed)
     free_memory()
+    t_dn = time.perf_counter()
+    danube_times = time_danube_kernels(gen)
+    free_memory()
+    danube_counts = danube_phase(args.seed)
+    launcher_phase(DN_ARCH, DN_B, DN_PROMPT, DN_STEPS, args.seed)
+    free_memory()
+    print(f"h2o-danube-1.8b, kernel timings, runs A and B and the launcher: {time.perf_counter() - t_dn:.1f} s")
 
     train_times = time_train_kernels(gen)
     free_memory()
     train_counts = {arch: train_phase(arch, args.seed) for arch in TRAIN_ARCHS}
     train_launcher_phase(args.seed)
     colo_counts = colocation_phase(args.seed, name_power)
-    # a kernel's launches: the two serve paths', the two training runs' and the co-located rounds'
-    paths = [(ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [(f"train {a}", c) for a, c in train_counts.items()] + [
-        ("co-located rounds", colo_counts)]
+    # a kernel's launches: the three serve paths' (h2o-danube-1.8b's two runs), the
+    # two training runs' and the co-located rounds'
+    paths = [(ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [
+        (f"{DN_ARCH} run {r}", c) for r, c in danube_counts.items()] + [
+        (f"train {a}", c) for a, c in train_counts.items()] + [("co-located rounds", colo_counts)]
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1538,6 +1819,15 @@ def main() -> int:
               f"{t['bound_ms'] / t['ms']:.2f} of the bound, {t['library_ms'] / t['ms']:.2f}x F.rms_norm's "
               f"speed); host {t['host_us']:.2f} us a call (F.rms_norm {t['library_host_us']:.2f} us, "
               f"ratio {t['host_ratio']:.3f}) [{name_power}]")
+    for (name, shape), t in danube_times.items():
+        extra = ""
+        if name == "flash_attention":
+            extra = (f"; {t['pairs']} visible (query, key) pairs per (b, h); SDPA ran {t['library_kernels']}; "
+                     f"P V on 128 padded columns, Q K^T on 80: 1.3x the bound's products")
+        print(f"kernel {name} h2o shape {shape} bf16: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, library "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
+              f"{t['bound_ms'] / t['ms']:.2f} of it; {t['library_ms'] / t['ms']:.2f}x the library's speed){extra} "
+              f"[{name_power}]")
     for (name, shape), t in train_times.items():
         library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         print(f"kernel {name} train shape {shape} bf16: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "

@@ -23,7 +23,8 @@
 // of 128 keys (at the serve shape a block's ~67 keys are one stage, in flight
 // at once, costing no registers; a stage costs three block barriers, so
 // fewer, longer stages are faster there than 64-key ones). Scores read K in 16-byte pieces (8
-// elements per lane, a row per D/8 lanes) against the group's query heads
+// elements per lane, a row per D/8 lanes rounded up to a power of two: at
+// D = 80, 16 lanes of which the last 6 hold zeros) against the group's query heads
 // held in registers; P V keeps P in fp32 on the CUDA cores, as the reference
 // does. The merge pushes rather than pulls: every block stores its state into
 // the shared memory of the rank that owns each share of the outputs, so one
@@ -86,10 +87,15 @@ struct DecodeSmem {
   }
 };
 
+// The lanes of a key row: n rounded up to a power of two, so that a row's
+// lanes are an aligned group of the warp that xor shuffles stay inside.
+__host__ __device__ constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
+
 template <typename T, int D, int REP>
 __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
   using M = DecodeSmem<T, D, REP>;
-  constexpr int L = D / 8;           // lanes per key row, 8 elements each
+  constexpr int LD = D / 8;          // lanes that hold a row's dims, 8 elements each
+  constexpr int L = pow2_ceil(LD);   // lanes per key row; lanes LD.. hold zeros (D = 80)
   constexpr int KPW = 32 / L;        // rows a warp takes at a time
   constexpr int G = kThreads / L;    // key groups of the P V step
   constexpr int RB = M::kRowBytes;
@@ -111,6 +117,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
   const int rank = static_cast<int>(cluster.block_rank());
   const int grp = blockIdx.x / a.split, b = grp / a.Hkv, hk = grp % a.Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, c = lane % L;
+  const bool live = c < LD;  // this lane holds dims 8c..8c+7 of its row
   // This block's keys: an even share of [0, valid), at least 16 when valid allows.
   const int kb = static_cast<int>(static_cast<long long>(rank) * a.valid / a.split);
   const int ke = static_cast<int>(static_cast<long long>(rank + 1) * a.valid / a.split);
@@ -154,7 +161,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
                             ((static_cast<long long>(b) * a.H + hk * a.rep) * D + 8 * c) * sizeof(T);
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
-    if (r < a.rep) {
+    if (r < a.rep && live) {
       load8<T>(Qg + r * RB, qf[r]);
 #pragma unroll
       for (int e = 0; e < 8; ++e) qf[r][e] *= a.scale_log2;
@@ -186,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
     for (int j0 = warp * KPW; j0 < n; j0 += kWarps * KPW) {
       const int j = j0 + lane / L;
       float kf[8];
-      if (j < n) {
+      if (j < n && live) {
         load8<T>(Ks + j * RB + c * EB, kf);
       } else {
 #pragma unroll
@@ -259,7 +266,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[r][e] *= al;
     }
-    for (int j = kg; j < n; j += G) {
+    for (int j = live ? kg : n; j < n; j += G) {
       float vf[8];
       load8<T>(Vs + j * RB + c * EB, vf);
       float pr[REP];
@@ -283,7 +290,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[r][e] += __shfl_xor_sync(kFullMask, acc[r][e], o);
   float* red = reinterpret_cast<float*>(ring);  // [warp][REP][D]
-  if (lane < L) {
+  if (lane < LD) {
 #pragma unroll
     for (int r = 0; r < REP; ++r)
 #pragma unroll
@@ -384,6 +391,7 @@ int launch_dim(const DecodeArgs& a, int groups, int D, cudaStream_t stream) {
   switch (D) {
     case 32: return launch_rep<T, 32>(a, groups, stream);
     case 64: return launch_rep<T, 64>(a, groups, stream);
+    case 80: return launch_rep<T, 80>(a, groups, stream);
     case 128: return launch_rep<T, 128>(a, groups, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

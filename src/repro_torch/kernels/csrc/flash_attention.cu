@@ -29,8 +29,11 @@
 // seq, dim) strides, 128-byte swizzle, two 64-column boxes per 128-wide row),
 // with a full and an empty mbarrier per stage and per Q buffer, so the next
 // tiles, and the next item's Q, land while the current tile is multiplied.
-// TMA zero-fills rows past Sq / Sk and columns past D (D = 32 is padded to 64
-// columns in shared memory). S = Q K^T is wgmma m64n64k16 with both operands
+// TMA zero-fills rows past Sq / Sk and columns past D: D = 32 is padded to 64
+// columns in shared memory and D = 80 to 128 (two boxes, the second 16 wide
+// in the tensor; the TMA store clips the output to D). Q K^T runs over the
+// true D; P V at D = 80 multiplies 128 columns, 1.6x the products of the true
+// D there (1.3x of the kernel's products). S = Q K^T is wgmma m64n64k16 with both operands
 // in shared memory; P is rounded to bf16 once and fed from registers as the A
 // operand of O += P V, wgmma m64nDk16 with V read through the descriptor's
 // transpose (MN-major) mode. A tile's P V is issued after the next tile's
@@ -92,9 +95,9 @@ constexpr int kConsumerWarps = 8;      // arrivals that free a stage
 
 template <int D>
 struct FlashTiles {
-  static constexpr int kDP = D < 64 ? 64 : D;         // columns in shared memory
+  static constexpr int kDP = (D + 63) / 64 * 64;      // columns in shared memory: whole 64-column boxes
   static constexpr int kNB = kDP / 64;                // 64-column boxes per row
-  static constexpr int kStages = D == 128 ? 5 : 8;    // K/V ring depth
+  static constexpr int kStages = kDP == 128 ? 5 : 8;  // K/V ring depth
   static constexpr int kTileBytes = kNB * kBox;       // one K (or V) tile, or 64 query rows
   static constexpr int kQBytes = 2 * kTileBytes;      // one work item's 128 query rows
   static constexpr int kBarOffset = 2 * kQBytes + 2 * kStages * kTileBytes;
@@ -120,7 +123,7 @@ __device__ __forceinline__ Item item_at(const FlashArgs& a, int idx, int nqt, in
 }
 
 // O += P V for one tile: V (keys x dims) is MN-major; 16 keys are 2048
-// bytes, and the second 64-column box (D = 128) lies kBox further.
+// bytes, and the second 64-column box (D = 80 and 128) lies kBox further.
 template <int DP>
 __device__ __forceinline__ void issue_pv(float (&acc)[DP / 2], const uint32_t (&pa)[4][4], const unsigned char* v_t) {
 #pragma unroll
@@ -227,8 +230,10 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
         continue;
       }
 
-      // S = Q K^T (64 rows x 64 keys), both operands K-major in shared memory;
-      // then the last tile's P V, which runs while this tile's softmax does.
+      // S = Q K^T (64 rows x 64 keys), both operands K-major in shared memory,
+      // over the true D only (at D = 80 the fifth k-step reads the second
+      // box's first 16 columns); then the last tile's P V, which runs while
+      // this tile's softmax does.
       // The issue sequence has no branch (ptxas serializes wgmma otherwise):
       // an item's first tile adds P = 0 times its own V.
       float s[32];
@@ -424,7 +429,8 @@ int launch_bf16(const FlashArgs& a, int Hkv, cudaStream_t stream) {
 
 template <int D>
 __global__ void __launch_bounds__(256) flash_f32_kernel(FlashArgs a) {
-  constexpr int ROWS = 8, BK = 32, DL = D / 32;
+  // DL dims per lane; where 32 does not divide D (80) the last slot is guarded.
+  constexpr int ROWS = 8, BK = 32, DL = (D + 31) / 32;
   __shared__ float q_s[ROWS][D];
   __shared__ float k_s[BK][D + 1];  // +1: lane j reads row j without bank conflicts
   __shared__ float v_s[BK][D];
@@ -469,13 +475,15 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(FlashArgs a) {
     for (int j = 0; j < BK; ++j) {
       const float pj = __shfl_sync(kFullMask, p, j);
 #pragma unroll
-      for (int i = 0; i < DL; ++i) acc[i] = fmaf(pj, v_s[j][lane + 32 * i], acc[i]);
+      for (int i = 0; i < DL; ++i)
+        if (D % 32 == 0 || lane + 32 * i < D) acc[i] = fmaf(pj, v_s[j][lane + 32 * i], acc[i]);
     }
   }
   if (row < a.Sq) {
     const float inv = 1.f / (l == 0.f ? 1.f : l);
 #pragma unroll
-    for (int i = 0; i < DL; ++i) O[row * a.os_s + lane + 32 * i] = acc[i] * inv;
+    for (int i = 0; i < DL; ++i)
+      if (D % 32 == 0 || lane + 32 * i < D) O[row * a.os_s + lane + 32 * i] = acc[i] * inv;
   }
 }
 
@@ -518,6 +526,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   switch (D) {
     case 32: return kern::launch<32>(a, Hkv, dtype, st);
     case 64: return kern::launch<64>(a, Hkv, dtype, st);
+    case 80: return kern::launch<80>(a, Hkv, dtype, st);
     case 128: return kern::launch<128>(a, Hkv, dtype, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

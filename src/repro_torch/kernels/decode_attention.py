@@ -10,7 +10,8 @@ of ``split`` blocks (``plan_split``), each streaming its share of the valid
 keys into shared memory with asynchronous bulk copies; the blocks merge their
 partial softmax states through distributed shared memory, so a call is one
 launch with no workspace. ``valid_len`` is a plain int, so no layer waits on
-the device for it.
+the device for it. A key row is read by D/8 lanes of 8 elements, rounded up to
+a power of two: at D = 80, 16 lanes of which 6 idle.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from repro_torch.kernels import _build, ref
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 MAX_GROUP = 8  # query heads per kv head (csrc/decode_attention.cu kMaxRep)
 MAX_SPLIT = 8  # blocks per cluster, the portable cluster size (kMaxSplit)
 MIN_KEYS = 16  # keys per block at least, where the valid length allows

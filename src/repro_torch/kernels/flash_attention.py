@@ -5,12 +5,14 @@ Replaces the JAX package's Pallas TPU kernel ``kernels/flash_attention.py``
 shape (B=4, H=32, Hkv=8, S=500, D=128, bf16, causal) it is bound by bytes:
 q, k, v and o once are 41 MB (12.2 us at 3.35 TB/s) against 8.2 GFLOP
 (8.3 us at 989 TFLOP/s). bf16, at every head dim the wrapper takes (32, 64,
-128), runs one design: blocks of 128 query rows, a producer warp that keeps
+80, 128), runs one design: blocks of 128 query rows, a producer warp that keeps
 TMA copies of the next K/V tiles in flight in a shared-memory ring, and two
 consumer warpgroups that multiply on the tensor cores with ``wgmma`` (fp32
 accumulate); masks only on tiles that cross the causal diagonal, the window's
 first key or the ragged edge; the query tiles with the most keys start first.
-fp32 is multiplied in fp32 on the CUDA cores. Causal and window bounds skip
+fp32 is multiplied in fp32 on the CUDA cores. Shared memory holds whole
+64-column boxes, so D = 32 runs in 64 columns and D = 80 in 128 (TMA fills the
+padding with zeros; ``P V`` then multiplies 1.6x the true D's products). Causal and window bounds skip
 whole key tiles, GQA reads kv head ``h // rep`` in place, and TMA zero-fills
 past the ragged edge, so no sequence length has to divide a tile.
 
@@ -30,7 +32,7 @@ from repro_torch.kernels import _build, ref
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 
 
 def flash_attention(

@@ -1,17 +1,24 @@
 """GQA attention (the port's half of the JAX package's ``models/attention.py``:
-``gqa_def`` .. ``gqa_decode``, :42-197), with qk-norm and sliding windows.
+``gqa_def`` .. ``gqa_decode``, :42-197), with qk-norm, sliding windows and
+the int8 KV cache.
 
 ``gqa_forward`` (training and prefill) goes to ``ops.flash_attention``, with
 the config's window, and ``gqa_decode`` to ``ops.decode_attention``; qk-norm
 goes to ``ops.rmsnorm`` on rows of head_dim. The projections stay
 ``(B, S, H, D)``; the flash kernel reads them through strides, so no
-transposed copy is made. The caches still raise ``NotImplementedError`` for
-a sliding window shorter than the cache (the ring buffer, ``slot = cache_len
-% W``) and for the int8 KV cache: ``check_cache_supported``.
+transposed copy is made.
 
-Unlike the JAX package, whose arrays are immutable, ``gqa_decode`` writes the
-new K/V entry into the cache in place: a second 280 MB cache per decode step
-(minitron-8b, batch 4, 532 positions) would buy nothing.
+A sliding-window config's cache is a ring buffer of ``W = min(max_len,
+window)`` slots: position ``pos`` lives at slot ``pos % W``, so a decode step
+attends to the last ``W`` positions whatever the cache's order. With
+``kv_cache_dtype="int8"`` K and V are stored as per-(token, head) symmetric
+int8 with fp32 scales, and a decode step dequantizes the whole cache to the
+compute dtype before ``ops.decode_attention``, as the reference's XLA path
+does (the kernel reads bf16 or fp32).
+
+Unlike the JAX package, whose arrays are immutable, ``gqa_decode`` and
+``gqa_write_prompt`` write into the cache in place: a second 280 MB cache per
+decode step (minitron-8b, batch 4, 532 positions) would buy nothing.
 """
 
 from __future__ import annotations
@@ -26,18 +33,6 @@ from repro_torch.models.common import head_rmsnorm, rope_tables, rotate
 from repro_torch.models.params import ParamDef, fan_in_init, ones_init
 
 Cache = Dict[str, torch.Tensor]
-
-
-def check_cache_supported(cfg: ArchConfig, max_len: int) -> None:
-    """Raise for the KV caches the port does not implement yet. A cache of at
-    most ``sliding_window`` positions holds every key the window can see, as a
-    plain buffer; a longer one is the reference's ring buffer."""
-    if cfg.sliding_window is not None and max_len > cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: a sliding-window cache of {max_len} > {cfg.sliding_window} positions is the "
-            "ring-buffer cache, not ported yet")
-    if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError(f"{cfg.name}: kv_cache_dtype {cfg.kv_cache_dtype!r} is not ported yet")
 
 
 def gqa_def(cfg: ArchConfig) -> Dict[str, ParamDef]:
@@ -96,15 +91,66 @@ def gqa_forward(
     return _gqa_attend(p, q, k, v, ops, cfg.sliding_window)
 
 
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 quantization of K/V entries, as the
+    reference's: ``scale = max(amax, 1e-8) / 127`` in fp32 over the last
+    axis, codes rounded half to even and clipped to +-127."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def gqa_make_cache(
     cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None
 ) -> Cache:
-    check_cache_supported(cfg, max_len)
+    """Zeroed K/V of (batch, W, Hkv, hd): W = ``max_len``, or for a
+    sliding-window config ``min(max_len, window)`` (the ring buffer). The
+    int8 cache holds int8 ``k``, ``v`` and fp32 ``k_scale``, ``v_scale`` of
+    (batch, W, Hkv); ``dtype`` is then unused."""
+    if cfg.sliding_window is not None:
+        max_len = min(max_len, cfg.sliding_window)
     shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        }
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+def _entries(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Cache:
+    """K/V (B, S, Hkv, hd) as the cache stores them: as they are, or
+    quantized with their scales for an int8 cache."""
+    if "k_scale" not in cache:
+        return {"k": k, "v": v}
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def gqa_write_prompt(cfg: ArchConfig, cache: Cache, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write a prompt's K/V (B, S, Hkv, hd) into a layer's cache in place: at
+    slots 0..S-1, or, where a ring buffer of W <= S slots holds the window,
+    the last W positions at slot ``pos % W`` (the reference's ``idx = (S - W +
+    arange(W)) % W``, ``models/transformer.py:470-475``)."""
+    S, W = k.shape[1], cache["k"].shape[1]
+    entries = _entries(cache, k, v)
+    if cfg.sliding_window is not None and S >= W:
+        idx = torch.arange(S - W, S, device=k.device) % W
+        for name, val in entries.items():
+            cache[name].index_copy_(1, idx, val[:, S - W:])
+    else:
+        for name, val in entries.items():
+            cache[name][:, :S] = val
 
 
 def gqa_decode(
@@ -115,18 +161,26 @@ def gqa_decode(
     cache_len: int,  # number of tokens already cached
     ops=kernel_ops,
 ) -> Tuple[torch.Tensor, Cache]:
-    """One decode step; writes the new K/V at slot ``cache_len`` in place.
-    Every cached key is inside a sliding window (``check_cache_supported``),
-    so no window mask is needed."""
-    check_cache_supported(cfg, cache["k"].shape[1])
+    """One decode step; writes the new K/V in place at slot ``cache_len``, or
+    ``cache_len % W`` in a sliding-window ring. The ring holds the last W
+    positions, the window's keys, so no window mask is needed: the first
+    ``min(cache_len + 1, W)`` slots are valid."""
     B = x.shape[0]
     positions = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _gqa_qkv(p, cfg, x, positions, ops)
     W = cache["k"].shape[1]
-    if not 0 <= cache_len < W:
+    if cfg.sliding_window is not None:
+        slot = cache_len % W
+    elif 0 <= cache_len < W:
+        slot = cache_len
+    else:
         raise IndexError(f"cache_len {cache_len} outside a cache of {W} positions")
-    cache["k"][:, cache_len] = k_new[:, 0]
-    cache["v"][:, cache_len] = v_new[:, 0]
+    for name, val in _entries(cache, k_new[:, 0], v_new[:, 0]).items():
+        cache[name][:, slot] = val
+    k, v = cache["k"], cache["v"]
+    if "k_scale" in cache:
+        k = dequantize_kv(k, cache["k_scale"], k_new.dtype)
+        v = dequantize_kv(v, cache["v_scale"], k_new.dtype)
     valid = min(cache_len + 1, W)
-    o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid)  # (B, H, hd)
+    o = ops.decode_attention(q[:, 0], k, v, valid)  # (B, H, hd)
     return torch.matmul(o.reshape(B, 1, -1), p["wo"]), cache

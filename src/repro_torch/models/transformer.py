@@ -228,7 +228,8 @@ class Model(nn.Module):
         self, batch: int, max_len: int, dtype=torch.bfloat16, device=None
     ) -> Tree:
         """Zeroed stacked cache per group, with a leading layer axis:
-        ``{"dense": {"l0": {"k", "v"}}}``, each (L, B, W, Hkv, hd), or
+        ``{"dense": {"l0": {"k", "v"}}}``, each (L, B, W, Hkv, hd) (an int8
+        cache adds ``k_scale`` and ``v_scale``, (L, B, W, Hkv)), or
         ``{"ssm": {"l0": {"h", "conv_x", "conv_bc"}}}`` (fp32 state, conv
         windows in ``dtype``)."""
         if self.spec.mixer == "attn":
@@ -266,8 +267,7 @@ class Model(nn.Module):
         else:
             q, k, v = attn._gqa_qkv(p["mixer"], cfg, h, positions, self.ops)
             out = attn._gqa_attend(p["mixer"], q, k, v, self.ops, cfg.sliding_window)
-            cache["k"][:, :S] = k
-            cache["v"][:, :S] = v
+            attn.gqa_write_prompt(cfg, cache, k, v)
         x = x + out
         if self.spec.channel != "none":
             x = x + swiglu(p["channel"], rmsnorm(p["norm2"], x, ops=self.ops))

@@ -67,6 +67,13 @@ SSD_TOL = 2e-4
 # and a long cache that each block of a cluster walks in several stages.
 EDGE_ATTN = [(1, 4, 2, s, s, d) for s in (1, 127, 129, 500) for d in (32, 64, 128)]
 EDGE_DECODE = [(4, 32, 8, 4096, 128, v) for v in (1, 15, 17, 533)] + [(1, 32, 8, 8192, 128, 8192)]
+# Head dim 80 (h2o-danube-1.8b): the flash kernel pads it to 128 columns, the
+# decode kernel reads a row with 10 of 16 lanes. Tile edges, windows that start
+# inside a 128-row tile and the model's 4096, ragged valid lengths and split
+# edges on the 4096-slot ring cache.
+D80_ATTN = [(1, 4, 2, s, s, 80) for s in (1, 127, 129, 500)] + [(2, 4, 1, 128, 256, 80)]
+D80_WINDOWS = [None, 70, 100, 4096]
+D80_DECODE = [(4, 32, 8, 4096, 80, v) for v in (1, 15, 17, 533, 4096)] + [(2, 4, 2, 300, 80, 123)]
 # (groups, valid, SMs) for the cluster planner: the serve slice, small and
 # large batches, short caches, and a card of fewer SMs.
 SPLIT_PLANS = [(32, 532, 132), (32, 0, 132), (32, 1, 132), (32, 15, 132), (32, 16, 132), (32, 17, 132),
@@ -599,6 +606,42 @@ def test_flash_attention_kernel_reads_strided_views(shape, dtype, rng, cuda):
     out = ops.flash_attention(q, k, v)
     _close(out, ref.attention_ref(q, k, v), dtype)
     assert out.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", D80_WINDOWS)
+@pytest.mark.parametrize("shape", D80_ATTN)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_at_head_dim_80(shape, window, dtype, rng, cuda):
+    _on_card_attn(shape, dtype, rng, cuda, window=window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_reads_strided_views_at_head_dim_80(window, dtype, rng, cuda):
+    """(B, S, H, D) projections at D = 80: rows of 5120 and 1280 bytes, the
+    second TMA box 16 columns wide in the tensor."""
+    q, k, v = (_t(_np(rng, 2, 300, h, 80), dtype, cuda).transpose(1, 2) for h in (32, 8, 8))
+    out = ops.flash_attention(q, k, v, window=window)
+    _close(out, ref.attention_ref(q, k, v, window=window), dtype)
+    assert out.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", D80_DECODE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_at_head_dim_80(case, dtype, rng, cuda):
+    B, H, Hkv, S, D, valid = case
+    q, k, v = (_t(a, dtype, cuda) for a in (
+        _np(rng, B, H, D), _np(rng, B, S, Hkv, D), _np(rng, B, S, Hkv, D)))
+    n = decode_mod.launches
+    out = ops.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert decode_mod.launches == n + 1
+    _close(out, ref.decode_attention_ref(q, k, v, valid), dtype)
+    split = decode_mod.plan_split(B * Hkv, valid, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    _close(out, ref.decode_attention_split(q, k, v, valid, split), dtype)
 
 
 @pytest.mark.gpu

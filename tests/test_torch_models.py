@@ -195,8 +195,6 @@ def test_mamba_init_follows_jax_rules():
     "change",
     [
         {"remat": "dots"},
-        {"sliding_window": 8},
-        {"kv_cache_dtype": "int8"},
         {"moe": MoEConfig(num_experts=8, top_k=2, d_ff_expert=64)},
         {"mtp_depth": 1},
         {"enc_dec": True},
@@ -207,10 +205,9 @@ def test_mamba_init_follows_jax_rules():
     ],
 )
 def test_unported_features_raise(change):
-    """The model refuses what it cannot build; a sliding-window cache longer
-    than the window (the ring buffer) and the int8 KV cache are refused when a
-    cache is made. qk-norm, sliding-window attention and frontends are ported
-    (tests/test_torch_train.py)."""
+    """The model refuses what it cannot build. qk-norm, sliding-window
+    attention and frontends are ported (tests/test_torch_train.py), and so are
+    the ring-buffer and int8 KV caches (tests/test_torch_cache.py)."""
     cfg = dataclasses.replace(smoke_config(get_config("minitron-8b")), **change)
     with pytest.raises(NotImplementedError):
         Model(cfg).make_cache(2, 16, device="cpu")

@@ -384,7 +384,8 @@ def test_sliding_window_decode_within_the_window():
     """h2o-danube-1.8b (smoke window 32) serves while the cache holds no more
     than the window: decode after prefill equals prefilling the extended
     sequence (the twin's tolerance), and the JAX package's logits (fp32, 1e-4).
-    A longer cache is the ring buffer, not ported yet."""
+    A longer cache is the ring buffer of the window's 32 slots, as the JAX
+    package's (``tests/test_torch_cache.py`` serves past the window)."""
     arch = "h2o-danube-1.8b"
     jmodel, jparams = _jax_setup(arch)
     model = build_model(smoke_config(get_config(arch)))
@@ -399,8 +400,9 @@ def test_sliding_window_decode_within_the_window():
     jlogits_b, _ = jmodel.decode_step(jparams, jcache, jnp.asarray(nxt.numpy(), jnp.int32), jnp.asarray(20, jnp.int32))
     np.testing.assert_allclose(logits_a.numpy(), np.asarray(jlogits), atol=1e-4, rtol=0)
     np.testing.assert_allclose(logits_b.numpy(), np.asarray(jlogits_b), atol=1e-4, rtol=0)
-    with pytest.raises(NotImplementedError, match="ring-buffer"):
-        model.prefill(params, tokens, max_len=33)
+    _, ring = model.prefill(params, tokens, max_len=33)
+    _, jring = jmodel.prefill(jparams, jnp.asarray(tokens.numpy(), jnp.int32), max_len=33)
+    assert ring["dense"]["l0"]["k"].shape[2] == 32 == jring["dense"]["l0"]["k"].shape[2]
 
 
 # ---------------------------------------------------------------- twins of tests/test_system.py
