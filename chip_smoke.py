@@ -14,7 +14,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    under steep decay at the slice, against the recurrence in fp32 and in
    fp64); then timed at the slices' shapes
    with CUDA events beside its plain version, one PyTorch library call where
-   one computes the same function, and its bound;
+   one computes the same function, and its bound (the SSD scan's generic
+   kernel also on fp32 B/C, its launches checked to be all generic);
 3. minitron-8b at full width and depth (seeded random weights) served
    through ``make_serve_bundle`` and the launcher's ``greedy_generate``: batch 4,
    a 500-token prompt, 32 greedy decode steps. The launch counters must show
@@ -95,6 +96,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    - evict: mamba2-370m checkpointing every 2 steps under ``build/``, 3 steps,
      then ``evict``: step 2, and its state equal bit for bit to a host copy
      taken at that boundary.
+11. scheduling, on the card's host (no kernel runs here): EaCO's scheduling
+   path (the roofline bridge, the cluster simulator, the control plane,
+   telemetry and the schedulers), fed what phase 10 measured:
+   - the calibration without profiles: its families, signatures and a hash
+     of its saved bytes;
+   - the goldens: ``tests/golden_metrics.json``'s ``schedulers`` (the 100-job
+     paper trace on 28 nodes) and ``family_schedulers`` (the 60-job family
+     trace under the installed calibration) sections, for fifo, fifo_packed,
+     gandiva, eaco and eaco-elastic, met at the file's tolerances (1e-9
+     relative, counts exact);
+   - production: EaCO and FIFO-Packed on ``benchmarks/scale_bench.py``'s
+     10,000-job trace (96 nodes, half V100 and half A100), every job done;
+     ``BENCH_scale.json``'s figures printed beside, not gated;
+   - the card's readings into EaCO: the family replay's History with phase
+     10's set inflations recorded over it, a reading below 1.0 fed as 1.0
+     (the raw one printed beside), then EaCO on the family trace with it:
+     every job done; its energy, JCT, violations, History hits and misses and
+     the lookups of the card's signatures beside the calibration-only rows.
+   The kWh and JCT are the simulated V100/A100 fleet's, not the H100's.
 
 ``--seed`` (default 0) draws other weights and prompts for the model phases.
 
@@ -114,6 +134,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import io
 import json
 import math
@@ -132,12 +153,26 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch.bridge import build_calibration  # noqa: E402
 from repro_torch.bridge.profiles import STEPS_PER_EPOCH  # noqa: E402
+from repro_torch.cluster import colocation  # noqa: E402
 from repro_torch.cluster.colocation import set_signature  # noqa: E402
 from repro_torch.cluster.job import JobProfile  # noqa: E402
+from repro_torch.cluster.power import fleet_skus  # noqa: E402
+from repro_torch.cluster.simulator import SimConfig, Simulator  # noqa: E402
+from repro_torch.cluster.trace import (  # noqa: E402
+    ProductionTraceConfig,
+    TraceConfig,
+    generate_production_trace,
+    generate_trace,
+    load_into,
+)
 from repro_torch.colocation.profiler import EarlyStageProfiler  # noqa: E402
 from repro_torch.colocation.stepper import ColocatedJob, TemporalStepper  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.baselines import FIFO, FIFOPacked, Gandiva  # noqa: E402
+from repro_torch.core.eaco import EaCO  # noqa: E402
+from repro_torch.core.eaco_elastic import EaCOElastic  # noqa: E402
 from repro_torch.core.history import History  # noqa: E402
 from repro_torch.core.predictor import JCTPredictor  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline  # noqa: E402
@@ -215,6 +250,23 @@ COLO_SOLO_STEPS, COLO_ROUNDS = 5, 5
 ISOLATION_STEPS, ISOLATION_RTOL = 3, 1e-3
 COLO_CKPT_DIR = os.path.join(BUILD_DIR, "chip_smoke_colocation_ckpt")
 COLO_HISTORY = os.path.join(BUILD_DIR, "chip_smoke_history.json")
+
+# The scheduling phase, on the host. tests/test_golden.py's configurations: the
+# seeded 100-job paper trace and the 60-job model-family trace on 28 nodes.
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN_PATH = os.path.join(ROOT, "tests", "golden_metrics.json")
+GOLDEN_TOLERANCES = {"total_energy_kwh": 1e-9, "avg_jct_h": 1e-9, "deadline_violations": 0, "jobs_done": 0}
+SCHED_TRACE = TraceConfig(n_jobs=100, seed=0, elastic_frac=0.6)
+SCHED_FAMILY_TRACE = TraceConfig(n_jobs=60, seed=0, mix="bridge", elastic_frac=0.3)
+SCHED_SIM = dict(n_nodes=28, seed=0)
+SCHEDULERS = {"fifo": FIFO, "fifo_packed": FIFOPacked, "gandiva": Gandiva, "eaco": EaCO, "eaco-elastic": EaCOElastic}
+SCHED_CALIBRATION = os.path.join(BUILD_DIR, "chip_smoke_calibration.json")
+# benchmarks/scale_bench.py's production cell: the Philly-style generator,
+# 10,000 jobs on 96 nodes, half V100 and half A100, EaCO's queue window 64.
+PROD_TRACE = ProductionTraceConfig(n_jobs=10_000, seed=0, arrival_rate_per_hour=40.0, duration_mu_ln_h=-0.5,
+                                   duration_sigma_ln_h=1.4)
+PROD_NODES, PROD_SKU_MIX, PROD_QUEUE_WINDOW = 96, (("v100", 0.5), ("a100", 0.5)), 64
+BENCH_SCALE = os.path.join(ROOT, "BENCH_scale.json")
 
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:44"),
@@ -631,6 +683,19 @@ def time_kernels(gen) -> dict:
                                            (2 * flops / TF32_FLOPS * 1e3, "operations"))
     ssd["bound_tf32_ops_ms"] = 2 * flops / TF32_FLOPS * 1e3
     ssd["bound_fp32_cores_ms"], _ = bound(nbytes, flops, torch.float32)
+
+    # The generic kernel, which ``ssd_scan.plan`` gives fp32 B/C (the mamba
+    # prefill with fp32 weights): the same scan with B/C read in fp32, bound
+    # by the recurrence's work on the fp32 CUDA cores, where it runs it.
+    scan32 = copies(lambda: ssd_inputs(gen, MB_B, MB_PROMPT, SSD_H, SSD_P, SSD_G, SSD_N, torch.float32),
+                    x_bytes + a_bytes + 2 * bc_bytes)
+    before = dict(ssd_mod.variant_launches)
+    generic = {"ms": time_ms(lambda x, a, b, c: ops.ssd_scan(x, a, b, c, chunk=SSD_CHUNK), scan32)}
+    launched = {k: ssd_mod.variant_launches[k] - before[k] for k in before}
+    require(launched == {ssd_mod.TENSOR_CORE: 0, ssd_mod.GENERIC: 43}, f"fp32 B/C ssd_scan launches {launched}")
+    generic["plain_ms"] = time_ms(lambda x, a, b, c: ref.ssd_chunked(x, a, b, c, SSD_CHUNK), scan32)
+    generic["bound_ms"], generic["bound_by"] = bound(nbytes + bc_bytes, flops, torch.float32)
+    ssd["generic_fp32"] = generic
     return {"rmsnorm": rms, "flash_attention": flash, "decode_attention": dec, "ssd_scan": ssd}
 
 
@@ -1666,11 +1731,11 @@ def colocation_profile(name: str, solo: dict) -> JobProfile:
                       peak_mem_util=100.0 * o["peak_gb"] * 1e9 / hw.H100_HBM_BYTES, n_gpus=1)
 
 
-def colocation_phase(seed: int, name_power: str) -> dict:
+def colocation_phase(seed: int, name_power: str) -> tuple:
     """The training cells co-located on one card (``TemporalStepper``,
     ``EarlyStageProfiler``), the measured inflations fed to EaCO's History
     and JCT predictor, and a mamba2-370m evict. Returns the co-located
-    rounds' launches."""
+    rounds' launches and each set's (signature, measured inflation)."""
     t0 = time.perf_counter()
     # FLOPs per step: 8 N T, the training cells' bound (the recompute
     # included), which a TrainBundle does not carry
@@ -1708,7 +1773,7 @@ def colocation_phase(seed: int, name_power: str) -> dict:
           + f"; History saved, loaded, and the predictor returns the measured inflations exactly: ok")
     evict_check(seed)
     print(f"colocation phase: {time.perf_counter() - t0:.1f} s [{name_power}]")
-    return counts
+    return counts, {label: (set_signature(ps), measured[label]) for label, ps in members.items()}
 
 
 def evict_check(seed: int) -> None:
@@ -1738,6 +1803,144 @@ def evict_check(seed: int) -> None:
     finally:
         shutil.rmtree(COLO_CKPT_DIR, ignore_errors=True)
     free_memory()
+
+
+# ---------------------------------------------------------------------------- scheduling
+
+
+def replay(sched, trace, sim_cfg: SimConfig, until: float = 100_000) -> tuple:
+    """One replay of ``trace`` under ``sched``: the simulator's results,
+    its events and the wall seconds of its run."""
+    sim = Simulator(sim_cfg, sched)
+    load_into(sim, trace)
+    t0 = time.perf_counter()
+    sim.run(until=until)
+    return sim.results(), sim.events_processed, time.perf_counter() - t0
+
+
+def headline(r: dict) -> str:
+    """A replay's energy, JCT, violations and jobs, unrounded."""
+    return (f"energy {r['total_energy_kwh']!r} kWh, avg JCT {r['avg_jct_h']!r} h, deadline violations "
+            f"{r['deadline_violations']}, jobs done {r['jobs_done']}/{r['jobs_total']}")
+
+
+def meets_golden(r: dict, golden: dict) -> bool:
+    """tests/test_golden.py's check: floats within 1e-9 relative, counts exact."""
+    return all(r[k] == golden[k] if tol == 0 else abs(r[k] - golden[k]) <= tol * abs(golden[k])
+               for k, tol in GOLDEN_TOLERANCES.items())
+
+
+def family_replay(name: str, history_edit=None) -> tuple:
+    """One scheduler on the family trace under the installed calibration
+    (its measured inflations the simulator's ground truth); the EaCO
+    variants start from the calibration-seeded History, which
+    ``history_edit`` may change first. Returns the replay and the History."""
+    try:
+        history = build_calibration().install()
+        if history_edit is not None:
+            history_edit(history)
+        kwargs = {"history": history} if name in ("eaco", "eaco-elastic") else {}
+        out = replay(SCHEDULERS[name](**kwargs), generate_trace(SCHED_FAMILY_TRACE), SimConfig(**SCHED_SIM))
+        return out, history
+    finally:
+        colocation.clear_measured()  # the registry is process-global
+
+
+def scheduling_phase(measured: dict, name_power: str) -> None:
+    """EaCO's scheduling path on the host of the card: the calibration, the
+    goldens, the production cell and the family replay with the card's
+    co-location readings in EaCO's History. The kWh and JCT are the
+    simulated V100/A100 fleet's (``cluster/power.py``); the wall seconds and
+    the inflations fed in are this machine's."""
+    t_phase = time.perf_counter()
+
+    # 1. the calibration without profiles: the roofline-derived families
+    t0 = time.perf_counter()
+    cal = build_calibration()
+    try:
+        cal.save(SCHED_CALIBRATION)
+        with open(SCHED_CALIBRATION, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+    finally:
+        if os.path.exists(SCHED_CALIBRATION):
+            os.remove(SCHED_CALIBRATION)
+    print(f"scheduling calibration: {len(cal.profiles)} families, {len(cal.signatures)} signatures, saved bytes "
+          f"sha256 {digest} ({time.perf_counter() - t0:.3f} s) [{name_power}]")
+
+    # 2. the goldens on this machine
+    with open(GOLDEN_PATH) as f:
+        golden = json.load(f)
+    family = {}
+    for name in sorted(SCHEDULERS):
+        family[name] = family_replay(name)
+        runs = {"schedulers": replay(SCHEDULERS[name](), generate_trace(SCHED_TRACE), SimConfig(**SCHED_SIM)),
+                "family_schedulers": family[name][0]}
+        for section, (r, events, wall) in runs.items():
+            want = golden[section][name]
+            ok = meets_golden(r, want)
+            print(f"scheduling golden {section} {name}: {headline(r)}; golden {want['total_energy_kwh']!r} kWh, "
+                  f"{want['avg_jct_h']!r} h, {want['deadline_violations']}, {want['jobs_done']}: "
+                  f"{'met' if ok else 'MISSED'}; {events} events in {wall:.3f} s [{name_power}]")
+            require(ok, f"golden {section}/{name}: {r} against {want}")
+
+    # 3. the production cell: EaCO and FIFO-Packed on the same 10,000 jobs
+    t0 = time.perf_counter()
+    trace = generate_production_trace(PROD_TRACE)
+    gen_s = time.perf_counter() - t0
+    with open(BENCH_SCALE) as f:
+        bench = json.load(f)["results"]
+    prod = {}
+    for name, sched in (("eaco", EaCO(queue_window=PROD_QUEUE_WINDOW)), ("fifo_packed", FIFOPacked())):
+        cfg = SimConfig(n_nodes=PROD_NODES, seed=0, node_skus=fleet_skus(PROD_NODES, PROD_SKU_MIX))
+        r, events, wall = prod[name] = replay(sched, trace, cfg, until=1_000_000)
+        b = bench[name]
+        print(f"scheduling production {name} ({PROD_TRACE.n_jobs} jobs, {PROD_NODES} nodes v100/a100, trace made in "
+              f"{gen_s:.3f} s): {headline(r)}; {events} events in {wall:.3f} s, {events / wall:.0f} events/s "
+              f"[{name_power}]; BENCH_scale.json (an older rounded run on another host, not gated): "
+              f"{b['total_energy_kwh']} kWh, {b['avg_jct_h']} h, {b['deadline_violations']}, {b['jobs_done']}, "
+              f"{b['wall_s']} s, {b['events_per_s']} events/s")
+        require(r["jobs_done"] == r["jobs_total"], f"production {name}: {r['jobs_done']}/{r['jobs_total']} jobs done")
+    ea, fp = prod["eaco"][0], prod["fifo_packed"][0]
+    print(f"scheduling production: EaCO against FIFO-Packed, energy {1 - ea['total_energy_kwh'] / fp['total_energy_kwh']!r}"
+          f" less, avg JCT {ea['avg_jct_h'] / fp['avg_jct_h'] - 1:+.6f} (simulated fleet)")
+
+    # 4. the card's readings into EaCO: the family replay's History with the
+    # H100's signatures recorded over it. A set inflation below 1.0 goes in
+    # as 1.0 (the floor colocation.register_measured puts on measured ground
+    # truth): a reading inside host noise must not tell EaCO that sharing
+    # speeds a job up.
+    fed = {label: (sig, raw, max(raw, 1.0)) for label, (sig, raw) in measured.items()}
+    for label, (sig, raw, value) in fed.items():
+        print(f"scheduling H100 reading {label} {sig}: measured {raw!r}, fed to EaCO {value!r}"
+              f"{' (floored at 1.0)' if value != raw else ''}; the calibration's "
+              f"{cal.signatures.get(sig, 'none (not a calibrated set)')!r}")
+    lookups = {sig: 0 for sig, _, _ in fed.values()}
+
+    def record(history):
+        """The card's readings over the calibration's entries, and a count
+        of EaCO's lookups of them."""
+        for sig, raw, value in fed.values():
+            history.record(sig, value)
+        get = history.get
+
+        def counted_get(signature, count=True):
+            key = tuple(sorted(signature))
+            if key in lookups:
+                lookups[key] += 1
+            return get(signature, count)
+
+        history.get = counted_get
+
+    ((r, events, wall), history) = family_replay("eaco", record)
+    require(r["jobs_done"] == r["jobs_total"], f"EaCO with the card's History: {r['jobs_done']}/{r['jobs_total']}")
+    print(f"scheduling EaCO with the card's History (family trace, the calibration's ground truth): {headline(r)}; "
+          f"History {history.hits} hits, {history.misses} misses; lookups of the card's signatures "
+          f"{ {'|'.join(k): n for k, n in lookups.items()} }; {events} events in {wall:.3f} s [{name_power}]")
+    for name in ("eaco", "fifo"):
+        (base, _, _), base_history = family[name]
+        extra = f"; History {base_history.hits} hits, {base_history.misses} misses" if name == "eaco" else ""
+        print(f"scheduling {name} with the calibration only (family trace): {headline(base)}{extra}")
+    print(f"scheduling phase: {time.perf_counter() - t_phase:.1f} s [{name_power}]")
 
 
 # ---------------------------------------------------------------------------- main
@@ -1787,7 +1990,8 @@ def main() -> int:
     free_memory()
     train_counts = {arch: train_phase(arch, args.seed) for arch in TRAIN_ARCHS}
     train_launcher_phase(args.seed)
-    colo_counts = colocation_phase(args.seed, name_power)
+    colo_counts, colo_measured = colocation_phase(args.seed, name_power)
+    scheduling_phase(colo_measured, name_power)
     # a kernel's launches: the three serve paths' (h2o-danube-1.8b's two runs), the
     # two training runs' and the co-located rounds'
     paths = [(ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [
@@ -1812,6 +2016,10 @@ def main() -> int:
               f"{bounds}), {row['launches']} launches "
               f"({', '.join(f'{c[name]} {p}' for p, c in paths)}) [{name_power}]")
         kernels.append(row)
+    t = times["ssd_scan"]["generic_fp32"]
+    print(f"kernel ssd_scan generic variant, mamba prefill shape with fp32 B/C: {t['ms']:.4f} ms (plain "
+          f"{t['plain_ms']:.4f} ms, library none, bound {t['bound_ms']:.4f} ms by {t['bound_by']} on the fp32 "
+          f"CUDA cores, {t['bound_ms'] / t['ms']:.2f} of it) [{name_power}]")
     for (rows, d), t in times["rmsnorm"]["shapes"].items():
         where = " (off the serve paths)" if (rows, d) in RMS_OFF_PATH else ""
         print(f"kernel rmsnorm shape {rows}x{d} bf16{where}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "

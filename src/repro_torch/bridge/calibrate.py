@@ -212,14 +212,14 @@ def build_calibration(
 ) -> Calibration:
     """The full pipeline: derive family profiles, measure every signature
     through the dry-run stepper, return the versioned ``Calibration``."""
-    from repro_torch.bridge.profiles import NUM_CHIPS, PROFILE_SHAPE, STEPS_PER_EPOCH
+    from repro_torch.bridge.profiles import (
+        NUM_CHIPS,
+        PROFILE_SHAPE,
+        STEPS_PER_EPOCH,
+        bridge_profiles,
+    )
 
-    if profiles is None:
-        raise NotImplementedError(
-            "the roofline-derived family profiles (bridge/profiles.py::bridge_profiles) need "
-            "roofline/analysis.py, which is not ported yet (ROADMAP A8): pass profiles"
-        )
-    profiles = dict(profiles)
+    profiles = dict(profiles if profiles is not None else bridge_profiles())
     sigs = list(signatures if signatures is not None else default_signatures(profiles))
     measured: Dict[Signature, float] = {}
     for sig in sigs:

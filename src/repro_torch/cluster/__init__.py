@@ -1,4 +1,4 @@
-"""The cluster layer's job model (``job``), the paper's power tables
-(``power``) and the co-location dynamics (``colocation``): copies of the JAX
-package's pure-Python modules, for EaCO's history and JCT predictor. The
-rest of the layer (nodes, fleet, traces, the simulator) is not ported yet."""
+"""The Gavel-style cluster layer: jobs, nodes, power/DVFS models,
+co-location dynamics, trace generators, and the discrete-event simulator
+(see ``docs/architecture.md``).  Pure numpy — schedulers in ``repro_torch.core``
+plug into ``simulator.Simulator`` without touching jax."""

@@ -4,7 +4,8 @@
 (the shape grid ``SHAPES``, ``param_count``, ``layer_kind``, ...), so a
 config reads the same in both packages, but the port runs only the dense and
 SSM layouts: ``models.transformer.Model`` raises ``NotImplementedError`` for
-the rest. The dry-run's ``input_specs`` is not ported.
+the rest. ``train_state_bytes_per_chip`` feeds the calibration bridge's
+memory figures. The dry-run's ``input_specs`` is not ported.
 """
 
 from __future__ import annotations
@@ -203,6 +204,22 @@ class ArchConfig:
     @property
     def top_k_experts(self) -> int:
         return self.moe.top_k if self.moe else 0
+
+    def train_state_bytes_per_chip(self, num_chips: int, n_model: int = 16) -> float:
+        """Napkin per-chip bytes of resident *training state*: bf16 weights
+        (TP-sharded; additionally data-sharded under FSDP), the fp32 grad
+        accumulator, and optimizer state (adamw m+v fp32; adafactor keeps
+        factored accumulators ~1 byte/param).  ``zero`` shards the
+        accumulator/optimizer over every chip.  Activations are NOT included
+        (they depend on the shape; see ``repro_torch.bridge.profiles``).
+        """
+        P = self.param_count()
+        n_model = min(n_model, num_chips)
+        weights = P * 2 / (num_chips if self.fsdp else n_model)
+        opt_denom = num_chips if self.zero else n_model
+        grads = P * 4 / opt_denom
+        opt = (P * 8 if self.optimizer == "adamw" else P * 1) / opt_denom
+        return weights + grads + opt
 
 
 REGISTRY: Dict[str, ArchConfig] = {}

@@ -1,5 +1,7 @@
-"""The elastic throughput model (``scaling``), which the JCT predictor
-reads. The Brain and the resize controller are not ported yet."""
+"""Elastic GPU scaling subsystem: resize-aware throughput model
+(``scaling``), energy-driven plan optimizer (``brain``), and the
+resize-plan applier (``controller``).  The ``EaCOElastic`` scheduler in
+``repro_torch.core`` drives all three."""
 
 from repro_torch.elastic.scaling import (  # noqa: F401
     efficiency,

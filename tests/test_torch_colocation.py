@@ -30,6 +30,7 @@ import torch
 import jax
 import jax.numpy as jnp
 from repro.bridge import calibrate as jcal
+from repro.bridge import profiles as jprofiles
 from repro.cluster import colocation as jcolo
 from repro.cluster import job as jjob
 from repro.cluster import power as jpower
@@ -300,10 +301,23 @@ def test_calibration_save_is_byte_identical(calibration, reference_calibration, 
         n: dataclasses.asdict(p) for n, p in reference_calibration.profiles.items()}
 
 
-def test_build_calibration_needs_profiles():
-    """The roofline-derived profiles wait for roofline/analysis.py (ROADMAP A8)."""
-    with pytest.raises(NotImplementedError, match="A8"):
-        build_calibration()
+def test_build_calibration_without_profiles_saves_the_references_bytes(reference_calibration, tmp_path):
+    """The roofline-derived family profiles and host rows equal the
+    reference's with ``==``, and ``build_calibration()`` without profiles
+    saves the reference's bytes once ``meta["source"]`` (which names the
+    package that measured) is the reference's."""
+    ours = bridge_profiles.derive_profiles()
+    assert list(ours) == list(jprofiles.derive_profiles())
+    assert _asdicts(ours.values()) == _asdicts(jprofiles.derive_profiles().values())
+    assert _asdicts(bridge_profiles.bridge_profiles().values()) == _asdicts(jprofiles.bridge_profiles().values())
+    assert bridge_profiles.bridge_host_table() == jprofiles.bridge_host_table()
+    cal = build_calibration()
+    assert cal.meta["source"].startswith("repro_torch.bridge dry-run")
+    assert {k: v for k, v in cal.meta.items() if k != "source"} == {
+        k: v for k, v in reference_calibration.meta.items() if k != "source"}
+    dataclasses.replace(cal, meta=reference_calibration.meta).save(str(tmp_path / "torch.json"))
+    reference_calibration.save(str(tmp_path / "jax.json"))
+    assert (tmp_path / "torch.json").read_bytes() == (tmp_path / "jax.json").read_bytes()
 
 
 def test_load_refuses_another_version(calibration, tmp_path):
