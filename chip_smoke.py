@@ -47,13 +47,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    stays within 2e-2 of fp32), the plain paths one sequence at a time; in run
    A the fp32 kernel path within 1e-4 of fp32 plain, and two planted faults
    (``DANUBE_PLANTED``) that the gates must catch;
-6. launcher: ``launch/serve.py``'s command line at each model phase's sizes;
-7. training kernels: the three kernels of the training forward pass timed at
+6. deepseek-v2-lite-16b (MLA + MoE: one dense layer and 26 of 64 routed
+   experts top-6 beside 2 shared, 15.7 B parameters) at full width and
+   depth, batch 4, a 2000-token prompt, 32 decode steps: its kernels timed at
+   its shapes (flash at q/k head dim 192 and v 128 on the MLA prefill's views
+   beside SDPA, rmsnorm at d_model and on the kv_norm slice, 512 of each
+   576-wide row, read in place); 82 rmsnorm + 27 flash launches per prefill,
+   82 rmsnorm per decode step (MLA decodes in the latent space, with no
+   kernel); a profile with the MoE expert products apart; the dropped
+   choices per layer at prefill and the share of choices routed elsewhere
+   than in the plain runs; the logits gates of phase 5 at every step with
+   the fp32 kernel path within 1e-4 of fp32 plain, the plain run held to the
+   kernel run's expert choices (routed freely, the two part at router
+   near-ties: ROADMAP C8) (the bf16 paths first, then the weights widened to
+   fp32 in place, leaf by leaf), and the planted fault of ``DEEPSEEK_PLANTED``;
+7. launcher: ``launch/serve.py``'s command line at each model phase's sizes;
+8. training kernels: the three kernels of the training forward pass timed at
    its shapes (internvl2-2b's rmsnorm and flash_attention, mamba2-370m's
    rmsnorm and ssd_scan) beside the plain version, the library call and the
    bound, and each autograd Function's plain backward pass timed at the same
    shapes;
-8. internvl2-2b (its 256 frontend positions fed the trainer's seeded stand-in
+9. internvl2-2b (its 256 frontend positions fed the trainer's seeded stand-in
    embeddings) and mamba2-370m
    trained at full width and depth, bf16, batch 4 x 2048 tokens from
    ``SyntheticPipeline``, AdamW at its defaults and a constant 3e-4:
@@ -74,9 +88,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    - step time, peak memory and energy per step (``nvidia-smi``'s power
      draw, sampled through the run) against the 8 N T bound, and a profile
      of one step;
-9. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
+10. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
    checkpointing under ``build/`` and restarting from it;
-10. co-location: the two training cells as jobs of ``colocation/stepper.py``'s
+11. co-location: the two training cells as jobs of ``colocation/stepper.py``'s
    ``TemporalStepper`` (one whole step per job per round, one process, the
    training phase's weights and settings), observed by ``EarlyStageProfiler``
    with the H100's peak and 8 N T FLOPs a step:
@@ -96,9 +110,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    - evict: mamba2-370m checkpointing every 2 steps under ``build/``, 3 steps,
      then ``evict``: step 2, and its state equal bit for bit to a host copy
      taken at that boundary.
-11. scheduling, on the card's host (no kernel runs here): EaCO's scheduling
+12. scheduling, on the card's host (no kernel runs here): EaCO's scheduling
    path (the roofline bridge, the cluster simulator, the control plane,
-   telemetry and the schedulers), fed what phase 10 measured:
+   telemetry and the schedulers), fed what phase 11 measured:
    - the calibration without profiles: its families, signatures and a hash
      of its saved bytes;
    - the goldens: ``tests/golden_metrics.json``'s ``schedulers`` (the 100-job
@@ -110,15 +124,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
      10,000-job trace (96 nodes, half V100 and half A100), every job done;
      ``BENCH_scale.json``'s figures printed beside, not gated;
    - the card's readings into EaCO: the family replay's History with phase
-     10's set inflations recorded over it, a reading below 1.0 fed as 1.0
+     11's set inflations recorded over it, a reading below 1.0 fed as 1.0
      (the raw one printed beside), then EaCO on the family trace with it:
      every job done; its energy, JCT, violations, History hits and misses and
-     the lookups of the card's signatures beside the calibration-only rows.
+     the lookups of the card's signatures beside the calibration-only rows;
+   - the serving-cluster simulation (``serve/``): ``benchmarks/serve_bench.py``'s
+     mixed replay at its ``--smoke`` sizes (400 jobs, 30,000 requests, 16
+     nodes, EaCO) from the port's copies; its ``serve`` results printed, every
+     job done and every request served or counted dropped.
    The kWh and JCT are the simulated V100/A100 fleet's, not the H100's.
 
 ``--seed`` (default 0) draws other weights and prompts for the model phases.
 
-A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the three serve
+A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the four serve
 paths' (h2o-danube-1.8b's runs A and B), the two 20-step training runs' and
 the co-located rounds'.
 
@@ -157,13 +175,15 @@ from repro_torch.bridge import build_calibration  # noqa: E402
 from repro_torch.bridge.profiles import STEPS_PER_EPOCH  # noqa: E402
 from repro_torch.cluster import colocation  # noqa: E402
 from repro_torch.cluster.colocation import set_signature  # noqa: E402
-from repro_torch.cluster.job import JobProfile  # noqa: E402
+from repro_torch.cluster.job import JobProfile, lm_profiles, paper_profiles  # noqa: E402
 from repro_torch.cluster.power import fleet_skus  # noqa: E402
 from repro_torch.cluster.simulator import SimConfig, Simulator  # noqa: E402
 from repro_torch.cluster.trace import (  # noqa: E402
     ProductionTraceConfig,
+    RequestStreamConfig,
     TraceConfig,
     generate_production_trace,
+    generate_request_stream,
     generate_trace,
     load_into,
 )
@@ -181,9 +201,12 @@ from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.ssd_scan import ROWS as SSD_ROWS  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
 from repro_torch.optim.schedules import constant  # noqa: E402
 from repro_torch.roofline import hw  # noqa: E402
+from repro_torch.serve import ServeConfig, ServeManager, load_request_stream  # noqa: E402
+from repro_torch.serve.models import serve_models_from_profiles  # noqa: E402
 from repro_torch.train.steps import loss_and_grads, make_serve_bundle, make_train_bundle  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig, frontend_embeds  # noqa: E402
 from repro_torch.tree import leaves, leaves_with_paths, tree_map  # noqa: E402
@@ -227,6 +250,13 @@ DN_H, DN_HKV, DN_D, DN_D_MODEL, DN_WINDOW = 32, 8, 80, 2560, 4096
 DN_RUNS = {"A": ("bf16", 6144), "B": ("int8", 4080)}
 DN_PROMPT = DN_RUNS["A"][1]
 
+# The deepseek-v2-lite-16b phase: 27 layers (the first dense, then 26 of 64
+# routed experts top-6 beside 2 shared), d_model 2048, MLA over 16 heads
+# (kv_lora 512; q and k at 128 + 64 = 192 columns, v at 128); batch 4, a
+# 2000-token prompt, 32 greedy decode steps.
+DS_ARCH, DS_B, DS_PROMPT, DS_STEPS = "deepseek-v2-lite-16b", 4, 2000, 32
+DS_H, DS_NOPE, DS_DQK, DS_DV, DS_D_MODEL, DS_KV_LORA, DS_DKV = 16, 128, 192, 128, 2048, 512, 576
+
 # The training cells: batch 4 x 2048 tokens, bf16, AdamW's defaults, a
 # constant rate at the reference's peak (its default schedule warms up over
 # 100 steps, under which 20 steps would barely move the loss).
@@ -267,6 +297,11 @@ PROD_TRACE = ProductionTraceConfig(n_jobs=10_000, seed=0, arrival_rate_per_hour=
                                    duration_sigma_ln_h=1.4)
 PROD_NODES, PROD_SKU_MIX, PROD_QUEUE_WINDOW = 96, (("v100", 0.5), ("a100", 0.5)), 64
 BENCH_SCALE = os.path.join(ROOT, "BENCH_scale.json")
+# benchmarks/serve_bench.py's mixed replay at its --smoke sizes: 400
+# Philly-style jobs and 30,000 diurnal requests for three replica families on
+# 16 nodes (half V100, half A100), EaCO with the production queue window.
+SERVE_JOBS, SERVE_REQUESTS, SERVE_NODES, SERVE_DAY_H = 400, 30_000, 16, 25.0
+SERVE_FAMILIES = ("lm-small", "lm-medium", "resnet50")
 
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:44"),
@@ -389,6 +424,10 @@ RMS_ODD = [(300, 128), (700, 64), (1200, 32), (33, 2560), (300, 5120), (257, 614
 RMS_TRAIN = [(TR_B * TR_SEQ, 2048), (TR_B * TR_SEQ, 1024)]
 # h2o-danube-1.8b's prefill rows (run A) and decode step, d_model 2560.
 RMS_DANUBE = [(DN_B * DN_PROMPT, DN_D_MODEL), (DN_B, DN_D_MODEL)]
+# deepseek-v2-lite-16b's prefill rows and decode step, d_model 2048; its
+# kv_norm reads the first 512 columns of each 576-wide dkv row in place.
+RMS_DEEPSEEK = [(DS_B * DS_PROMPT, DS_D_MODEL), (DS_B, DS_D_MODEL)]
+RMS_KV_NORM = [DS_B * DS_PROMPT, DS_B, 1, DS_B * DS_PROMPT + 1]
 
 
 def check_rmsnorm(gen) -> float:
@@ -397,13 +436,22 @@ def check_rmsnorm(gen) -> float:
     # counts (one row, one past a multiple of the rows a block takes)
     ragged = [(rows, d) for d in (1024, 2048, D_MODEL) for rows in (1, B * PROMPT + 1, MB_B * MB_PROMPT + 1)]
     for dtype in DTYPES:
-        for rows, d in ([(4, 64), (100, 128), (257, 256), (33, 100)] + RMS_SLICES + RMS_TRAIN + RMS_DANUBE + ragged
-                        + RMS_ODD):
+        for rows, d in ([(4, 64), (100, 128), (257, 256), (33, 100)] + RMS_SLICES + RMS_TRAIN + RMS_DANUBE
+                        + RMS_DEEPSEEK + ragged + RMS_ODD):
             x, scale = randn(gen, rows, d, dtype=dtype), randn(gen, d, dtype=torch.float32)
             err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
             print(f"check rmsnorm {str(dtype)[6:]} rows={rows} d={d}: max_abs_err={err:.3e}")
-            if dtype == torch.bfloat16 and (rows, d) in RMS_SLICES + RMS_TRAIN + RMS_DANUBE:
+            if dtype == torch.bfloat16 and (rows, d) in RMS_SLICES + RMS_TRAIN + RMS_DANUBE + RMS_DEEPSEEK:
                 worst = max(worst, err)
+        # the kv_norm slice, rows 1152 bytes apart (and 1154, off 16 bytes: the generic kernel)
+        for rows in RMS_KV_NORM:
+            for width in (DS_DKV, DS_DKV + 1):
+                x, scale = randn(gen, rows, width, dtype=dtype)[:, :DS_KV_LORA], randn(gen, DS_KV_LORA, dtype=torch.float32)
+                err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
+                print(f"check rmsnorm {str(dtype)[6:]} rows={rows} d={DS_KV_LORA} of rows {width} wide "
+                      f"(kv_norm slice): max_abs_err={err:.3e}")
+                if dtype == torch.bfloat16 and width == DS_DKV:
+                    worst = max(worst, err)
         # contiguous rows that start one element past a 16-byte boundary
         for rows, d in RMS_SLICES + RMS_TRAIN + RMS_DANUBE:
             flat = randn(gen, rows * d + 1, dtype=dtype)
@@ -457,6 +505,24 @@ def check_flash(gen) -> float:
                   f"strided (B, S, H, D) views: max_abs_err={err:.3e}")
             if dtype == torch.bfloat16 and s != 300:
                 worst = max(worst, err)
+        # MLA's (Dqk, Dv) = (192, 128): tile edges, Sq != Sk, then the
+        # deepseek-v2-lite-16b prefill as the model passes it (q and k
+        # (B, S, H, 192), v the last 128 columns of the (B, S, H, 256)
+        # up-projection, each viewed (B, H, S, D))
+        for b, h, sq, sk, causal in [(1, 4, s, s, True) for s in (1, 127, 129, PROMPT)] + [(2, 4, 128, 256, False)]:
+            q, k = randn(gen, b, h, sq, DS_DQK, dtype=dtype), randn(gen, b, h, sk, DS_DQK, dtype=dtype)
+            v = randn(gen, b, h, sk, DS_DV, dtype=dtype)
+            err = max_abs_err(ops.flash_attention(q, k, v, causal=causal), ref.attention_ref(q, k, v, causal=causal),
+                              dtype)
+            print(f"check flash_attention {str(dtype)[6:]} {(b, h, h, sq, sk)} Dqk {DS_DQK} Dv {DS_DV} "
+                  f"causal={causal}: max_abs_err={err:.3e}")
+        q, k = (randn(gen, DS_B, DS_PROMPT, DS_H, DS_DQK, dtype=dtype).transpose(1, 2) for _ in range(2))
+        v = randn(gen, DS_B, DS_PROMPT, DS_H, DS_NOPE + DS_DV, dtype=dtype)[..., DS_NOPE:].transpose(1, 2)
+        err = max_abs_err(ops.flash_attention(q, k, v), ref.attention_ref(q, k, v), dtype)
+        print(f"check flash_attention {str(dtype)[6:]} {(DS_B, DS_H, DS_H, DS_PROMPT, DS_PROMPT)} Dqk {DS_DQK} "
+              f"Dv {DS_DV} causal=True, the MLA prefill's views: max_abs_err={err:.3e}")
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
     return worst
 
 
@@ -607,13 +673,14 @@ def check_ssd(gen) -> float:
     return worst
 
 
-def time_rmsnorm(gen, rows: int, d: int) -> dict:
+def time_rmsnorm(gen, rows: int, d: int, width: int = 0) -> dict:
     """rmsnorm at one shape, bf16: kernel, plain version, ``F.rms_norm``, bound;
     and the host's time per call of the wrapper and of ``F.rms_norm``, and the
-    wrapper's over ``F.rms_norm``'s (which compares runs of two trees)."""
+    wrapper's over ``F.rms_norm``'s (which compares runs of two trees). With
+    ``width``, x is the first ``d`` columns of rows ``width`` wide."""
     bf = torch.bfloat16
     x_bytes = rows * d * 2
-    xs = copies(lambda: (randn(gen, rows, d), randn(gen, d, dtype=torch.float32)), x_bytes)
+    xs = copies(lambda: (randn(gen, rows, width or d)[:, :d], randn(gen, d, dtype=torch.float32)), x_bytes)
     xs = [(x, s, s.to(bf)) for x, s in xs]  # F.rms_norm takes its weight in the input dtype
     rms = {
         "ms": time_ms(lambda x, s, _: ops.rmsnorm(x, s), xs),
@@ -753,6 +820,40 @@ def time_danube_kernels(gen) -> dict:
     }
     dec["bound_ms"], dec["bound_by"] = bound(cache_bytes + 2 * DN_B * DN_H * DN_D * 2, 4 * DN_B * DN_H * W * DN_D, bf)
     out[("decode_attention", (DN_B, DN_H, DN_HKV, W, DN_D))] = dec
+    return out
+
+
+def time_deepseek_kernels(gen) -> dict:
+    """deepseek-v2-lite-16b's kernels at its serve shapes, bf16, as
+    ``time_kernels`` times minitron-8b's: flash on the MLA prefill's views at
+    (Dqk, Dv) = (192, 128) beside the plain version, SDPA (its backend named)
+    and the bound; rmsnorm at the prefill's rows and a decode step's, of
+    d_model and of the kv_norm slice (512 of 576 columns)."""
+    bf, S = torch.bfloat16, DS_PROMPT
+    out = {}
+    for rows in (DS_B * S, DS_B):
+        out[("rmsnorm", (rows, DS_D_MODEL))] = time_rmsnorm(gen, rows, DS_D_MODEL)
+        out[("rmsnorm", (rows, DS_KV_LORA))] = time_rmsnorm(gen, rows, DS_KV_LORA, DS_DKV)
+    qk_bytes, v_bytes = DS_B * S * DS_H * DS_DQK * 2, DS_B * S * DS_H * DS_DV * 2
+
+    def views():
+        q, k = (randn(gen, DS_B, S, DS_H, DS_DQK).transpose(1, 2) for _ in range(2))
+        return q, k, randn(gen, DS_B, S, DS_H, DS_NOPE + DS_DV)[..., DS_NOPE:].transpose(1, 2)
+
+    qkv = copies(views, 2 * qk_bytes + 2 * v_bytes)
+    library = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+    flash = {
+        "ms": time_ms(lambda q, k, v: ops.flash_attention(q, k, v), qkv),
+        "plain_ms": time_ms(lambda q, k, v: ref.attention_ref(q, k, v), qkv, 10),
+        "library_ms": time_ms(library, qkv),
+        "library_kernels": sdpa_kernels(library, *qkv[0]),
+    }
+    pairs = S * (S + 1) // 2  # visible (query, key) pairs of a row of heads, causal
+    flash["pairs"] = pairs
+    # q and k read once, v read once, o written once; Q K^T over 192 columns and P V over 128
+    flash["bound_ms"], flash["bound_by"] = bound(2 * qk_bytes + 2 * v_bytes,
+                                                 2 * DS_B * DS_H * pairs * (DS_DQK + DS_DV), bf)
+    out[("flash_attention", (DS_B, DS_H, DS_H, S, DS_DQK, DS_DV))] = flash
     return out
 
 
@@ -1103,6 +1204,226 @@ def danube_phase(seed: int) -> dict:
     return counts
 
 
+# A fault planted in the flash kernel of the deepseek-v2-lite-16b serve path:
+# ``deepseek_phase`` holds it to the gates named beside it, which must fail on it.
+def flash_ignores_rope_box(q, k, v, *, causal=True, window=None):
+    """Q K^T without its third 64-column box: the rope columns 128-191 of q
+    and k never meet (a kernel that multiplies 128 of MLA's 192 columns)."""
+    q = torch.cat([q[..., :DS_NOPE], torch.zeros_like(q[..., DS_NOPE:])], dim=-1)
+    return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+
+DEEPSEEK_PLANTED = [
+    ("flash_attention ignores Q K^T's third 64-column box (the rope columns 128-191)", "flash_attention",
+     flash_ignores_rope_box, ("bf16", "fp32")),
+]
+
+
+@contextlib.contextmanager
+def routed(replay=None):
+    """The top-k expert ids of every MoE layer a run routes, in call order
+    (``models/moe.py``'s ``_top_k`` wrapped while the block runs). With
+    ``replay`` (another run's ids) the run takes those ids call for call in
+    place of its own choice, its combine weights its own probabilities at
+    them, renormalised in fp32: the discrete choice held fixed, as
+    teacher-forcing holds the tokens."""
+    routes, top_k = [], moe_mod._top_k
+    forced = None if replay is None else iter(replay)
+
+    def route(probs, k):
+        if forced is None:
+            w, idx = top_k(probs, k)
+        else:
+            idx = next(forced)
+            w = probs.gather(-1, idx)
+            w = w / w.sum(dim=-1, keepdim=True)
+        routes.append(idx)
+        return w, idx
+
+    moe_mod._top_k = route
+    try:
+        yield routes
+    finally:
+        moe_mod._top_k = top_k
+
+
+def routed_elsewhere(routes, other, experts: int) -> tuple:
+    """(token, choice) pairs of ``routes`` whose expert ``other`` (the same
+    calls) did not choose for that token, and all pairs."""
+    differ = total = 0
+    for a, b in zip(routes, other, strict=True):
+        shared = (F.one_hot(a, experts).sum(1) * F.one_hot(b, experts).sum(1)).sum()
+        differ, total = differ + a.numel() - int(shared), total + a.numel()
+    return differ, total
+
+
+def deepseek_phase(seed: int) -> dict:
+    """deepseek-v2-lite-16b served at full width and depth (MLA + MoE): the
+    main path's exact launches per prefill, per decode step and per run,
+    times, peak memory and a profile with the expert products apart; the
+    routing (dropped choices per layer at prefill, the share of choices
+    routed elsewhere than in the plain runs); the logits gates at every step
+    (the 1.25x rule against fp32 plain, the 2e-2 rule where the plain bf16
+    path itself stays within 2e-2 of fp32, the fp32 kernel path within 1e-4
+    of fp32 plain) and the faults of ``DEEPSEEK_PLANTED``. The fp32 weights
+    (62.8 GB) do not fit beside the bf16 copy: the bf16 paths run first, then
+    the weights are widened in place leaf by leaf. Returns the main path's
+    launches."""
+    t_phase = time.perf_counter()
+    cfg = get_config(DS_ARCH)
+    m, mla = cfg.moe, cfg.mla
+    max_len = DS_PROMPT + DS_STEPS
+    bundle = make_serve_bundle(cfg, max_len=max_len)
+    t0 = time.perf_counter()
+    params = bundle.model.init(seed, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    print(f"model {DS_ARCH}: {cfg.num_layers} layers ({m.first_k_dense} dense, {cfg.num_layers - m.first_k_dense} MoE "
+          f"of {m.num_experts} experts top-{m.top_k} + {m.num_shared_experts} shared, d_ff_expert {m.d_ff_expert}), "
+          f"d_model {cfg.d_model}, MLA over {cfg.num_heads} heads (kv_lora {mla.kv_lora_rank}, q/k "
+          f"{mla.qk_nope_head_dim} + {mla.qk_rope_head_dim}, v {mla.v_head_dim}), {n_params} parameters "
+          f"({n_params * 2 / 1e9:.2f} GB bf16), init {time.perf_counter() - t0:.1f} s; prompt {DS_PROMPT} x{DS_B}, "
+          f"{DS_STEPS} decode steps")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (DS_B, DS_PROMPT), generator=gen, device="cuda")
+
+    serve.greedy_generate(bundle, params, tokens, 2)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    gen_out = serve.greedy_generate(bundle, params, tokens, DS_STEPS)  # the main path
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n, n_norm = cfg.num_layers, 3 * cfg.num_layers + 1  # norm1, kv_norm, norm2 per layer; the final norm
+    per_prefill = {"rmsnorm": n_norm, "flash_attention": n, "decode_attention": 0, "ssd_scan": 0}
+    per_step = {"rmsnorm": n_norm, "flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+    expected = {k: per_prefill[k] + DS_STEPS * per_step[k] for k in per_prefill}
+    print(f"deepseek main path launches: {counts} (expected {expected})")
+    require(counts == expected, f"launch counts {counts} != {expected}")
+    print(f"deepseek: prefill {DS_PROMPT} tokens x{DS_B}: {gen_out.prefill_s * 1e3:.3f} ms; decode: "
+          f"{gen_out.decode_s_per_token * 1e3:.3f} ms/token ({DS_B / gen_out.decode_s_per_token:.1f} tokens/s); "
+          f"peak memory {peak_gb:.2f} GB")
+    print(f"card during run: {nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+    for lg in gen_out.logits:
+        require(lg.shape == (DS_B, cfg.padded_vocab) and bool(torch.isfinite(lg).all()), "bad logits")
+    require(gen_out.tokens.shape == (DS_B, DS_STEPS), "bad token shape")
+
+    # Per-step launch accounting on a second run of the same tokens; its routes are the kernel path's.
+    with routed() as routes_bf16:
+        ops.reset_launch_counts()
+        _, cache = bundle.prefill_fn(params, tokens)
+        require(ops.launch_counts() == per_prefill, f"prefill launches {ops.launch_counts()}")
+        want = {group: {"ckv": (k, DS_B, max_len, DS_KV_LORA), "kr": (k, DS_B, max_len, DS_DQK - DS_NOPE)}
+                for group, k in (("dense", m.first_k_dense), ("moe", n - m.first_k_dense))}
+        require({g: {k: tuple(t.shape) for k, t in c["l0"].items()} for g, c in cache.items()} == want,
+                f"cache {cache}")
+        for i in range(DS_STEPS):
+            before = ops.launch_counts()
+            _, cache = bundle.decode_fn(params, cache, gen_out.tokens[:, i:i + 1], DS_PROMPT + i)
+            delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            require(delta == per_step, f"decode step {i} launches {delta}")
+    print(f"deepseek per-step launches: prefill {n_norm} rmsnorm + {n} flash, each of {DS_STEPS} decode steps "
+          f"{n_norm} rmsnorm and no flash or decode_attention (MLA decodes in the latent space); cache {want}: ok")
+    del cache
+    moe_layers, C = n - m.first_k_dense, moe_mod._capacity(DS_B * DS_PROMPT, m)
+    drops = [int((moe_mod._counts(r.reshape(-1), m.num_experts) - C).clamp(min=0).sum())
+             for r in routes_bf16[:moe_layers]]
+    print(f"deepseek routing at prefill (kernel path, bf16): {DS_B * DS_PROMPT * m.top_k} choices a layer, capacity "
+          f"{C} an expert; dropped choices per MoE layer {drops} (sum {sum(drops)}, "
+          f"{sum(drops) / (moe_layers * DS_B * DS_PROMPT * m.top_k):.4%})")
+    print_breakdown(bundle, params, tokens, gen_out.tokens[:, :1], DS_PROMPT)
+
+    # Teacher-forced on the kernel path's tokens: the plain path in bf16 and
+    # the planted fault; then the weights widened to fp32 in place (exact from
+    # bf16): the plain path, the kernel path, and the plain path and the fault
+    # again on the fp32 kernel path's routes. Routed freely, the two fp32 paths
+    # part at router near-ties (their sums' order moves a choice, and the
+    # changed token moves the next layers' near-ties), so the 1e-4 gate holds
+    # the discrete choice fixed, as teacher-forcing holds the tokens; the free
+    # distance and its flips are printed.
+    plain = make_serve_bundle(cfg, max_len=max_len, ops=ops.PLAIN)
+    faulty = [(name, make_serve_bundle(cfg, max_len=max_len, ops=planted(kernel, fn)), must)
+              for name, kernel, fn, must in DEEPSEEK_PLANTED]
+    ops.reset_launch_counts()
+    with routed() as routes_plain_bf16:
+        plain_bf16 = teacher_forced(plain, params, tokens, gen_out.tokens)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    fault_bf16 = [teacher_forced(b, params, tokens, gen_out.tokens) for _, b, _ in faulty]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _to_float32(params)
+    print(f"deepseek weights widened to fp32 in place, leaf by leaf, largest first: "
+          f"{sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9:.2f} GB, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with routed() as routes_exact:
+        exact = teacher_forced(plain, params, tokens, gen_out.tokens)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    with routed() as routes_fp32:
+        kernel_fp32 = teacher_forced(bundle, params, tokens, gen_out.tokens)
+    require(ops.launch_counts() == expected, f"fp32 kernel-path launches {ops.launch_counts()}")
+    ops.reset_launch_counts()
+    with routed(routes_fp32):
+        exact_routed = teacher_forced(plain, params, tokens, gen_out.tokens)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    fault_fp32 = []
+    for _, b, _ in faulty:
+        with routed(routes_fp32):
+            fault_fp32.append(teacher_forced(b, params, tokens, gen_out.tokens))
+    print(f"deepseek fp32 runs: full depth ({n} layers), peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params
+    free_memory()
+
+    for label, (a, b) in (("bf16", (routes_bf16, routes_plain_bf16)), ("fp32", (routes_fp32, routes_exact)),
+                          ("bf16 kernel vs fp32 plain", (routes_bf16, routes_exact))):
+        prefill = routed_elsewhere(a[:moe_layers], b[:moe_layers], m.num_experts)
+        decode = routed_elsewhere(a[moe_layers:], b[moe_layers:], m.num_experts)
+        print(f"deepseek routing, {label}: (token, choice) pairs routed to another expert than in the plain run: "
+              f"prefill {prefill[0]} of {prefill[1]} ({prefill[0] / prefill[1]:.4%}), decode {decode[0]} of "
+              f"{decode[1]} ({decode[0] / decode[1]:.4%})")
+    errs = [rel_l2(a, b) for a, b in zip(gen_out.logits, plain_bf16)]
+    kernel_err = [rel_l2(a, b) for a, b in zip(gen_out.logits, exact)]
+    floor = [rel_l2(a, b) for a, b in zip(plain_bf16, exact)]
+    fp32_err = [rel_l2(a, b) for a, b in zip(kernel_fp32, exact_routed)]
+    fp32_free = [rel_l2(a, b) for a, b in zip(kernel_fp32, exact)]
+    for name, e in (("kernels vs plain, bf16", errs), ("kernels bf16 vs plain fp32", kernel_err),
+                    ("plain bf16 vs plain fp32", floor), ("kernels vs plain, fp32, routed freely (not gated)", fp32_free),
+                    ("kernels vs plain, fp32, the plain path on the kernel path's routes", fp32_err)):
+        print(f"deepseek logits, relative L2, {name}: prefill {e[0]:.4e}, decode max {max(e[1:]):.4e} "
+              f"mean {np.mean(e[1:]):.4e}")
+    faults = []
+    for (name, _, must), fb, ff in zip(faulty, fault_bf16, fault_fp32):
+        ratios = {"bf16": max(rel_l2(a, b) for a, b in zip(fb, exact)) / max(floor),
+                  "fp32": max(rel_l2(a, b) for a, b in zip(ff, exact_routed)) / FP32_LOGIT_RTOL}
+        faults.append((name, ratios, must))
+        print(f"deepseek planted fault, {name}: bf16 distance from fp32 over the plain bf16 path's "
+              f"{ratios['bf16']:.4f} (fails above {FLOOR_RATIO}), fp32 distance from fp32 plain over "
+              f"{FP32_LOGIT_RTOL} {ratios['fp32']:.4f} (fails above 1); caught by "
+              f"[{', '.join(g for g, lim in (('bf16', FLOOR_RATIO), ('fp32', 1.0)) if ratios[g] > lim)}], "
+              f"must be by [{', '.join(must)}]")
+    if max(floor) <= LOGIT_RTOL:
+        require(max(errs) <= LOGIT_RTOL, f"kernel-path logits differ from the plain path: {errs}")
+        rule = f"within {LOGIT_RTOL} relative L2 of the plain path at all {len(errs)} steps, and "
+    else:
+        rule = (f"not held to {LOGIT_RTOL} of the plain bf16 path: the plain bf16 path alone sits "
+                f"{max(floor):.4e} from fp32, so no bf16 path can meet it; ")
+    require(max(kernel_err) <= FLOOR_RATIO * max(floor),
+            f"the kernel path is further from fp32 than bf16 alone explains: {kernel_err} vs {floor}")
+    require(max(fp32_err) <= FP32_LOGIT_RTOL,
+            f"fp32 kernel-path logits differ from the plain path on its routes beyond {FP32_LOGIT_RTOL}: {fp32_err}")
+    for name, ratios, must in faults:
+        require(all(ratios[g] > (FLOOR_RATIO if g == "bf16" else 1.0) for g in must),
+                f"a gate passes a planted fault ({name}): {ratios}")
+    print(f"deepseek kernel-path logits {rule}no further from fp32 than {FLOOR_RATIO} x the plain bf16 path at any "
+          f"step; fp32 kernel path within {FP32_LOGIT_RTOL} of fp32 plain on its routes; {len(faults)} planted fault "
+          f"caught: ok")
+    del bundle, plain, faulty
+    free_memory()
+    print(f"deepseek phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def teacher_forced_by_sequence(bundle, params, prompt, generated) -> list:
     """``teacher_forced`` one sequence at a time, the logits stacked back into
     the batch: the plain attention's fp32 scores for the whole batch at
@@ -1122,12 +1443,23 @@ def teacher_forced(bundle, params, prompt, generated) -> list:
 
 
 def _to_float32(tree) -> None:
-    """Widen every leaf to fp32 in place, one at a time (exact from bf16)."""
-    for key, val in tree.items():
-        if isinstance(val, dict):
-            _to_float32(val)
-        else:
-            tree[key] = val.float()
+    """Widen every leaf to fp32 in place, one at a time, the largest first,
+    each bf16 leaf freed before the next (exact from bf16): deepseek-v2-lite-16b's
+    62.8 GB of fp32 weights fit on the card only so."""
+    slots = []
+
+    def walk(t):
+        for key, val in t.items():
+            if isinstance(val, dict):
+                walk(val)
+            else:
+                slots.append((val.numel(), t, key))
+
+    walk(tree)
+    for numel, parent, key in sorted(slots, key=lambda s: -s[0]):
+        parent[key] = parent[key].float()
+        if numel * 2 >= 2**30:  # return a large bf16 leaf's memory before the next large fp32 one
+            torch.cuda.empty_cache()
 
 
 def print_breakdown(bundle, params, tokens, first, prompt_len: int = PROMPT) -> None:
@@ -1149,8 +1481,12 @@ def profiled(label: str, fn):
         enqueue = time.perf_counter() - t0
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    families, kernels, other = {}, 0, []
+    families, kernels, other, experts = {}, 0, [], None
     for e in prof.key_averages():
+        if e.key == moe_mod.EXPERTS_RANGE:  # the profiler range around the expert products
+            if e.device_type == DeviceType.CPU:
+                experts = e.device_time_total / 1e3
+            continue
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             fam = next((f for f, keys in KERNEL_FAMILIES if any(k in e.key for k in keys)), "other")
             families[fam] = families.get(fam, 0.0) + e.self_device_time_total / 1e3
@@ -1160,6 +1496,8 @@ def profiled(label: str, fn):
     busy = sum(families.values())
     parts = ", ".join(f"{k} {v:.3f}" for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
     shown = f"device busy {busy:.3f} ms in {kernels} kernels ({parts})" if busy else "device time not measured"
+    if experts is not None:
+        shown += f"; of which the MoE expert products (3 bmm + SwiGLU a layer) {experts:.3f} ms"
     print(f"profile {label}: host enqueue {enqueue * 1e3:.3f} ms, wall {wall * 1e3:.3f} ms, {shown}")
     for ms, count, key in sorted(other, reverse=True)[:4]:  # what "other" is made of
         print(f"  other: {ms:.3f} ms in {count} x {key[:90]}")
@@ -1940,7 +2278,43 @@ def scheduling_phase(measured: dict, name_power: str) -> None:
         (base, _, _), base_history = family[name]
         extra = f"; History {base_history.hits} hits, {base_history.misses} misses" if name == "eaco" else ""
         print(f"scheduling {name} with the calibration only (family trace): {headline(base)}{extra}")
+
+    # 5. the serving-cluster simulation (serve/): training jobs and inference
+    # replicas on one simulated fleet, with the reference's configuration
+    r, events, wall = serve_replay()
+    s = r["serve"]
+    print(f"scheduling serve replay (EaCO, {SERVE_JOBS} jobs + {SERVE_REQUESTS} requests of {', '.join(SERVE_FAMILIES)}, "
+          f"{SERVE_NODES} nodes v100/a100): {headline(r)}; requests served {s['served_total']!r}, dropped "
+          f"{s['dropped_requests']} of {s['requests_total']}; p50 {s['p50_ms']!r} ms, p99 {s['p99_ms']!r} ms, SLO "
+          f"violations {s['slo_violations']!r}, serve energy {s['serve_energy_kwh']!r} kWh, replica peak "
+          f"{s['replicas_peak']}; {events} events in {wall:.3f} s [{name_power}]")
+    require(r["jobs_done"] == r["jobs_total"] == SERVE_JOBS, f"serve replay: {r['jobs_done']}/{r['jobs_total']} jobs")
+    require(s["requests_total"] == SERVE_REQUESTS and s["served_total"] + s["dropped_requests"] == SERVE_REQUESTS,
+            f"serve replay: {s['served_total']} served + {s['dropped_requests']} dropped of {s['requests_total']}")
     print(f"scheduling phase: {time.perf_counter() - t_phase:.1f} s [{name_power}]")
+
+
+def serve_replay() -> tuple:
+    """benchmarks/serve_bench.py's co-located replay at its --smoke sizes,
+    from the port's copies: the Philly-style trace, the diurnal request
+    stream and the replicas of three families priced from the paper and LM
+    profiles, EaCO on 16 nodes. Returns the results, events and wall seconds."""
+    pool = dict(paper_profiles())
+    pool.update(lm_profiles())
+    models = tuple(serve_models_from_profiles(pool, families=SERVE_FAMILIES).values())
+    trace = generate_production_trace(dataclasses.replace(
+        PROD_TRACE, n_jobs=SERVE_JOBS, arrival_rate_per_hour=PROD_TRACE.arrival_rate_per_hour * (SERVE_JOBS / PROD_TRACE.n_jobs)))
+    stream = generate_request_stream(RequestStreamConfig(
+        n_requests=SERVE_REQUESTS, seed=0, models=SERVE_FAMILIES, rate_per_hour=SERVE_REQUESTS / SERVE_DAY_H,
+        diurnal=True))
+    sim = Simulator(SimConfig(n_nodes=SERVE_NODES, seed=0, node_skus=fleet_skus(SERVE_NODES, PROD_SKU_MIX)),
+                    EaCO(queue_window=PROD_QUEUE_WINDOW))
+    load_into(sim, trace)
+    ServeManager(ServeConfig(models=models)).attach(sim)
+    load_request_stream(sim, stream)
+    t0 = time.perf_counter()
+    sim.run(until=1_000_000)
+    return sim.results(), sim.events_processed, time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------- main
@@ -1985,6 +2359,13 @@ def main() -> int:
     launcher_phase(DN_ARCH, DN_B, DN_PROMPT, DN_STEPS, args.seed)
     free_memory()
     print(f"h2o-danube-1.8b, kernel timings, runs A and B and the launcher: {time.perf_counter() - t_dn:.1f} s")
+    t_ds = time.perf_counter()
+    deepseek_times = time_deepseek_kernels(gen)
+    free_memory()
+    deepseek_counts = deepseek_phase(args.seed)
+    launcher_phase(DS_ARCH, DS_B, DS_PROMPT, DS_STEPS, args.seed)
+    free_memory()
+    print(f"deepseek-v2-lite-16b, kernel timings, the served run and the launcher: {time.perf_counter() - t_ds:.1f} s")
 
     train_times = time_train_kernels(gen)
     free_memory()
@@ -1992,10 +2373,10 @@ def main() -> int:
     train_launcher_phase(args.seed)
     colo_counts, colo_measured = colocation_phase(args.seed, name_power)
     scheduling_phase(colo_measured, name_power)
-    # a kernel's launches: the three serve paths' (h2o-danube-1.8b's two runs), the
+    # a kernel's launches: the four serve paths' (h2o-danube-1.8b's two runs), the
     # two training runs' and the co-located rounds'
     paths = [(ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [
-        (f"{DN_ARCH} run {r}", c) for r, c in danube_counts.items()] + [
+        (f"{DN_ARCH} run {r}", c) for r, c in danube_counts.items()] + [(DS_ARCH, deepseek_counts)] + [
         (f"train {a}", c) for a, c in train_counts.items()] + [("co-located rounds", colo_counts)]
 
     kernels = []
@@ -2036,6 +2417,20 @@ def main() -> int:
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
               f"{t['bound_ms'] / t['ms']:.2f} of it; {t['library_ms'] / t['ms']:.2f}x the library's speed){extra} "
               f"[{name_power}]")
+    for (name, shape), t in deepseek_times.items():
+        if name == "rmsnorm":
+            rows, d = shape
+            where = f" of rows {DS_DKV} wide (kv_norm, read in place)" if d == DS_KV_LORA else ""
+            print(f"kernel rmsnorm deepseek shape {rows}x{d}{where} bf16: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} "
+                  f"ms, F.rms_norm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4g} ms by {t['bound_by']}; "
+                  f"{t['bound_ms'] / t['ms']:.2f} of the bound, {t['library_ms'] / t['ms']:.2f}x F.rms_norm's speed); "
+                  f"host {t['host_us']:.2f} us a call [{name_power}]")
+            continue
+        print(f"kernel flash_attention deepseek shape (B, H, Hkv, S, Dqk, Dv) {shape} bf16, the MLA prefill's views: "
+              f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']}, {t['bound_ms'] / t['ms']:.2f} of it; "
+              f"{t['library_ms'] / t['ms']:.2f}x the library's speed); {t['pairs']} visible (query, key) pairs per "
+              f"(b, h); SDPA ran {t['library_kernels']} [{name_power}]")
     for (name, shape), t in train_times.items():
         library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         print(f"kernel {name} train shape {shape} bf16: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "

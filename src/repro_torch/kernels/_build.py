@@ -38,10 +38,10 @@ build_seconds: Optional[float] = None  # wall time of this process's build, if i
 
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # x, scale, y, rows, d, eps, dtype, vpt, tpr, threads, grid, stream
-    "repro_rmsnorm": (_vp, _vp, _vp, _ll, _i, _f, _i, _i, _i, _i, _i, _vp),
-    # q, k, v, o, strides[12], B, H, Hkv, Sq, Sk, D, causal, window, dtype, stream
-    "repro_flash_attention": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp),
+    # x, scale, y, rows, d, ld, eps, dtype, vpt, tpr, threads, grid, stream
+    "repro_rmsnorm": (_vp, _vp, _vp, _ll, _i, _ll, _f, _i, _i, _i, _i, _i, _vp),
+    # q, k, v, o, strides[12], B, H, Hkv, Sq, Sk, D, Dv, causal, window, dtype, stream
+    "repro_flash_attention": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp),
     # q, k, v, o, strides[6], B, H, Hkv, D, valid, split, dtype, stream
     "repro_decode_attention": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp),
     # x, log_dA, Bm, Cm, y, h, strides[15], B, S, H, G, N, P, dtype, variant, stream

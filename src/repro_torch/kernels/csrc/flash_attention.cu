@@ -33,7 +33,10 @@
 // columns in shared memory and D = 80 to 128 (two boxes, the second 16 wide
 // in the tensor; the TMA store clips the output to D). Q K^T runs over the
 // true D; P V at D = 80 multiplies 128 columns, 1.6x the products of the true
-// D there (1.3x of the kernel's products). S = Q K^T is wgmma m64n64k16 with both operands
+// D there (1.3x of the kernel's products). Q and K may have another head dim
+// than V and O (DeepSeek's MLA: Dqk 192 = 128 + 64 rope columns, Dv 128): Q
+// and K tiles then hold three boxes, V and O two, and the ring is 3 stages
+// deep (2 x 48 KB of Q, 40 KB a stage: 216 KB). S = Q K^T is wgmma m64n64k16 with both operands
 // in shared memory; P is rounded to bf16 once and fed from registers as the A
 // operand of O += P V, wgmma m64nDk16 with V read through the descriptor's
 // transpose (MN-major) mode. A tile's P V is issued after the next tile's
@@ -41,14 +44,15 @@
 // branch and barriers are arrived on by predicated instructions, since ptxas
 // serializes wgmma across divergent code. Only tiles that cross the causal
 // diagonal, the window's first key or Sk are masked. Rounding points: fp32
-// scores, the scale folded into exp2 as log2(e)/sqrt(D) (one FMA before the
+// scores, the scale folded into exp2 as log2(e)/sqrt(Dqk) (one FMA before the
 // exponential), fp32 m, l and acc, one division by l at the end; a row that
 // sees no key gives 0. The output goes out through the item's Q buffer by a
 // TMA store, so a warpgroup starts its next item without waiting for it.
 //
 // fp32: multiplied in fp32 on the CUDA cores (no TF32), one warp per query
-// row, 8 rows per block, key tiles of 32 staged in shared memory, so that the
-// fp32 tests hold the reference's 2e-5.
+// row, 8 rows per block, key tiles of 32 staged in static shared memory, so
+// that the fp32 tests hold the reference's 2e-5; V's tile follows Dv, which
+// keeps Dqk 192 / Dv 128 at 47.2 KB, under the 48 KB static limit.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -63,7 +67,7 @@ struct FlashArgs {
   // strides in elements: (batch, head, seq); the last dim is contiguous
   long long qs_b, qs_h, qs_s, ks_b, ks_h, ks_s, vs_b, vs_h, vs_s, os_b, os_h, os_s;
   int B, H, rep, Sq, Sk, causal, window;  // window <= 0: no window
-  float scale_log2;                       // log2(e) / sqrt(D)
+  float scale_log2;                       // log2(e) / sqrt(Dqk)
 };
 
 // Keys [lo, hi) that query rows [q0, q0 + rows) can see; lo rounded down to bk.
@@ -93,15 +97,21 @@ constexpr int kFlashThreads = 288;     // two consumer warpgroups + one producer
 constexpr int kProducer = 256;         // thread index of the producer's first lane
 constexpr int kConsumerWarps = 8;      // arrivals that free a stage
 
-template <int D>
+// Q and K have head dim DQ, V and O head dim DV (equal but for MLA).
+template <int DQ, int DV>
 struct FlashTiles {
-  static constexpr int kDP = (D + 63) / 64 * 64;      // columns in shared memory: whole 64-column boxes
-  static constexpr int kNB = kDP / 64;                // 64-column boxes per row
-  static constexpr int kStages = kDP == 128 ? 5 : 8;  // K/V ring depth
-  static constexpr int kTileBytes = kNB * kBox;       // one K (or V) tile, or 64 query rows
-  static constexpr int kQBytes = 2 * kTileBytes;      // one work item's 128 query rows
-  static constexpr int kBarOffset = 2 * kQBytes + 2 * kStages * kTileBytes;
+  static constexpr int kDPQ = (DQ + 63) / 64 * 64;  // Q, K columns in shared memory: whole 64-column boxes
+  static constexpr int kDPV = (DV + 63) / 64 * 64;  // V, O columns
+  static constexpr int kNBQ = kDPQ / 64;            // 64-column boxes per Q or K row
+  static constexpr int kNBV = kDPV / 64;            // per V or O row
+  static_assert(kDPV <= kDPQ, "O is staged in its item's Q buffer");
+  static constexpr int kStages = kDPQ == 192 ? 3 : kDPQ == 128 ? 5 : 8;  // K/V ring depth
+  static constexpr int kKTile = kNBQ * kBox;        // one K tile, or 64 query rows
+  static constexpr int kVTile = kNBV * kBox;        // one V tile
+  static constexpr int kQBytes = 2 * kKTile;        // one work item's 128 query rows
+  static constexpr int kBarOffset = 2 * kQBytes + kStages * (kKTile + kVTile);
   static constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 4);  // + alignment slack
+  static_assert(kSmem <= 232448, "over the 227 KB a block may opt in to");
 };
 
 // A work item is (query tile, batch * head); items are numbered so that the
@@ -140,17 +150,17 @@ __device__ __forceinline__ void issue_pv(float (&acc)[DP / 2], const uint32_t (&
 // Persistent: one block per SM walks the work items i, i + gridDim.x, ...
 // The producer's ring and Q buffers run on across items, so the next item's
 // Q and first tiles land while the consumers finish the current one.
-template <int D>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(kFlashThreads, 1)
     flash_wgmma_kernel(const FlashArgs a, const __grid_constant__ CUtensorMap mq,
                        const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
                        const __grid_constant__ CUtensorMap mo) {
-  using C = FlashTiles<D>;
+  using C = FlashTiles<DQ, DV>;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled tiles start on 1024-byte boundaries.
   unsigned char* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // [buffer][half][box]
   unsigned char* k_s = q_s + 2 * C::kQBytes;                                      // [stage][box]
-  unsigned char* v_s = k_s + C::kStages * C::kTileBytes;
+  unsigned char* v_s = k_s + C::kStages * C::kKTile;
   uint64_t* full = reinterpret_cast<uint64_t*>(q_s + C::kBarOffset);
   uint64_t* empty = full + C::kStages;
   uint64_t* qfull = empty + C::kStages;
@@ -182,17 +192,17 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
         if (n >= 2) mbar_wait(&qempty[qb], ((n >> 1) - 1) & 1);
         mbar_arrive_expect_tx(&qfull[qb], C::kQBytes);
         for (int half = 0; half < 2; ++half)
-          for (int cb = 0; cb < C::kNB; ++cb)
-            tma_load_4d(q_s + qb * C::kQBytes + (half * C::kNB + cb) * kBox, &mq, &qfull[qb], 64 * cb,
+          for (int cb = 0; cb < C::kNBQ; ++cb)
+            tma_load_4d(q_s + qb * C::kQBytes + (half * C::kNBQ + cb) * kBox, &mq, &qfull[qb], 64 * cb,
                         it.q0 + 64 * half, it.h, it.b);
         for (int i = 0; i < it.nt; ++i, ++ring) {
           const int st = ring % C::kStages, k0 = it.lo + i * kBK;
           if (ring >= C::kStages) mbar_wait(&empty[st], (ring / C::kStages - 1) & 1);
-          mbar_arrive_expect_tx(&full[st], 2 * C::kTileBytes);
-          for (int cb = 0; cb < C::kNB; ++cb) {
-            tma_load_4d(k_s + st * C::kTileBytes + cb * kBox, &mk, &full[st], 64 * cb, k0, hk, it.b);
-            tma_load_4d(v_s + st * C::kTileBytes + cb * kBox, &mv, &full[st], 64 * cb, k0, hk, it.b);
-          }
+          mbar_arrive_expect_tx(&full[st], C::kKTile + C::kVTile);
+          for (int cb = 0; cb < C::kNBQ; ++cb)
+            tma_load_4d(k_s + st * C::kKTile + cb * kBox, &mk, &full[st], 64 * cb, k0, hk, it.b);
+          for (int cb = 0; cb < C::kNBV; ++cb)
+            tma_load_4d(v_s + st * C::kVTile + cb * kBox, &mv, &full[st], 64 * cb, k0, hk, it.b);
         }
       }
     }
@@ -210,11 +220,11 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
     const int wq0 = it.q0 + 64 * wg, r0 = wq0 + 16 * warp + g, r1 = r0 + 8;
     int wlo, whi;
     key_range(a, wq0, 64, 1, wlo, whi);
-    const unsigned char* q_w = q_s + qb * C::kQBytes + wg * C::kTileBytes;
+    const unsigned char* q_w = q_s + qb * C::kQBytes + wg * C::kKTile;
 
-    float acc[C::kDP / 2];
+    float acc[C::kDPV / 2];
 #pragma unroll
-    for (int i = 0; i < C::kDP / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < C::kDPV / 2; ++i) acc[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     uint32_t pa[4][4];  // P of the last tile, until its P V is issued (0 before the first)
 #pragma unroll
@@ -231,22 +241,22 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
       }
 
       // S = Q K^T (64 rows x 64 keys), both operands K-major in shared memory,
-      // over the true D only (at D = 80 the fifth k-step reads the second
-      // box's first 16 columns); then the last tile's P V, which runs while
-      // this tile's softmax does.
+      // over the true Dqk only (at D = 80 the fifth k-step reads the second
+      // box's first 16 columns; at 192, 12 k-steps over three boxes); then the
+      // last tile's P V, which runs while this tile's softmax does.
       // The issue sequence has no branch (ptxas serializes wgmma otherwise):
       // an item's first tile adds P = 0 times its own V.
       float s[32];
       fence_regs(s);
       wgmma_fence();
-      const unsigned char* k_t = k_s + st * C::kTileBytes;
+      const unsigned char* k_t = k_s + st * C::kKTile;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DQ / 16; ++kk) {
         const int off = (kk / 4) * kBox + (kk % 4) * 32;  // 16 columns = 32 bytes into a 128-byte row
         wgmma_m64n64k16_ss(s, desc_sw128(q_w + off, 16, 1024), desc_sw128(k_t + off, 16, 1024), kk);
       }
       wgmma_commit();
-      issue_pv<C::kDP>(acc, pa, v_s + (pending >= 0 ? pending : st) * C::kTileBytes);
+      issue_pv<C::kDPV>(acc, pa, v_s + (pending >= 0 ? pending : st) * C::kVTile);
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(s);
@@ -269,7 +279,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
       }
 
       // Online softmax (a row's values are spread over the 4 threads of a
-      // quad), m in the log2 domain: p = 2^(s * log2(e)/sqrt(D) - m), one FMA
+      // quad), m in the log2 domain: p = 2^(s * log2(e)/sqrt(Dqk) - m), one FMA
       // before the exponential. A masked score is kNegInf, so its p is 0; a
       // row that has seen no visible key yet keeps m = kNegInf and takes 0 as
       // its reference.
@@ -297,7 +307,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
       fence_regs(pa);
       mbar_arrive_if(&empty[pending >= 0 ? pending : st], lane == 0 && pending >= 0);
 #pragma unroll
-      for (int i = 0; i < C::kDP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < C::kDPV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
       // P as the A operand of wgmma: keys 16kk..16kk+15 are accumulator
       // column blocks 2kk and 2kk+1, the same fragment layout.
 #pragma unroll
@@ -312,7 +322,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
     if (pending >= 0) {
       fence_regs(acc);
       wgmma_fence();
-      issue_pv<C::kDP>(acc, pa, v_s + pending * C::kTileBytes);
+      issue_pv<C::kDPV>(acc, pa, v_s + pending * C::kVTile);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -323,7 +333,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
     // Epilogue: O, normalised and rounded to bf16, goes into this warpgroup's
     // half of the item's Q buffer (every product that read it is done), in
     // the swizzled layout of the output's tensor map; one thread stores it
-    // with TMA, which clips rows past Sq and columns past D, and frees the Q
+    // with TMA, which clips rows past Sq and columns past Dv, and frees the Q
     // buffer once the store has read it. The warpgroup goes on at once.
     float inv[2];
 #pragma unroll
@@ -332,10 +342,10 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
       l[r] += __shfl_xor_sync(kFullMask, l[r], 2);
       inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);  // a row with no visible key gives 0
     }
-    unsigned char* o_w = q_s + qb * C::kQBytes + wg * C::kTileBytes;
+    unsigned char* o_w = q_s + qb * C::kQBytes + wg * C::kKTile;
     const int row0 = 16 * warp + g;
 #pragma unroll
-    for (int j = 0; j < C::kDP / 8; ++j) {
+    for (int j = 0; j < C::kDPV / 8; ++j) {
       unsigned char* box = o_w + (j / 8) * kBox;
       const int col = (8 * j) % 64 + 2 * t;
       *reinterpret_cast<uint32_t*>(box + sw128_offset(row0, col)) =
@@ -347,7 +357,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
     named_barrier(1 + wg, 128);
     if (tid == 0) {
       if (wq0 < a.Sq) {
-        for (int cb = 0; cb < C::kNB; ++cb) tma_store_4d(&mo, o_w + cb * kBox, 64 * cb, wq0, it.h, it.b);
+        for (int cb = 0; cb < C::kNBV; ++cb) tma_store_4d(&mo, o_w + cb * kBox, 64 * cb, wq0, it.h, it.b);
         bulk_commit();
         bulk_wait_read();
       }
@@ -394,14 +404,14 @@ bool make_map(CUtensorMap* map, const void* base, int D, int S, int heads, int B
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DQ, int DV>
 int launch_bf16(const FlashArgs& a, int Hkv, cudaStream_t stream) {
-  using C = FlashTiles<D>;
+  using C = FlashTiles<DQ, DV>;
   CUtensorMap mq, mk, mv, mo;
-  if (!make_map(&mq, a.q, D, a.Sq, a.H, a.B, a.qs_s, a.qs_h, a.qs_b) ||
-      !make_map(&mk, a.k, D, a.Sk, Hkv, a.B, a.ks_s, a.ks_h, a.ks_b) ||
-      !make_map(&mv, a.v, D, a.Sk, Hkv, a.B, a.vs_s, a.vs_h, a.vs_b) ||
-      !make_map(&mo, a.o, D, a.Sq, a.H, a.B, a.os_s, a.os_h, a.os_b)) {
+  if (!make_map(&mq, a.q, DQ, a.Sq, a.H, a.B, a.qs_s, a.qs_h, a.qs_b) ||
+      !make_map(&mk, a.k, DQ, a.Sk, Hkv, a.B, a.ks_s, a.ks_h, a.ks_b) ||
+      !make_map(&mv, a.v, DV, a.Sk, Hkv, a.B, a.vs_s, a.vs_h, a.vs_b) ||
+      !make_map(&mo, a.o, DV, a.Sq, a.H, a.B, a.os_s, a.os_h, a.os_b)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // Once per device: the opt-in to kSmem bytes of shared memory, the SM count.
@@ -410,7 +420,7 @@ int launch_bf16(const FlashArgs& a, int Hkv, cudaStream_t stream) {
   const int dev = device_slot(err);
   if (dev < 0) return static_cast<int>(err);
   if (sms_of[dev] == 0) {
-    err = cudaFuncSetAttribute(flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    err = cudaFuncSetAttribute(flash_wgmma_kernel<DQ, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
     int n = 0;
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) {
@@ -421,19 +431,19 @@ int launch_bf16(const FlashArgs& a, int Hkv, cudaStream_t stream) {
   }
   const int sms = sms_of[dev];
   const int items = (a.Sq + kBQ - 1) / kBQ * a.B * a.H;
-  flash_wgmma_kernel<D><<<items < sms ? items : sms, kFlashThreads, C::kSmem, stream>>>(a, mq, mk, mv, mo);
+  flash_wgmma_kernel<DQ, DV><<<items < sms ? items : sms, kFlashThreads, C::kSmem, stream>>>(a, mq, mk, mv, mo);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- fp32, CUDA cores
 
-template <int D>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(256) flash_f32_kernel(FlashArgs a) {
-  // DL dims per lane; where 32 does not divide D (80) the last slot is guarded.
-  constexpr int ROWS = 8, BK = 32, DL = (D + 31) / 32;
-  __shared__ float q_s[ROWS][D];
-  __shared__ float k_s[BK][D + 1];  // +1: lane j reads row j without bank conflicts
-  __shared__ float v_s[BK][D];
+  // DL output dims per lane; where 32 does not divide DV (80) the last slot is guarded.
+  constexpr int ROWS = 8, BK = 32, DL = (DV + 31) / 32;
+  __shared__ float q_s[ROWS][DQ];
+  __shared__ float k_s[BK][DQ + 1];  // +1: lane j reads row j without bank conflicts
+  __shared__ float v_s[BK][DV];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H, hk = h / a.rep;
@@ -443,7 +453,7 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(FlashArgs a) {
   const float* V = static_cast<const float*>(a.v) + b * a.vs_b + hk * a.vs_h;
   float* O = static_cast<float*>(a.o) + b * a.os_b + h * a.os_h;
 
-  for (int c = lane; c < D; c += 32) q_s[warp][c] = row < a.Sq ? Q[row * a.qs_s + c] * a.scale_log2 : 0.f;
+  for (int c = lane; c < DQ; c += 32) q_s[warp][c] = row < a.Sq ? Q[row * a.qs_s + c] * a.scale_log2 : 0.f;
   float m = kNegInf, l = 0.f, acc[DL];
 #pragma unroll
   for (int i = 0; i < DL; ++i) acc[i] = 0.f;
@@ -452,17 +462,19 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(FlashArgs a) {
   key_range(a, q0, ROWS, BK, lo, hi);
   for (int k0 = lo; k0 < hi; k0 += BK) {
     __syncthreads();
-    for (int i = tid; i < BK * D; i += blockDim.x) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < a.Sk;
-      k_s[r][c] = in ? K[(k0 + r) * a.ks_s + c] : 0.f;
-      v_s[r][c] = in ? V[(k0 + r) * a.vs_s + c] : 0.f;
+    for (int i = tid; i < BK * DQ; i += blockDim.x) {
+      const int r = i / DQ, c = i % DQ;
+      k_s[r][c] = k0 + r < a.Sk ? K[(k0 + r) * a.ks_s + c] : 0.f;
+    }
+    for (int i = tid; i < BK * DV; i += blockDim.x) {
+      const int r = i / DV, c = i % DV;
+      v_s[r][c] = k0 + r < a.Sk ? V[(k0 + r) * a.vs_s + c] : 0.f;
     }
     __syncthreads();
     const int kpos = k0 + lane;
     float s = 0.f;
 #pragma unroll 8
-    for (int c = 0; c < D; ++c) s = fmaf(q_s[warp][c], k_s[lane][c], s);
+    for (int c = 0; c < DQ; ++c) s = fmaf(q_s[warp][c], k_s[lane][c], s);
     const bool ok = visible(a, row, kpos);
     s = ok ? s : kNegInf;
     const float mn = fmaxf(m, warp_max(s));
@@ -476,34 +488,35 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(FlashArgs a) {
       const float pj = __shfl_sync(kFullMask, p, j);
 #pragma unroll
       for (int i = 0; i < DL; ++i)
-        if (D % 32 == 0 || lane + 32 * i < D) acc[i] = fmaf(pj, v_s[j][lane + 32 * i], acc[i]);
+        if (DV % 32 == 0 || lane + 32 * i < DV) acc[i] = fmaf(pj, v_s[j][lane + 32 * i], acc[i]);
     }
   }
   if (row < a.Sq) {
     const float inv = 1.f / (l == 0.f ? 1.f : l);
 #pragma unroll
     for (int i = 0; i < DL; ++i)
-      if (D % 32 == 0 || lane + 32 * i < D) O[row * a.os_s + lane + 32 * i] = acc[i] * inv;
+      if (DV % 32 == 0 || lane + 32 * i < DV) O[row * a.os_s + lane + 32 * i] = acc[i] * inv;
   }
 }
 
-template <int D>
+template <int DQ, int DV>
 int launch(const FlashArgs& a, int Hkv, int dtype, cudaStream_t stream) {
-  if (dtype == kBFloat16) return launch_bf16<D>(a, Hkv, stream);
+  if (dtype == kBFloat16) return launch_bf16<DQ, DV>(a, Hkv, stream);
   if (dtype != kFloat32) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((a.Sq + 7) / 8, a.B * a.H);
-  flash_f32_kernel<D><<<grid, 256, 0, stream>>>(a);
+  flash_f32_kernel<DQ, DV><<<grid, 256, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace kern
 
-// q, o: (B, H, Sq, D); k, v: (B, Hkv, Sk, D), all addressed through
-// strides[12] = (q, k, v, o) x (batch, head, seq) in elements.
+// q: (B, H, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv, Sk, Dv); o: (B, H, Sq, Dv),
+// all addressed through strides[12] = (q, k, v, o) x (batch, head, seq) in
+// elements. (D, Dv): (32, 32), (64, 64), (80, 80), (128, 128), (192, 128).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      const long long* strides, int B, int H, int Hkv, int Sq,
-                                     int Sk, int D, int causal, int window, int dtype,
+                                     int Sk, int D, int Dv, int causal, int window, int dtype,
                                      void* stream) {
   kern::FlashArgs a;
   a.q = q;
@@ -523,11 +536,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   a.window = window;
   a.scale_log2 = kern::kLog2e / sqrtf(static_cast<float>(D));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return kern::launch<32>(a, Hkv, dtype, st);
-    case 64: return kern::launch<64>(a, Hkv, dtype, st);
-    case 80: return kern::launch<80>(a, Hkv, dtype, st);
-    case 128: return kern::launch<128>(a, Hkv, dtype, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define REPRO_FLASH_PAIR(DQ, DV) \
+  if (D == DQ && Dv == DV) return kern::launch<DQ, DV>(a, Hkv, dtype, st);
+  REPRO_FLASH_PAIR(32, 32) REPRO_FLASH_PAIR(64, 64) REPRO_FLASH_PAIR(80, 80) REPRO_FLASH_PAIR(128, 128)
+  REPRO_FLASH_PAIR(192, 128)
+#undef REPRO_FLASH_PAIR
+  return static_cast<int>(cudaErrorInvalidValue);
 }

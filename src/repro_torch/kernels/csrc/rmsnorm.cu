@@ -21,7 +21,9 @@
 // of the row for the output pass (from L1/L2).
 //
 // Rows are not padded to a tile (the Pallas wrapper pads them at
-// rmsnorm.py:40-42).
+// rmsnorm.py:40-42). x's rows lie `ld` elements apart, so a slice of a wider
+// row is read in place (MLA's kv_norm takes the first 512 of each 576-wide
+// dkv row); y is written contiguous.
 #include "common.cuh"
 
 namespace kern {
@@ -43,7 +45,7 @@ __device__ __forceinline__ float block_sum(float v) {
 template <typename T, int VPT>
 __global__ void __launch_bounds__(kMaxThreads)
 rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale, T* __restrict__ y,
-               long long rows, int d, int tpr, float eps) {
+               long long rows, int d, long long ld, int tpr, float eps) {
   constexpr int N = Chunk<T>::N;
   __shared__ float partial[2][kMaxThreads / 32];
   const int rpb = blockDim.x / tpr;  // rows of the block at a time
@@ -68,7 +70,7 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale, T* __re
   for (long long base = static_cast<long long>(blockIdx.x) * rpb; base < rows; base += stride) {
     const long long row = base + sub;
     const bool live = row < rows;
-    const uint4* xr = reinterpret_cast<const uint4*>(x + row * d) + t;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * ld) + t;
     uint4 v[VPT];
 #pragma unroll
     for (int k = 0; k < VPT; ++k) v[k] = live ? __ldcs(xr + k * tpr) : make_uint4(0, 0, 0, 0);
@@ -111,9 +113,9 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale, T* __re
 
 template <typename T, bool kVec>
 __global__ void rmsnorm_kernel_generic(const T* __restrict__ x, const float* __restrict__ scale,
-                                       T* __restrict__ y, int d, float eps) {
+                                       T* __restrict__ y, int d, long long ld, float eps) {
   constexpr int N = Chunk<T>::N;
-  const T* xr = x + static_cast<size_t>(blockIdx.x) * d;
+  const T* xr = x + static_cast<long long>(blockIdx.x) * ld;
   T* yr = y + static_cast<size_t>(blockIdx.x) * d;
   float ss = 0.f;
   if constexpr (kVec) {
@@ -153,11 +155,12 @@ __global__ void rmsnorm_kernel_generic(const T* __restrict__ x, const float* __r
 }
 
 template <typename T>
-int launch(const void* x, const float* scale, void* y, long long rows, int d, float eps, int vpt,
-           int tpr, int threads, int grid, cudaStream_t stream) {
+int launch(const void* x, const float* scale, void* y, long long rows, int d, long long ld, float eps,
+           int vpt, int tpr, int threads, int grid, cudaStream_t stream) {
   constexpr int N = Chunk<T>::N;
+  if (ld < d) return static_cast<int>(cudaErrorInvalidValue);
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
-                         reinterpret_cast<uintptr_t>(scale)) & 15) == 0;
+                         reinterpret_cast<uintptr_t>(scale)) & 15) == 0 && (ld * sizeof(T)) % 16 == 0;
   // the row-register kernel's row: vpt * tpr aligned vectors, tpr a power of two
   if (vpt != 0 && (!aligned || tpr <= 0 || (tpr & (tpr - 1)) || d != vpt * tpr * N ||
                    threads % tpr || threads % 32 || threads > kMaxThreads)) {
@@ -169,13 +172,13 @@ int launch(const void* x, const float* scale, void* y, long long rows, int d, fl
   switch (vpt) {
     case 0:
       if (aligned && d % N == 0) {
-        rmsnorm_kernel_generic<T, true><<<g, b, 0, stream>>>(xt, scale, yt, d, eps);
+        rmsnorm_kernel_generic<T, true><<<g, b, 0, stream>>>(xt, scale, yt, d, ld, eps);
       } else {
-        rmsnorm_kernel_generic<T, false><<<g, b, 0, stream>>>(xt, scale, yt, d, eps);
+        rmsnorm_kernel_generic<T, false><<<g, b, 0, stream>>>(xt, scale, yt, d, ld, eps);
       }
       break;
 #define REPRO_RMSNORM_CASE(V) \
-    case V: rmsnorm_kernel<T, V><<<g, b, 0, stream>>>(xt, scale, yt, rows, d, tpr, eps); break;
+    case V: rmsnorm_kernel<T, V><<<g, b, 0, stream>>>(xt, scale, yt, rows, d, ld, tpr, eps); break;
     REPRO_RMSNORM_CASE(1) REPRO_RMSNORM_CASE(2) REPRO_RMSNORM_CASE(3) REPRO_RMSNORM_CASE(4)
     REPRO_RMSNORM_CASE(5) REPRO_RMSNORM_CASE(6) REPRO_RMSNORM_CASE(7) REPRO_RMSNORM_CASE(8)
 #undef REPRO_RMSNORM_CASE
@@ -187,18 +190,21 @@ int launch(const void* x, const float* scale, void* y, long long rows, int d, fl
 }  // namespace
 }  // namespace kern
 
-// x, y: (rows, d) contiguous, dtype given by `dtype`; scale: (d,) fp32. The
-// plan (kernels/rmsnorm.py::plan): `vpt` 16-byte vectors per thread (0 for the
-// generic kernel, which takes 16-byte vectors where d and the pointers allow),
-// `tpr` threads per row, `threads` per block, `grid` blocks.
+// x: (rows, d) with rows `ld` >= d elements apart, y: (rows, d) contiguous,
+// dtype given by `dtype`; scale: (d,) fp32. The plan
+// (kernels/rmsnorm.py::plan): `vpt` 16-byte vectors per thread (0 for the
+// generic kernel, which takes 16-byte vectors where d, ld and the pointers
+// allow), `tpr` threads per row, `threads` per block, `grid` blocks.
 extern "C" int repro_rmsnorm(const void* x, const void* scale, void* y, long long rows, int d,
-                             float eps, int dtype, int vpt, int tpr, int threads, int grid,
-                             void* stream) {
+                             long long ld, float eps, int dtype, int vpt, int tpr, int threads,
+                             int grid, void* stream) {
   const float* s = static_cast<const float*>(scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kern::kBFloat16) {
-    return kern::launch<__nv_bfloat16>(x, s, y, rows, d, eps, vpt, tpr, threads, grid, st);
+    return kern::launch<__nv_bfloat16>(x, s, y, rows, d, ld, eps, vpt, tpr, threads, grid, st);
   }
-  if (dtype == kern::kFloat32) return kern::launch<float>(x, s, y, rows, d, eps, vpt, tpr, threads, grid, st);
+  if (dtype == kern::kFloat32) {
+    return kern::launch<float>(x, s, y, rows, d, ld, eps, vpt, tpr, threads, grid, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

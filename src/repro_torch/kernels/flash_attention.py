@@ -12,14 +12,19 @@ accumulate); masks only on tiles that cross the causal diagonal, the window's
 first key or the ragged edge; the query tiles with the most keys start first.
 fp32 is multiplied in fp32 on the CUDA cores. Shared memory holds whole
 64-column boxes, so D = 32 runs in 64 columns and D = 80 in 128 (TMA fills the
-padding with zeros; ``P V`` then multiplies 1.6x the true D's products). Causal and window bounds skip
+padding with zeros; ``P V`` then multiplies 1.6x the true D's products).
+V may have its own head dim: DeepSeek's MLA passes q and k at 192 (128 + 64
+rope columns) and v at 128, the pair ``(192, 128)``. At its prefill (B=4,
+H=16, S=2000, causal) the work bounds it: 82.0 GFLOP of visible products,
+82.9 us at 989 TFLOP/s, against 164 MB (48.9 us); the kernel keeps three
+boxes of Q and K and two of V and O a row, a 3-stage ring. Causal and window bounds skip
 whole key tiles, GQA reads kv head ``h // rep`` in place, and TMA zero-fills
 past the ragged edge, so no sequence length has to divide a tile.
 
 The kernel reads every operand through strides: a ``(B, S, H, D)`` projection
 passed as ``.transpose(1, 2)`` is read without a copy, and the output is
-allocated ``(B, Sq, H, D)`` and returned as a ``(B, H, Sq, D)`` view, so the
-model folds it back into ``(B, S, H*D)`` for free.
+allocated ``(B, Sq, H, Dv)`` and returned as a ``(B, H, Sq, Dv)`` view, so the
+model folds it back into ``(B, S, H*Dv)`` for free.
 """
 
 from __future__ import annotations
@@ -32,13 +37,14 @@ from repro_torch.kernels import _build, ref
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
-HEAD_DIMS = (32, 64, 80, 128)
+# (q and k head dim, v head dim) pairs the kernel is built for
+HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (128, 128), (192, 128))
 
 
 def flash_attention(
     q: torch.Tensor,  # (B, H, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Sk, D)
-    v: torch.Tensor,  # (B, Hkv, Sk, D)
+    v: torch.Tensor,  # (B, Hkv, Sk, Dv)
     *,
     causal: bool = True,
     window: Optional[int] = None,
@@ -51,17 +57,17 @@ def flash_attention(
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise _build.grad_error("flash_attention")
     B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    if k.shape != (B, Hkv, Sk, D) or v.shape != k.shape or Hkv == 0 or H % Hkv:
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if k.shape != (B, Hkv, Sk, D) or v.shape != (B, Hkv, Sk, Dv) or Hkv == 0 or H % Hkv:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims (q/k, v) {(D, Dv)} not in {HEAD_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if B * H > 65535:
         raise ValueError(f"flash_attention: B*H = {B * H} exceeds the grid limit")
     _build.check_operands("flash_attention", q, k, v)
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out
     strides = _build.strides_array(
@@ -70,7 +76,7 @@ def flash_attention(
     lib = _build.library()
     code = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        B, H, Hkv, Sq, Sk, D, int(causal), window or 0,
+        B, H, Hkv, Sq, Sk, D, Dv, int(causal), window or 0,
         _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device),
     )
     _build.check(code, "flash_attention")

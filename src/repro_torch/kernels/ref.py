@@ -27,11 +27,13 @@ NEG_INF = -1e30
 def attention_ref(
     q: torch.Tensor,  # (B, H, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Sk, D)
-    v: torch.Tensor,
+    v: torch.Tensor,  # (B, Hkv, Sk, Dv)
     *,
     causal: bool = True,
     window: Optional[int] = None,
 ) -> torch.Tensor:
+    """-> (B, H, Sq, Dv); scores scaled by 1/sqrt(D), the q and k head dim
+    (MLA's 1/sqrt(192) where v's is 128)."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     rep = H // Hkv

@@ -9,8 +9,10 @@ holds its share of the row in registers, so x is read once; several rows share
 a block, the blocks walk the rows, and each thread loads its columns of
 ``scale`` once. ``plan`` spreads the few rows of a decode step over more
 threads per row. Any other row goes to the generic kernel (one block per row).
-A CPU tensor goes to the plain version in ``kernels/ref.py``; a CUDA tensor
-launches a kernel or raises.
+Both read x's rows through a row stride, so a slice of wider rows (MLA's
+``kv_norm`` on the first 512 columns of each 576-wide ``dkv`` row) is read in
+place, with no copy; the output is contiguous. A CPU tensor goes to the plain
+version in ``kernels/ref.py``; a CUDA tensor launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ class Plan(NamedTuple):
 
 def plan(rows: int, d: int, elem_size: int, aligned: bool, sms: int) -> Plan:
     """The kernel and its launch for ``rows`` rows of ``d`` elements of
-    ``elem_size`` bytes; ``aligned`` says that x, y and scale start on 16 bytes.
+    ``elem_size`` bytes; ``aligned`` says that x, y, scale and x's rows start on 16 bytes.
 
     At the serve shapes in bf16: d 1024 and 2048 take one warp per row (4 and 8
     vectors a lane), d 4096 two warps per row (8 vectors a lane), 8 rows of 32
@@ -86,8 +88,25 @@ def _launch(rows: int, d: int, elem_size: int, aligned: bool, device: int) -> Pl
     return p
 
 
+def rows_and_stride(x: torch.Tensor) -> tuple:
+    """(rows, elements from one row's start to the next) of ``x (..., d)``
+    read as rows of its last dim: contiguous, or a slice of the last dim of
+    a contiguous tensor. Raises ``ValueError`` where the rows do not lie at
+    one stride or the last dim is not contiguous."""
+    d = x.shape[-1]
+    try:
+        flat = x.view(-1, d)
+    except RuntimeError:
+        flat = None
+    if flat is None or (d > 1 and x.stride(-1) != 1):
+        raise ValueError("rmsnorm: x must be rows of a contiguous last dim at one stride")
+    rows = flat.shape[0]
+    return rows, (flat.stride(0) if rows > 1 else d)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
-    """``x (..., d)`` bf16/fp32, ``scale (d,)`` fp32 -> like ``x``."""
+    """``x (..., d)`` bf16/fp32, its rows at one stride, ``scale (d,)`` fp32
+    -> like ``x``, contiguous."""
     global launches
     device = x.device
     if device.type == "cpu":
@@ -99,18 +118,19 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch
     d = x.shape[-1]
     if scale.shape != (d,) or scale.dtype != torch.float32 or scale.device != device:
         raise ValueError(f"rmsnorm: scale must be fp32 ({d},) on {device}")
-    if not (x.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("rmsnorm: x and scale must be contiguous")
+    if not scale.is_contiguous():
+        raise ValueError("rmsnorm: scale must be contiguous")
     dtype = _build.DTYPE_CODES.get(x.dtype)
     if dtype is None:
         raise TypeError(f"rmsnorm: dtype {x.dtype} not supported (float32 or bfloat16)")
-    y = torch.empty_like(x)
-    rows = x.numel() // d if d else 0
-    if rows == 0:
+    y = torch.empty(x.shape, dtype=x.dtype, device=device)
+    if x.numel() == 0:
         return y
+    rows, ld = rows_and_stride(x)
     xp, yp, sp = x.data_ptr(), y.data_ptr(), scale.data_ptr()
-    p = _launch(rows, d, x.element_size(), (xp | yp | sp) % VECTOR_BYTES == 0, device.index)
-    code = _build.library().repro_rmsnorm(xp, sp, yp, rows, d, eps, dtype, *p,
+    aligned = (xp | yp | sp | ld * x.element_size()) % VECTOR_BYTES == 0
+    p = _launch(rows, d, x.element_size(), aligned, device.index)
+    code = _build.library().repro_rmsnorm(xp, sp, yp, rows, d, ld, eps, dtype, *p,
                                           _build.stream_handle(device))
     _build.check(code, "rmsnorm")
     launches += 1

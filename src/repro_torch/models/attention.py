@@ -1,6 +1,7 @@
-"""GQA attention (the port's half of the JAX package's ``models/attention.py``:
-``gqa_def`` .. ``gqa_decode``, :42-197), with qk-norm, sliding windows and
-the int8 KV cache.
+"""GQA and MLA attention (the JAX package's ``models/attention.py``:
+``gqa_def`` .. ``gqa_decode``, :42-197, with qk-norm, sliding windows and
+the int8 KV cache; ``mla_def`` .. ``mla_decode``, :240-386, DeepSeek's
+multi-head latent attention).
 
 ``gqa_forward`` (training and prefill) goes to ``ops.flash_attention``, with
 the config's window, and ``gqa_decode`` to ``ops.decode_attention``; qk-norm
@@ -19,17 +20,30 @@ does (the kernel reads bf16 or fp32).
 Unlike the JAX package, whose arrays are immutable, ``gqa_decode`` and
 ``gqa_write_prompt`` write into the cache in place: a second 280 MB cache per
 decode step (minitron-8b, batch 4, 532 positions) would buy nothing.
+
+MLA's prefill (``mla_forward``, or ``_mla_q`` + ``_mla_ckv`` +
+``_mla_attend`` where the caller keeps the latent for the cache) expands the
+latent into per-head K and V and goes to ``ops.flash_attention`` with q and
+k at head dim ``qk_nope + qk_rope`` (192 for deepseek-v2-lite-16b) and v at
+``v_head_dim`` (128), the softmax scale 1/sqrt(192) the reference passes
+explicitly (:314-321); ``kv_norm`` (and the q-LoRA norm) go to
+``ops.rmsnorm``, ``kv_norm`` on the first ``kv_lora_rank`` columns of each
+``dkv`` row, read in place. ``mla_decode`` is the reference's
+weight-absorbed decode: attention in the latent space as plain matmuls and a
+softmax, as the reference leaves it to XLA (no Pallas kernel maps to it). The
+cache keeps the normed latent ``ckv`` and the rotated rope key ``kr``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.common import head_rmsnorm, rope_tables, rotate
+from repro_torch.models.common import apply_rope, head_rmsnorm, rmsnorm, rope_tables, rotate
 from repro_torch.models.params import ParamDef, fan_in_init, ones_init
 
 Cache = Dict[str, torch.Tensor]
@@ -183,4 +197,120 @@ def gqa_decode(
         v = dequantize_kv(v, cache["v_scale"], k_new.dtype)
     valid = min(cache_len + 1, W)
     o = ops.decode_attention(q[:, 0], k, v, valid)  # (B, H, hd)
+    return torch.matmul(o.reshape(B, 1, -1), p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_def(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    m = cfg.mla
+    assert m is not None
+    d, H = cfg.d_model, cfg.num_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    defs: Dict[str, ParamDef] = {}
+    if m.q_lora_rank:
+        defs["w_dq"] = ParamDef((d, m.q_lora_rank), fan_in_init())
+        defs["q_norm"] = ParamDef((m.q_lora_rank,), ones_init(), torch.float32)
+        defs["w_uq"] = ParamDef((m.q_lora_rank, H * qk_head), fan_in_init())
+    else:
+        defs["w_uq"] = ParamDef((d, H * qk_head), fan_in_init())
+    defs["w_dkv"] = ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim), fan_in_init())
+    defs["kv_norm"] = ParamDef((m.kv_lora_rank,), ones_init(), torch.float32)
+    defs["w_ukv"] = ParamDef((m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim)), fan_in_init())
+    defs["wo"] = ParamDef((H * m.v_head_dim, d), fan_in_init())
+    return defs
+
+
+def _mla_q(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, ops=kernel_ops):
+    """(B, S, d) -> q_nope (B, S, H, nope), q_rope (B, S, H, rope) rotated."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if m.q_lora_rank:
+        cq = rmsnorm({"scale": p["q_norm"]}, torch.matmul(x, p["w_dq"]), ops=ops)
+        q = torch.matmul(cq, p["w_uq"]).reshape(B, S, cfg.num_heads, qk_head)
+    else:
+        q = torch.matmul(x, p["w_uq"]).reshape(B, S, cfg.num_heads, qk_head)
+    q_nope = q[..., : m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_ckv(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, ops=kernel_ops):
+    """Compressed KV latent + decoupled rope key (what the cache stores):
+    ckv (B, S, kv_lora_rank), k_rope (B, S, rope). ``kv_norm`` reads the
+    latent columns of ``dkv`` in place."""
+    m = cfg.mla
+    dkv = torch.matmul(x, p["w_dkv"])
+    ckv = rmsnorm({"scale": p["kv_norm"]}, dkv[..., : m.kv_lora_rank], ops=ops)
+    k_rope = apply_rope(dkv[..., m.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return ckv, k_rope
+
+
+def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, ckv, k_rope, ops=kernel_ops) -> torch.Tensor:
+    """Expand the latent into per-head K and V, causal attention at
+    (Dqk, Dv) = (nope + rope, v), then the output projection."""
+    m = cfg.mla
+    B, S, H = q_nope.shape[:3]
+    kv = torch.matmul(ckv, p["w_ukv"]).reshape(B, S, H, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv[..., : m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)], dim=-1)
+    # the scale is 1/sqrt(q's head dim): the reference's explicit 1/sqrt(nope + rope)
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True)
+    return torch.matmul(o.transpose(1, 2).reshape(B, S, -1), p["wo"])
+
+
+def mla_forward(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, ops=kernel_ops) -> torch.Tensor:
+    """Training / prefill path: expand the latent into per-head K/V."""
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, ops)
+    ckv, k_rope = _mla_ckv(p, cfg, x, positions, ops)
+    return _mla_attend(p, cfg, q_nope, q_rope, ckv, k_rope, ops)
+
+
+def mla_make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> Cache:
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        "kr": torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dtype, device=device),
+    }
+
+
+def mla_decode(
+    p: Dict[str, torch.Tensor],
+    cfg: ArchConfig,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: Cache,
+    cache_len: int,  # number of tokens already cached
+    ops=kernel_ops,
+) -> Tuple[torch.Tensor, Cache]:
+    """Weight-absorbed decode: attention runs in the latent space and the
+    cache stays compressed. Writes the new entry in place at ``cache_len``."""
+    m = cfg.mla
+    B, H = x.shape[0], cfg.num_heads
+    S = cache["ckv"].shape[1]
+    if not 0 <= cache_len < S:
+        raise IndexError(f"cache_len {cache_len} outside a cache of {S} positions")
+    positions = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, ops)  # (B, 1, H, *)
+    ckv_new, kr_new = _mla_ckv(p, cfg, x, positions, ops)
+    cache["ckv"][:, cache_len] = ckv_new[:, 0]
+    cache["kr"][:, cache_len] = kr_new[:, 0]
+    ckv, kr = cache["ckv"], cache["kr"]
+
+    w_ukv = p["w_ukv"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim)
+    w_uk = w_ukv[..., : m.qk_nope_head_dim]  # (r, H, nope)
+    w_uv = w_ukv[..., m.qk_nope_head_dim:]  # (r, H, v)
+    # absorb: q in latent space
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)  # (B, 1, H, r)
+    scores = torch.einsum("bqhr,bsr->bhqs", q_lat, ckv) + torch.einsum("bqhe,bse->bhqs", q_rope, kr)
+    scores = scores.float() * (1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim))
+    valid = (torch.arange(S, device=x.device) < cache_len + 1)[None, None, None, :]
+    scores = torch.where(valid, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(ckv.dtype)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", probs, ckv)  # (B, 1, H, r)
+    o = torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)  # (B, 1, H, v)
     return torch.matmul(o.reshape(B, 1, -1), p["wo"]), cache

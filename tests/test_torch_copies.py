@@ -33,6 +33,7 @@ COPIES = [
     "elastic/__init__.py", "elastic/brain.py", "elastic/controller.py", "elastic/scaling.py",
     "obs/__init__.py", "obs/audit.py", "obs/export.py", "obs/report.py", "obs/tables.py",
     "roofline/analysis.py",
+    "serve/__init__.py", "serve/manager.py", "serve/models.py", "serve/stats.py",
 ]
 SAME_CODE = ["bridge/__init__.py", "cluster/power.py", "obs/hub.py", "roofline/__init__.py"]
 

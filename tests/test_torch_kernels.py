@@ -628,6 +628,72 @@ def test_flash_attention_kernel_reads_strided_views_at_head_dim_80(window, dtype
     assert out.transpose(1, 2).is_contiguous()
 
 
+# MLA (deepseek-v2-lite-16b): q and k at head dim 192 (three 64-column TMA
+# boxes, 12 k-steps), v and the output at 128; tile edges, a query tile of 64,
+# Sq != Sk, and a window (no MLA config has one, but the kernel takes it).
+MLA_ATTN = [(1, 4, 4, s, s) for s in (1, 64, 127, 129, 500)] + [(2, 4, 4, 128, 256), (1, 4, 2, 256, 256)]
+
+
+def _on_card_mla(shape, dtype, rng, device, window=None):
+    B, H, Hkv, Sq, Sk = shape
+    q, k, v = (_t(a, dtype, device) for a in (
+        _np(rng, B, H, Sq, 192), _np(rng, B, Hkv, Sk, 192), _np(rng, B, Hkv, Sk, 128)))
+    n = flash_mod.launches
+    out = ops.flash_attention(q, k, v, causal=Sq == Sk, window=window)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == n + 1 and out.shape == (B, H, Sq, 128)
+    _close(out, ref.attention_ref(q, k, v, causal=Sq == Sk, window=window), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("shape", MLA_ATTN)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_at_mla_head_dims(shape, window, dtype, rng, cuda):
+    _on_card_mla(shape, dtype, rng, cuda, window=window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [300, 2000])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_reads_mla_views(S, dtype, rng, cuda):
+    """As the MLA prefill passes them: q and k (B, S, H, 192) contiguous, v
+    the last 128 columns of the (B, S, H, 256) up-projection, each viewed
+    (B, H, S, D); at S 2000 the deepseek-v2-lite-16b prefill (B 4, H 16)."""
+    B = 4 if S == 2000 else 2
+    q, k = (_t(_np(rng, B, S, 16, 192), dtype, cuda).transpose(1, 2) for _ in range(2))
+    v = _t(_np(rng, B, S, 16, 256), dtype, cuda)[..., 128:].transpose(1, 2)
+    out = ops.flash_attention(q, k, v)
+    exp = torch.cat([ref.attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1]) for i in range(B)])
+    _close(out, exp, dtype)
+    assert out.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_refuses_other_head_dim_pairs(cuda):
+    for dqk, dv in ((192, 192), (128, 192), (192, 64), (80, 128)):
+        q = torch.ones(1, 2, 64, dqk, device=cuda, dtype=torch.bfloat16)
+        v = torch.ones(1, 2, 64, dv, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dims"):
+            ops.flash_attention(q, q, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 4, 2001, 8000])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_reads_the_kv_norm_slice(rows, dtype, rng, cuda):
+    """MLA's kv_norm: the first 512 columns of 576-wide dkv rows (a 1152-byte
+    row stride), read in place; a stride of 577 (off 16 bytes) too."""
+    for width in (576, 577):
+        dkv = _t(_np(rng, rows, width), dtype, cuda)
+        x, scale = dkv[:, :512], torch.from_numpy(_np(rng, 512)).to(cuda)
+        n = rmsnorm_mod.launches
+        out = ops.rmsnorm(x, scale)
+        torch.cuda.synchronize()
+        assert rmsnorm_mod.launches == n + 1 and out.is_contiguous()
+        _close(out, ref.rmsnorm_ref(x, scale), dtype)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", D80_DECODE)
 @pytest.mark.parametrize("dtype", DTYPES)

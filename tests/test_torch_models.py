@@ -205,12 +205,15 @@ def test_mamba_init_follows_jax_rules():
     ],
 )
 def test_unported_features_raise(change):
-    """The model refuses what it cannot build. qk-norm, sliding-window
-    attention and frontends are ported (tests/test_torch_train.py), and so are
-    the ring-buffer and int8 KV caches (tests/test_torch_cache.py)."""
+    """The model refuses what it cannot build or train. qk-norm,
+    sliding-window attention and frontends are ported
+    (tests/test_torch_train.py), and so are the ring-buffer and int8 KV caches
+    (tests/test_torch_cache.py); MoE layers and MLA serve
+    (tests/test_torch_deepseek.py) but do not train yet."""
     cfg = dataclasses.replace(smoke_config(get_config("minitron-8b")), **change)
+    tokens = torch.zeros(2, 8, dtype=torch.long)
     with pytest.raises(NotImplementedError):
-        Model(cfg).make_cache(2, 16, device="cpu")
+        Model(cfg).loss({}, tokens, tokens)
 
 
 @pytest.mark.parametrize(
