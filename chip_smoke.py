@@ -64,9 +64,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
 7. launcher: ``launch/serve.py``'s command line at each model phase's sizes;
 8. training kernels: the three kernels of the training forward pass timed at
    its shapes (internvl2-2b's rmsnorm and flash_attention, mamba2-370m's
-   rmsnorm and ssd_scan) beside the plain version, the library call and the
-   bound, and each autograd Function's plain backward pass timed at the same
-   shapes;
+   rmsnorm and ssd_scan, deepseek-v2-lite-16b's flash at q/k 192 and v 128 on
+   the MLA views and rmsnorm on the kv_norm slice) beside the plain version,
+   the library call and the bound, and each autograd Function's plain
+   backward pass timed at the same shapes;
 9. internvl2-2b (its 256 frontend positions fed the trainer's seeded stand-in
    embeddings) and mamba2-370m
    trained at full width and depth, bf16, batch 4 x 2048 tokens from
@@ -88,6 +89,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    - step time, peak memory and energy per step (``nvidia-smi``'s power
      draw, sampled through the run) against the 8 N T bound, and a profile
      of one step;
+   - then deepseek-v2-lite-16b the same way at full width with its depth cut
+     to 1 dense + 4 MoE layers (the whole model's weights, gradients and fp32
+     AdamW state would need ~188 GB): 31 rmsnorm + 10 flash launches a step
+     (norm1, kv_norm, norm2 and flash per layer, twice, and the final norm);
+     the checkpoint's recompute must choose the experts its forward pass
+     chose, layer by layer, in the gates and at every step; the dropped
+     choices per layer; the fp32 plain reference of the gates takes the fp32
+     kernel path's expert choices (``routed``, ROADMAP C8), the bf16 gates
+     route freely (the same runs held to those choices are printed beside);
+     the planted rope-box fault must break both bf16 gates;
+     the profile shows the expert products (forward and recompute) apart;
 10. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
    checkpointing under ``build/`` and restarting from it;
 11. co-location: the two training cells as jobs of ``colocation/stepper.py``'s
@@ -137,7 +149,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 ``--seed`` (default 0) draws other weights and prompts for the model phases.
 
 A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the four serve
-paths' (h2o-danube-1.8b's runs A and B), the two 20-step training runs' and
+paths' (h2o-danube-1.8b's runs A and B), the three 20-step training runs' and
 the co-located rounds'.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
@@ -263,7 +275,12 @@ DS_H, DS_NOPE, DS_DQK, DS_DV, DS_D_MODEL, DS_KV_LORA, DS_DKV = 16, 128, 192, 128
 TRAIN_ARCHS = ("internvl2-2b", "mamba2-370m")
 TR_B, TR_SEQ, TR_STEPS, TR_LR = 4, 2048, 20, 3e-4
 TR_H, TR_HKV = 16, 8  # internvl2-2b's attention heads (head_dim 128, as minitron-8b's)
-FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL}
+FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL, DS_ARCH: 1e-4}
+# deepseek-v2-lite-16b trained at full width with its depth cut to 1 dense + 4
+# MoE layers (2.84 B parameters, ~34 GB with bf16 gradients and fp32 AdamW
+# state; the 27 layers would need ~188 GB): T = 8192 tokens a step, C = 960 an
+# expert.
+DS_TRAIN_LAYERS = 5
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 TRAIN_CKPT_DIR = os.path.join(BUILD_DIR, "chip_smoke_train_ckpt")
 
@@ -829,16 +846,25 @@ def time_deepseek_kernels(gen) -> dict:
     (Dqk, Dv) = (192, 128) beside the plain version, SDPA (its backend named)
     and the bound; rmsnorm at the prefill's rows and a decode step's, of
     d_model and of the kv_norm slice (512 of 576 columns)."""
-    bf, S = torch.bfloat16, DS_PROMPT
+    S = DS_PROMPT
     out = {}
     for rows in (DS_B * S, DS_B):
         out[("rmsnorm", (rows, DS_D_MODEL))] = time_rmsnorm(gen, rows, DS_D_MODEL)
         out[("rmsnorm", (rows, DS_KV_LORA))] = time_rmsnorm(gen, rows, DS_KV_LORA, DS_DKV)
-    qk_bytes, v_bytes = DS_B * S * DS_H * DS_DQK * 2, DS_B * S * DS_H * DS_DV * 2
+    out[("flash_attention", (DS_B, DS_H, DS_H, S, DS_DQK, DS_DV))] = time_mla_flash(gen, DS_B, S)
+    return out
+
+
+def time_mla_flash(gen, b: int, S: int) -> dict:
+    """flash at (Dqk, Dv) = (192, 128) on the MLA views (q and k (B, S, H,
+    192) transposed, v the last 128 columns of each 256-wide kv row), causal,
+    bf16: kernel, plain version, SDPA (its backend named), the bound."""
+    bf = torch.bfloat16
+    qk_bytes, v_bytes = b * S * DS_H * DS_DQK * 2, b * S * DS_H * DS_DV * 2
 
     def views():
-        q, k = (randn(gen, DS_B, S, DS_H, DS_DQK).transpose(1, 2) for _ in range(2))
-        return q, k, randn(gen, DS_B, S, DS_H, DS_NOPE + DS_DV)[..., DS_NOPE:].transpose(1, 2)
+        q, k = (randn(gen, b, S, DS_H, DS_DQK).transpose(1, 2) for _ in range(2))
+        return q, k, randn(gen, b, S, DS_H, DS_NOPE + DS_DV)[..., DS_NOPE:].transpose(1, 2)
 
     qkv = copies(views, 2 * qk_bytes + 2 * v_bytes)
     library = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
@@ -852,9 +878,8 @@ def time_deepseek_kernels(gen) -> dict:
     flash["pairs"] = pairs
     # q and k read once, v read once, o written once; Q K^T over 192 columns and P V over 128
     flash["bound_ms"], flash["bound_by"] = bound(2 * qk_bytes + 2 * v_bytes,
-                                                 2 * DS_B * DS_H * pairs * (DS_DQK + DS_DV), bf)
-    out[("flash_attention", (DS_B, DS_H, DS_H, S, DS_DQK, DS_DV))] = flash
-    return out
+                                                 2 * b * DS_H * pairs * (DS_DQK + DS_DV), bf)
+    return flash
 
 
 # ---------------------------------------------------------------------------- model
@@ -1326,8 +1351,7 @@ def deepseek_phase(seed: int) -> dict:
           f"{n_norm} rmsnorm and no flash or decode_attention (MLA decodes in the latent space); cache {want}: ok")
     del cache
     moe_layers, C = n - m.first_k_dense, moe_mod._capacity(DS_B * DS_PROMPT, m)
-    drops = [int((moe_mod._counts(r.reshape(-1), m.num_experts) - C).clamp(min=0).sum())
-             for r in routes_bf16[:moe_layers]]
+    drops = dropped_per_layer(routes_bf16[:moe_layers], m, DS_B * DS_PROMPT)
     print(f"deepseek routing at prefill (kernel path, bf16): {DS_B * DS_PROMPT * m.top_k} choices a layer, capacity "
           f"{C} an expert; dropped choices per MoE layer {drops} (sum {sum(drops)}, "
           f"{sum(drops) / (moe_layers * DS_B * DS_PROMPT * m.top_k):.4%})")
@@ -1578,6 +1602,18 @@ def time_train_kernels(gen) -> dict:
         x, a, bc[..., :gn].reshape(TR_B, TR_SEQ, SSD_G, SSD_N), bc[..., gn:].reshape(TR_B, TR_SEQ, SSD_G, SSD_N),
         chunk=SSD_CHUNK)[0], (x, a, bc))
     out[("ssd_scan", (TR_B, TR_SEQ, SSD_H, SSD_P, SSD_G, SSD_N))] = ssd
+
+    # deepseek-v2-lite-16b's training cell: kv_norm on its slice of 8192 dkv rows, flash on the MLA views at S 2048
+    t = time_rmsnorm(gen, rows, DS_KV_LORA, DS_DKV)
+    dkv, scale = randn(gen, rows, DS_DKV).requires_grad_(), randn(gen, DS_KV_LORA, dtype=torch.float32).requires_grad_()
+    t["bwd_ms"] = time_backward(gen, lambda a, s: ops.rmsnorm(a[:, :DS_KV_LORA], s), (dkv, scale))
+    out[("rmsnorm", (rows, DS_KV_LORA))] = t
+    mla = time_mla_flash(gen, TR_B, TR_SEQ)
+    q, k = (randn(gen, TR_B, TR_SEQ, DS_H, DS_DQK).requires_grad_() for _ in range(2))
+    kv = randn(gen, TR_B, TR_SEQ, DS_H, DS_NOPE + DS_DV).requires_grad_()
+    mla["bwd_ms"] = time_backward(gen, lambda q, k, kv: ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), kv[..., DS_NOPE:].transpose(1, 2)), (q, k, kv))
+    out[("flash_attention", (TR_B, DS_H, DS_H, TR_SEQ, DS_DQK, DS_DV))] = mla
     return out
 
 
@@ -1619,13 +1655,15 @@ def train_batch(cfg, pipe, step: int) -> dict:
 
 
 def train_launches(cfg) -> dict:
-    """Kernel launches of one train step: each layer's two rmsnorms and its
+    """Kernel launches of one train step: each layer's rmsnorms (two; an MLA
+    layer's ``kv_norm`` a third, q-LoRA's ``q_norm`` a fourth) and its
     flash_attention or ssd_scan, in the forward pass and again in the
-    checkpoint's recompute (``remat="full"``, both cells), and the final
+    checkpoint's recompute (``remat="full"``, every cell), and the final
     norm; the backward passes are plain."""
     require(cfg.remat == "full", f"{cfg.name}: remat {cfg.remat!r}")
     ssm = cfg.family == "ssm"
-    return {"rmsnorm": 4 * cfg.num_layers + 1, "flash_attention": 0 if ssm else 2 * cfg.num_layers,
+    norms = 2 + (1 + bool(cfg.mla.q_lora_rank) if not ssm and cfg.attention == "mla" else 0)
+    return {"rmsnorm": 2 * norms * cfg.num_layers + 1, "flash_attention": 0 if ssm else 2 * cfg.num_layers,
             "decode_attention": 0, "ssd_scan": 2 * cfg.num_layers if ssm else 0}
 
 
@@ -1738,7 +1776,30 @@ PLANTED = {  # cell: (fault, the kernel it is planted in, the gates that must fa
         ("ssd_scan starts every 64-row chunk from a zero state", "ssd_scan", ssd_forgets_every_chunk, GRADIENT),
         ("ssd_scan drops the state carried into the last 64 rows", "ssd_scan", ssd_drops_carried_state, NONE),
     ],
+    DS_ARCH: [
+        ("flash_attention ignores Q K^T's third 64-column box (the rope columns 128-191)", "flash_attention",
+         flash_ignores_rope_box, BOTH),
+    ],
 }
+
+
+def moe_layer_count(cfg) -> int:
+    return cfg.num_layers - cfg.moe.first_k_dense if cfg.moe is not None else 0
+
+
+def recompute_routes_forward(routes, moe_layers: int) -> bool:
+    """Whether a loss-and-gradient run's checkpoint recompute (its last
+    ``moe_layers`` routes, in backward order) chose every expert its forward
+    pass (the first ``moe_layers``) chose, layer by layer."""
+    fwd, rec = routes[:moe_layers], routes[moe_layers:][::-1]
+    return len(routes) == 2 * moe_layers and all(torch.equal(a, b) for a, b in zip(fwd, rec))
+
+
+def dropped_per_layer(routes, m, tokens: int) -> list:
+    """Choices past each MoE layer's capacity, from the forward routes of one
+    batch of ``tokens`` tokens (``m`` the config's ``MoEConfig``)."""
+    C = moe_mod._capacity(tokens, m)
+    return [int((moe_mod._counts(r.reshape(-1), m.num_experts) - C).clamp(min=0).sum()) for r in routes]
 
 
 def gradient_gate(arch, cfg, bundle, plain, params, pipe) -> None:
@@ -1757,63 +1818,101 @@ def gradient_gate(arch, cfg, bundle, plain, params, pipe) -> None:
     the rounding errors of the 8192 tokens largely cancel in the mean, both
     bf16 paths land a few 1e-4 from fp32 (of a loss near 11), and the ratio of
     two such distances does not tell a wrong kernel from another rounding
-    (PERF.md §6)."""
+    (PERF.md §6).
+
+    MoE layers: each run's checkpoint recompute must choose the experts its
+    forward pass chose. The fp32 plain reference runs on the fp32 kernel
+    path's expert choices (``routed``, ROADMAP C8). The bf16 paths and the
+    faults are gated routed freely; the same runs held to those choices, and
+    the share of choices each bf16 run routes elsewhere, are printed."""
     n, tol32 = cfg.num_layers, FP32_GRAD_RTOL[arch]
+    moe_layers = moe_layer_count(cfg)
     params32 = tree_map(lambda t: t.float(), params)
     batch = train_batch(cfg, pipe, 0)
-    t32 = token_losses(plain.model, params32, batch)
-    ops.reset_launch_counts()
-    loss32, _, ref32 = loss_and_grads(plain.model, params32, batch)
-    loss32 = float(loss32)
 
-    def distances(model, weights):
+    def run(model, weights, replay=None):
+        """The per-token losses, the loss and the gradient, the launches of
+        the loss and gradient, the ssd_scan launches by kernel and the
+        forward pass's expert choices; with ``replay`` (a forward pass's
+        choices) the forward pass and the recompute take those."""
+        with routed(replay):
+            tokens = token_losses(model, weights, batch)
+        ops.reset_launch_counts()
+        with routed(None if replay is None else replay + replay[::-1]) as routes:
+            loss, _, grads = loss_and_grads(model, weights, batch)
+        counts, variants = ops.launch_counts(), dict(ssd_mod.variant_launches)
+        require(recompute_routes_forward(routes, moe_layers), f"{arch}: a recompute routed otherwise than its forward")
+        return tokens, float(loss), grads, counts, variants, routes[:moe_layers]
+
+    # fp32 kernels first: the plain fp32 reference takes their expert choices
+    tok32_k, loss_k32, grads_k32, counts32, variants32, routes32 = run(bundle.model, params32)
+    require(counts32 == train_launches(cfg), f"{arch} fp32 kernel-path launches {counts32}")
+    held = routes32 or None
+    t32, loss32, ref32, counts_ref, _, _ = run(plain.model, params32, held)
+    require(sum(counts_ref.values()) == 0, "the plain path launched a kernel")
+    tok_k32, grad_k32 = rel_l2(tok32_k, t32), grad_distances(grads_k32, ref32)[0]
+    del grads_k32
+    free_memory()
+
+    def distances(model, weights, replay=None):
         """The loss, the per-token losses' relative L2 distance from fp32
         plain, the gradient's flattened and by leaf, the launches of the loss
-        and gradient and the ssd_scan launches by kernel."""
-        tokens = rel_l2(token_losses(model, weights, batch), t32)
-        ops.reset_launch_counts()
-        loss, _, grads = loss_and_grads(model, weights, batch)
-        counts, variants = ops.launch_counts(), dict(ssd_mod.variant_launches)
+        and gradient, the ssd_scan launches by kernel, the forward routes."""
+        tokens, loss, grads, counts, variants, routes = run(model, weights, replay)
         dist, per_leaf = grad_distances(grads, ref32)
         del grads
         free_memory()
-        return float(loss), tokens, dist, per_leaf, counts, variants
+        return loss, rel_l2(tokens, t32), dist, per_leaf, counts, variants, routes
 
     def worst_leaf(per_leaf, base):
         return max((per_leaf[p] / max(base[p], 1e-30), p) for p in base)
 
-    loss_p, tok_p, grad_p, leaf_p, counts_p, _ = distances(plain.model, params)
+    loss_p, tok_p, grad_p, leaf_p, counts_p, _, routes_p = distances(plain.model, params)
     require(sum(counts_p.values()) == 0, "the plain path launched a kernel")
-    loss_k, tok_k, grad_k, leaf_k, counts, variants = distances(bundle.model, params)
+    loss_k, tok_k, grad_k, leaf_k, counts, variants, routes_k = distances(bundle.model, params)
     require(counts == train_launches(cfg), f"{arch} kernel-path gradient launches {counts} != {train_launches(cfg)}")
-    loss_k32, tok_k32, grad_k32, _, counts32, variants32 = distances(bundle.model, params32)
-    require(counts32 == train_launches(cfg), f"{arch} fp32 kernel-path launches {counts32}")
     if cfg.family == "ssm":
         require(variants == {ssd_mod.TENSOR_CORE: 2 * n, ssd_mod.GENERIC: 0} and
                 variants32 == {ssd_mod.TENSOR_CORE: 0, ssd_mod.GENERIC: 2 * n},
                 f"{arch} ssd_scan by kernel: bf16 {variants}, fp32 {variants32}")
+    faulty = [(name, build_model(cfg, ops=planted(kernel, fn)), must) for name, kernel, fn, must in PLANTED[arch]]
+    gates = {"routed freely" if held else "bf16": (tok_p, grad_p, leaf_p, tok_k, leaf_k, None)}
+    if held:
+        routes_shown = "; ".join(
+            f"{label} {a} of {b} ({a / b:.4%})" for label, (a, b) in (
+                ("bf16 kernels vs bf16 plain", routed_elsewhere(routes_k, routes_p, cfg.moe.num_experts)),
+                ("bf16 kernels vs fp32", routed_elsewhere(routes_k, routes32, cfg.moe.num_experts)),
+                ("bf16 plain vs fp32", routed_elsewhere(routes_p, routes32, cfg.moe.num_experts))))
+        print(f"train {arch} gradient gate routing, (token, choice) pairs routed to another expert: {routes_shown}; "
+              f"dropped choices per MoE layer (fp32 kernels) {dropped_per_layer(routes32, cfg.moe, TR_B * TR_SEQ)} of "
+              f"{TR_B * TR_SEQ * cfg.moe.top_k} a layer")
+        _, tok_ph, grad_ph, leaf_ph, _, _, _ = distances(plain.model, params, held)
+        _, tok_kh, _, leaf_kh, _, _, _ = distances(bundle.model, params, held)
+        gates["held to the fp32 routes"] = (tok_ph, grad_ph, leaf_ph, tok_kh, leaf_kh, held)
     del params32
     free_memory()
-    leaf_ratio, leaf_path = worst_leaf(leaf_k, leaf_p)
     faults = []
-    for name, kernel, fn, must_fail in PLANTED[arch]:
-        _, tok_f, grad_f, leaf_f, _, _ = distances(build_model(cfg, ops=planted(kernel, fn)), params)
-        ratios = {"per-token": tok_f / tok_p, "gradient": worst_leaf(leaf_f, leaf_p)[0]}
-        faults.append((name, ratios, grad_f / grad_p, must_fail))
+    for label, (tok_pl, grad_pl, leaf_pl, tok_kn, leaf_kn, replay) in gates.items():
+        for name, model, must_fail in faulty:
+            _, tok_f, grad_f, leaf_f, _, _, _ = distances(model, params, replay)
+            ratios = {"per-token": tok_f / tok_pl, "gradient": worst_leaf(leaf_f, leaf_pl)[0]}
+            if replay is None:  # the gates route freely
+                faults.append((name, ratios, must_fail))
+            print(f"train {arch} planted fault ({label}), {name}: per-token {ratios['per-token']:.4f}, worst leaf "
+                  f"{ratios['gradient']:.4f} (flattened {grad_f / grad_pl:.4f}), caught by "
+                  f"[{', '.join(g for g in BOTH if ratios[g] > FLOOR_RATIO)}], must be by [{', '.join(must_fail)}]")
+        print(f"train {arch} gradient gate ({label}, {'gated' if replay is None else 'printed'}), relative L2 "
+              f"from fp32 plain: per-token losses bf16 kernels {tok_kn:.4e} vs bf16 plain {tok_pl:.4e} (ratio "
+              f"{tok_kn / tok_pl:.4f}); the worst leaf's ratio %.4f (%s)" % worst_leaf(leaf_kn, leaf_pl))
+    leaf_ratio, leaf_path = worst_leaf(leaf_k, leaf_p)
     del ref32
     free_memory()
     loss_rel32 = abs(loss_k32 - loss32) / abs(loss32)
-    shown = "; ".join(
-        f"{name}: per-token {r['per-token']:.4f}, worst leaf {r['gradient']:.4f} (flattened {flat:.4f}), caught by "
-        f"[{', '.join(g for g in BOTH if r[g] > FLOOR_RATIO)}], must be by [{', '.join(must)}]"
-        for name, r, flat, must in faults)
-    print(f"train {arch} gradient gate, relative L2 from fp32 plain: per-token losses bf16 kernels {tok_k:.4e} vs "
-          f"bf16 plain {tok_p:.4e} (ratio {tok_k / tok_p:.4f}); gradient bf16 kernels {grad_k:.4e} vs bf16 plain "
-          f"{grad_p:.4e} (ratio {grad_k / grad_p:.4f}), the worst leaf's ratio {leaf_ratio:.4f} ({leaf_path}); "
-          f"fp32 kernels vs fp32 plain: loss {loss_rel32:.3e}, per-token losses {tok_k32:.3e}, gradient "
-          f"{grad_k32:.3e} (tolerance {tol32}). Planted faults, ratios over the plain bf16 path's distance "
-          f"(a gate fails above {FLOOR_RATIO}): {shown}. Not gated: the loss fp32 plain {loss32:.6f}, bf16 plain "
-          f"{loss_p:.6f} ({abs(loss_p - loss32):.4e} from fp32), bf16 kernels {loss_k:.6f} "
+    print(f"train {arch} gradient gate, relative L2 from fp32 plain: gradient bf16 kernels {grad_k:.4e} vs bf16 plain "
+          f"{grad_p:.4e} (ratio {grad_k / grad_p:.4f}); fp32 kernels vs fp32 plain"
+          f"{' on the fp32 kernels expert choices' if held else ''}: loss {loss_rel32:.3e}, per-token losses "
+          f"{tok_k32:.3e}, gradient {grad_k32:.3e} (tolerance {tol32}). Not gated: the loss fp32 plain "
+          f"{loss32:.6f}, bf16 plain {loss_p:.6f} ({abs(loss_p - loss32):.4e} from fp32), bf16 kernels {loss_k:.6f} "
           f"({abs(loss_k - loss32):.4e}), fp32 kernels {loss_k32:.6f}; launches per loss and gradient {counts}"
           + (f", ssd_scan by kernel bf16 {variants} fp32 {variants32}" if cfg.family == "ssm" else ""))
     require(math.isfinite(loss_k), f"{arch}: non-finite kernel-path loss")
@@ -1823,26 +1922,37 @@ def gradient_gate(arch, cfg, bundle, plain, params, pipe) -> None:
             f"{arch}: the kernel path's gradient of {leaf_path} is further from fp32 than bf16 alone explains")
     require(loss_rel32 <= tol32 and tok_k32 <= tol32 and grad_k32 <= tol32,
             f"{arch}: fp32 kernel path differs from fp32 plain")
-    for name, ratios, _, must_fail in faults:
+    for name, ratios, must_fail in faults:
         require(all(ratios[g] > FLOOR_RATIO for g in must_fail),
                 f"{arch}: a gate passes a planted fault ({name}): {ratios}")
 
 
-def train_phase(arch: str, seed: int) -> dict:
-    """One training cell: the gradient gate, 20 counted steps with the
-    kernels (the main path), 20 with the plain versions, their times, memory,
-    energy and a profile. Returns the main path's launches."""
+def train_phase(arch: str, seed: int, layers: int = 0) -> dict:
+    """One training cell (its depth cut to ``layers`` if given): the
+    gradient gate, 20 counted steps with the kernels (the main path), 20 with
+    the plain versions, their times, memory, energy and a profile; for an MoE
+    cell the routes of every step's forward pass and recompute held equal
+    and the dropped choices per layer. Returns the main path's launches."""
+    t_phase = time.perf_counter()
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     bundle = make_train_bundle(cfg, lr_schedule=constant(TR_LR))
     plain = make_train_bundle(cfg, lr_schedule=constant(TR_LR), ops=ops.PLAIN)
     pipe = SyntheticPipeline(DataConfig(cfg.vocab_size, TR_SEQ, TR_B, seed=seed))
-    n_params = cfg.param_count()
+    n_params, n_active = cfg.param_count(), cfg.param_count(active_only=True)
+    moe_layers = moe_layer_count(cfg)
     t0 = time.perf_counter()
     params = bundle.model.init(seed, "cuda")
     torch.cuda.synchronize()
-    print(f"train {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.4f} B parameters "
-          f"(param_count), {sum(t.numel() for t in leaves(params)) / 1e9:.4f} B in the tree, init "
-          f"{time.perf_counter() - t0:.1f} s; batch {TR_B} x {TR_SEQ}, remat {cfg.remat}")
+    cut = f" (depth cut from {get_config(arch).num_layers})" if layers else ""
+    moe = (f", {cfg.num_layers - moe_layers} dense + {moe_layers} MoE of {cfg.moe.num_experts} experts top-"
+           f"{cfg.moe.top_k} + {cfg.moe.num_shared_experts} shared (capacity "
+           f"{moe_mod._capacity(TR_B * TR_SEQ, cfg.moe)} an expert), {cfg.attention} attention, "
+           f"{n_active / 1e9:.4f} B active" if moe_layers else "")
+    print(f"train {arch}: {cfg.num_layers} layers{cut}{moe}, d_model {cfg.d_model}, {n_params / 1e9:.4f} B "
+          f"parameters (param_count), {sum(t.numel() for t in leaves(params)) / 1e9:.4f} B in the tree, init "
+          f"{time.perf_counter() - t0:.1f} s; batch {TR_B} x {TR_SEQ}, remat {cfg.remat}, optimizer {cfg.optimizer}")
     gradient_gate(arch, cfg, bundle, plain, params, pipe)
     del params
     free_memory()
@@ -1865,7 +1975,7 @@ def train_phase(arch: str, seed: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    with PowerSampler() as power:
+    with PowerSampler() as power, routed() as routes:
         report = trainer.train()
     require(len(power.samples) >= 2, f"{arch}: {len(power.samples)} power samples")
     counts = ops.launch_counts()
@@ -1878,17 +1988,27 @@ def train_phase(arch: str, seed: int) -> dict:
             f"{arch} train launches {counts}, per step {deltas}")
     if cfg.family == "ssm":
         require(ssd_mod.variant_launches[ssd_mod.GENERIC] == 0, "the bf16 training scan took the generic kernel")
+    if moe_layers:
+        steps = [routes[i:i + 2 * moe_layers] for i in range(0, len(routes), 2 * moe_layers)]
+        same = [recompute_routes_forward(r, moe_layers) for r in steps]
+        drops = [dropped_per_layer(r[:moe_layers], cfg.moe, TR_B * TR_SEQ) for r in steps]
+        print(f"train {arch} routing: the recompute chose the forward pass's experts in every MoE layer at "
+              f"{sum(same)} of {len(steps)} steps; dropped choices per MoE layer of "
+              f"{TR_B * TR_SEQ * cfg.moe.top_k}: step 1 {drops[0]}, step {len(steps)} {drops[-1]}, mean share "
+              f"{np.mean([sum(d) for d in drops]) / (moe_layers * TR_B * TR_SEQ * cfg.moe.top_k):.4%}")
+        require(len(steps) == TR_STEPS and all(same), f"{arch}: forward and recompute routes differ: {same}")
+    del routes
     bundle.step_fn = step_fn
     times = [h["step_s"] for h in trainer.history]
     losses = [h["loss"] for h in trainer.history]
-    flops = 8 * n_params * TR_B * TR_SEQ
+    flops = 8 * n_active * TR_B * TR_SEQ  # the active parameters: an MoE token meets top_k of the experts
     bound_s = flops / PEAK_FLOPS[torch.bfloat16]
     energy = (f"energy {power.joules / TR_STEPS:.2f} J/step ({power.watts:.1f} W mean draw over "
               f"{len(power.samples)} samples x {power.seconds:.3f} s, {TR_STEPS} steps)")
     steady = times[1:]
     print(f"train {arch} step time: mean {np.mean(times) * 1e3:.3f} ms over {TR_STEPS} steps, steps 2-{TR_STEPS} "
           f"mean {np.mean(steady) * 1e3:.3f} median {np.median(steady) * 1e3:.3f} min {min(steady) * 1e3:.3f} ms; "
-          f"bound 8 N T = {flops:.4e} FLOP at 989 TFLOP/s = {bound_s * 1e3:.3f} ms "
+          f"bound 8 N T (N {n_active / 1e9:.4f} B active) = {flops:.4e} FLOP at 989 TFLOP/s = {bound_s * 1e3:.3f} ms "
           f"({bound_s / np.median(steady):.3f} of the median); {TR_B * TR_SEQ / np.median(steady):.1f} tokens/s; "
           f"peak memory {peak_gb:.2f} GB; {energy}; rollbacks {report['rollbacks']}")
     profiled(f"train step {arch}", lambda: bundle.step_fn(trainer.params, trainer.opt_state,
@@ -1913,6 +2033,7 @@ def train_phase(arch: str, seed: int) -> dict:
           f"{np.median(plain_times[1:]) * 1e3:.3f} ms [{nvidia_smi('name,power.limit')}]")
     require(all(math.isfinite(x) for x in losses), f"{arch}: non-finite loss {losses}")
     require(losses[-1] < losses[0], f"{arch}: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    print(f"train {arch} phase: {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -2370,11 +2491,13 @@ def main() -> int:
     train_times = time_train_kernels(gen)
     free_memory()
     train_counts = {arch: train_phase(arch, args.seed) for arch in TRAIN_ARCHS}
+    train_counts[DS_ARCH] = train_phase(DS_ARCH, args.seed, DS_TRAIN_LAYERS)
+    free_memory()
     train_launcher_phase(args.seed)
     colo_counts, colo_measured = colocation_phase(args.seed, name_power)
     scheduling_phase(colo_measured, name_power)
     # a kernel's launches: the four serve paths' (h2o-danube-1.8b's two runs), the
-    # two training runs' and the co-located rounds'
+    # three training runs' and the co-located rounds'
     paths = [(ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [
         (f"{DN_ARCH} run {r}", c) for r, c in danube_counts.items()] + [(DS_ARCH, deepseek_counts)] + [
         (f"train {a}", c) for a, c in train_counts.items()] + [("co-located rounds", colo_counts)]
@@ -2433,6 +2556,10 @@ def main() -> int:
               f"(b, h); SDPA ran {t['library_kernels']} [{name_power}]")
     for (name, shape), t in train_times.items():
         library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        if (name, shape[-1:]) == ("rmsnorm", (DS_KV_LORA,)):
+            shape = f"{shape} of rows {DS_DKV} wide (deepseek kv_norm, read in place)"
+        elif name == "flash_attention" and len(shape) == 6:
+            shape = f"(B, H, Hkv, S, Dqk, Dv) {shape} causal (deepseek, the MLA views); SDPA ran {t['library_kernels']}"
         print(f"kernel {name} train shape {shape} bf16: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
               f"library {library}, bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
               f"{t['bound_ms'] / t['ms']:.2f} of it); its Function's plain backward {t['bwd_ms']:.4f} ms "

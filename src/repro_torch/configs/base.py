@@ -2,9 +2,10 @@
 
 :class:`ArchConfig` keeps every field and derived quantity of the reference
 (the shape grid ``SHAPES``, ``param_count``, ``layer_kind``, ...), so a
-config reads the same in both packages, but the port runs only the dense and
-SSM layouts: ``models.transformer.Model`` raises ``NotImplementedError`` for
-the rest. ``train_state_bytes_per_chip`` feeds the calibration bridge's
+config reads the same in both packages. The port runs the dense, SSM and
+MoE layouts (GQA or MLA attention, multi-token prediction):
+``models.transformer.Model`` raises ``NotImplementedError`` for the hybrid
+layout and encoder-decoder stacks. ``train_state_bytes_per_chip`` feeds the calibration bridge's
 memory figures. The dry-run's ``input_specs`` is not ported.
 """
 

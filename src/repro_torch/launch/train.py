@@ -11,6 +11,15 @@ seeded random weights, at the ``train_4k`` cell's batch and sequence unless
 ``--batch`` and ``--seq`` say otherwise (there is no device mesh yet). Without
 a card the launcher exits with an error unless ``--device cpu`` is given; it
 never moves to the CPU by itself.
+
+deepseek-v2-lite-16b and deepseek-v3-671b (MLA + MoE; v3 with multi-token
+prediction and Adafactor) train with ``--smoke --device cpu``. On one card
+the launcher cannot take either: the full configs do not fit (15.7 B and
+671 B parameters; deepseek-v2-lite-16b needs ~188 GB with fp32 AdamW state),
+and their smoke configs' attention head dims (q/k 24, v 16) have no flash
+kernel, whose wrapper raises. ``chip_smoke.py`` trains deepseek-v2-lite-16b
+at full width with its depth cut to 5 layers; the launcher has no depth
+flag, as the reference's has none.
 """
 
 from __future__ import annotations
@@ -27,7 +36,9 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(epilog="deepseek-v2-lite-16b and deepseek-v3-671b train only with --smoke "
+                                 "--device cpu: their full configs do not fit one card, and their smoke head "
+                                 "dims (q/k 24, v 16) have no flash kernel.")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--steps", type=int, default=100)

@@ -14,22 +14,24 @@ a Python loop over the groups in order and the stacked weights. Training
 wraps each layer in ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint``, ``remat="full"``), so a layer's forward runs again in the
 backward pass. A modality frontend's embeddings replace the first
-``frontend_positions`` rows of the token embeddings. The hybrid layout,
-encoder-decoder stacks and multi-token prediction raise
-``NotImplementedError``, and so does training an MoE or MLA config (serving
-it is ported).
+``frontend_positions`` rows of the token embeddings. The loss adds the MoE
+layers' load-balancing loss (``router_aux_weight``) and, with ``mtp_depth``,
+DeepSeek-V3's multi-token prediction (``_mtp_loss``). The hybrid layout and
+encoder-decoder stacks raise ``NotImplementedError``.
 
 A dense layer runs ``ops.rmsnorm`` twice and ``ops.flash_attention``
 (training, prefill) or ``ops.decode_attention`` (decode) once (qk-norm adds
 two rmsnorms on rows of head_dim); an MLA layer runs ``ops.rmsnorm`` three
 times (``norm1``, ``kv_norm``, ``norm2``; q-LoRA adds one) and
-``ops.flash_attention`` once in prefill, its decode no kernel but the norms;
-an SSM layer runs ``ops.rmsnorm`` twice (``norm1`` and the mixer's gated
-norm) and ``ops.ssd_scan`` once per full sequence. The final norm adds one
-rmsnorm. MoE layers dispatch through ``models/moe.py``'s sort path (ROADMAP
-C4). With ``ops`` left at ``kernels.ops`` a CUDA tensor goes through the
-hand-written kernels (in training through their autograd Functions);
-``ops.PLAIN`` runs the same weights through the plain versions.
+``ops.flash_attention`` once in training and prefill, its decode no kernel
+but the norms; an SSM layer runs ``ops.rmsnorm`` twice (``norm1`` and the
+mixer's gated norm) and ``ops.ssd_scan`` once per full sequence. The final
+norm adds one rmsnorm. MoE layers dispatch through ``models/moe.py``'s sort
+path (ROADMAP C4), in training too, where the reference's ``Model`` without a
+mesh takes the one-hot oracle. With ``ops`` left at ``kernels.ops`` a CUDA
+tensor goes through the hand-written kernels (in training through their
+autograd Functions); ``ops.PLAIN`` runs the same weights through the plain
+versions.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as pu
 from repro_torch.models.common import (
+    chunked_cross_entropy,
     embed,
     embedding_def,
     lm_head_def,
@@ -60,6 +63,8 @@ from repro_torch.models.common import (
 )
 
 Tree = Dict[str, Any]
+
+MTP_LOSS_WEIGHT = 0.3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +96,6 @@ def check_supported(cfg: ArchConfig) -> None:
     unsupported = {
         "a hybrid layer pattern": cfg.hybrid_pattern is not None,
         "an encoder-decoder stack": cfg.enc_dec,
-        "multi-token prediction": cfg.mtp_depth > 0,
         # no registered config uses the selective policy (keep matmul outputs)
         "remat 'dots'": cfg.remat == "dots",
     }
@@ -106,15 +110,6 @@ def check_supported(cfg: ArchConfig) -> None:
 
 def _uses_mla(cfg: ArchConfig) -> bool:
     return cfg.family != "ssm" and cfg.attention == "mla"
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port serves but does
-    not train yet: MoE layers and MLA (ROADMAP A6's training half)."""
-    for feature, present in (("MoE layers", cfg.moe is not None), ("'mla' attention", _uses_mla(cfg))):
-        if present:
-            raise NotImplementedError(
-                f"{cfg.name}: training {feature} is not ported yet (ROADMAP A6's training half)")
 
 
 def _layer(tree: Tree, i: int) -> Tree:
@@ -174,6 +169,13 @@ class Model(nn.Module):
             defs["head"] = lm_head_def(cfg.d_model, cfg.padded_vocab)
         for name, n, layers in self.groups:
             defs[name] = pu.stack({f"l{j}": self._layer_def(s) for j, s in enumerate(layers)}, n)
+        if cfg.mtp_depth:
+            defs["mtp"] = {
+                "proj": pu.ParamDef((2 * cfg.d_model, cfg.d_model), pu.fan_in_init()),
+                "norm_h": rmsnorm_def(cfg.d_model),
+                "norm_e": rmsnorm_def(cfg.d_model),
+                "block": self._layer_def(LayerSpec("attn", "dense")),
+            }
         return defs
 
     def init(self, seed: int = 0, device: Union[str, torch.device] = "cuda") -> Tree:
@@ -186,26 +188,31 @@ class Model(nn.Module):
 
     # -- training -----------------------------------------------------------
 
-    def _block_forward(self, spec: LayerSpec, p: Tree, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        """One dense or SSM layer over the full sequence, without a cache
-        (``check_trainable`` refuses MoE and MLA)."""
+    def _block_forward(
+        self, spec: LayerSpec, p: Tree, x: torch.Tensor, positions: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One layer over the full sequence, without a cache: (x, the layer's
+        aux loss, 0 but for an MoE layer)."""
         h = rmsnorm(p["norm1"], x, ops=self.ops)
         if spec.mixer == "ssm":
             h = mb.mamba_forward(p["mixer"], self.cfg, h, ops=self.ops)
+        elif self.mla:
+            h = attn.mla_forward(p["mixer"], self.cfg, h, positions, ops=self.ops)
         else:
             h = attn.gqa_forward(p["mixer"], self.cfg, h, positions, ops=self.ops)
         x = x + h
-        if spec.channel != "none":
-            x = x + swiglu(p["channel"], rmsnorm(p["norm2"], x, ops=self.ops))
-        return x
+        if spec.channel == "none":
+            return x, x.new_zeros((), dtype=torch.float32)
+        h, aux = self._channel(spec, p, x)
+        return x + h, aux
 
-    def _channel(self, spec: LayerSpec, p: Tree, x: torch.Tensor) -> torch.Tensor:
-        """The channel mixer's residual branch of a serving layer: SwiGLU, or
-        the MoE layer through the sort dispatch (its aux loss unused)."""
+    def _channel(self, spec: LayerSpec, p: Tree, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The channel mixer's residual branch and its aux loss: SwiGLU (aux
+        0), or the MoE layer through the sort dispatch."""
         h = rmsnorm(p["norm2"], x, ops=self.ops)
         if spec.channel == "moe":
-            return moe_mod.moe_forward(p["channel"], self.cfg, h)[0]
-        return swiglu(p["channel"], h)
+            return moe_mod.moe_forward(p["channel"], self.cfg, h)
+        return swiglu(p["channel"], h), h.new_zeros((), dtype=torch.float32)
 
     def _remat(self, body):
         """``remat="full"``: recompute the layer in the backward pass and keep
@@ -218,14 +225,16 @@ class Model(nn.Module):
         )
 
     def _scan_groups(self, params: Tree, x: torch.Tensor, positions: torch.Tensor):
-        """Run the layers; returns (hidden, total aux loss). Dense and SSM
-        layers have no auxiliary loss, so it is 0, as the reference's."""
+        """Run the layers; returns (hidden, the layers' aux losses summed in
+        fp32, 0 without MoE layers, as the reference's)."""
         block = self._remat(self._block_forward)
+        total = x.new_zeros((), dtype=torch.float32)
         for name, n, layers in self.groups:
             for p in _unstack(params[name], n):
                 for j, spec in enumerate(layers):
-                    x = block(spec, p[f"l{j}"], x, positions)
-        return x, x.new_zeros((), dtype=torch.float32)
+                    x, aux = block(spec, p[f"l{j}"], x, positions)
+                    total = total + aux
+        return x, total
 
     def _embed_inputs(
         self, params: Tree, tokens: torch.Tensor, frontend_embeds: Optional[torch.Tensor]
@@ -235,6 +244,18 @@ class Model(nn.Module):
             npos = frontend_embeds.shape[1]
             x = torch.cat([frontend_embeds.to(x.dtype), x[:, npos:]], dim=1)
         return x
+
+    def _trunk(self, params: Tree, tokens, labels, frontend_embeds):
+        """(the final norm's output (B, S, d); the labels with the frontend's
+        positions set to -100; the aux loss; the positions)."""
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+        x = self._embed_inputs(params, tokens, frontend_embeds)
+        if frontend_embeds is not None:
+            npos = frontend_embeds.shape[1]
+            labels = torch.where(torch.arange(S, device=labels.device) < npos, -100, labels)
+        x, aux = self._scan_groups(params, x, positions)
+        return rmsnorm(params["final_norm"], x, ops=self.ops), labels, aux, positions
 
     def token_losses(
         self,
@@ -246,15 +267,7 @@ class Model(nn.Module):
         """(the next-token cross-entropy of every token, (B, S) in fp32 and 0
         where no label counts; the labels with the frontend's positions set to
         -100; the auxiliary loss)."""
-        check_trainable(self.cfg)
-        B, S = tokens.shape
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-        x = self._embed_inputs(params, tokens, frontend_embeds)
-        if frontend_embeds is not None:
-            npos = frontend_embeds.shape[1]
-            labels = torch.where(torch.arange(S, device=labels.device) < npos, -100, labels)
-        x, aux = self._scan_groups(params, x, positions)
-        h = rmsnorm(params["final_norm"], x, ops=self.ops)
+        h, labels, aux, _ = self._trunk(params, tokens, labels, frontend_embeds)
         return token_cross_entropy(self._head_weight(params), h, labels, self.cfg.vocab_size), labels, aux
 
     def loss(
@@ -264,11 +277,36 @@ class Model(nn.Module):
         labels: torch.Tensor,  # (B, S), -100 ignored
         frontend_embeds: Optional[torch.Tensor] = None,  # (B, frontend_positions, d_model)
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Mean next-token cross-entropy -> (loss, {"ce", "aux"}); the
-        frontend's positions carry no label."""
-        losses, labels, aux = self.token_losses(params, tokens, labels, frontend_embeds)
-        ce = losses.sum() / (labels >= 0).sum().float().clamp(min=1.0)
-        return ce, {"ce": ce, "aux": aux}
+        """(loss, {"ce", "aux"}, and "mtp_ce" with MTP): the mean next-token
+        cross-entropy (the frontend's positions carry no label), plus
+        ``router_aux_weight`` x aux for an MoE config and ``MTP_LOSS_WEIGHT``
+        x the MTP cross-entropy, as the reference's ``loss`` (:254-277)."""
+        cfg = self.cfg
+        h, labels, aux, positions = self._trunk(params, tokens, labels, frontend_embeds)
+        ce = chunked_cross_entropy(self._head_weight(params), h, labels, cfg.vocab_size)
+        metrics = {"ce": ce, "aux": aux}
+        loss = ce
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.router_aux_weight * aux
+        if cfg.mtp_depth:
+            mtp_ce = self._mtp_loss(params, h, tokens, labels, positions)
+            metrics["mtp_ce"] = mtp_ce
+            loss = loss + MTP_LOSS_WEIGHT * mtp_ce
+        return loss, metrics
+
+    def _mtp_loss(self, params: Tree, h, tokens, labels, positions) -> torch.Tensor:
+        """DeepSeek-V3's multi-token prediction (depth 1): token t + 2 from
+        the trunk's final-normed state at t joined with the embedding of
+        token t + 1, through one dense layer (not rematerialised, as in the
+        reference) and the shared head; the labels rolled one step further,
+        the last position ignored."""
+        p, S = params["mtp"], tokens.shape[1]
+        emb_next = embed(params["embed"], torch.roll(tokens, -1, dims=1).long())
+        z = torch.cat([rmsnorm(p["norm_h"], h, ops=self.ops), rmsnorm(p["norm_e"], emb_next, ops=self.ops)], dim=-1)
+        z, _ = self._block_forward(LayerSpec("attn", "dense"), p["block"], torch.matmul(z, p["proj"]), positions)
+        mtp_labels = torch.roll(labels, -1, dims=1)
+        mtp_labels = torch.where(torch.arange(S, device=labels.device) >= S - 1, -100, mtp_labels)
+        return chunked_cross_entropy(self._head_weight(params), z, mtp_labels, self.cfg.vocab_size)
 
     # -- serving ------------------------------------------------------------
 
@@ -337,7 +375,7 @@ class Model(nn.Module):
             attn.gqa_write_prompt(cfg, cache, k, v)
         x = x + out
         if spec.channel != "none":
-            x = x + self._channel(spec, p, x)
+            x = x + self._channel(spec, p, x)[0]
         return x
 
     def decode_step(
@@ -365,5 +403,5 @@ class Model(nn.Module):
             h, _ = attn.gqa_decode(p["mixer"], self.cfg, h, cache, cache_len, ops=self.ops)
         x = x + h
         if spec.channel != "none":
-            x = x + self._channel(spec, p, x)
+            x = x + self._channel(spec, p, x)[0]
         return x

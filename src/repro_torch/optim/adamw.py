@@ -1,15 +1,21 @@
-"""AdamW, gradient clipping and the global norm (the port of the JAX package's
-``optim/adamw.py``; Adafactor is not ported yet).
+"""AdamW, Adafactor, gradient clipping and the global norm (the port of the
+JAX package's ``optim/adamw.py``).
 
-The arithmetic is the reference's, step for step: fp32 ``m`` and ``v``; bias
-correction ``1 - b ** step`` in fp32; the update computed in fp32 and cast
-back to the parameter's dtype every step, with no fp32 master copy; decay on
+The arithmetic is the reference's, step for step. AdamW: fp32 ``m`` and
+``v``; bias correction ``1 - b ** step`` in fp32. Adafactor (Shazeer & Stern,
+2018; deepseek-v3-671b's optimizer): no momentum; for a leaf of two or more
+dimensions fp32 row and column means of the squared gradient (over the last
+axis and the second-last, any leading axes kept), for a 1-D leaf the full
+second moment beside a scalar placeholder; ``beta = 1 - (step + 1) **
+-decay_rate``; the update clipped to an RMS of at most ``clip_threshold``
+over the whole (stacked) leaf. Both compute the update in fp32 and cast it
+back to the parameter's dtype every step, with no fp32 master copy, and decay
 every tensor of two or more dimensions. The parameters are stacked over the
 layers, so the stacked ``(L, d)`` norm scales and the mamba ``(L, H)``
-``A_log``, ``D`` and ``dt_bias`` are decayed, as in the reference. Unlike the
-reference, whose arrays are immutable, ``update`` writes the parameters and
-``m`` and ``v`` in place (what the reference's donated buffers amount to) and
-returns them.
+``A_log``, ``D`` and ``dt_bias`` are decayed (and Adafactor factors them), as
+in the reference. Unlike the reference, whose arrays are immutable,
+``update`` writes the parameters and the state in place (what the
+reference's donated buffers amount to) and returns them.
 """
 
 from __future__ import annotations
@@ -28,6 +34,12 @@ class AdamWState(NamedTuple):
     v: Any
 
 
+class AdafactorState(NamedTuple):
+    step: torch.Tensor  # int32, 0-dim, on the parameters' device
+    vr: Any  # row accumulators (the full second moment for a 1-D leaf)
+    vc: Any  # column accumulators (a 0-dim placeholder for a 1-D leaf)
+
+
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     name: str = "adamw"
@@ -44,7 +56,7 @@ def make_optimizer(opt_cfg: OptimizerConfig):
     if opt_cfg.name == "adamw":
         return AdamW(opt_cfg)
     if opt_cfg.name == "adafactor":
-        raise NotImplementedError("Adafactor is not ported yet")
+        return Adafactor(opt_cfg)
     raise ValueError(f"unknown optimizer {opt_cfg.name!r}")
 
 
@@ -79,6 +91,50 @@ class AdamW:
                 delta = delta + c.weight_decay * pf
             p.copy_(pf - lr * delta)  # rounded to the parameter's dtype
         return params, AdamWState(step=step, m=state.m, v=state.v)
+
+
+class Adafactor:
+    """Factored second-moment optimizer (Shazeer & Stern, 2018), no momentum."""
+
+    def __init__(self, cfg: OptimizerConfig):
+        self.cfg = cfg
+
+    def init(self, params: Any) -> AdafactorState:
+        def zeros(shape, p):
+            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+        return AdafactorState(
+            step=torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device),
+            vr=tree_map(lambda p: zeros(p.shape[:-1] if p.ndim >= 2 else p.shape, p), params),
+            vc=tree_map(lambda p: zeros(p.shape[:-2] + p.shape[-1:] if p.ndim >= 2 else (), p), params),
+        )
+
+    @torch.no_grad()
+    def update(
+        self, grads: Any, state: AdafactorState, params: Any, lr: Union[float, torch.Tensor]
+    ) -> Tuple[Any, AdafactorState]:
+        c = self.cfg
+        step = state.step + 1
+        beta = 1.0 - (step.float() + 1.0) ** (-c.decay_rate)
+        for p, g, vr, vc in zip(leaves(params), leaves(grads), leaves(state.vr), leaves(state.vc)):
+            g = g.float()
+            g2 = g.square() + 1e-30
+            if p.ndim >= 2:
+                vr.mul_(beta).add_((1 - beta) * g2.mean(dim=-1))
+                vc.mul_(beta).add_((1 - beta) * g2.mean(dim=-2))
+                rfac = torch.rsqrt(vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=1e-30))
+                delta = g * rfac[..., None] * torch.rsqrt(vc)[..., None, :]
+            else:
+                vr.mul_(beta).add_((1 - beta) * g2)
+                delta = g * torch.rsqrt(vr)
+            # update clipping: RMS(delta) <= clip_threshold over the whole stacked leaf
+            rms = torch.sqrt(delta.square().mean() + 1e-30)
+            delta = delta / torch.clamp(rms / c.clip_threshold, min=1.0)
+            pf = p.float()
+            if p.ndim >= 2:
+                delta = delta + c.weight_decay * pf
+            p.copy_(pf - lr * delta)  # rounded to the parameter's dtype
+        return params, AdafactorState(step=step, vr=state.vr, vc=state.vc)
 
 
 def global_norm(tree: Any) -> torch.Tensor:

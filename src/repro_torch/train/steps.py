@@ -7,9 +7,11 @@ batch) -> (params, opt_state, metrics)``, ``prefill_fn(params, tokens) ->
 (logits, cache)``. PyTorch runs eagerly, so there is nothing to jit. The
 train step updates the parameters and the optimizer state in place, and the
 decode step the cache (a dense model's K/V, an SSM's conv windows and state):
-what the reference's donated buffers amount to. A mesh, the ZeRO-3 layout and
-the ZeRO-2 accumulator are not ported (one card), and an MoE or MLA config
-serves but does not train yet.
+what the reference's donated buffers amount to. The optimizer is the
+config's (``OptimizerConfig(name=cfg.optimizer)``: AdamW, or Adafactor for
+deepseek-v3-671b), and the metrics carry the loss's ``ce`` and ``aux`` (and
+``mtp_ce`` with multi-token prediction). A mesh, the ZeRO-3 layout and the
+ZeRO-2 accumulator are not ported (one card).
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.factory import build_model
-from repro_torch.models.transformer import check_trainable
 from repro_torch.optim.adamw import OptimizerConfig, clip_by_global_norm, make_optimizer
 from repro_torch.optim.schedules import cosine_with_warmup
 from repro_torch.tree import leaves, tree_map, unflatten
@@ -77,7 +78,6 @@ def make_train_bundle(
     if mesh is not None or layout != "megatron" or zero2_grads:
         raise NotImplementedError("a device mesh, layout='zero3' and zero2_grads are not ported yet")
     model = build_model(cfg, ops=ops)
-    check_trainable(cfg)
     opt_cfg = opt_cfg or OptimizerConfig(name=cfg.optimizer)
     optimizer = make_optimizer(opt_cfg)
     lr_schedule = lr_schedule or cosine_with_warmup(3e-4, 100, 10_000)

@@ -12,11 +12,17 @@ sides): logits within 1e-4, the same greedy tokens, the MLA caches within
 archs, because a router near-tie can choose another expert in the two
 packages; the count of (token, choice) pairs routed to another expert is
 printed. A twin of ``tests/test_models.py::test_prefill_then_decode_matches_forward``
-for this arch (tier 1 here; ``slow`` in the reference), the launcher, and the
-training half's refusal.
+for this arch (tier 1 here; ``slow`` in the reference), the serve launcher;
+and in training (parity with ``jax.grad`` is in ``tests/test_torch_train.py``)
+the trainer lowering the loss, and ``launch/train.py`` on the CPU for this
+config and deepseek-v3-671b (Adafactor, MTP), restarting from its checkpoint.
 """
 
 import functools
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -30,12 +36,16 @@ from repro.models import moe as jmoe
 from repro.models.transformer import Model as JaxModel
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_launcher
 from repro_torch.models import moe
 from repro_torch.models.factory import build_model
 from repro_torch.models.params import from_jax_params
 from repro_torch.models.transformer import Model
+from repro_torch.optim.schedules import constant
 from repro_torch.train.steps import make_serve_bundle, make_train_bundle
+from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tree import leaves_with_paths
 
 ARCH = "deepseek-v2-lite-16b"
@@ -154,14 +164,46 @@ def test_layer_groups_and_cache_follow_the_reference():
     }
 
 
-def test_training_the_config_raises():
+def test_training_the_config_lowers_its_loss():
+    """As ``test_system.py::test_train_loss_decreases`` for the dense
+    config: 30 steps of the trainer on structured synthetic data reduce the
+    loss by more than 0.3; the metrics carry the router's aux loss."""
     cfg = smoke_config(get_config(ARCH))
-    model = Model(cfg)
-    tokens = torch.zeros(2, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A6's training half"):
-        model.loss(model.init(0, "cpu"), tokens, tokens)
-    with pytest.raises(NotImplementedError, match="A6's training half"):
-        make_train_bundle(cfg)
+    bundle = make_train_bundle(cfg, lr_schedule=constant(2e-3))
+    tr = Trainer(bundle, SyntheticPipeline(DataConfig(cfg.vocab_size, 128, 8, seed=3)),
+                 TrainerConfig(total_steps=30, steps_per_epoch=10, ckpt_every_steps=1000, log_every=1000))
+    tr.init_or_restore(0, "cpu")
+    rep = tr.train()
+    assert rep["final_loss"] < rep["first_loss"] - 0.3, rep
+    _, _, metrics = bundle.step_fn(tr.params, tr.opt_state, tr._batch(30))
+    assert sorted(metrics) == ["aux", "ce", "grad_norm", "loss", "lr"] and float(metrics["aux"]) > 0
+
+
+@pytest.mark.parametrize("arch", [ARCH, "deepseek-v3-671b"])
+def test_train_launcher_runs_the_config_on_the_cpu(arch, tmp_path, capsys):
+    """``launch/train.py --smoke --device cpu``, checkpointing and restarting
+    from its checkpoint (deepseek-v3-671b's Adafactor state included)."""
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2", "--seq", "32",
+            "--steps-per-epoch", "2", "--ckpt-dir", str(tmp_path)]
+    train_launcher.main(args + ["--steps", "2"])
+    out = capsys.readouterr().out
+    assert out.startswith("fresh init") and "'steps': 2" in out
+    train_launcher.main(args + ["--steps", "3"])
+    out = capsys.readouterr().out
+    assert out.startswith("restored step 2") and "'steps': 3" in out
+
+
+@pytest.mark.parametrize("arch", [ARCH, "deepseek-v3-671b"])
+def test_train_launcher_without_a_card_exits_nonzero(arch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--smoke", "--steps", "1"],
+                         cwd=root, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+    assert "fresh init" not in out.stdout
 
 
 def test_serve_launcher_runs_on_cpu(capsys):

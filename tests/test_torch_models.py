@@ -21,10 +21,14 @@ from repro.models import mamba as jmamba
 from repro.models import params as jparams
 from repro.models.transformer import Model as JaxModel
 
-from repro_torch.configs import MoEConfig, get_config, smoke_config
+from repro import configs as jax_configs
+from repro_torch import configs as torch_configs
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import attention, common, mamba
-from repro_torch.models.params import param_bytes
+from repro_torch.models.params import from_jax_params, param_bytes
 from repro_torch.models.transformer import Model
+from repro_torch.train.steps import loss_and_grads, make_train_bundle
+from repro_torch.tree import leaves, leaves_with_paths
 
 TOL = 1e-5
 SSM_TOL = 1e-4
@@ -195,12 +199,8 @@ def test_mamba_init_follows_jax_rules():
     "change",
     [
         {"remat": "dots"},
-        {"moe": MoEConfig(num_experts=8, top_k=2, d_ff_expert=64)},
-        {"mtp_depth": 1},
         {"enc_dec": True},
         {"attention": "none"},
-        {"attention": "mla"},
-        {"moe": MoEConfig(num_experts=8, top_k=2, d_ff_expert=64, first_k_dense=1)},
         {"hybrid_pattern": ("attn", "ssm")},
     ],
 )
@@ -208,12 +208,61 @@ def test_unported_features_raise(change):
     """The model refuses what it cannot build or train. qk-norm,
     sliding-window attention and frontends are ported
     (tests/test_torch_train.py), and so are the ring-buffer and int8 KV caches
-    (tests/test_torch_cache.py); MoE layers and MLA serve
-    (tests/test_torch_deepseek.py) but do not train yet."""
+    (tests/test_torch_cache.py); MoE layers, MLA and multi-token prediction
+    serve and train (``test_ported_features_train_as_the_reference``)."""
     cfg = dataclasses.replace(smoke_config(get_config("minitron-8b")), **change)
     tokens = torch.zeros(2, 8, dtype=torch.long)
     with pytest.raises(NotImplementedError):
         Model(cfg).loss({}, tokens, tokens)
+
+
+# minitron-8b's smoke config with a feature that ``test_unported_features_raise``
+# refused before MoE, MLA and MTP training were ported; ``c`` is either package's
+# ``configs`` module.
+TRAINED_FEATURES = {
+    "moe": lambda c: {"moe": c.MoEConfig(num_experts=8, top_k=2, d_ff_expert=64)},
+    "moe-first-dense": lambda c: {"moe": c.MoEConfig(num_experts=8, top_k=2, d_ff_expert=64, first_k_dense=1)},
+    "mtp": lambda c: {"mtp_depth": 1},
+    "mla": lambda c: {"attention": "mla", "mla": c.MLAConfig(
+        q_lora_rank=None, kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16)},
+}
+
+
+@pytest.mark.parametrize("feature", sorted(TRAINED_FEATURES))
+def test_ported_features_train_as_the_reference(feature, rng):
+    """The feature trains on the CPU: in fp32 the loss and its metrics within
+    1e-5 and every gradient leaf within 1e-4 (relative L2) of ``jax.grad``'s
+    (the port's MoE layers dispatch through the sort path, the reference's
+    through the one-hot oracle: ROADMAP C4), and a step of the train bundle
+    from the port's own init gives finite metrics and parameters."""
+    change = TRAINED_FEATURES[feature]
+    cfg = dataclasses.replace(smoke_config(get_config("minitron-8b")), **change(torch_configs))
+    jcfg = dataclasses.replace(jax_smoke_config(jax_get_config("minitron-8b")), **change(jax_configs))
+    jmodel = JaxModel(jcfg)
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32), jmodel.init(jax.random.PRNGKey(0)))
+    model = Model(cfg)
+    params = from_jax_params(jax.tree.map(np.asarray, jp), "cpu", defs=model.param_defs())
+    tokens = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jmodel.loss(p, jnp.asarray(tokens), jnp.asarray(labels)), has_aux=True))(jp)
+    batch = {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels)}
+    loss, metrics, grads = loss_and_grads(model, params, batch)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=TOL)
+    assert sorted(metrics) == sorted(jmetrics)
+    for key in metrics:
+        np.testing.assert_allclose(float(metrics[key]), float(jmetrics[key]), rtol=TOL, err_msg=key)
+    theirs = dict(leaves_with_paths(jax.tree.map(np.asarray, jgrads)))
+    ours = dict(leaves_with_paths(grads))
+    assert sorted(ours) == sorted(theirs)
+    for path, g in ours.items():
+        want = theirs[path]
+        assert np.linalg.norm(g.numpy() - want) <= 1e-4 * max(np.linalg.norm(want), 1e-30), path
+    bundle = make_train_bundle(cfg)
+    params, opt = bundle.init_state(0, "cpu")
+    params, _, step_metrics = bundle.step_fn(params, opt, batch)
+    assert all(np.isfinite(float(v)) for v in step_metrics.values())
+    assert all(bool(torch.isfinite(t).all()) for t in leaves(params))
 
 
 @pytest.mark.parametrize(

@@ -8,7 +8,12 @@ the reference's with ``==``, also where a skewed router overflows the
 capacity and drops choices; the port's sort path (what its ``Model`` runs)
 against both one-hot oracles within 1e-5 (the reference holds its own sort
 path to 3e-2 in bf16, ``tests/test_models.py::test_moe_sort_matches_onehot``);
-the load-balancing loss within 1e-6.
+the load-balancing loss within 1e-6. In training: a choice dropped past the
+capacity passes its token exactly no gradient through the dispatch, as the
+one-hot oracle's zero dispatch weights pass none, and the sort path's
+gradients (input, router, experts, shared experts, through the output and
+the aux loss) equal ``jax.grad`` of the reference's one-hot oracle within
+1e-5 relative L2.
 """
 
 import dataclasses
@@ -27,6 +32,7 @@ from repro.models.params import init_params as jax_init_params
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import moe
 from repro_torch.models.params import from_jax_params
+from repro_torch.tree import leaves, leaves_with_paths, unflatten
 
 ARCH = "deepseek-v2-lite-16b"
 B, S = 2, 16
@@ -112,6 +118,57 @@ def test_sort_path_matches_both_onehot_oracles(skew, rng):
         probs = moe.router_probs(params, torch.from_numpy(x).reshape(-1, 64))
         idx = moe._top_k(probs, cfg.moe.top_k)[1]
         assert int(torch.bincount(idx.reshape(-1), minlength=8).max()) > moe._capacity(B * S, cfg.moe)
+
+
+def test_a_dropped_choice_gets_an_exactly_zero_gradient(rng):
+    """Choices past the capacity go to the trash row, which the experts
+    never read: the gradient reaching a token through the dispatch is the
+    sum over its kept choices only. With every token choosing experts 0 and
+    1, the tokens past the capacity C have both choices dropped and get
+    exactly 0; with the skewed router's own choices, the kept ones only."""
+    cfg, _, params, _ = _params(skew=0.1)
+    m = cfg.moe
+    E, k = m.num_experts, m.top_k
+    xt = torch.from_numpy(_x(rng, skew=0.1).reshape(-1, 64)).requires_grad_()
+    T, C = xt.shape[0], moe._capacity(B * S, m)
+    g = torch.from_numpy(rng.standard_normal((E * C + 1, 64)).astype(np.float32))
+    crowded = torch.tensor([[0, 1]]).expand(T, k)
+    for idx in (crowded, moe._top_k(moe.router_probs(params, xt.detach()), k)[1]):
+        buf, dest = moe._local_dispatch(xt, idx, C, E)
+        (gx,) = torch.autograd.grad((buf[: E * C] * g[: E * C]).sum(), xt)  # what the experts read
+        kept = (dest != E * C).view(T, k)
+        assert not bool(kept.all())
+        assert torch.equal(gx, (g[dest].view(T, k, 64) * kept[..., None]).sum(dim=1))
+    buf, dest = moe._local_dispatch(xt, crowded, C, E)
+    (gx,) = torch.autograd.grad((buf[: E * C] * g[: E * C]).sum(), xt)
+    assert C < T and bool((dest.view(T, k)[C:] == E * C).all())
+    assert bool((gx[C:] == 0).all()) and bool((gx[:C] != 0).all())
+
+
+@pytest.mark.parametrize("skew", [0.0, 0.1])
+def test_sort_path_gradients_match_the_jax_onehot_oracle(skew, rng):
+    """The loss sum(out * G) + 0.01 aux through the port's sort path and
+    through the reference's one-hot oracle (what its ``Model`` without a mesh
+    trains), from the same weights: every parameter's and the input's
+    gradient within 1e-5 relative L2; with the skewed router choices drop."""
+    cfg, jcfg, params, jparams = _params(skew)
+    x = _x(rng, skew)
+    G = rng.standard_normal(x.shape).astype(np.float32)
+
+    def jloss(p, x):
+        out, aux = jmoe.moe_forward_onehot(p, jcfg, x)
+        return jnp.sum(out * G) + 0.01 * aux
+
+    jg, jgx = jax.grad(jloss, argnums=(0, 1))(jparams, jnp.asarray(x))
+    tracked = [t.detach().requires_grad_() for t in leaves(params)]
+    xt = torch.from_numpy(x).requires_grad_()
+    out, aux = moe.moe_forward(unflatten(params, tracked), cfg, xt)
+    grads = torch.autograd.grad((out * torch.from_numpy(G)).sum() + 0.01 * aux, tracked + [xt])
+    theirs = dict(leaves_with_paths(jax.tree.map(np.asarray, jg)))
+    for (path, _), got in zip([*leaves_with_paths(params), ("x", None)], grads):
+        want = np.asarray(jgx) if path == "x" else theirs[path]
+        err = np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
+        assert err <= 1e-5, (path, err)
 
 
 def test_aux_load_balance_loss_matches_jax(rng):

@@ -6,7 +6,9 @@ Tolerances: fp32 AdamW updates and the global norm within 1e-6 relative of
 the JAX package's (the same fp32 arithmetic, other rounding of a few sums);
 bf16 parameters within one bf16 step (2^-8 relative), since an fp32 result
 that differs in its last bit can round to the neighbouring bf16 value;
-schedules within 1e-7 relative; pipeline batches identical.
+schedules within 1e-7 relative; pipeline batches identical. Adafactor's
+parameters and accumulators within 1e-6 relative of the JAX package's, as
+AdamW's.
 """
 
 import os
@@ -33,6 +35,8 @@ from repro_torch.checkpoint.checkpoint import (
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
 from repro_torch.optim import schedules
 from repro_torch.optim.adamw import (
+    Adafactor,
+    AdafactorState,
     AdamW,
     AdamWState,
     OptimizerConfig,
@@ -67,9 +71,28 @@ def test_optimizer_reduces_quadratic():
     assert float(loss_fn(params)) < 0.5 * l0
 
 
-def test_adafactor_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Adafactor"):
-        make_optimizer(OptimizerConfig(name="adafactor"))
+def test_adafactor_reduces_quadratic():
+    """Twin of ``test_optimizer_reduces_quadratic[adafactor]``."""
+    opt = Adafactor(OptimizerConfig(weight_decay=0.0))
+    gen = torch.Generator().manual_seed(0)
+    W, x, y = (torch.randn(shape, generator=gen) for shape in ((8, 8), (8, 16), (8, 16)))
+    params = {"w": W}
+    state = opt.init(params)
+
+    def loss_fn(p):
+        return torch.mean(torch.square(p["w"] @ x - y))
+
+    l0 = float(loss_fn(params))
+    for _ in range(50):
+        w = params["w"].detach().requires_grad_()
+        g = torch.autograd.grad(loss_fn({"w": w}), w)[0]
+        params, state = opt.update({"w": g}, state, params, torch.tensor(0.05))
+    assert float(loss_fn(params)) < 0.5 * l0
+
+
+def test_make_optimizer_builds_adafactor_and_refuses_an_unknown_name():
+    assert isinstance(make_optimizer(OptimizerConfig(name="adafactor")), Adafactor)
+    assert isinstance(make_optimizer(OptimizerConfig(name="adamw")), AdamW)
     with pytest.raises(ValueError):
         make_optimizer(OptimizerConfig(name="sgd"))
 
@@ -162,6 +185,36 @@ def test_global_norm_and_clip_match_jax(rng):
     np.testing.assert_allclose(float(norm), float(jnorm), rtol=1e-6)
     _assert_tree_close(clipped, jclipped)
     assert all(a.dtype == b.dtype for a, b in zip(leaves(clipped), leaves(tree)))
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((24,), "float32"),  # 1-D: the full second moment, a 0-dim column placeholder
+    ((16, 24), "bfloat16"),  # 2-D: row and column means
+    ((3, 4, 16, 24), "bfloat16"),  # stacked 4-D (layers, experts, d, f): leading axes kept
+])
+def test_adafactor_updates_match_jax(shape, dtype, rng):
+    """Three updates with fresh gradients at 0.05 (the update clip acts):
+    the parameter, ``vr``, ``vc`` and the step. The stacked leaf's layers
+    get gradients of other spreads, so a clip by each layer's RMS in place of
+    the whole leaf's would part from the reference."""
+    spread = np.linspace(0.5, 4.0, shape[0]).reshape((-1,) + (1,) * (len(shape) - 1)) if len(shape) > 2 else 1.0
+
+    def draw():
+        return _split({"w": ((rng.standard_normal(shape) * spread).astype(np.float32), dtype)})
+
+    params, jparams = draw()
+    opt, jopt = Adafactor(OptimizerConfig()), jadamw.Adafactor(jadamw.OptimizerConfig())
+    state, jstate = opt.init(params), jopt.init(jparams)
+    assert [tuple(t.shape) for t in leaves(state)] == [tuple(np.shape(a)) for a in jax.tree.leaves(jstate)]
+    for _ in range(3):
+        grads, jgrads = draw()
+        params, state = opt.update(grads, state, params, torch.tensor(0.05))
+        jparams, jstate = jopt.update(jgrads, jstate, jparams, jnp.asarray(0.05, jnp.float32))
+    _assert_tree_close(params, jparams)
+    _assert_tree_close(state.vr, jstate.vr)
+    _assert_tree_close(state.vc, jstate.vc)
+    assert int(state.step) == int(jstate.step) == 3
+    assert params["w"].dtype == getattr(torch, dtype) and state.vr["w"].dtype == torch.float32
 
 
 # ------------------------------------------------------------------ schedules
@@ -258,6 +311,22 @@ def test_checkpoint_roundtrip_of_an_optimizer_state():
         fresh = {"params": {k: torch.zeros_like(v) for k, v in params.items()}, "opt": opt.init(params)}
         restored, _ = restore_checkpoint(latest_checkpoint(d), fresh)
     assert isinstance(restored["opt"], AdamWState) and int(restored["opt"].step) == 1
+    for a, b in zip(leaves(tree), leaves(restored)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_checkpoint_roundtrip_of_an_adafactor_state():
+    """The factored accumulators and the 1-D leaf's 0-dim placeholder come back."""
+    params = {"w": torch.randn(2, 3, 5).to(torch.bfloat16), "n": torch.randn(5)}
+    opt = Adafactor(OptimizerConfig())
+    params, state = opt.update({"w": torch.randn(2, 3, 5), "n": torch.randn(5)}, opt.init(params), params, 0.1)
+    tree = {"params": params, "opt": state}
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, 1, tree)
+        fresh = {"params": {k: torch.zeros_like(v) for k, v in params.items()}, "opt": opt.init(params)}
+        restored, _ = restore_checkpoint(latest_checkpoint(d), fresh)
+    assert isinstance(restored["opt"], AdafactorState) and int(restored["opt"].step) == 1
+    assert restored["opt"].vc["n"].shape == () and restored["opt"].vr["w"].shape == (2, 3)
     for a, b in zip(leaves(tree), leaves(restored)):
         assert a.dtype == b.dtype and torch.equal(a, b)
 

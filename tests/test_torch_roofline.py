@@ -132,20 +132,31 @@ def test_analytic_terms_equal_the_reference(name):
             jcfg, jshape.global_batch, jshape.seq_len)
 
 
-@pytest.mark.parametrize("name", ["deepseek-v3-671b", "deepseek-v2-lite-16b", "jamba-1.5-large-398b",
-                                  "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("name", ["jamba-1.5-large-398b", "seamless-m4t-large-v2"])
 def test_model_refuses_the_families_it_does_not_run(name):
-    """The four configs of the bridge's family universe that ``Model`` did
-    not run before: it raises for the layouts of three, at full and at smoke
-    size; deepseek-v2-lite-16b it serves, and refuses only to train."""
+    """The two configs of the bridge's family universe that ``Model`` does
+    not run: it raises for their layouts (hybrid, encoder-decoder), at full
+    and at smoke size."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models.factory import build_model
+
+    for cfg in (get_config(name), smoke_config(get_config(name))):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            build_model(cfg)
+
+
+@pytest.mark.parametrize("name", ["deepseek-v3-671b", "deepseek-v2-lite-16b"])
+def test_model_builds_and_trains_the_moe_families(name):
+    """The two MoE + MLA configs that ``Model`` refused before: at full and
+    at smoke size it defines their parameters (deepseek-v3-671b's with the
+    MTP module) and builds their train bundle with the config's optimizer,
+    allocating nothing."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.models.factory import build_model
     from repro_torch.train.steps import make_train_bundle
 
     for cfg in (get_config(name), smoke_config(get_config(name))):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            if name == "deepseek-v2-lite-16b":
-                assert build_model(cfg).param_defs()
-                make_train_bundle(cfg)
-            else:
-                build_model(cfg)
+        defs = build_model(cfg).param_defs()
+        assert ("mtp" in defs) == bool(cfg.mtp_depth) and "moe" in defs
+        bundle = make_train_bundle(cfg)
+        assert type(bundle.optimizer).__name__ == {"adamw": "AdamW", "adafactor": "Adafactor"}[cfg.optimizer]
