@@ -61,14 +61,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    kernel run's expert choices (routed freely, the two part at router
    near-ties: ROADMAP C8) (the bf16 paths first, then the weights widened to
    fp32 in place, leaf by leaf), and the planted fault of ``DEEPSEEK_PLANTED``;
-7. launcher: ``launch/serve.py``'s command line at each model phase's sizes;
-8. training kernels: the three kernels of the training forward pass timed at
+7. seamless-m4t-large-v2 (encoder-decoder: 24 encoder + 24 decoder layers,
+   d_model 1024, MHA 16/16 at head_dim 64, cross-attention, 2.03 B
+   parameters) at full width and depth, its encoder fed 1024 seeded frames
+   a sequence (the launcher's stand-ins), batch 4, a 200-token decoder
+   prompt, 32 decode steps: its kernels timed at its shapes (flash
+   non-causal on the encoder and the cross-attention, Sq != Sk, at D 64 on
+   the model's views, and the training shapes with each Function's plain
+   backward; decode over the 1024 frames' cross cache, group 1; rmsnorm at
+   its rows); 122 rmsnorm + 72 flash launches per prefill, 73 rmsnorm + 48
+   decode per step (self and cross); the cache's layout; a profile; the
+   logits gates of phase 5 at every step with the fp32 kernel path within
+   1e-4 of fp32 plain, and the planted faults of ``SEAMLESS_PLANTED``;
+8. launcher: ``launch/serve.py``'s command line at each model phase's sizes;
+9. training kernels: the three kernels of the training forward pass timed at
    its shapes (internvl2-2b's rmsnorm and flash_attention, mamba2-370m's
    rmsnorm and ssd_scan, deepseek-v2-lite-16b's flash at q/k 192 and v 128 on
-   the MLA views and rmsnorm on the kv_norm slice) beside the plain version,
+   the MLA views and rmsnorm on the kv_norm slice; seamless-m4t-large-v2's
+   are timed in phase 7) beside the plain version,
    the library call and the bound, and each autograd Function's plain
    backward pass timed at the same shapes;
-9. internvl2-2b (its 256 frontend positions fed the trainer's seeded stand-in
+10. internvl2-2b (its 256 frontend positions fed the trainer's seeded stand-in
    embeddings) and mamba2-370m
    trained at full width and depth, bf16, batch 4 x 2048 tokens from
    ``SyntheticPipeline``, AdamW at its defaults and a constant 3e-4:
@@ -100,9 +113,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
      route freely (the same runs held to those choices are printed beside);
      the planted rope-box fault must break both bf16 gates;
      the profile shows the expert products (forward and recompute) apart;
-10. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
+   - then seamless-m4t-large-v2 the same way at full width and depth, its
+     encoder over 1024 seeded frames a sequence: 242 rmsnorm + 144 flash
+     launches a step (per encoder layer two rmsnorms and one non-causal
+     flash, per decoder layer three rmsnorms, causal and cross flash, twice;
+     ``enc_norm`` and the final norm); the cross-entropy over all labels;
+     the non-causal-as-causal fault must break both gates;
+11. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
    checkpointing under ``build/`` and restarting from it;
-11. co-location: the two training cells as jobs of ``colocation/stepper.py``'s
+12. co-location: the two training cells as jobs of ``colocation/stepper.py``'s
    ``TemporalStepper`` (one whole step per job per round, one process, the
    training phase's weights and settings), observed by ``EarlyStageProfiler``
    with the H100's peak and 8 N T FLOPs a step:
@@ -122,9 +141,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    - evict: mamba2-370m checkpointing every 2 steps under ``build/``, 3 steps,
      then ``evict``: step 2, and its state equal bit for bit to a host copy
      taken at that boundary.
-12. scheduling, on the card's host (no kernel runs here): EaCO's scheduling
+13. scheduling, on the card's host (no kernel runs here): EaCO's scheduling
    path (the roofline bridge, the cluster simulator, the control plane,
-   telemetry and the schedulers), fed what phase 11 measured:
+   telemetry and the schedulers), fed what phase 12 measured:
    - the calibration without profiles: its families, signatures and a hash
      of its saved bytes;
    - the goldens: ``tests/golden_metrics.json``'s ``schedulers`` (the 100-job
@@ -148,8 +167,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 ``--seed`` (default 0) draws other weights and prompts for the model phases.
 
-A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the four serve
-paths' (h2o-danube-1.8b's runs A and B), the three 20-step training runs' and
+A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the five serve
+paths' (h2o-danube-1.8b's runs A and B), the four 20-step training runs' and
 the co-located rounds'.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
@@ -209,6 +228,7 @@ from repro_torch.core.history import History  # noqa: E402
 from repro_torch.core.predictor import JCTPredictor  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as decode_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.ssd_scan import ROWS as SSD_ROWS  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -275,12 +295,22 @@ DS_H, DS_NOPE, DS_DQK, DS_DV, DS_D_MODEL, DS_KV_LORA, DS_DKV = 16, 128, 192, 128
 TRAIN_ARCHS = ("internvl2-2b", "mamba2-370m")
 TR_B, TR_SEQ, TR_STEPS, TR_LR = 4, 2048, 20, 3e-4
 TR_H, TR_HKV = 16, 8  # internvl2-2b's attention heads (head_dim 128, as minitron-8b's)
-FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL, DS_ARCH: 1e-4}
+FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL, DS_ARCH: 1e-4, "seamless-m4t-large-v2": 1e-4}
 # deepseek-v2-lite-16b trained at full width with its depth cut to 1 dense + 4
 # MoE layers (2.84 B parameters, ~34 GB with bf16 gradients and fp32 AdamW
 # state; the 27 layers would need ~188 GB): T = 8192 tokens a step, C = 960 an
 # expert.
 DS_TRAIN_LAYERS = 5
+# The seamless-m4t-large-v2 phases (encoder-decoder): 24 encoder + 24 decoder
+# layers, d_model 1024, MHA 16/16 at head_dim 64, d_ff 8192, the vocab padded
+# to 256,256, 2.03 B parameters; the stub frontend's 1024 frames an utterance
+# (the trainer's seeded stand-ins) are the encoder's input. Served: batch 4, a
+# 200-token decoder prompt (ragged against 128-row and 64-key tiles), 32
+# greedy decode steps. Trained at the training cells' batch 4 x 2048 decoder
+# tokens, over 1024 frames a sequence.
+SM_ARCH, SM_B, SM_PROMPT, SM_STEPS = "seamless-m4t-large-v2", 4, 200, 32
+SM_H, SM_D, SM_FRAMES, SM_D_MODEL = 16, 64, 1024, 1024
+SM_MAX_LEN = SM_PROMPT + SM_STEPS
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 TRAIN_CKPT_DIR = os.path.join(BUILD_DIR, "chip_smoke_train_ckpt")
 
@@ -445,6 +475,10 @@ RMS_DANUBE = [(DN_B * DN_PROMPT, DN_D_MODEL), (DN_B, DN_D_MODEL)]
 # kv_norm reads the first 512 columns of each 576-wide dkv row in place.
 RMS_DEEPSEEK = [(DS_B * DS_PROMPT, DS_D_MODEL), (DS_B, DS_D_MODEL)]
 RMS_KV_NORM = [DS_B * DS_PROMPT, DS_B, 1, DS_B * DS_PROMPT + 1]
+# seamless-m4t-large-v2's rows, d_model 1024: the encoder's 4 x 1024 frames,
+# the decoder's prefill and decode step (its training rows, 8192, are
+# RMS_TRAIN's second shape).
+RMS_SEAMLESS = [(SM_B * SM_FRAMES, SM_D_MODEL), (SM_B * SM_PROMPT, SM_D_MODEL), (SM_B, SM_D_MODEL)]
 
 
 def check_rmsnorm(gen) -> float:
@@ -454,11 +488,12 @@ def check_rmsnorm(gen) -> float:
     ragged = [(rows, d) for d in (1024, 2048, D_MODEL) for rows in (1, B * PROMPT + 1, MB_B * MB_PROMPT + 1)]
     for dtype in DTYPES:
         for rows, d in ([(4, 64), (100, 128), (257, 256), (33, 100)] + RMS_SLICES + RMS_TRAIN + RMS_DANUBE
-                        + RMS_DEEPSEEK + ragged + RMS_ODD):
+                        + RMS_DEEPSEEK + RMS_SEAMLESS + ragged + RMS_ODD):
             x, scale = randn(gen, rows, d, dtype=dtype), randn(gen, d, dtype=torch.float32)
             err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
             print(f"check rmsnorm {str(dtype)[6:]} rows={rows} d={d}: max_abs_err={err:.3e}")
-            if dtype == torch.bfloat16 and (rows, d) in RMS_SLICES + RMS_TRAIN + RMS_DANUBE + RMS_DEEPSEEK:
+            if dtype == torch.bfloat16 and (rows, d) in (RMS_SLICES + RMS_TRAIN + RMS_DANUBE + RMS_DEEPSEEK
+                                                         + RMS_SEAMLESS):
                 worst = max(worst, err)
         # the kv_norm slice, rows 1152 bytes apart (and 1154, off 16 bytes: the generic kernel)
         for rows in RMS_KV_NORM:
@@ -540,7 +575,28 @@ def check_flash(gen) -> float:
               f"Dv {DS_DV} causal=True, the MLA prefill's views: max_abs_err={err:.3e}")
         if dtype == torch.bfloat16:
             worst = max(worst, err)
+        # seamless-m4t-large-v2 at D 64, MHA, on the (B, S, H, D) projections
+        # viewed (B, H, S, D): the encoder (non-causal, S 1024), the prefill's
+        # cross-attention (200 decoder rows over 1024 frames), the training
+        # cross-attention (2048 over 1024) and decoder self-attention (causal 2048)
+        for b, sq, sk, causal in SEAMLESS_FLASH:
+            q = randn(gen, b, sq, SM_H, SM_D, dtype=dtype).transpose(1, 2)
+            k, v = (randn(gen, b, sk, SM_H, SM_D, dtype=dtype).transpose(1, 2) for _ in range(2))
+            err = max_abs_err(ops.flash_attention(q, k, v, causal=causal), ref.attention_ref(q, k, v, causal=causal),
+                              dtype)
+            print(f"check flash_attention {str(dtype)[6:]} {(b, SM_H, SM_H, sq, sk, SM_D)} causal={causal}, "
+                  f"strided (B, S, H, D) views (seamless): max_abs_err={err:.3e}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
     return worst
+
+
+# seamless-m4t-large-v2's flash shapes (B, Sq, Sk, causal): the encoder, the
+# prefill's cross-attention, the training cross-attention and decoder
+# self-attention; its prefill's causal self-attention at S 200 is in the sweep
+# of the tile edges at D 64.
+SEAMLESS_FLASH = [(SM_B, SM_FRAMES, SM_FRAMES, False), (SM_B, SM_PROMPT, SM_FRAMES, False),
+                  (TR_B, TR_SEQ, SM_FRAMES, False), (TR_B, TR_SEQ, TR_SEQ, True), (SM_B, SM_PROMPT, SM_PROMPT, True)]
 
 
 def attention_by_sequence(q, k, v, window=None) -> torch.Tensor:
@@ -558,7 +614,11 @@ def check_decode(gen) -> float:
                 (B, H, HKV, 4096, D, v) for v in (1, 15, 17, 533)] + [(1, H, HKV, 8192, D, 8192)] + [
                 # h2o-danube-1.8b's 4096-slot ring at ragged valid lengths and full
                 (DN_B, DN_H, DN_HKV, DN_WINDOW, DN_D, v) for v in (1, 15, 17, 533, DN_WINDOW)] + [
-                (2, 4, 2, 300, DN_D, 123)]
+                (2, 4, 2, 300, DN_D, 123)] + [
+                # seamless-m4t-large-v2's decode: cross-attention over all 1024 frames
+                # (group 1) and short of them, its self-attention cache
+                (SM_B, SM_H, SM_H, SM_FRAMES, SM_D, v) for v in (SM_FRAMES, SM_FRAMES - 1, 17, 1)] + [
+                (SM_B, SM_H, SM_H, SM_MAX_LEN, SM_D, v) for v in (SM_PROMPT + 1, SM_MAX_LEN)]
     for dtype in DTYPES:
         for b, h, hkv, s, d, valid in cases:
             q = randn(gen, b, h, d, dtype=dtype)
@@ -567,7 +627,8 @@ def check_decode(gen) -> float:
             err = max_abs_err(out, ref.decode_attention_ref(q, k, v, valid), dtype)
             print(f"check decode_attention {str(dtype)[6:]} {(b, h, hkv, s, d)} valid={valid}: "
                   f"max_abs_err={err:.3e}")
-            if dtype == torch.bfloat16 and (s == MAX_LEN or (s, d, valid) == (DN_WINDOW, DN_D, DN_WINDOW)):
+            if dtype == torch.bfloat16 and (s == MAX_LEN or (s, d, valid) in (
+                    (DN_WINDOW, DN_D, DN_WINDOW), (SM_FRAMES, SM_D, SM_FRAMES), (SM_MAX_LEN, SM_D, SM_MAX_LEN))):
                 worst = max(worst, err)
     return worst
 
@@ -880,6 +941,72 @@ def time_mla_flash(gen, b: int, S: int) -> dict:
     flash["bound_ms"], flash["bound_by"] = bound(2 * qk_bytes + 2 * v_bytes,
                                                  2 * b * DS_H * pairs * (DS_DQK + DS_DV), bf)
     return flash
+
+
+def time_seamless_flash(gen, b: int, sq: int, sk: int, causal: bool, backward: bool) -> dict:
+    """flash at D 64, MHA 16/16, on the (B, S, H, D) projections viewed
+    (B, H, S, D), bf16: kernel, plain version, SDPA (its backend named) and
+    the bound; with ``backward``, the Function's plain backward too."""
+    bf = torch.bfloat16
+    q_bytes, kv_bytes = b * sq * SM_H * SM_D * 2, b * sk * SM_H * SM_D * 2
+
+    def views():
+        return (randn(gen, b, sq, SM_H, SM_D).transpose(1, 2),
+                *(randn(gen, b, sk, SM_H, SM_D).transpose(1, 2) for _ in range(2)))
+
+    qkv = copies(views, q_bytes + 2 * kv_bytes)
+    library = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+    flash = {
+        "ms": time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=causal), qkv),
+        "plain_ms": time_ms(lambda q, k, v: ref.attention_ref(q, k, v, causal=causal), qkv, 10),
+        "library_ms": time_ms(library, qkv),
+        "library_kernels": sdpa_kernels(library, *qkv[0]),
+    }
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk  # visible (query, key) pairs of a (b, h)
+    flash["pairs"] = pairs
+    # q read once, k and v once, o written once; Q K^T and P V over 64 columns each
+    flash["bound_ms"], flash["bound_by"] = bound(2 * q_bytes + 2 * kv_bytes, 4 * b * SM_H * pairs * SM_D, bf)
+    if backward:
+        q, k, v = (t.detach().requires_grad_() for t in qkv[0])
+        flash["bwd_ms"] = time_backward(gen, lambda q, k, v: ops.flash_attention(q, k, v, causal=causal), (q, k, v))
+    free_memory()
+    return flash
+
+
+def time_seamless_kernels(gen) -> dict:
+    """seamless-m4t-large-v2's kernels at its shapes, bf16, as ``time_kernels``
+    times minitron-8b's: flash on the encoder (non-causal, S 1024), the
+    prefill's cross-attention (200 x 1024) and self-attention (causal, 200),
+    and the training cross-attention (2048 x 1024) and decoder self-attention
+    (causal, 2048), the training shapes with their Function's plain backward
+    (the encoder's shape is a training shape too); decode over the 1024
+    frames' cross cache (group 1) and the full 232-slot self cache; rmsnorm
+    at the encoder's, the prefill's and a decode step's rows."""
+    bf = torch.bfloat16
+    out = {("rmsnorm", shape): time_rmsnorm(gen, *shape) for shape in RMS_SEAMLESS}
+    for b, sq, sk, causal, backward in ((SM_B, SM_FRAMES, SM_FRAMES, False, True),
+                                        (SM_B, SM_PROMPT, SM_FRAMES, False, False),
+                                        (SM_B, SM_PROMPT, SM_PROMPT, True, False),
+                                        (TR_B, TR_SEQ, SM_FRAMES, False, True),
+                                        (TR_B, TR_SEQ, TR_SEQ, True, True)):
+        out[("flash_attention", (b, SM_H, SM_H, sq, sk, SM_D, causal))] = time_seamless_flash(
+            gen, b, sq, sk, causal, backward)
+    # decode over the cross cache (all 1024 frames) and the self cache full (232 slots)
+    for S in (SM_FRAMES, SM_MAX_LEN):
+        cache_bytes = 2 * SM_B * S * SM_H * SM_D * 2
+        cache = copies(lambda: (randn(gen, SM_B, SM_H, SM_D), randn(gen, SM_B, S, SM_H, SM_D),
+                                randn(gen, SM_B, S, SM_H, SM_D)), cache_bytes)
+        dec = {
+            "ms": time_ms(lambda q, k, v: ops.decode_attention(q, k, v, S), cache),
+            "plain_ms": time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, S), cache),
+            "library_ms": time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)), cache),
+            "split": decode_mod.plan_split(SM_B * SM_H, S, _build.sm_count(torch.device("cuda"))),
+        }
+        dec["bound_ms"], dec["bound_by"] = bound(cache_bytes + 2 * SM_B * SM_H * SM_D * 2,
+                                                 4 * SM_B * SM_H * S * SM_D, bf)
+        out[("decode_attention", (SM_B, SM_H, SM_H, S, SM_D))] = dec
+    return out
 
 
 # ---------------------------------------------------------------------------- model
@@ -1448,6 +1575,162 @@ def deepseek_phase(seed: int) -> dict:
     return counts
 
 
+# Faults planted in one kernel of the seamless-m4t-large-v2 paths, each a bug
+# the encoder-decoder is the first main path to show: ``seamless_phase``
+# holds each to the gates named beside it in ``SEAMLESS_PLANTED`` ("bf16":
+# the 1.25x rule against fp32 plain; "fp32": the fp32 kernel path within
+# 1e-4 of fp32 plain), which must fail on it; the training gates hold the
+# first through ``PLANTED``.
+def flash_treats_noncausal_as_causal(q, k, v, *, causal=True, window=None):
+    """Every call masked causally: the encoder's bidirectional attention and
+    the cross-attention see only the keys at or before each query's position
+    (a kernel that ignores ``causal=False``)."""
+    return ops.flash_attention(q, k, v, causal=True, window=window)
+
+
+def decode_drops_last_frame(q, k, v, valid_len):
+    """Cross-attention over the frames' cache reads one key fewer than
+    ``valid_len`` (the last frame is never read); self-attention calls as
+    they are."""
+    return ops.decode_attention(q, k, v, valid_len - 1 if k.shape[1] == SM_FRAMES else valid_len)
+
+
+SEAMLESS_PLANTED = [
+    ("flash_attention treats causal=False as causal", "flash_attention", flash_treats_noncausal_as_causal,
+     ("bf16", "fp32")),
+    ("decode_attention reads one frame fewer than valid_len on the cross cache", "decode_attention",
+     decode_drops_last_frame, ("fp32",)),
+]
+
+
+def seamless_phase(seed: int) -> dict:
+    """seamless-m4t-large-v2 served at full width and depth: the encoder over
+    1024 seeded frames, the decoder over a 200-token prompt, 32 greedy
+    steps. The main path's exact launches (per prefill, per decode step, per
+    run), times, peak memory and a profile; the cache's layout; the logits
+    gates of the h2o phase at every step (the fp32 kernel path within 1e-4
+    of fp32 plain) and the faults of ``SEAMLESS_PLANTED``. Returns the main
+    path's launches."""
+    t_phase = time.perf_counter()
+    cfg = get_config(SM_ARCH)
+    bundle = make_serve_bundle(cfg, max_len=SM_MAX_LEN)
+    t0 = time.perf_counter()
+    params = bundle.model.init(seed, "cuda")
+    torch.cuda.synchronize()
+    n_enc, n_dec = cfg.encoder_layers, cfg.num_layers
+    print(f"seamless {SM_ARCH}: {n_enc} encoder + {n_dec} decoder layers, d_model {cfg.d_model}, MHA "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} at head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} (padded {cfg.padded_vocab}), {sum(t.numel() for t in _tensors(params))} parameters "
+          f"(param_count {cfg.param_count()} without the norm scales), init {time.perf_counter() - t0:.1f} s; "
+          f"{SM_FRAMES} frames x{SM_B}, prompt {SM_PROMPT}, {SM_STEPS} decode steps")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (SM_B, SM_PROMPT), generator=gen, device="cuda")
+    frames = frontend_embeds(cfg, SM_B, seed, 0, "cuda")  # the serve launcher's stand-ins
+
+    serve.greedy_generate(bundle, params, tokens, 2, frames)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    gen_out = serve.greedy_generate(bundle, params, tokens, SM_STEPS, frames)  # the main path
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # encoder: norm1, norm2 and flash a layer, enc_norm; decoder: norm1, norm_x,
+    # norm2, self and cross flash a layer, final_norm; a decode step: the
+    # decoder's norms, self and cross decode_attention a layer
+    per_prefill = {"rmsnorm": 2 * n_enc + 1 + 3 * n_dec + 1, "flash_attention": n_enc + 2 * n_dec,
+                   "decode_attention": 0, "ssd_scan": 0}
+    per_step = {"rmsnorm": 3 * n_dec + 1, "flash_attention": 0, "decode_attention": 2 * n_dec, "ssd_scan": 0}
+    expected = {k: per_prefill[k] + SM_STEPS * per_step[k] for k in per_prefill}
+    print(f"seamless main path launches: {counts} (expected {expected})")
+    require(counts == expected, f"launch counts {counts} != {expected}")
+    print(f"seamless: prefill {SM_FRAMES} frames + {SM_PROMPT} tokens x{SM_B}: {gen_out.prefill_s * 1e3:.3f} ms; "
+          f"decode: {gen_out.decode_s_per_token * 1e3:.3f} ms/token ({SM_B / gen_out.decode_s_per_token:.1f} "
+          f"tokens/s); peak memory {peak_gb:.2f} GB [{nvidia_smi('name,power.limit')}]")
+    print(f"card during run: {nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+    for lg in gen_out.logits:
+        require(lg.shape == (SM_B, cfg.padded_vocab) and bool(torch.isfinite(lg).all()), "bad logits")
+    require(gen_out.tokens.shape == (SM_B, SM_STEPS), "bad token shape")
+
+    ops.reset_launch_counts()
+    _, cache = bundle.prefill_fn(params, tokens, frames)
+    require(ops.launch_counts() == per_prefill, f"prefill launches {ops.launch_counts()}")
+    hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
+    want = {"self/k": (n_dec, SM_B, SM_MAX_LEN, kv, hd), "self/v": (n_dec, SM_B, SM_MAX_LEN, kv, hd),
+            "cross_k": (n_dec, SM_B, SM_FRAMES, kv, hd), "cross_v": (n_dec, SM_B, SM_FRAMES, kv, hd)}
+    got = {p: tuple(t.shape) for p, t in leaves_with_paths(cache)}
+    require(got == want and all(t.dtype == torch.bfloat16 for t in leaves(cache)), f"cache {got}")
+    for i in range(SM_STEPS):
+        before = ops.launch_counts()
+        _, cache = bundle.decode_fn(params, cache, gen_out.tokens[:, i:i + 1], SM_PROMPT + i)
+        delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        require(delta == per_step, f"decode step {i} launches {delta}")
+    print(f"seamless per-step launches: prefill {per_prefill['rmsnorm']} rmsnorm + {per_prefill['flash_attention']} "
+          f"flash ({n_enc} encoder non-causal at S {SM_FRAMES}, {n_dec} causal at S {SM_PROMPT}, {n_dec} cross "
+          f"{SM_PROMPT} x {SM_FRAMES}), each of {SM_STEPS} decode steps {per_step['rmsnorm']} rmsnorm + "
+          f"{per_step['decode_attention']} decode ({n_dec} self, {n_dec} cross over {SM_FRAMES} frames); cache "
+          f"{want} bf16: ok")
+    del cache
+    print_breakdown(bundle, params, tokens, gen_out.tokens[:, :1], SM_PROMPT, frames)
+
+    # Teacher-forced on the kernel path's tokens over the same frames: the
+    # plain path in bf16, the planted faults, then the weights widened to fp32
+    # (exact from bf16): the plain path, the kernel path and the faults again.
+    plain = make_serve_bundle(cfg, max_len=SM_MAX_LEN, ops=ops.PLAIN)
+    faulty = [(name, make_serve_bundle(cfg, max_len=SM_MAX_LEN, ops=planted(kernel, fn)), must)
+              for name, kernel, fn, must in SEAMLESS_PLANTED]
+    ops.reset_launch_counts()
+    plain_bf16 = teacher_forced(plain, params, tokens, gen_out.tokens, frames)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    fault_bf16 = [teacher_forced(b, params, tokens, gen_out.tokens, frames) for _, b, _ in faulty]
+    _to_float32(params)
+    ops.reset_launch_counts()
+    exact = teacher_forced(plain, params, tokens, gen_out.tokens, frames)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    kernel_fp32 = teacher_forced(bundle, params, tokens, gen_out.tokens, frames)
+    require(ops.launch_counts() == expected, f"fp32 kernel-path launches {ops.launch_counts()}")
+    fault_fp32 = [teacher_forced(b, params, tokens, gen_out.tokens, frames) for _, b, _ in faulty]
+    del params
+    free_memory()
+
+    errs = [rel_l2(a, b) for a, b in zip(gen_out.logits, plain_bf16)]
+    kernel_err = [rel_l2(a, b) for a, b in zip(gen_out.logits, exact)]
+    floor = [rel_l2(a, b) for a, b in zip(plain_bf16, exact)]
+    fp32_err = [rel_l2(a, b) for a, b in zip(kernel_fp32, exact)]
+    for name, e in (("kernels vs plain, bf16", errs), ("kernels bf16 vs plain fp32", kernel_err),
+                    ("plain bf16 vs plain fp32", floor), ("kernels vs plain, fp32", fp32_err)):
+        print(f"seamless logits, relative L2, {name}: prefill {e[0]:.4e}, decode max {max(e[1:]):.4e} "
+              f"mean {np.mean(e[1:]):.4e}")
+    faults = []
+    for (name, _, must), fb, ff in zip(faulty, fault_bf16, fault_fp32):
+        ratios = {"bf16": max(rel_l2(a, b) for a, b in zip(fb, exact)) / max(floor),
+                  "fp32": max(rel_l2(a, b) for a, b in zip(ff, exact)) / FP32_LOGIT_RTOL}
+        faults.append((name, ratios, must))
+        print(f"seamless planted fault, {name}: bf16 distance from fp32 over the plain bf16 path's "
+              f"{ratios['bf16']:.4f} (fails above {FLOOR_RATIO}), fp32 distance from fp32 plain over "
+              f"{FP32_LOGIT_RTOL} {ratios['fp32']:.4f} (fails above 1); caught by "
+              f"[{', '.join(g for g, lim in (('bf16', FLOOR_RATIO), ('fp32', 1.0)) if ratios[g] > lim)}], "
+              f"must be by [{', '.join(must)}]")
+    if max(floor) <= LOGIT_RTOL:
+        require(max(errs) <= LOGIT_RTOL, f"kernel-path logits differ from the plain path: {errs}")
+        rule = f"within {LOGIT_RTOL} relative L2 of the plain path at all {len(errs)} steps, and "
+    else:
+        rule = (f"not held to {LOGIT_RTOL} of the plain bf16 path: the plain bf16 path alone sits "
+                f"{max(floor):.4e} from fp32, so no bf16 path can meet it; ")
+    require(max(kernel_err) <= FLOOR_RATIO * max(floor),
+            f"the kernel path is further from fp32 than bf16 alone explains: {kernel_err} vs {floor}")
+    require(max(fp32_err) <= FP32_LOGIT_RTOL,
+            f"fp32 kernel-path logits differ from the plain path beyond {FP32_LOGIT_RTOL}: {fp32_err}")
+    for name, ratios, must in faults:
+        require(all(ratios[g] > (FLOOR_RATIO if g == "bf16" else 1.0) for g in must),
+                f"a gate passes a planted fault ({name}): {ratios}")
+    print(f"seamless kernel-path logits {rule}no further from fp32 than {FLOOR_RATIO} x the plain bf16 path at any "
+          f"step; fp32 kernel path within {FP32_LOGIT_RTOL} of fp32 plain; {len(faults)} planted faults caught: ok")
+    del bundle, plain, faulty
+    free_memory()
+    print(f"seamless phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def teacher_forced_by_sequence(bundle, params, prompt, generated) -> list:
     """``teacher_forced`` one sequence at a time, the logits stacked back into
     the batch: the plain attention's fp32 scores for the whole batch at
@@ -1456,9 +1739,10 @@ def teacher_forced_by_sequence(bundle, params, prompt, generated) -> list:
     return [torch.cat(step) for step in zip(*runs)]
 
 
-def teacher_forced(bundle, params, prompt, generated) -> list:
-    """Logits of a prefill and one decode step per generated token."""
-    logits, cache = bundle.prefill_fn(params, prompt)
+def teacher_forced(bundle, params, prompt, generated, frames=None) -> list:
+    """Logits of a prefill (over ``frames``, for a frontend) and one decode
+    step per generated token."""
+    logits, cache = bundle.prefill_fn(params, prompt, frames)
     out = [logits]
     for i in range(generated.shape[1]):
         logits, cache = bundle.decode_fn(params, cache, generated[:, i:i + 1], prompt.shape[1] + i)
@@ -1486,10 +1770,10 @@ def _to_float32(tree) -> None:
             torch.cuda.empty_cache()
 
 
-def print_breakdown(bundle, params, tokens, first, prompt_len: int = PROMPT) -> None:
+def print_breakdown(bundle, params, tokens, first, prompt_len: int = PROMPT, frames=None) -> None:
     """Device time by kernel family over one prefill and one decode step
     (torch.profiler), beside the host clock of the same work."""
-    _, cache = profiled("prefill", lambda: bundle.prefill_fn(params, tokens))
+    _, cache = profiled("prefill", lambda: bundle.prefill_fn(params, tokens, frames))
     profiled("decode step", lambda: bundle.decode_fn(params, cache, first, prompt_len))
 
 
@@ -1659,8 +1943,14 @@ def train_launches(cfg) -> dict:
     layer's ``kv_norm`` a third, q-LoRA's ``q_norm`` a fourth) and its
     flash_attention or ssd_scan, in the forward pass and again in the
     checkpoint's recompute (``remat="full"``, every cell), and the final
-    norm; the backward passes are plain."""
+    norm; an encoder-decoder's encoder layers two rmsnorms and one flash,
+    its decoder layers three rmsnorms and two flash (self and cross), and
+    ``enc_norm`` beside the final norm. The backward passes are plain."""
     require(cfg.remat == "full", f"{cfg.name}: remat {cfg.remat!r}")
+    if cfg.enc_dec:
+        enc, dec = cfg.encoder_layers, cfg.num_layers
+        return {"rmsnorm": 2 * (2 * enc + 3 * dec) + 2, "flash_attention": 2 * (enc + 2 * dec),
+                "decode_attention": 0, "ssd_scan": 0}
     ssm = cfg.family == "ssm"
     norms = 2 + (1 + bool(cfg.mla.q_lora_rank) if not ssm and cfg.attention == "mla" else 0)
     return {"rmsnorm": 2 * norms * cfg.num_layers + 1, "flash_attention": 0 if ssm else 2 * cfg.num_layers,
@@ -1779,6 +2069,9 @@ PLANTED = {  # cell: (fault, the kernel it is planted in, the gates that must fa
     DS_ARCH: [
         ("flash_attention ignores Q K^T's third 64-column box (the rope columns 128-191)", "flash_attention",
          flash_ignores_rope_box, BOTH),
+    ],
+    SM_ARCH: [
+        ("flash_attention treats causal=False as causal", "flash_attention", flash_treats_noncausal_as_causal, BOTH),
     ],
 }
 
@@ -1950,7 +2243,8 @@ def train_phase(arch: str, seed: int, layers: int = 0) -> dict:
            f"{cfg.moe.top_k} + {cfg.moe.num_shared_experts} shared (capacity "
            f"{moe_mod._capacity(TR_B * TR_SEQ, cfg.moe)} an expert), {cfg.attention} attention, "
            f"{n_active / 1e9:.4f} B active" if moe_layers else "")
-    print(f"train {arch}: {cfg.num_layers} layers{cut}{moe}, d_model {cfg.d_model}, {n_params / 1e9:.4f} B "
+    depth = f"{cfg.encoder_layers} encoder + {cfg.num_layers} decoder" if cfg.enc_dec else f"{cfg.num_layers}"
+    print(f"train {arch}: {depth} layers{cut}{moe}, d_model {cfg.d_model}, {n_params / 1e9:.4f} B "
           f"parameters (param_count), {sum(t.numel() for t in leaves(params)) / 1e9:.4f} B in the tree, init "
           f"{time.perf_counter() - t0:.1f} s; batch {TR_B} x {TR_SEQ}, remat {cfg.remat}, optimizer {cfg.optimizer}")
     gradient_gate(arch, cfg, bundle, plain, params, pipe)
@@ -2002,13 +2296,17 @@ def train_phase(arch: str, seed: int, layers: int = 0) -> dict:
     times = [h["step_s"] for h in trainer.history]
     losses = [h["loss"] for h in trainer.history]
     flops = 8 * n_active * TR_B * TR_SEQ  # the active parameters: an MoE token meets top_k of the experts
+    if cfg.enc_dec:  # the encoder's parameters meet the frames, the rest the decoder's tokens
+        n_enc = sum(t.numel() for t in leaves(trainer.params["encoder"]))
+        flops = 8 * (n_enc * TR_B * SM_FRAMES + (n_active - n_enc) * TR_B * TR_SEQ)
     bound_s = flops / PEAK_FLOPS[torch.bfloat16]
     energy = (f"energy {power.joules / TR_STEPS:.2f} J/step ({power.watts:.1f} W mean draw over "
               f"{len(power.samples)} samples x {power.seconds:.3f} s, {TR_STEPS} steps)")
     steady = times[1:]
     print(f"train {arch} step time: mean {np.mean(times) * 1e3:.3f} ms over {TR_STEPS} steps, steps 2-{TR_STEPS} "
           f"mean {np.mean(steady) * 1e3:.3f} median {np.median(steady) * 1e3:.3f} min {min(steady) * 1e3:.3f} ms; "
-          f"bound 8 N T (N {n_active / 1e9:.4f} B active) = {flops:.4e} FLOP at 989 TFLOP/s = {bound_s * 1e3:.3f} ms "
+          f"bound 8 N T (N {n_active / 1e9:.4f} B active{'; the encoder at T = the frames' if cfg.enc_dec else ''}) "
+          f"= {flops:.4e} FLOP at 989 TFLOP/s = {bound_s * 1e3:.3f} ms "
           f"({bound_s / np.median(steady):.3f} of the median); {TR_B * TR_SEQ / np.median(steady):.1f} tokens/s; "
           f"peak memory {peak_gb:.2f} GB; {energy}; rollbacks {report['rollbacks']}")
     profiled(f"train step {arch}", lambda: bundle.step_fn(trainer.params, trainer.opt_state,
@@ -2487,19 +2785,32 @@ def main() -> int:
     launcher_phase(DS_ARCH, DS_B, DS_PROMPT, DS_STEPS, args.seed)
     free_memory()
     print(f"deepseek-v2-lite-16b, kernel timings, the served run and the launcher: {time.perf_counter() - t_ds:.1f} s")
+    t_sm = time.perf_counter()
+    seamless_times = time_seamless_kernels(gen)
+    free_memory()
+    print(f"seamless kernel timings: {time.perf_counter() - t_sm:.1f} s")
+    seamless_counts = seamless_phase(args.seed)
+    t_launch = time.perf_counter()
+    launcher_phase(SM_ARCH, SM_B, SM_PROMPT, SM_STEPS, args.seed)
+    free_memory()
+    print(f"seamless launcher: {time.perf_counter() - t_launch:.1f} s; seamless-m4t-large-v2, kernel timings, the "
+          f"served run and the launcher: {time.perf_counter() - t_sm:.1f} s")
 
     train_times = time_train_kernels(gen)
     free_memory()
     train_counts = {arch: train_phase(arch, args.seed) for arch in TRAIN_ARCHS}
     train_counts[DS_ARCH] = train_phase(DS_ARCH, args.seed, DS_TRAIN_LAYERS)
     free_memory()
+    train_counts[SM_ARCH] = train_phase(SM_ARCH, args.seed)
+    free_memory()
     train_launcher_phase(args.seed)
     colo_counts, colo_measured = colocation_phase(args.seed, name_power)
     scheduling_phase(colo_measured, name_power)
-    # a kernel's launches: the four serve paths' (h2o-danube-1.8b's two runs), the
-    # three training runs' and the co-located rounds'
+    # a kernel's launches: the five serve paths' (h2o-danube-1.8b's two runs), the
+    # four training runs' and the co-located rounds'
     paths = [(ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [
-        (f"{DN_ARCH} run {r}", c) for r, c in danube_counts.items()] + [(DS_ARCH, deepseek_counts)] + [
+        (f"{DN_ARCH} run {r}", c) for r, c in danube_counts.items()] + [(DS_ARCH, deepseek_counts),
+                                                                        (SM_ARCH, seamless_counts)] + [
         (f"train {a}", c) for a, c in train_counts.items()] + [("co-located rounds", colo_counts)]
 
     kernels = []
@@ -2554,6 +2865,27 @@ def main() -> int:
               f"{t['bound_ms']:.4f} ms by {t['bound_by']}, {t['bound_ms'] / t['ms']:.2f} of it; "
               f"{t['library_ms'] / t['ms']:.2f}x the library's speed); {t['pairs']} visible (query, key) pairs per "
               f"(b, h); SDPA ran {t['library_kernels']} [{name_power}]")
+    for (name, shape), t in seamless_times.items():
+        if name == "rmsnorm":
+            print(f"kernel rmsnorm seamless shape {shape[0]}x{shape[1]} bf16: {t['ms']:.4f} ms (plain "
+                  f"{t['plain_ms']:.4f} ms, F.rms_norm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4g} ms by "
+                  f"{t['bound_by']}; {t['bound_ms'] / t['ms']:.2f} of the bound, {t['library_ms'] / t['ms']:.2f}x "
+                  f"F.rms_norm's speed); host {t['host_us']:.2f} us a call [{name_power}]")
+            continue
+        if name == "decode_attention":
+            where = "the cross cache, every frame" if shape[3] == SM_FRAMES else "the self cache, full"
+            print(f"kernel decode_attention seamless shape (B, H, Hkv, S, D) {shape} bf16, {where} valid, "
+                  f"{t['split']} blocks a (b, kv head): {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} "
+                  f"ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
+                  f"{t['bound_ms'] / t['ms']:.2f} of it; {t['library_ms'] / t['ms']:.2f}x the library's speed) "
+                  f"[{name_power}]")
+            continue
+        bwd = f"; its Function's plain backward {t['bwd_ms']:.4f} ms" if "bwd_ms" in t else ""
+        print(f"kernel flash_attention seamless shape (B, H, Hkv, Sq, Sk, D, causal) {shape} bf16, (B, S, H, D) "
+              f"views: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']}, {t['bound_ms'] / t['ms']:.2f} of it; "
+              f"{t['library_ms'] / t['ms']:.2f}x the library's speed){bwd}; {t['pairs']} visible (query, key) pairs "
+              f"per (b, h); SDPA ran {t['library_kernels']} [{name_power}]")
     for (name, shape), t in train_times.items():
         library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         if (name, shape[-1:]) == ("rmsnorm", (DS_KV_LORA,)):

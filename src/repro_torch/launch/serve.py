@@ -4,11 +4,19 @@
       --prompt-len 500 --decode-steps 32 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
       --prompt-len 2000 --decode-steps 32 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \\
+      --prompt-len 200 --decode-steps 32 --batch 4
 
 The flags are those of the JAX package's ``launch/serve.py`` plus ``--device`` (default
 ``cuda``). Without ``--smoke`` the full-width config runs on one card with
 seeded random weights. Without a card the launcher exits with an error unless
 ``--device cpu`` is given; it never moves to the CPU by itself.
+
+A config with a modality frontend (internvl2-2b's image tokens,
+seamless-m4t-large-v2's speech frames, its encoder's input) is fed the
+trainer's seeded stand-in embeddings (``train/trainer.py::frontend_embeds``)
+where the reference's launcher feeds zeros: zero frames make every encoder
+output row equal, so cross-attention would be uniform over them (ROADMAP C4).
 """
 
 from __future__ import annotations
@@ -17,12 +25,13 @@ import argparse
 import dataclasses
 import sys
 import time
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.train.steps import ServeBundle, make_serve_bundle
+from repro_torch.train.trainer import frontend_embeds
 
 
 @dataclasses.dataclass
@@ -39,15 +48,17 @@ def _sync(device: torch.device) -> None:
 
 
 def greedy_generate(
-    bundle: ServeBundle, params, tokens: torch.Tensor, steps: int
+    bundle: ServeBundle, params, tokens: torch.Tensor, steps: int,
+    frontend_embeds: Optional[torch.Tensor] = None,
 ) -> Generation:
-    """Prefill ``tokens`` (B, S), then ``steps`` greedy decode steps, as the
-    reference launcher does: the token chosen after prefill is decoded first."""
+    """Prefill ``tokens`` (B, S) (with a frontend's embeddings, if given),
+    then ``steps`` greedy decode steps, as the reference launcher does: the
+    token chosen after prefill is decoded first."""
     device = tokens.device
     prompt_len = tokens.shape[1]
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = bundle.prefill_fn(params, tokens)
+    logits, cache = bundle.prefill_fn(params, tokens, frontend_embeds)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     all_logits = [logits]
@@ -90,7 +101,8 @@ def main(argv=None) -> None:
     tokens = torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen, device=device
     )
-    result = greedy_generate(bundle, params, tokens, args.decode_steps)
+    fe = frontend_embeds(cfg, args.batch, args.seed, 0, device) if cfg.frontend is not None else None
+    result = greedy_generate(bundle, params, tokens, args.decode_steps, fe)
     print(f"prefill {args.prompt_len} tokens x{args.batch}: {result.prefill_s * 1e3:.1f} ms")
     print(f"decode: {result.decode_s_per_token * 1e3:.2f} ms/token")
     print("generated:", result.tokens[:, :12].cpu().tolist())

@@ -4,6 +4,8 @@
       --device cpu --steps 60 --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-2b \\
       --batch 4 --seq 2048 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch seamless-m4t-large-v2 \\
+      --batch 4 --seq 2048 --steps 3      # the encoder over 1024 seeded frames a sequence
 
 The flags are those of the JAX package's ``launch/train.py`` plus ``--device``
 (default ``cuda``). Without ``--smoke`` the full config runs on one card with

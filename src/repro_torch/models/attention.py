@@ -32,6 +32,12 @@ explicitly (:314-321); ``kv_norm`` (and the q-LoRA norm) go to
 weight-absorbed decode: attention in the latent space as plain matmuls and a
 softmax, as the reference leaves it to XLA (no Pallas kernel maps to it). The
 cache keeps the normed latent ``ckv`` and the rotated rope key ``kr``.
+
+Cross-attention (``cross_def``, ``cross_memory_kv``, ``cross_forward``,
+:205-232) is the encoder-decoder's: GQA weights, K and V projected once from
+the encoder memory without RoPE, ``ops.flash_attention(causal=False)`` with
+Sq != Sk in training and prefill, ``ops.decode_attention`` over all frames
+for a decode step.
 """
 
 from __future__ import annotations
@@ -198,6 +204,51 @@ def gqa_decode(
     valid = min(cache_len + 1, W)
     o = ops.decode_attention(q[:, 0], k, v, valid)  # (B, H, hd)
     return torch.matmul(o.reshape(B, 1, -1), p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder decoder layers)
+# ---------------------------------------------------------------------------
+
+
+def cross_def(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    return gqa_def(cfg)
+
+
+def cross_memory_kv(
+    p: Dict[str, torch.Tensor], cfg: ArchConfig, memory: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder memory's (B, F, d) cross-attention K and V, each
+    (B, F, Hkv, hd), without RoPE: computed once per request."""
+    B, F, _ = memory.shape
+    Hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    k = torch.matmul(memory, p["wk"]).reshape(B, F, Hkv, hd)
+    v = torch.matmul(memory, p["wv"]).reshape(B, F, Hkv, hd)
+    return k, v
+
+
+def cross_forward(
+    p: Dict[str, torch.Tensor],
+    cfg: ArchConfig,
+    x: torch.Tensor,  # decoder hidden (B, Sq, d)
+    memory_kv: Tuple[torch.Tensor, torch.Tensor],  # (k, v) of the encoder memory, (B, F, Hkv, hd)
+    ops=kernel_ops,
+) -> torch.Tensor:
+    """Every decoder position attends to all F memory rows (no mask, no
+    RoPE): ``ops.flash_attention(causal=False)`` with Sq = the decoder's
+    length and Sk = F; for one position (decode) ``ops.decode_attention``
+    over all F keys, the same function, where flash would spend a 128-row
+    query tile on one row."""
+    B, Sq, _ = x.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    q = torch.matmul(x, p["wq"]).reshape(B, Sq, H, hd)
+    k, v = memory_kv
+    if Sq == 1:
+        o = ops.decode_attention(q[:, 0], k, v, k.shape[1])  # (B, H, hd)
+    else:
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False)
+        o = o.transpose(1, 2)
+    return torch.matmul(o.reshape(B, Sq, -1), p["wo"])
 
 
 # ---------------------------------------------------------------------------

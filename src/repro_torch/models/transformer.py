@@ -16,8 +16,10 @@ wraps each layer in ``torch.utils.checkpoint`` (the reference's
 backward pass. A modality frontend's embeddings replace the first
 ``frontend_positions`` rows of the token embeddings. The loss adds the MoE
 layers' load-balancing loss (``router_aux_weight``) and, with ``mtp_depth``,
-DeepSeek-V3's multi-token prediction (``_mtp_loss``). The hybrid layout and
-encoder-decoder stacks raise ``NotImplementedError``.
+DeepSeek-V3's multi-token prediction (``_mtp_loss``). The hybrid layout
+raises ``NotImplementedError``, and so does an encoder-decoder stack, as the
+reference's ``Model`` cannot build one: ``models/factory.py`` gives it
+``models/encdec.py``'s ``EncDecModel``.
 
 A dense layer runs ``ops.rmsnorm`` twice and ``ops.flash_attention``
 (training, prefill) or ``ops.decode_attention`` (decode) once (qk-norm adds
@@ -92,7 +94,9 @@ def _layer_groups(cfg: ArchConfig) -> List[Tuple[str, int, Tuple[LayerSpec, ...]
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    """Raise ``NotImplementedError`` for what ``Model`` does not run: the
+    hybrid layout (not ported yet), an encoder-decoder stack (that is
+    ``EncDecModel``'s, as in the reference) and remat ``"dots"``."""
     unsupported = {
         "a hybrid layer pattern": cfg.hybrid_pattern is not None,
         "an encoder-decoder stack": cfg.enc_dec,
@@ -110,6 +114,18 @@ def check_supported(cfg: ArchConfig) -> None:
 
 def _uses_mla(cfg: ArchConfig) -> bool:
     return cfg.family != "ssm" and cfg.attention == "mla"
+
+
+def remat(cfg: ArchConfig, body):
+    """``body`` under the config's remat policy: ``"full"`` recomputes the
+    layer in the backward pass and keeps only its inputs (the reference's
+    ``jax.checkpoint``); ``"none"`` keeps its activations."""
+    if cfg.remat == "none":
+        return body
+    # a layer draws no random numbers, so there is no RNG state to restore
+    return functools.partial(
+        torch.utils.checkpoint.checkpoint, body, use_reentrant=False, preserve_rng_state=False
+    )
 
 
 def _layer(tree: Tree, i: int) -> Tree:
@@ -214,20 +230,10 @@ class Model(nn.Module):
             return moe_mod.moe_forward(p["channel"], self.cfg, h)
         return swiglu(p["channel"], h), h.new_zeros((), dtype=torch.float32)
 
-    def _remat(self, body):
-        """``remat="full"``: recompute the layer in the backward pass and keep
-        only its inputs (``"dots"`` is refused by ``check_supported``)."""
-        if self.cfg.remat == "none":
-            return body
-        # the layer draws no random numbers, so there is no RNG state to restore
-        return functools.partial(
-            torch.utils.checkpoint.checkpoint, body, use_reentrant=False, preserve_rng_state=False
-        )
-
     def _scan_groups(self, params: Tree, x: torch.Tensor, positions: torch.Tensor):
         """Run the layers; returns (hidden, the layers' aux losses summed in
         fp32, 0 without MoE layers, as the reference's)."""
-        block = self._remat(self._block_forward)
+        block = remat(self.cfg, self._block_forward)
         total = x.new_zeros((), dtype=torch.float32)
         for name, n, layers in self.groups:
             for p in _unstack(params[name], n):
@@ -334,15 +340,21 @@ class Model(nn.Module):
         return cache
 
     def prefill(
-        self, params: Tree, tokens: torch.Tensor, max_len: Optional[int] = None
+        self,
+        params: Tree,
+        tokens: torch.Tensor,
+        frontend_embeds: Optional[torch.Tensor] = None,  # (B, frontend_positions, d_model)
+        max_len: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Tree]:
-        """tokens (B, S) -> (last-position logits (B, padded_vocab), populated cache)."""
+        """tokens (B, S) -> (last-position logits (B, padded_vocab), populated
+        cache). A frontend's embeddings replace the first rows of the token
+        embeddings, as in training (the reference's ``prefill``, :410-427)."""
         B, S = tokens.shape
         max_len = max_len or S
         if max_len < S:
             raise ValueError(f"max_len {max_len} is shorter than the prompt ({S})")
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-        x = embed(params["embed"], tokens.long())
+        x = self._embed_inputs(params, tokens, frontend_embeds)
         cache = self.make_cache(B, max_len, dtype=x.dtype, device=x.device)
         for name, n, layers in self.groups:
             for i in range(n):

@@ -2,12 +2,15 @@
 ``make_serve_bundle`` for ``mesh=None``).
 
 The bundles keep the reference's contracts: ``step_fn(params, opt_state,
-batch) -> (params, opt_state, metrics)``, ``prefill_fn(params, tokens) ->
-(logits, cache)`` and ``decode_fn(params, cache, tokens, cache_len) ->
-(logits, cache)``. PyTorch runs eagerly, so there is nothing to jit. The
-train step updates the parameters and the optimizer state in place, and the
-decode step the cache (a dense model's K/V, an SSM's conv windows and state):
-what the reference's donated buffers amount to. The optimizer is the
+batch) -> (params, opt_state, metrics)``, ``prefill_fn(params, tokens,
+frontend_embeds=None) -> (logits, cache)`` and ``decode_fn(params, cache,
+tokens, cache_len) -> (logits, cache)``. PyTorch runs eagerly, so there is
+nothing to jit. The train step updates the parameters and the optimizer
+state in place, and the decode step the cache (a dense model's K/V, an SSM's
+conv windows and state, an encoder-decoder's self-attention K/V): what the
+reference's donated buffers amount to. ``build_model`` gives an
+encoder-decoder config the ``EncDecModel``, whose ``loss`` takes its frames
+where the decoder-only ``Model`` takes a frontend's embeddings. The optimizer is the
 config's (``OptimizerConfig(name=cfg.optimizer)``: AdamW, or Adafactor for
 deepseek-v3-671b), and the metrics carry the loss's ``ce`` and ``aux`` (and
 ``mtp_ce`` with multi-token prediction). A mesh, the ZeRO-3 layout and the
@@ -122,7 +125,7 @@ def make_train_bundle(
 class ServeBundle:
     cfg: ArchConfig
     model: Any
-    prefill_fn: Callable  # (params, tokens) -> (logits, cache)
+    prefill_fn: Callable  # (params, tokens, frontend_embeds=None) -> (logits, cache)
     decode_fn: Callable  # (params, cache, tokens, cache_len) -> (logits, cache)
     max_len: int
 
@@ -130,11 +133,13 @@ class ServeBundle:
 def make_serve_bundle(cfg: ArchConfig, max_len: int = 2048, ops=kernel_ops) -> ServeBundle:
     """Serving entry points for one device (the reference's ``mesh=None``
     case); the cache holds ``max_len`` positions and takes its batch from the
-    prompt. ``ops=kernels.ops.PLAIN`` runs the plain versions instead of the
-    kernels (the reference run on the card)."""
+    prompt. ``prefill_fn`` forwards a frontend's embeddings (an
+    encoder-decoder's frames, which its prefill requires).
+    ``ops=kernels.ops.PLAIN`` runs the plain versions instead of the kernels
+    (the reference run on the card)."""
     model = build_model(cfg, ops=ops)
 
-    def prefill(params, tokens):
-        return model.prefill(params, tokens, max_len=max_len)
+    def prefill(params, tokens, frontend_embeds=None):
+        return model.prefill(params, tokens, frontend_embeds, max_len=max_len)
 
     return ServeBundle(cfg, model, prefill, model.decode_step, max_len)

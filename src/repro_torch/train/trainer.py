@@ -12,7 +12,9 @@ Wraps a :class:`TrainBundle` with:
     offending data window).
 
 A modality frontend is a stub, as in the reference: the trainer feeds its
-positions stand-in embeddings (``frontend_embeds``). Unlike the reference,
+positions stand-in embeddings (``frontend_embeds``); for an encoder-decoder
+(seamless-m4t-large-v2) they are the encoder's input frames, which the serve
+launcher feeds the same way. Unlike the reference,
 which feeds zeros, the port feeds seeded normal draws at the token
 embeddings' spread. Zero rows stay exactly zero through every layer (causal
 attention over zero values, an MLP of zero), and each rmsnorm passes gradient

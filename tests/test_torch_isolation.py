@@ -30,6 +30,7 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+assert "repro_torch.models.encdec" in names, names
 for name in names:
     importlib.import_module(name)
 import chip_smoke

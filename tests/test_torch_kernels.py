@@ -77,7 +77,8 @@ D80_DECODE = [(4, 32, 8, 4096, 80, v) for v in (1, 15, 17, 533, 4096)] + [(2, 4,
 # (groups, valid, SMs) for the cluster planner: the serve slice, small and
 # large batches, short caches, and a card of fewer SMs.
 SPLIT_PLANS = [(32, 532, 132), (32, 0, 132), (32, 1, 132), (32, 15, 132), (32, 16, 132), (32, 17, 132),
-               (8, 8192, 132), (1, 100, 132), (264, 532, 132), (1000, 4096, 132), (32, 31, 132), (3, 129, 78)]
+               (8, 8192, 132), (1, 100, 132), (264, 532, 132), (1000, 4096, 132), (32, 31, 132), (3, 129, 78),
+               (64, 1024, 132), (64, 1023, 132), (64, 1, 132)]
 
 # The minitron-8b serve slice on the card: batch 4, prompt 500, 32 decode steps.
 SLICE_ATTN = [(4, 32, 8, 500, 500, 128)]
@@ -460,6 +461,14 @@ def test_decode_split_plan_at_the_serve_slice():
     assert {hi - lo for lo, hi in ref.key_ranges(532, 8)} == {66, 67}
 
 
+def test_decode_split_plan_at_the_cross_attention_step():
+    """seamless-m4t-large-v2's decode step over its 1024 frames: 64 clusters
+    (batch 4 x 16 kv heads, group 1) of 4 blocks, 256 keys each, 256 blocks
+    on 132 SMs."""
+    assert decode_mod.plan_split(64, 1024, 132) == 4
+    assert {hi - lo for lo, hi in ref.key_ranges(1024, 4)} == {256}
+
+
 def test_launchers_match_the_ctypes_signatures():
     """Every extern "C" launcher in csrc/*.cu has a ctypes signature in
     _build._SIGNATURES with as many arguments, and the other way round."""
@@ -730,6 +739,52 @@ def test_decode_attention_kernel_matches_plain(case, dtype, rng, cuda):
 def test_decode_attention_kernel_at_split_edges(case, dtype, rng, cuda):
     """Against the plain version and against the plain split-merge arithmetic
     with the planner's split."""
+    B, H, Hkv, S, D, valid = case
+    q, k, v = (_t(a, dtype, cuda) for a in (
+        _np(rng, B, H, D), _np(rng, B, S, Hkv, D), _np(rng, B, S, Hkv, D)))
+    n = decode_mod.launches
+    out = ops.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert decode_mod.launches == n + 1
+    _close(out, ref.decode_attention_ref(q, k, v, valid), dtype)
+    split = decode_mod.plan_split(B * Hkv, valid, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    _close(out, ref.decode_attention_split(q, k, v, valid, split), dtype)
+
+
+# seamless-m4t-large-v2 (MHA 16/16, head_dim 64, 1024 frames): (B, Sq, Sk,
+# causal) as its encoder (non-causal, S 1024), its prefill's cross-attention
+# (200 decoder rows over 1024 frames, ragged against 128-row and 64-key
+# tiles), its training cross-attention (2048 over 1024) and decoder
+# self-attention (causal S 2048), and small ragged Sq != Sk both ways.
+SEAMLESS_ATTN = [(4, 1024, 1024, False), (4, 200, 1024, False), (4, 2048, 1024, False), (4, 2048, 2048, True),
+                 (2, 129, 65, False), (2, 63, 300, False)]
+# its decode step's cross-attention over all 1024 frames (group 1, 64 (b, kv
+# head) pairs), and valid lengths short of the cache
+SEAMLESS_DECODE = [(4, 16, 16, 1024, 64, v) for v in (1024, 1023, 17, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SEAMLESS_ATTN)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_reads_cross_attention_views(shape, dtype, rng, cuda):
+    """D 64 on the (B, S, H, D) projections viewed (B, H, S, D), as the
+    encoder-decoder passes them, Sq != Sk and non-causal."""
+    B, Sq, Sk, causal = shape
+    q = _t(_np(rng, B, Sq, 16, 64), dtype, cuda).transpose(1, 2)
+    k, v = (_t(_np(rng, B, Sk, 16, 64), dtype, cuda).transpose(1, 2) for _ in range(2))
+    n = flash_mod.launches
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == n + 1 and out.shape == (B, 16, Sq, 64)
+    _close(out, ref.attention_ref(q, k, v, causal=causal), dtype)
+    assert out.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SEAMLESS_DECODE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_at_group_1(case, dtype, rng, cuda):
+    """Against the plain version and the plain split-merge arithmetic with the planner's split."""
     B, H, Hkv, S, D, valid = case
     q, k, v = (_t(a, dtype, cuda) for a in (
         _np(rng, B, H, D), _np(rng, B, S, Hkv, D), _np(rng, B, S, Hkv, D)))

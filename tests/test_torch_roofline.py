@@ -134,15 +134,24 @@ def test_analytic_terms_equal_the_reference(name):
 
 @pytest.mark.parametrize("name", ["jamba-1.5-large-398b", "seamless-m4t-large-v2"])
 def test_model_refuses_the_families_it_does_not_run(name):
-    """The two configs of the bridge's family universe that ``Model`` does
-    not run: it raises for their layouts (hybrid, encoder-decoder), at full
-    and at smoke size."""
+    """The two configs of the bridge's family universe that the decoder-only
+    ``Model`` does not run: it raises for their layouts (hybrid,
+    encoder-decoder), at full and at smoke size, as the reference's does.
+    ``build_model`` gives the encoder-decoder ``EncDecModel`` and still
+    raises for the hybrid layout."""
     from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models.encdec import EncDecModel
     from repro_torch.models.factory import build_model
+    from repro_torch.models.transformer import Model
 
     for cfg in (get_config(name), smoke_config(get_config(name))):
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_model(cfg)
+            Model(cfg)
+        if cfg.enc_dec:
+            assert isinstance(build_model(cfg), EncDecModel)
+        else:
+            with pytest.raises(NotImplementedError, match="not ported yet"):
+                build_model(cfg)
 
 
 @pytest.mark.parametrize("name", ["deepseek-v3-671b", "deepseek-v2-lite-16b"])

@@ -277,6 +277,21 @@ def test_flash_attention_function_gradcheck(shape, causal, window, rng):
         lambda *t: autograd.FlashAttention.apply(*t, causal, window), (q, k, v))
 
 
+@pytest.mark.parametrize("sq,sk", [(9, 4), (3, 7)])
+def test_flash_attention_function_gradcheck_on_cross_attention_views(sq, sk, rng):
+    """Non-causal, Sq != Sk (more queries than keys, as seamless-m4t-large-v2's
+    training cross-attention has, and fewer), MHA, on (B, S, H, D) views
+    transposed the way ``cross_forward`` passes them."""
+    b, h, d = 2, 2, 4
+    q, k, v = _f64(rng, b, sq, h, d), _f64(rng, b, sk, h, d), _f64(rng, b, sk, h, d)
+
+    def fn(q, k, v):
+        return autograd.FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), False, None)
+
+    assert fn(q, k, v).shape == (b, h, sq, d)
+    assert torch.autograd.gradcheck(fn, (q, k, v))
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_function_gradcheck_at_mla_head_dims(causal, rng):
     """(Dqk, Dv) = (24, 16), deepseek's smoke MLA: q and k wider than v, as
