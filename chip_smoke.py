@@ -226,6 +226,7 @@ from repro_torch.core.eaco import EaCO  # noqa: E402
 from repro_torch.core.eaco_elastic import EaCOElastic  # noqa: E402
 from repro_torch.core.history import History  # noqa: E402
 from repro_torch.core.predictor import JCTPredictor  # noqa: E402
+from repro_torch.data.frontend import frontend_embeds  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as decode_mod  # noqa: E402
@@ -240,7 +241,7 @@ from repro_torch.roofline import hw  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeManager, load_request_stream  # noqa: E402
 from repro_torch.serve.models import serve_models_from_profiles  # noqa: E402
 from repro_torch.train.steps import loss_and_grads, make_serve_bundle, make_train_bundle  # noqa: E402
-from repro_torch.train.trainer import Trainer, TrainerConfig, frontend_embeds  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.tree import leaves, leaves_with_paths, tree_map  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense): the bound of every kernel is the larger of
@@ -912,49 +913,28 @@ def time_deepseek_kernels(gen) -> dict:
     for rows in (DS_B * S, DS_B):
         out[("rmsnorm", (rows, DS_D_MODEL))] = time_rmsnorm(gen, rows, DS_D_MODEL)
         out[("rmsnorm", (rows, DS_KV_LORA))] = time_rmsnorm(gen, rows, DS_KV_LORA, DS_DKV)
-    out[("flash_attention", (DS_B, DS_H, DS_H, S, DS_DQK, DS_DV))] = time_mla_flash(gen, DS_B, S)
+    out[("flash_attention", (DS_B, DS_H, DS_H, S, DS_DQK, DS_DV))] = time_flash(
+        gen, DS_B, DS_H, S, S, DS_DQK, DS_DV, True, v_row=DS_NOPE + DS_DV)
     return out
 
 
-def time_mla_flash(gen, b: int, S: int) -> dict:
-    """flash at (Dqk, Dv) = (192, 128) on the MLA views (q and k (B, S, H,
-    192) transposed, v the last 128 columns of each 256-wide kv row), causal,
-    bf16: kernel, plain version, SDPA (its backend named), the bound."""
+def time_flash(gen, b: int, h: int, sq: int, sk: int, dqk: int, dv: int, causal: bool,
+               backward: bool = False, v_row: int = 0) -> dict:
+    """flash over MHA (B, S, H, D) projections viewed (B, H, S, D), bf16:
+    kernel, plain version, SDPA (its backend named) and the bound; with
+    ``backward``, the Function's plain backward too. q is (B, sq, H, dqk), k
+    (B, sk, H, dqk); v the last ``dv`` columns of rows ``v_row`` wide (MLA's
+    kv rows; ``dv`` alone by default). Causal calls have sq == sk."""
+    require(not causal or sq == sk, f"causal flash at sq {sq} != sk {sk}")
     bf = torch.bfloat16
-    qk_bytes, v_bytes = b * S * DS_H * DS_DQK * 2, b * S * DS_H * DS_DV * 2
+    v_row = v_row or dv
+    q_bytes, k_bytes, v_bytes = (b * n * h * d * 2 for n, d in ((sq, dqk), (sk, dqk), (sk, dv)))
 
     def views():
-        q, k = (randn(gen, b, S, DS_H, DS_DQK).transpose(1, 2) for _ in range(2))
-        return q, k, randn(gen, b, S, DS_H, DS_NOPE + DS_DV)[..., DS_NOPE:].transpose(1, 2)
+        return (randn(gen, b, sq, h, dqk).transpose(1, 2), randn(gen, b, sk, h, dqk).transpose(1, 2),
+                randn(gen, b, sk, h, v_row)[..., v_row - dv:].transpose(1, 2))
 
-    qkv = copies(views, 2 * qk_bytes + 2 * v_bytes)
-    library = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
-    flash = {
-        "ms": time_ms(lambda q, k, v: ops.flash_attention(q, k, v), qkv),
-        "plain_ms": time_ms(lambda q, k, v: ref.attention_ref(q, k, v), qkv, 10),
-        "library_ms": time_ms(library, qkv),
-        "library_kernels": sdpa_kernels(library, *qkv[0]),
-    }
-    pairs = S * (S + 1) // 2  # visible (query, key) pairs of a row of heads, causal
-    flash["pairs"] = pairs
-    # q and k read once, v read once, o written once; Q K^T over 192 columns and P V over 128
-    flash["bound_ms"], flash["bound_by"] = bound(2 * qk_bytes + 2 * v_bytes,
-                                                 2 * b * DS_H * pairs * (DS_DQK + DS_DV), bf)
-    return flash
-
-
-def time_seamless_flash(gen, b: int, sq: int, sk: int, causal: bool, backward: bool) -> dict:
-    """flash at D 64, MHA 16/16, on the (B, S, H, D) projections viewed
-    (B, H, S, D), bf16: kernel, plain version, SDPA (its backend named) and
-    the bound; with ``backward``, the Function's plain backward too."""
-    bf = torch.bfloat16
-    q_bytes, kv_bytes = b * sq * SM_H * SM_D * 2, b * sk * SM_H * SM_D * 2
-
-    def views():
-        return (randn(gen, b, sq, SM_H, SM_D).transpose(1, 2),
-                *(randn(gen, b, sk, SM_H, SM_D).transpose(1, 2) for _ in range(2)))
-
-    qkv = copies(views, q_bytes + 2 * kv_bytes)
+    qkv = copies(views, q_bytes + k_bytes + v_bytes)
     library = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
     flash = {
         "ms": time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=causal), qkv),
@@ -964,8 +944,9 @@ def time_seamless_flash(gen, b: int, sq: int, sk: int, causal: bool, backward: b
     }
     pairs = sq * (sq + 1) // 2 if causal else sq * sk  # visible (query, key) pairs of a (b, h)
     flash["pairs"] = pairs
-    # q read once, k and v once, o written once; Q K^T and P V over 64 columns each
-    flash["bound_ms"], flash["bound_by"] = bound(2 * q_bytes + 2 * kv_bytes, 4 * b * SM_H * pairs * SM_D, bf)
+    # q, k and v read once, o (sq rows of dv) written once; Q K^T over dqk columns and P V over dv
+    flash["bound_ms"], flash["bound_by"] = bound(q_bytes + k_bytes + v_bytes + b * sq * h * dv * 2,
+                                                 2 * b * h * pairs * (dqk + dv), bf)
     if backward:
         q, k, v = (t.detach().requires_grad_() for t in qkv[0])
         flash["bwd_ms"] = time_backward(gen, lambda q, k, v: ops.flash_attention(q, k, v, causal=causal), (q, k, v))
@@ -989,8 +970,8 @@ def time_seamless_kernels(gen) -> dict:
                                         (SM_B, SM_PROMPT, SM_PROMPT, True, False),
                                         (TR_B, TR_SEQ, SM_FRAMES, False, True),
                                         (TR_B, TR_SEQ, TR_SEQ, True, True)):
-        out[("flash_attention", (b, SM_H, SM_H, sq, sk, SM_D, causal))] = time_seamless_flash(
-            gen, b, sq, sk, causal, backward)
+        out[("flash_attention", (b, SM_H, SM_H, sq, sk, SM_D, causal))] = time_flash(
+            gen, b, SM_H, sq, sk, SM_D, SM_D, causal, backward)
     # decode over the cross cache (all 1024 frames) and the self cache full (232 slots)
     for S in (SM_FRAMES, SM_MAX_LEN):
         cache_bytes = 2 * SM_B * S * SM_H * SM_D * 2
@@ -1015,6 +996,63 @@ def time_seamless_kernels(gen) -> dict:
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm())
+
+
+def logits_gates(label: str, kernel: list, plain_bf16: list, exact: list, *, fp32=None, fp32_ungated=None,
+                 faults=(), strict_rtol: bool = False, shown=()) -> None:
+    """The serve phases' logits gates at every step (the prefill's logits,
+    then each decode step's), all teacher-forced on the kernel path's tokens:
+    the bf16 kernel path ``kernel`` at most FLOOR_RATIO x as far from fp32
+    plain (``exact``) as the plain bf16 path is; within LOGIT_RTOL of the
+    plain bf16 path where that path itself stays within LOGIT_RTOL of fp32
+    (everywhere with ``strict_rtol``); ``fp32`` = (its name, the fp32 kernel
+    path's logits, the fp32 plain logits they are held to) within
+    FP32_LOGIT_RTOL, unless ``fp32_ungated`` gives the reason it is printed
+    only; each of ``faults`` = (its name, its bf16 and fp32 logits, the gates
+    that must fail on it: "bf16" the FLOOR_RATIO rule, "fp32" the fp32 gate)
+    caught by those gates. ``shown``: (name, distances) rows printed beside,
+    not gated. ``label`` begins every line."""
+    def dist(xs, ys):
+        return [rel_l2(a, b) for a, b in zip(xs, ys, strict=True)]
+
+    errs, kernel_err, floor = dist(kernel, plain_bf16), dist(kernel, exact), dist(plain_bf16, exact)
+    rows = [("kernels vs plain, bf16", errs), ("kernels bf16 vs plain fp32", kernel_err),
+            ("plain bf16 vs plain fp32", floor), *shown]
+    if fp32 is not None:
+        fp32_name, kernel_fp32, fp32_ref = fp32
+        fp32_err = dist(kernel_fp32, fp32_ref)
+        rows.append((fp32_name, fp32_err))
+    for name, e in rows:
+        print(f"{label}logits, relative L2, {name}: prefill {e[0]:.4e}, decode max {max(e[1:]):.4e} "
+              f"mean {np.mean(e[1:]):.4e}")
+    limits = {"bf16": FLOOR_RATIO, "fp32": 1.0}
+    caught = []
+    for name, fb, ff, must in faults:
+        ratios = {"bf16": max(dist(fb, exact)) / max(floor), "fp32": max(dist(ff, fp32_ref)) / FP32_LOGIT_RTOL}
+        caught.append((name, ratios, must))
+        print(f"{label}planted fault, {name}: bf16 distance from fp32 over the plain bf16 path's "
+              f"{ratios['bf16']:.4f} (fails above {FLOOR_RATIO}), fp32 distance from fp32 plain over "
+              f"{FP32_LOGIT_RTOL} {ratios['fp32']:.4f} (fails above 1); caught by "
+              f"[{', '.join(g for g in limits if ratios[g] > limits[g])}], must be by [{', '.join(must)}]")
+    if strict_rtol or max(floor) <= LOGIT_RTOL:
+        require(max(errs) <= LOGIT_RTOL, f"kernel-path logits differ from the plain path: {errs}")
+        rule = f"within {LOGIT_RTOL} relative L2 of the plain path at all {len(errs)} steps, and "
+    else:
+        rule = (f"not held to {LOGIT_RTOL} of the plain bf16 path: the plain bf16 path alone sits "
+                f"{max(floor):.4e} from fp32, so no bf16 path can meet it; ")
+    require(max(kernel_err) <= FLOOR_RATIO * max(floor),
+            f"the kernel path is further from fp32 than bf16 alone explains: {kernel_err} vs {floor}")
+    tail = ""
+    if fp32 is not None and fp32_ungated is None:
+        require(max(fp32_err) <= FP32_LOGIT_RTOL,
+                f"fp32 logits ({fp32_name}) differ beyond {FP32_LOGIT_RTOL}: {fp32_err}")
+        tail = f"; {fp32_name}: within {FP32_LOGIT_RTOL}"
+    elif fp32 is not None:
+        tail = f"; {fp32_name}: not gated ({fp32_ungated})"
+    for name, ratios, must in caught:
+        require(all(ratios[g] > limits[g] for g in must), f"a gate passes a planted fault ({name}): {ratios}")
+    print(f"{label}kernel-path logits {rule}no further from fp32 than {FLOOR_RATIO} x the plain bf16 path at any "
+          f"step{tail}" + (f"; {len(caught)} planted faults caught" if caught else "") + ": ok")
 
 
 def model_phase(seed: int) -> dict:
@@ -1077,19 +1115,7 @@ def model_phase(seed: int) -> dict:
     _to_float32(params)
     exact = teacher_forced(plain, params, tokens, gen_out.tokens)
     require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
-    errs = [rel_l2(a, b) for a, b in zip(gen_out.logits, plain_bf16)]
-    kernel_err = [rel_l2(a, b) for a, b in zip(gen_out.logits, exact)]
-    floor = [rel_l2(a, b) for a, b in zip(plain_bf16, exact)]
-    for label, e in (("kernels vs plain, bf16", errs), ("kernels bf16 vs plain fp32", kernel_err),
-                     ("plain bf16 vs plain fp32", floor)):
-        print(f"logits, relative L2, {label}: prefill {e[0]:.4e}, decode max {max(e[1:]):.4e} "
-              f"mean {np.mean(e[1:]):.4e}")
-    require(max(errs) <= LOGIT_RTOL, f"kernel-path logits differ from the plain path: {errs}")
-    require(max(kernel_err) <= FLOOR_RATIO * max(floor),
-            f"the kernel path is further from fp32 than bf16 alone explains: {kernel_err} vs {floor}")
-    print(f"kernel-path logits within {LOGIT_RTOL} relative L2 of the plain path at all "
-          f"{len(errs)} steps, and no further from fp32 than {FLOOR_RATIO} x the plain bf16 "
-          f"path: ok")
+    logits_gates("", gen_out.logits, plain_bf16, exact, strict_rtol=True)
     return counts
 
 
@@ -1159,21 +1185,7 @@ def mamba_phase(seed: int) -> dict:
     require(ssd_mod.variant_launches == {ssd_mod.TENSOR_CORE: 0, ssd_mod.GENERIC: cfg.num_layers},
             f"the fp32 prefill's ssd_scan launches by kernel {ssd_mod.variant_launches}")
     print(f"ssd_scan by kernel: bf16 prefill {variants}, fp32 prefill {ssd_mod.variant_launches}: ok")
-    fp32_err = [rel_l2(a, b) for a, b in zip(kernel_fp32, exact)]
-    errs = [rel_l2(a, b) for a, b in zip(gen_out.logits, plain_bf16)]
-    kernel_err = [rel_l2(a, b) for a, b in zip(gen_out.logits, exact)]
-    floor = [rel_l2(a, b) for a, b in zip(plain_bf16, exact)]
-    for label, e in (("kernels vs plain, fp32", fp32_err), ("kernels vs plain, bf16", errs),
-                     ("kernels bf16 vs plain fp32", kernel_err), ("plain bf16 vs plain fp32", floor)):
-        print(f"logits, relative L2, {label}: prefill {e[0]:.4e}, decode max {max(e[1:]):.4e} "
-              f"mean {np.mean(e[1:]):.4e}")
-    require(max(fp32_err) <= FP32_LOGIT_RTOL,
-            f"fp32 kernel-path logits differ from the plain path beyond {FP32_LOGIT_RTOL}: {fp32_err}")
-    require(max(kernel_err) <= FLOOR_RATIO * max(floor),
-            f"the kernel path is further from fp32 than bf16 alone explains: {kernel_err} vs {floor}")
-    print(f"fp32 kernel-path logits within {FP32_LOGIT_RTOL} relative L2 of the plain path at all "
-          f"{len(fp32_err)} steps, and the bf16 kernel path no further from fp32 than "
-          f"{FLOOR_RATIO} x the plain bf16 path: ok")
+    logits_gates("", gen_out.logits, plain_bf16, exact, fp32=("kernels vs plain, fp32", kernel_fp32, exact))
     return counts
 
 
@@ -1300,46 +1312,14 @@ def danube_run(label: str, kv: str, prompt: int, seed: int, plant: bool) -> dict
     del params
     free_memory()
 
-    errs = [rel_l2(a, b) for a, b in zip(gen_out.logits, plain_bf16)]
-    kernel_err = [rel_l2(a, b) for a, b in zip(gen_out.logits, exact)]
-    floor = [rel_l2(a, b) for a, b in zip(plain_bf16, exact)]
-    fp32_err = [rel_l2(a, b) for a, b in zip(kernel_fp32, exact)]
-    for name, e in (("kernels vs plain, bf16", errs), ("kernels bf16 vs plain fp32", kernel_err),
-                    ("plain bf16 vs plain fp32", floor), ("kernels vs plain, fp32", fp32_err)):
-        print(f"h2o run {label} logits, relative L2, {name}: prefill {e[0]:.4e}, decode max {max(e[1:]):.4e} "
-              f"mean {np.mean(e[1:]):.4e}")
-    faults = []
-    for (name, _, must), fb, ff in zip(faulty, fault_bf16, fault_fp32):
-        ratios = {"bf16": max(rel_l2(a, b) for a, b in zip(fb, exact)) / max(floor),
-                  "fp32": max(rel_l2(a, b) for a, b in zip(ff, exact)) / FP32_LOGIT_RTOL}
-        faults.append((name, ratios, must))
-        print(f"h2o run {label} planted fault, {name}: bf16 distance from fp32 over the plain bf16 path's "
-              f"{ratios['bf16']:.4f} (fails above {FLOOR_RATIO}), fp32 distance from fp32 plain over "
-              f"{FP32_LOGIT_RTOL} {ratios['fp32']:.4f} (fails above 1); caught by "
-              f"[{', '.join(g for g, lim in (('bf16', FLOOR_RATIO), ('fp32', 1.0)) if ratios[g] > lim)}], "
-              f"must be by [{', '.join(must)}]")
-    if max(floor) <= LOGIT_RTOL:
-        require(max(errs) <= LOGIT_RTOL, f"kernel-path logits differ from the plain path: {errs}")
-        rule = f"within {LOGIT_RTOL} relative L2 of the plain path at all {len(errs)} steps, and "
-    else:
-        rule = (f"not held to {LOGIT_RTOL} of the plain bf16 path: the plain bf16 path alone sits "
-                f"{max(floor):.4e} from fp32, so no bf16 path can meet it; ")
-    require(max(kernel_err) <= FLOOR_RATIO * max(floor),
-            f"the kernel path is further from fp32 than bf16 alone explains: {kernel_err} vs {floor}")
     # With the int8 cache the two fp32 paths quantize K and V each for itself:
     # an entry whose code lies within fp32 noise of a rounding tie rounds to
     # neighbouring codes (tests/test_torch_cache.py), so their gap is not only
     # the order of sums; the int8 run's fp32 distance is printed, not gated.
-    if kv != "int8":
-        require(max(fp32_err) <= FP32_LOGIT_RTOL,
-                f"fp32 kernel-path logits differ from the plain path beyond {FP32_LOGIT_RTOL}: {fp32_err}")
-    for name, ratios, must in faults:
-        require(all(ratios[g] > (FLOOR_RATIO if g == "bf16" else 1.0) for g in must),
-                f"a gate passes a planted fault ({name}): {ratios}")
-    print(f"h2o run {label} kernel-path logits {rule}no further from fp32 than {FLOOR_RATIO} x the plain bf16 "
-          f"path at any step; " + (f"fp32 kernel path within {FP32_LOGIT_RTOL} of fp32 plain" if kv != "int8" else
-                                   "fp32 distance not gated (int8 codes at rounding ties)")
-          + (f"; {len(faults)} planted faults caught" if faults else "") + ": ok")
+    logits_gates(f"h2o run {label} ", gen_out.logits, plain_bf16, exact,
+                 fp32=("kernels vs plain, fp32", kernel_fp32, exact),
+                 fp32_ungated="int8 codes at rounding ties" if kv == "int8" else None,
+                 faults=[(name, fb, ff, must) for (name, _, must), fb, ff in zip(faulty, fault_bf16, fault_fp32)])
     del bundle, plain, faulty
     free_memory()
     return counts
@@ -1533,42 +1513,11 @@ def deepseek_phase(seed: int) -> dict:
         print(f"deepseek routing, {label}: (token, choice) pairs routed to another expert than in the plain run: "
               f"prefill {prefill[0]} of {prefill[1]} ({prefill[0] / prefill[1]:.4%}), decode {decode[0]} of "
               f"{decode[1]} ({decode[0] / decode[1]:.4%})")
-    errs = [rel_l2(a, b) for a, b in zip(gen_out.logits, plain_bf16)]
-    kernel_err = [rel_l2(a, b) for a, b in zip(gen_out.logits, exact)]
-    floor = [rel_l2(a, b) for a, b in zip(plain_bf16, exact)]
-    fp32_err = [rel_l2(a, b) for a, b in zip(kernel_fp32, exact_routed)]
-    fp32_free = [rel_l2(a, b) for a, b in zip(kernel_fp32, exact)]
-    for name, e in (("kernels vs plain, bf16", errs), ("kernels bf16 vs plain fp32", kernel_err),
-                    ("plain bf16 vs plain fp32", floor), ("kernels vs plain, fp32, routed freely (not gated)", fp32_free),
-                    ("kernels vs plain, fp32, the plain path on the kernel path's routes", fp32_err)):
-        print(f"deepseek logits, relative L2, {name}: prefill {e[0]:.4e}, decode max {max(e[1:]):.4e} "
-              f"mean {np.mean(e[1:]):.4e}")
-    faults = []
-    for (name, _, must), fb, ff in zip(faulty, fault_bf16, fault_fp32):
-        ratios = {"bf16": max(rel_l2(a, b) for a, b in zip(fb, exact)) / max(floor),
-                  "fp32": max(rel_l2(a, b) for a, b in zip(ff, exact_routed)) / FP32_LOGIT_RTOL}
-        faults.append((name, ratios, must))
-        print(f"deepseek planted fault, {name}: bf16 distance from fp32 over the plain bf16 path's "
-              f"{ratios['bf16']:.4f} (fails above {FLOOR_RATIO}), fp32 distance from fp32 plain over "
-              f"{FP32_LOGIT_RTOL} {ratios['fp32']:.4f} (fails above 1); caught by "
-              f"[{', '.join(g for g, lim in (('bf16', FLOOR_RATIO), ('fp32', 1.0)) if ratios[g] > lim)}], "
-              f"must be by [{', '.join(must)}]")
-    if max(floor) <= LOGIT_RTOL:
-        require(max(errs) <= LOGIT_RTOL, f"kernel-path logits differ from the plain path: {errs}")
-        rule = f"within {LOGIT_RTOL} relative L2 of the plain path at all {len(errs)} steps, and "
-    else:
-        rule = (f"not held to {LOGIT_RTOL} of the plain bf16 path: the plain bf16 path alone sits "
-                f"{max(floor):.4e} from fp32, so no bf16 path can meet it; ")
-    require(max(kernel_err) <= FLOOR_RATIO * max(floor),
-            f"the kernel path is further from fp32 than bf16 alone explains: {kernel_err} vs {floor}")
-    require(max(fp32_err) <= FP32_LOGIT_RTOL,
-            f"fp32 kernel-path logits differ from the plain path on its routes beyond {FP32_LOGIT_RTOL}: {fp32_err}")
-    for name, ratios, must in faults:
-        require(all(ratios[g] > (FLOOR_RATIO if g == "bf16" else 1.0) for g in must),
-                f"a gate passes a planted fault ({name}): {ratios}")
-    print(f"deepseek kernel-path logits {rule}no further from fp32 than {FLOOR_RATIO} x the plain bf16 path at any "
-          f"step; fp32 kernel path within {FP32_LOGIT_RTOL} of fp32 plain on its routes; {len(faults)} planted fault "
-          f"caught: ok")
+    logits_gates("deepseek ", gen_out.logits, plain_bf16, exact,
+                 fp32=("kernels vs plain, fp32, the plain path on the kernel path's routes", kernel_fp32, exact_routed),
+                 faults=[(name, fb, ff, must) for (name, _, must), fb, ff in zip(faulty, fault_bf16, fault_fp32)],
+                 shown=[("kernels vs plain, fp32, routed freely (not gated)",
+                         [rel_l2(a, b) for a, b in zip(kernel_fp32, exact)])])
     del bundle, plain, faulty
     free_memory()
     print(f"deepseek phase: {time.perf_counter() - t_phase:.1f} s")
@@ -1692,39 +1641,8 @@ def seamless_phase(seed: int) -> dict:
     del params
     free_memory()
 
-    errs = [rel_l2(a, b) for a, b in zip(gen_out.logits, plain_bf16)]
-    kernel_err = [rel_l2(a, b) for a, b in zip(gen_out.logits, exact)]
-    floor = [rel_l2(a, b) for a, b in zip(plain_bf16, exact)]
-    fp32_err = [rel_l2(a, b) for a, b in zip(kernel_fp32, exact)]
-    for name, e in (("kernels vs plain, bf16", errs), ("kernels bf16 vs plain fp32", kernel_err),
-                    ("plain bf16 vs plain fp32", floor), ("kernels vs plain, fp32", fp32_err)):
-        print(f"seamless logits, relative L2, {name}: prefill {e[0]:.4e}, decode max {max(e[1:]):.4e} "
-              f"mean {np.mean(e[1:]):.4e}")
-    faults = []
-    for (name, _, must), fb, ff in zip(faulty, fault_bf16, fault_fp32):
-        ratios = {"bf16": max(rel_l2(a, b) for a, b in zip(fb, exact)) / max(floor),
-                  "fp32": max(rel_l2(a, b) for a, b in zip(ff, exact)) / FP32_LOGIT_RTOL}
-        faults.append((name, ratios, must))
-        print(f"seamless planted fault, {name}: bf16 distance from fp32 over the plain bf16 path's "
-              f"{ratios['bf16']:.4f} (fails above {FLOOR_RATIO}), fp32 distance from fp32 plain over "
-              f"{FP32_LOGIT_RTOL} {ratios['fp32']:.4f} (fails above 1); caught by "
-              f"[{', '.join(g for g, lim in (('bf16', FLOOR_RATIO), ('fp32', 1.0)) if ratios[g] > lim)}], "
-              f"must be by [{', '.join(must)}]")
-    if max(floor) <= LOGIT_RTOL:
-        require(max(errs) <= LOGIT_RTOL, f"kernel-path logits differ from the plain path: {errs}")
-        rule = f"within {LOGIT_RTOL} relative L2 of the plain path at all {len(errs)} steps, and "
-    else:
-        rule = (f"not held to {LOGIT_RTOL} of the plain bf16 path: the plain bf16 path alone sits "
-                f"{max(floor):.4e} from fp32, so no bf16 path can meet it; ")
-    require(max(kernel_err) <= FLOOR_RATIO * max(floor),
-            f"the kernel path is further from fp32 than bf16 alone explains: {kernel_err} vs {floor}")
-    require(max(fp32_err) <= FP32_LOGIT_RTOL,
-            f"fp32 kernel-path logits differ from the plain path beyond {FP32_LOGIT_RTOL}: {fp32_err}")
-    for name, ratios, must in faults:
-        require(all(ratios[g] > (FLOOR_RATIO if g == "bf16" else 1.0) for g in must),
-                f"a gate passes a planted fault ({name}): {ratios}")
-    print(f"seamless kernel-path logits {rule}no further from fp32 than {FLOOR_RATIO} x the plain bf16 path at any "
-          f"step; fp32 kernel path within {FP32_LOGIT_RTOL} of fp32 plain; {len(faults)} planted faults caught: ok")
+    logits_gates("seamless ", gen_out.logits, plain_bf16, exact, fp32=("kernels vs plain, fp32", kernel_fp32, exact),
+                 faults=[(name, fb, ff, must) for (name, _, must), fb, ff in zip(faulty, fault_bf16, fault_fp32)])
     del bundle, plain, faulty
     free_memory()
     print(f"seamless phase: {time.perf_counter() - t_phase:.1f} s")
@@ -1892,7 +1810,7 @@ def time_train_kernels(gen) -> dict:
     dkv, scale = randn(gen, rows, DS_DKV).requires_grad_(), randn(gen, DS_KV_LORA, dtype=torch.float32).requires_grad_()
     t["bwd_ms"] = time_backward(gen, lambda a, s: ops.rmsnorm(a[:, :DS_KV_LORA], s), (dkv, scale))
     out[("rmsnorm", (rows, DS_KV_LORA))] = t
-    mla = time_mla_flash(gen, TR_B, TR_SEQ)
+    mla = time_flash(gen, TR_B, DS_H, TR_SEQ, TR_SEQ, DS_DQK, DS_DV, True, v_row=DS_NOPE + DS_DV)
     q, k = (randn(gen, TR_B, TR_SEQ, DS_H, DS_DQK).requires_grad_() for _ in range(2))
     kv = randn(gen, TR_B, TR_SEQ, DS_H, DS_NOPE + DS_DV).requires_grad_()
     mla["bwd_ms"] = time_backward(gen, lambda q, k, kv: ops.flash_attention(

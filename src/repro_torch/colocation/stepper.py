@@ -23,7 +23,7 @@ last epoch snapshot, so the scheduler can place it elsewhere.
 Two divergences from the reference: ``TemporalStepper`` takes the ``device``
 on which it initialises a job without state (default ``"cuda"``; never
 passed to an ``AnalyticBundle``), and a frontend's positions are fed the
-trainer's seeded stand-in embeddings (``train/trainer.py::frontend_embeds``),
+trainer's seeded stand-in embeddings (``data/frontend.py::frontend_embeds``),
 not zeros, whose gradient overflows at depth (ROADMAP C5).
 """
 
@@ -37,9 +37,9 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpoint import AsyncCheckpointer, latest_checkpoint, restore_checkpoint
+from repro_torch.data.frontend import frontend_embeds
 from repro_torch.data.pipeline import SyntheticPipeline
 from repro_torch.train.steps import TrainBundle
-from repro_torch.train.trainer import frontend_embeds
 from repro_torch.tree import leaves
 
 

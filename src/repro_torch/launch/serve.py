@@ -14,7 +14,7 @@ seeded random weights. Without a card the launcher exits with an error unless
 
 A config with a modality frontend (internvl2-2b's image tokens,
 seamless-m4t-large-v2's speech frames, its encoder's input) is fed the
-trainer's seeded stand-in embeddings (``train/trainer.py::frontend_embeds``)
+trainer's seeded stand-in embeddings (``data/frontend.py::frontend_embeds``)
 where the reference's launcher feeds zeros: zero frames make every encoder
 output row equal, so cross-attention would be uniform over them (ROADMAP C4).
 """
@@ -30,8 +30,8 @@ from typing import List, Optional
 import torch
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.data.frontend import frontend_embeds
 from repro_torch.train.steps import ServeBundle, make_serve_bundle
-from repro_torch.train.trainer import frontend_embeds
 
 
 @dataclasses.dataclass

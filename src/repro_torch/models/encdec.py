@@ -187,15 +187,12 @@ class EncDecModel(nn.Module):
 
     # -- serving --------------------------------------------------------------
 
-    def make_cache(
-        self, batch: int, max_len: int, dtype=torch.bfloat16, device=None, frames: Optional[int] = None
-    ) -> Tree:
+    def make_cache(self, batch: int, max_len: int, frames: int, dtype=torch.bfloat16, device=None) -> Tree:
         """Zeroed cache: ``{"self": {"k", "v"}}`` of (L, batch, W, Hkv, hd)
         (``attention.gqa_make_cache``'s layout per layer) and ``cross_k``,
-        ``cross_v`` of (L, batch, frames, Hkv, hd), ``frames`` defaulting to
-        ``frontend_positions``, all in ``dtype``."""
+        ``cross_v`` of (L, batch, frames, Hkv, hd), all in ``dtype``."""
         cfg = self.cfg
-        L, F = cfg.num_layers, frames or cfg.frontend_positions
+        L, F = cfg.num_layers, frames
         self_c = attn.gqa_make_cache(cfg, batch, max_len, dtype, device)
         cross = (L, batch, F, cfg.num_kv_heads, cfg.resolved_head_dim)
         return {
@@ -223,7 +220,7 @@ class EncDecModel(nn.Module):
         memory = self.encode(params, frontend_embeds)
         x = embed(params["embed"], tokens.long())
         positions = self._positions(x)
-        cache = self.make_cache(B, max_len, x.dtype, x.device, frames=memory.shape[1])
+        cache = self.make_cache(B, max_len, memory.shape[1], x.dtype, x.device)
         for i in range(cfg.num_layers):
             p, c = _layer(params["decoder"], i), _layer(cache["self"], i)
             h = rmsnorm(p["norm1"], x, ops=ops)

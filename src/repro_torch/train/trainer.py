@@ -12,15 +12,9 @@ Wraps a :class:`TrainBundle` with:
     offending data window).
 
 A modality frontend is a stub, as in the reference: the trainer feeds its
-positions stand-in embeddings (``frontend_embeds``); for an encoder-decoder
-(seamless-m4t-large-v2) they are the encoder's input frames, which the serve
-launcher feeds the same way. Unlike the reference,
-which feeds zeros, the port feeds seeded normal draws at the token
-embeddings' spread. Zero rows stay exactly zero through every layer (causal
-attention over zero values, an MLP of zero), and each rmsnorm passes gradient
-back to a zero row at gain 1/sqrt(eps) = 1000: at internvl2-2b's 24 layers
-the gradient overflows fp32 and is non-finite in layers 0-9 in every path,
-the JAX package's included.
+positions seeded stand-in embeddings (``data/frontend.py::frontend_embeds``),
+not the reference's zeros; for an encoder-decoder (seamless-m4t-large-v2)
+they are the encoder's input frames.
 
 A step's time is taken on the host clock and ends when the host reads the
 step's loss, which waits for the card.
@@ -37,21 +31,10 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpoint import AsyncCheckpointer, latest_checkpoint, restore_checkpoint
+from repro_torch.data.frontend import frontend_embeds
 from repro_torch.data.pipeline import SyntheticPipeline
 from repro_torch.train.steps import TrainBundle
 from repro_torch.tree import leaves
-
-
-FRONTEND_STD = 0.02  # the spread of the token embeddings (models/common.py::embedding_def)
-
-
-def frontend_embeds(cfg, batch: int, seed: int, step: int, device) -> torch.Tensor:
-    """The stub frontend's embeddings for a batch at ``step``: bf16 draws of
-    N(0, FRONTEND_STD^2), a function of (seed, step) like the data pipeline's
-    batches, so a restart sees the same ones."""
-    gen = torch.Generator().manual_seed(1_000_003 * seed + step)
-    draw = torch.randn((batch, cfg.frontend_positions, cfg.d_model), generator=gen) * FRONTEND_STD
-    return draw.to(device=device, dtype=torch.bfloat16)
 
 
 @dataclasses.dataclass

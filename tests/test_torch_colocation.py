@@ -65,13 +65,13 @@ from repro_torch.colocation.stepper import AnalyticBundle, ColocatedJob, Tempora
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.history import History
 from repro_torch.core.predictor import JCTPredictor
+from repro_torch.data.frontend import frontend_embeds
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
 from repro_torch.elastic import scaling
 from repro_torch.models.params import from_jax_params
 from repro_torch.optim.schedules import constant
 from repro_torch.roofline import hw
 from repro_torch.train.steps import make_train_bundle
-from repro_torch.train.trainer import frontend_embeds
 from repro_torch.tree import leaves, leaves_with_paths
 
 STEP_RTOL = 1e-4  # tests/test_torch_train.py::test_train_steps_track_jax
