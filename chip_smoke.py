@@ -73,15 +73,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    decode per step (self and cross); the cache's layout; a profile; the
    logits gates of phase 5 at every step with the fp32 kernel path within
    1e-4 of fp32 plain, and the planted faults of ``SEAMLESS_PLANTED``;
-8. launcher: ``launch/serve.py``'s command line at each model phase's sizes;
-9. training kernels: the three kernels of the training forward pass timed at
+8. jamba-1.5-large-398b (the hybrid layout) cut to one period of its 72
+   layers (ssm x4, attn, ssm x3; MoE at positions 1, 3, 5 and 7) and 4 of its
+   16 experts, every width as published (d_model 8192, GQA 64/8 at head_dim
+   128, SSM heads of P 128, N 64; 16.1 B parameters), batch 4, a 2000-token
+   prompt, 32 decode steps: its kernels checked and timed at its shapes (the
+   SSD scan at H 128, P 128, N 64 in both kernels, flash at GQA 64/8,
+   decode at group 8 over 2032 keys, rmsnorm at 8192 and at the gated norm's
+   16,384); 24 rmsnorm + 1 flash + 7 ssd_scan launches per prefill (all 7 of
+   the tensor-core variant, and with fp32 weights of the generic one), 24
+   rmsnorm + 1 decode per step; the cache's layout; a profile with the MoE
+   expert products apart; the dropped choices per MoE layer; the logits
+   gates of phase 6 (the fp32 gate on held routes, the plain attention one
+   sequence at a time, the weights widened to fp32 in place) and a fault
+   planted in flash and one in the SSD scan. Its launcher does not run on
+   the card (the full config does not fit, the smoke config's head dim 16
+   has no flash kernel);
+9. launcher: ``launch/serve.py``'s command line at each model phase's sizes
+   but jamba's;
+10. training kernels: the three kernels of the training forward pass timed at
    its shapes (internvl2-2b's rmsnorm and flash_attention, mamba2-370m's
    rmsnorm and ssd_scan, deepseek-v2-lite-16b's flash at q/k 192 and v 128 on
    the MLA views and rmsnorm on the kv_norm slice; seamless-m4t-large-v2's
    are timed in phase 7) beside the plain version,
    the library call and the bound, and each autograd Function's plain
    backward pass timed at the same shapes;
-10. internvl2-2b (its 256 frontend positions fed the trainer's seeded stand-in
+11. internvl2-2b (its 256 frontend positions fed the trainer's seeded stand-in
    embeddings) and mamba2-370m
    trained at full width and depth, bf16, batch 4 x 2048 tokens from
    ``SyntheticPipeline``, AdamW at its defaults and a constant 3e-4:
@@ -119,9 +136,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      flash, per decoder layer three rmsnorms, causal and cross flash, twice;
      ``enc_norm`` and the final norm); the cross-entropy over all labels;
      the non-causal-as-causal fault must break both gates;
-11. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
+12. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
    checkpointing under ``build/`` and restarting from it;
-12. co-location: the two training cells as jobs of ``colocation/stepper.py``'s
+13. co-location: the two training cells as jobs of ``colocation/stepper.py``'s
    ``TemporalStepper`` (one whole step per job per round, one process, the
    training phase's weights and settings), observed by ``EarlyStageProfiler``
    with the H100's peak and 8 N T FLOPs a step:
@@ -141,9 +158,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    - evict: mamba2-370m checkpointing every 2 steps under ``build/``, 3 steps,
      then ``evict``: step 2, and its state equal bit for bit to a host copy
      taken at that boundary.
-13. scheduling, on the card's host (no kernel runs here): EaCO's scheduling
+14. scheduling, on the card's host (no kernel runs here): EaCO's scheduling
    path (the roofline bridge, the cluster simulator, the control plane,
-   telemetry and the schedulers), fed what phase 12 measured:
+   telemetry and the schedulers), fed what phase 13 measured:
    - the calibration without profiles: its families, signatures and a hash
      of its saved bytes;
    - the goldens: ``tests/golden_metrics.json``'s ``schedulers`` (the 100-job
@@ -155,7 +172,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      10,000-job trace (96 nodes, half V100 and half A100), every job done;
      ``BENCH_scale.json``'s figures printed beside, not gated;
    - the card's readings into EaCO: the family replay's History with phase
-     11's set inflations recorded over it, a reading below 1.0 fed as 1.0
+     13's set inflations recorded over it, a reading below 1.0 fed as 1.0
      (the raw one printed beside), then EaCO on the family trace with it:
      every job done; its energy, JCT, violations, History hits and misses and
      the lookups of the card's signatures beside the calibration-only rows;
@@ -167,7 +184,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 ``--seed`` (default 0) draws other weights and prompts for the model phases.
 
-A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the five serve
+A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the six serve
 paths' (h2o-danube-1.8b's runs A and B), the four 20-step training runs' and
 the co-located rounds'.
 
@@ -312,6 +329,18 @@ DS_TRAIN_LAYERS = 5
 SM_ARCH, SM_B, SM_PROMPT, SM_STEPS = "seamless-m4t-large-v2", 4, 200, 32
 SM_H, SM_D, SM_FRAMES, SM_D_MODEL = 16, 64, 1024, 1024
 SM_MAX_LEN = SM_PROMPT + SM_STEPS
+# The jamba-1.5-large-398b phase (the hybrid layout): one period of its 72
+# layers (ssm x4, attn, ssm x3; MoE at positions 1, 3, 5 and 7, SwiGLU at the
+# others) at the published widths (d_model 8192, GQA 64/8 at head_dim 128,
+# d_ff and d_ff_expert 24,576, top-2, SSM heads of P 128 over d_inner 16,384,
+# N 64, chunk 256, vocab 65,536), with 4 of its 16 experts: 16.1 B parameters,
+# 32.3 GB in bf16 (all 16 experts would be 90.3 GB). Batch 4, a 2000-token
+# prompt, 32 greedy decode steps.
+JB_ARCH, JB_B, JB_PROMPT, JB_STEPS = "jamba-1.5-large-398b", 4, 2000, 32
+JB_LAYERS, JB_EXPERTS = 8, 4
+JB_H, JB_HKV, JB_D, JB_D_MODEL, JB_D_INNER = 64, 8, 128, 8192, 16384
+JB_SSD_H, JB_SSD_P, JB_SSD_G, JB_SSD_N = 128, 128, 1, 64
+JB_MAX_LEN = JB_PROMPT + JB_STEPS
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 TRAIN_CKPT_DIR = os.path.join(BUILD_DIR, "chip_smoke_train_ckpt")
 
@@ -480,6 +509,10 @@ RMS_KV_NORM = [DS_B * DS_PROMPT, DS_B, 1, DS_B * DS_PROMPT + 1]
 # the decoder's prefill and decode step (its training rows, 8192, are
 # RMS_TRAIN's second shape).
 RMS_SEAMLESS = [(SM_B * SM_FRAMES, SM_D_MODEL), (SM_B * SM_PROMPT, SM_D_MODEL), (SM_B, SM_D_MODEL)]
+# jamba-1.5-large-398b's rows: norm1, norm2 and the final norm at d_model
+# 8192, the SSM mixers' gated norm at d_inner 16,384 (in the model's dtype),
+# the prefill's and a decode step's.
+RMS_JAMBA = [(rows, d) for rows in (JB_B * JB_PROMPT, JB_B) for d in (JB_D_MODEL, JB_D_INNER)]
 
 
 def check_rmsnorm(gen) -> float:
@@ -489,12 +522,12 @@ def check_rmsnorm(gen) -> float:
     ragged = [(rows, d) for d in (1024, 2048, D_MODEL) for rows in (1, B * PROMPT + 1, MB_B * MB_PROMPT + 1)]
     for dtype in DTYPES:
         for rows, d in ([(4, 64), (100, 128), (257, 256), (33, 100)] + RMS_SLICES + RMS_TRAIN + RMS_DANUBE
-                        + RMS_DEEPSEEK + RMS_SEAMLESS + ragged + RMS_ODD):
+                        + RMS_DEEPSEEK + RMS_SEAMLESS + RMS_JAMBA + ragged + RMS_ODD):
             x, scale = randn(gen, rows, d, dtype=dtype), randn(gen, d, dtype=torch.float32)
             err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
             print(f"check rmsnorm {str(dtype)[6:]} rows={rows} d={d}: max_abs_err={err:.3e}")
             if dtype == torch.bfloat16 and (rows, d) in (RMS_SLICES + RMS_TRAIN + RMS_DANUBE + RMS_DEEPSEEK
-                                                         + RMS_SEAMLESS):
+                                                         + RMS_SEAMLESS + RMS_JAMBA):
                 worst = max(worst, err)
         # the kv_norm slice, rows 1152 bytes apart (and 1154, off 16 bytes: the generic kernel)
         for rows in RMS_KV_NORM:
@@ -551,7 +584,8 @@ def check_flash(gen) -> float:
         # whole batch would be 19.3 GB)
         for b, h, hkv, s, d, window in ((B, H, HKV, PROMPT, D, None), (TR_B, TR_H, TR_HKV, TR_SEQ, D, None),
                                         (1, DN_H, DN_HKV, 300, DN_D, 100),
-                                        (DN_B, DN_H, DN_HKV, DN_PROMPT, DN_D, DN_WINDOW)):
+                                        (DN_B, DN_H, DN_HKV, DN_PROMPT, DN_D, DN_WINDOW),
+                                        (JB_B, JB_H, JB_HKV, JB_PROMPT, JB_D, None)):
             q, k, v = (randn(gen, b, s, n, d, dtype=dtype).transpose(1, 2) for n in (h, hkv, hkv))
             err = max_abs_err(ops.flash_attention(q, k, v, window=window), attention_by_sequence(q, k, v, window), dtype)
             print(f"check flash_attention {str(dtype)[6:]} {(b, h, hkv, s, s, d)} causal=True window={window}, "
@@ -600,9 +634,10 @@ SEAMLESS_FLASH = [(SM_B, SM_FRAMES, SM_FRAMES, False), (SM_B, SM_PROMPT, SM_FRAM
                   (TR_B, TR_SEQ, SM_FRAMES, False), (TR_B, TR_SEQ, TR_SEQ, True), (SM_B, SM_PROMPT, SM_PROMPT, True)]
 
 
-def attention_by_sequence(q, k, v, window=None) -> torch.Tensor:
-    """``ref.attention_ref`` (causal), one sequence of the batch at a time."""
-    return torch.cat([ref.attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], window=window)
+def attention_by_sequence(q, k, v, window=None, causal=True) -> torch.Tensor:
+    """``ref.attention_ref``, one sequence of the batch at a time: the same
+    function with one sequence's fp32 scores in memory at a time."""
+    return torch.cat([ref.attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal, window=window)
                       for i in range(q.shape[0])])
 
 
@@ -619,7 +654,9 @@ def check_decode(gen) -> float:
                 # seamless-m4t-large-v2's decode: cross-attention over all 1024 frames
                 # (group 1) and short of them, its self-attention cache
                 (SM_B, SM_H, SM_H, SM_FRAMES, SM_D, v) for v in (SM_FRAMES, SM_FRAMES - 1, 17, 1)] + [
-                (SM_B, SM_H, SM_H, SM_MAX_LEN, SM_D, v) for v in (SM_PROMPT + 1, SM_MAX_LEN)]
+                (SM_B, SM_H, SM_H, SM_MAX_LEN, SM_D, v) for v in (SM_PROMPT + 1, SM_MAX_LEN)] + [
+                # jamba-1.5-large-398b's decode: group 8 over its 2032-slot cache
+                (JB_B, JB_H, JB_HKV, JB_MAX_LEN, JB_D, v) for v in (JB_PROMPT + 1, JB_MAX_LEN)]
     for dtype in DTYPES:
         for b, h, hkv, s, d, valid in cases:
             q = randn(gen, b, h, d, dtype=dtype)
@@ -629,7 +666,8 @@ def check_decode(gen) -> float:
             print(f"check decode_attention {str(dtype)[6:]} {(b, h, hkv, s, d)} valid={valid}: "
                   f"max_abs_err={err:.3e}")
             if dtype == torch.bfloat16 and (s == MAX_LEN or (s, d, valid) in (
-                    (DN_WINDOW, DN_D, DN_WINDOW), (SM_FRAMES, SM_D, SM_FRAMES), (SM_MAX_LEN, SM_D, SM_MAX_LEN))):
+                    (DN_WINDOW, DN_D, DN_WINDOW), (SM_FRAMES, SM_D, SM_FRAMES), (SM_MAX_LEN, SM_D, SM_MAX_LEN),
+                    (JB_MAX_LEN, JB_D, JB_MAX_LEN))):
                 worst = max(worst, err)
     return worst
 
@@ -749,6 +787,32 @@ def check_ssd(gen) -> float:
         print(f"check ssd_scan {str(dt)[6:]} B/C slice, steep decay ({variant}): distance / 2e-4 tolerance "
               f"(y, h), gated: from ssd_ref {ssd_distance(y, yr):.3f} {ssd_distance(h, hr):.3f}, "
               f"from ssd_ref in fp64 {ssd_distance(y, y64):.3f} {ssd_distance(h, h64):.3f}")
+
+    # jamba-1.5-large-398b's prefill scan (B4 S2000 H128 P128 G1 N64): bf16
+    # B/C views take the tensor-core kernel (its <2, 2, 4> instance at
+    # 214,016 bytes of shared memory), fp32 the generic one; each gated
+    # against ssd_ref and against ssd_chunked at the kernel's 64-row chunk
+    # (ROADMAP C2), the model's 256-row plain version printed beside.
+    shape = (JB_B, JB_PROMPT, JB_SSD_H, JB_SSD_P, JB_SSD_G, JB_SSD_N)
+    for dt, want in ((torch.bfloat16, ssd_mod.TENSOR_CORE), (torch.float32, ssd_mod.GENERIC)):
+        args = ssd_inputs(gen, *shape, bc_dtype=dt)
+        (y, h), variant = ssd_variant(lambda: ops.ssd_scan(*args, chunk=SSD_CHUNK))
+        require(variant == want, f"the jamba slice in {dt} took the {variant} kernel, not {want}")
+        yr, hr = ref.ssd_ref(*args)
+        yc, hc = ref.ssd_chunked(*args, SSD_ROWS)
+        y256, h256 = ref.ssd_chunked(*args, SSD_CHUNK)
+        err = max_abs_err(y, yr, torch.float32, SSD_TOL)
+        for out, exp in ((h, hr), (y, yc), (h, hc)):
+            max_abs_err(out, exp, torch.float32, SSD_TOL)
+        if dt == torch.bfloat16:
+            worst = max(worst, err)
+        print(f"check ssd_scan {str(dt)[6:]} B/C jamba slice (B{JB_B} S{JB_PROMPT} H{JB_SSD_H} P{JB_SSD_P} "
+              f"G{JB_SSD_G} N{JB_SSD_N}) ({variant}): max_abs_err vs ssd_ref y {err:.3e} h "
+              f"{float((h - hr).abs().max()):.3e}; distance / 2e-4 tolerance (y, h), gated: kernel~ssd_ref "
+              f"{ssd_distance(y, yr):.3f} {ssd_distance(h, hr):.3f}, kernel~ssd_chunked({SSD_ROWS}) "
+              f"{ssd_distance(y, yc):.3f} {ssd_distance(h, hc):.3f}; not gated: kernel~ssd_chunked({SSD_CHUNK}) "
+              f"{ssd_distance(y, y256):.3f} {ssd_distance(h, h256):.3f}")
+        del args, y, h, yr, hr, yc, hc, y256, h256
     return worst
 
 
@@ -987,6 +1051,77 @@ def time_seamless_kernels(gen) -> dict:
         dec["bound_ms"], dec["bound_by"] = bound(cache_bytes + 2 * SM_B * SM_H * SM_D * 2,
                                                  4 * SM_B * SM_H * S * SM_D, bf)
         out[("decode_attention", (SM_B, SM_H, SM_H, S, SM_D))] = dec
+    return out
+
+
+def time_jamba_kernels(gen) -> dict:
+    """jamba-1.5-large-398b's kernels at its serve shapes, as ``time_kernels``
+    times minitron-8b's: rmsnorm at the prefill's and a decode step's rows of
+    d_model 8192 and of the gated norm's d_inner 16,384 (bf16, the dtype
+    ``models/mamba.py::_mixer`` passes it); flash on the prefill's (B, S, H,
+    D) projections at GQA 64/8, D 128, beside SDPA (its backend named);
+    decode over the full 2032-slot cache, group 8; the SSD scan at B4 S2000
+    H128 P128 G1 N64, the tensor-core kernel on bf16 B/C views and the
+    generic one on fp32 B/C, with the bounds ``time_kernels`` gives the
+    mamba scan."""
+    bf, S = torch.bfloat16, JB_PROMPT
+    out = {("rmsnorm", shape): time_rmsnorm(gen, *shape) for shape in RMS_JAMBA}
+
+    q_bytes, kv_bytes = JB_B * S * JB_H * JB_D * 2, JB_B * S * JB_HKV * JB_D * 2
+    qkv = copies(lambda: tuple(randn(gen, JB_B, S, n, JB_D).transpose(1, 2) for n in (JB_H, JB_HKV, JB_HKV)),
+                 q_bytes + 2 * kv_bytes)
+    library = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+    flash = {
+        "ms": time_ms(lambda q, k, v: ops.flash_attention(q, k, v), qkv),
+        "plain_ms": time_ms(lambda q, k, v: ref.attention_ref(q, k, v), qkv, 5),
+        "library_ms": time_ms(library, qkv),
+        "library_kernels": sdpa_kernels(library, *qkv[0]),
+    }
+    pairs = S * (S + 1) // 2  # visible (query, key) pairs of a (b, h), causal
+    flash["pairs"] = pairs
+    flash["bound_ms"], flash["bound_by"] = bound(2 * q_bytes + 2 * kv_bytes, 4 * JB_B * JB_H * pairs * JB_D, bf)
+    out[("flash_attention", (JB_B, JB_H, JB_HKV, S, JB_D))] = flash
+    del qkv
+    free_memory()
+
+    cache_bytes = 2 * JB_B * JB_MAX_LEN * JB_HKV * JB_D * 2
+    cache = copies(lambda: (randn(gen, JB_B, JB_H, JB_D), randn(gen, JB_B, JB_MAX_LEN, JB_HKV, JB_D),
+                            randn(gen, JB_B, JB_MAX_LEN, JB_HKV, JB_D)), cache_bytes)
+    dec = {
+        "ms": time_ms(lambda q, k, v: ops.decode_attention(q, k, v, JB_MAX_LEN), cache),
+        "plain_ms": time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, JB_MAX_LEN), cache),
+        "library_ms": time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True), cache),
+        "split": decode_mod.plan_split(JB_B * JB_HKV, JB_MAX_LEN, _build.sm_count(torch.device("cuda"))),
+    }
+    dec["bound_ms"], dec["bound_by"] = bound(cache_bytes + 2 * JB_B * JB_H * JB_D * 2,
+                                             4 * JB_B * JB_H * JB_MAX_LEN * JB_D, bf)
+    out[("decode_attention", (JB_B, JB_H, JB_HKV, JB_MAX_LEN, JB_D))] = dec
+
+    shape = (JB_B, S, JB_SSD_H, JB_SSD_P, JB_SSD_G, JB_SSD_N)
+    rows = JB_B * S
+    x_bytes, a_bytes = rows * JB_SSD_H * JB_SSD_P * 4, rows * JB_SSD_H * 4
+    bc_bytes = rows * 2 * JB_SSD_G * JB_SSD_N * 2
+    state_bytes = JB_B * JB_SSD_H * JB_SSD_N * JB_SSD_P * 4
+    flops = 4 * rows * JB_SSD_H * JB_SSD_N * JB_SSD_P  # the recurrence's multiply-adds, counted twice
+    for dt, variant in ((bf, ssd_mod.TENSOR_CORE), (torch.float32, ssd_mod.GENERIC)):
+        width = 1 if dt == bf else 2
+        scan = copies(lambda: ssd_inputs(gen, *shape, dt), x_bytes + a_bytes + width * bc_bytes)
+        before = dict(ssd_mod.variant_launches)
+        ssd = {"ms": time_ms(lambda x, a, b, c: ops.ssd_scan(x, a, b, c, chunk=SSD_CHUNK), scan)}
+        launched = {k: ssd_mod.variant_launches[k] - before[k] for k in before}
+        require(launched == {k: 43 * (k == variant) for k in before}, f"jamba {dt} ssd_scan launches {launched}")
+        ssd["plain_ms"] = time_ms(lambda x, a, b, c: ref.ssd_chunked(x, a, b, c, SSD_CHUNK), scan, 10)
+        ssd["library_ms"] = None  # no one PyTorch call computes an SSD scan
+        nbytes = 2 * x_bytes + a_bytes + width * bc_bytes + state_bytes
+        if dt == bf:  # the tensor cores on TF32 operands, each fp32 operand split in two parts
+            ssd["bound_ms"], ssd["bound_by"] = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                                                   (2 * flops / TF32_FLOPS * 1e3, "operations"))
+        else:  # the fp32 CUDA cores, where the generic kernel runs it
+            ssd["bound_ms"], ssd["bound_by"] = bound(nbytes, flops, torch.float32)
+        out[("ssd_scan", shape + (variant,))] = ssd
+        del scan
+        free_memory()
     return out
 
 
@@ -1649,6 +1784,183 @@ def seamless_phase(seed: int) -> dict:
     return counts
 
 
+def jamba_config():
+    """jamba-1.5-large-398b cut to one period of its layers and 4 of its 16
+    experts; every width as published."""
+    cfg = get_config(JB_ARCH)
+    return dataclasses.replace(cfg, num_layers=JB_LAYERS, moe=dataclasses.replace(cfg.moe, num_experts=JB_EXPERTS))
+
+
+# The plain versions the jamba phase runs the model through: attention one
+# sequence at a time (1 GB of fp32 scores at its prefill in place of 4.1 GB,
+# beside 64.6 GB of fp32 weights).
+JAMBA_PLAIN = types.SimpleNamespace(**{**vars(ops.PLAIN), "flash_attention": attention_by_sequence})
+
+
+def jamba_phase(seed: int) -> dict:
+    """One period of jamba-1.5-large-398b (the hybrid layout) served at full
+    width: the main path's exact launches per prefill (24 rmsnorm, 1 flash,
+    7 ssd_scan, all 7 of the tensor-core kernel) and per decode step (24
+    rmsnorm, 1 decode_attention), times, peak memory and a profile with the
+    expert products apart; the cache's layout; the dropped choices per MoE
+    layer; the logits gates at every step (the 1.25x rule against fp32
+    plain, the 2e-2 rule where the plain bf16 path allows it, the fp32
+    kernel path, whose scans run the generic kernel, within 1e-4 of fp32
+    plain on its expert choices: ROADMAP C8) and two planted faults, one in
+    flash (named for the fp32 gate) and one in the SSD scan (for both). The
+    plain paths run attention one
+    sequence at a time; the fp32 weights (64.6 GB) replace the bf16 ones in
+    place after the bf16 runs. Returns the main path's launches."""
+    t_phase = time.perf_counter()
+    full, cfg = get_config(JB_ARCH), jamba_config()
+    m, ssm = cfg.moe, cfg.ssm
+    bundle = make_serve_bundle(cfg, max_len=JB_MAX_LEN)
+    (group, repeats, layers), = bundle.model.groups
+    moe_at = [j for j, spec in enumerate(layers) if spec.channel == "moe"]
+    t0 = time.perf_counter()
+    params = bundle.model.init(seed, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    print(f"jamba {JB_ARCH}: {cfg.num_layers} layers, the period ({', '.join(s.mixer for s in layers)}) x{repeats}, "
+          f"MoE at positions {moe_at} ({m.num_experts} experts top-{m.top_k}, d_ff_expert {m.d_ff_expert}), SwiGLU "
+          f"d_ff {cfg.d_ff} at the others; d_model {cfg.d_model}, GQA {cfg.num_heads}/{cfg.num_kv_heads} at head_dim "
+          f"{cfg.resolved_head_dim}; SSM d_inner {ssm.expand * cfg.d_model} in {JB_SSD_H} heads of P {ssm.head_dim}, N "
+          f"{ssm.d_state}, chunk {ssm.chunk}; vocab {cfg.vocab_size}; {n_params} parameters "
+          f"({n_params * 2 / 1e9:.2f} GB bf16), init {time.perf_counter() - t0:.1f} s; prompt {JB_PROMPT} x{JB_B}, "
+          f"{JB_STEPS} decode steps")
+    print(f"jamba reduced: num_layers {full.num_layers} → {cfg.num_layers} (one period), num_experts "
+          f"{full.moe.num_experts} → {m.num_experts}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (JB_B, JB_PROMPT), generator=gen, device="cuda")
+
+    serve.greedy_generate(bundle, params, tokens, 2)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    gen_out = serve.greedy_generate(bundle, params, tokens, JB_STEPS)  # the main path
+    counts = ops.launch_counts()
+    variants = dict(ssd_mod.variant_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_prefill = pass_launches(cfg)
+    n_attn, n_ssm = per_prefill["flash_attention"], per_prefill["ssd_scan"]
+    per_step = {"rmsnorm": per_prefill["rmsnorm"], "flash_attention": 0, "decode_attention": n_attn, "ssd_scan": 0}
+    expected = {k: per_prefill[k] + JB_STEPS * per_step[k] for k in per_prefill}
+    print(f"jamba main path launches: {counts} (expected {expected}); ssd_scan by kernel {variants}")
+    require(counts == expected, f"launch counts {counts} != {expected}")
+    require(variants == {ssd_mod.TENSOR_CORE: n_ssm, ssd_mod.GENERIC: 0},
+            f"the bf16 prefill's ssd_scan launches by kernel {variants}")
+    print(f"jamba: prefill {JB_PROMPT} tokens x{JB_B}: {gen_out.prefill_s * 1e3:.3f} ms; decode: "
+          f"{gen_out.decode_s_per_token * 1e3:.3f} ms/token ({JB_B / gen_out.decode_s_per_token:.1f} tokens/s); "
+          f"peak memory {peak_gb:.2f} GB [{nvidia_smi('name,power.limit')}]")
+    print(f"card during run: {nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+    for lg in gen_out.logits:
+        require(lg.shape == (JB_B, cfg.padded_vocab) and bool(torch.isfinite(lg).all()), "bad logits")
+    require(gen_out.tokens.shape == (JB_B, JB_STEPS), "bad token shape")
+
+    # Per-step launch accounting on a second run of the same tokens; its routes are the kernel path's.
+    with routed() as routes_bf16:
+        ops.reset_launch_counts()
+        _, cache = bundle.prefill_fn(params, tokens)
+        require(ops.launch_counts() == per_prefill, f"prefill launches {ops.launch_counts()}")
+        W, d_in, bc = ssm.conv_width, ssm.expand * cfg.d_model, 2 * ssm.n_groups * ssm.d_state
+        want = {}
+        for j, spec in enumerate(layers):
+            if spec.mixer == "attn":
+                kv = ((repeats, JB_B, JB_MAX_LEN, JB_HKV, JB_D), torch.bfloat16)
+                want.update({f"{group}/l{j}/k": kv, f"{group}/l{j}/v": kv})
+            else:
+                want.update({f"{group}/l{j}/h": ((repeats, JB_B, JB_SSD_H, JB_SSD_N, JB_SSD_P), torch.float32),
+                             f"{group}/l{j}/conv_x": ((repeats, JB_B, W, d_in), torch.bfloat16),
+                             f"{group}/l{j}/conv_bc": ((repeats, JB_B, W, bc), torch.bfloat16)})
+        got = {p: (tuple(t.shape), t.dtype) for p, t in leaves_with_paths(cache)}
+        require(got == want, f"cache {got}")
+        for i in range(JB_STEPS):
+            before = ops.launch_counts()
+            _, cache = bundle.decode_fn(params, cache, gen_out.tokens[:, i:i + 1], JB_PROMPT + i)
+            delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            require(delta == per_step, f"decode step {i} launches {delta}")
+    print(f"jamba per-step launches: prefill {per_prefill['rmsnorm']} rmsnorm (norm1 and norm2 a layer, the gated "
+          f"norm of the {n_ssm} SSM mixers, the final norm) + {n_attn} flash + {n_ssm} ssd_scan, each of {JB_STEPS} "
+          f"decode steps {per_step['rmsnorm']} rmsnorm + {n_attn} decode_attention and no ssd_scan (the SSM layers "
+          f"decode by their recurrence); cache: k, v at l{layers.index(next(s for s in layers if s.mixer == 'attn'))}, "
+          f"h, conv_x, conv_bc at the others: ok")
+    del cache
+    moe_layers = len(moe_at) * repeats
+    drops = dropped_per_layer(routes_bf16[:moe_layers], m, JB_B * JB_PROMPT)
+    print(f"jamba routing at prefill (kernel path, bf16): {JB_B * JB_PROMPT * m.top_k} choices a layer, capacity "
+          f"{moe_mod._capacity(JB_B * JB_PROMPT, m)} an expert; dropped choices per MoE layer {drops} (sum "
+          f"{sum(drops)}, {sum(drops) / (moe_layers * JB_B * JB_PROMPT * m.top_k):.4%})")
+    print_breakdown(bundle, params, tokens, gen_out.tokens[:, :1], JB_PROMPT)
+
+    # Teacher-forced on the kernel path's tokens: the plain path in bf16 and
+    # the planted faults; then the weights widened to fp32 in place (exact
+    # from bf16): the plain path, the kernel path, and the plain path and the
+    # faults again on the fp32 kernel path's expert choices (ROADMAP C8).
+    # The one attention layer's last 64 queries of 2000 hide under bf16's own
+    # error here (its plain path sits up to 0.15 from fp32 at a decode step):
+    # only the fp32 gate is named for that fault (PERF.md §6).
+    planted_faults = [
+        ("flash_attention leaves the last 64 queries unwritten", "flash_attention", flash_leaves_last_tile_unwritten,
+         ("fp32",)),
+        ("ssd_scan leaves the ragged last chunk of y unwritten", "ssd_scan", ssd_leaves_ragged_chunk_unwritten,
+         ("bf16", "fp32")),
+    ]
+    plain = make_serve_bundle(cfg, max_len=JB_MAX_LEN, ops=JAMBA_PLAIN)
+    faulty = [(name, make_serve_bundle(cfg, max_len=JB_MAX_LEN, ops=planted(kernel, fn)), must)
+              for name, kernel, fn, must in planted_faults]
+    ops.reset_launch_counts()
+    with routed() as routes_plain_bf16:
+        plain_bf16 = teacher_forced(plain, params, tokens, gen_out.tokens)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    fault_bf16 = [teacher_forced(b, params, tokens, gen_out.tokens) for _, b, _ in faulty]
+    free_memory()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _to_float32(params)
+    print(f"jamba weights widened to fp32 in place, leaf by leaf, largest first: "
+          f"{sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9:.2f} GB, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with routed() as routes_exact:
+        exact = teacher_forced(plain, params, tokens, gen_out.tokens)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    with routed() as routes_fp32:
+        kernel_fp32 = teacher_forced(bundle, params, tokens, gen_out.tokens)
+    require(ops.launch_counts() == expected, f"fp32 kernel-path launches {ops.launch_counts()}")
+    require(ssd_mod.variant_launches == {ssd_mod.TENSOR_CORE: 0, ssd_mod.GENERIC: n_ssm},
+            f"the fp32 prefill's ssd_scan launches by kernel {ssd_mod.variant_launches}")
+    print(f"jamba ssd_scan by kernel: bf16 prefill {variants}, fp32 prefill {ssd_mod.variant_launches}: ok")
+    ops.reset_launch_counts()
+    with routed(routes_fp32):
+        exact_routed = teacher_forced(plain, params, tokens, gen_out.tokens)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    fault_fp32 = []
+    for _, b, _ in faulty:
+        with routed(routes_fp32):
+            fault_fp32.append(teacher_forced(b, params, tokens, gen_out.tokens))
+    print(f"jamba fp32 runs: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params
+    free_memory()
+
+    for label, (a, b) in (("bf16", (routes_bf16, routes_plain_bf16)), ("fp32", (routes_fp32, routes_exact)),
+                          ("bf16 kernel vs fp32 plain", (routes_bf16, routes_exact))):
+        prefill = routed_elsewhere(a[:moe_layers], b[:moe_layers], m.num_experts)
+        decode = routed_elsewhere(a[moe_layers:], b[moe_layers:], m.num_experts)
+        print(f"jamba routing, {label}: (token, choice) pairs routed to another expert than in the plain run: "
+              f"prefill {prefill[0]} of {prefill[1]} ({prefill[0] / prefill[1]:.4%}), decode {decode[0]} of "
+              f"{decode[1]} ({decode[0] / decode[1]:.4%})")
+    logits_gates("jamba ", gen_out.logits, plain_bf16, exact,
+                 fp32=("kernels vs plain, fp32, the plain path on the kernel path's routes", kernel_fp32, exact_routed),
+                 faults=[(name, fb, ff, must) for (name, _, must), fb, ff in zip(faulty, fault_bf16, fault_fp32)],
+                 shown=[("kernels vs plain, fp32, routed freely (not gated)",
+                         [rel_l2(a, b) for a, b in zip(kernel_fp32, exact)])])
+    del bundle, plain, faulty
+    free_memory()
+    print(f"jamba phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def teacher_forced_by_sequence(bundle, params, prompt, generated) -> list:
     """``teacher_forced`` one sequence at a time, the logits stacked back into
     the batch: the plain attention's fp32 scores for the whole batch at
@@ -1856,23 +2168,38 @@ def train_batch(cfg, pipe, step: int) -> dict:
     return batch
 
 
+def pass_launches(cfg) -> dict:
+    """Kernel launches of one forward pass over a decoder-only config's
+    layers (``Model``'s groups, each layer times its group's repeats) and
+    the final norm: per layer ``norm1``, an SSM mixer's gated norm, an MLA
+    mixer's ``kv_norm`` (and q-LoRA's ``q_norm``), ``norm2`` before a
+    channel mixer; one flash_attention per attention layer, one ssd_scan per
+    SSM layer."""
+    norms = flash = scans = 0
+    for _, n, specs in build_model(cfg).groups:
+        for spec in specs:
+            mla = spec.mixer == "attn" and cfg.attention == "mla"
+            norms += n * (1 + (spec.mixer == "ssm") + (1 + bool(cfg.mla.q_lora_rank) if mla else 0)
+                          + (spec.channel != "none"))
+            flash += n * (spec.mixer == "attn")
+            scans += n * (spec.mixer == "ssm")
+    return {"rmsnorm": norms + 1, "flash_attention": flash, "decode_attention": 0, "ssd_scan": scans}
+
+
 def train_launches(cfg) -> dict:
-    """Kernel launches of one train step: each layer's rmsnorms (two; an MLA
-    layer's ``kv_norm`` a third, q-LoRA's ``q_norm`` a fourth) and its
-    flash_attention or ssd_scan, in the forward pass and again in the
-    checkpoint's recompute (``remat="full"``, every cell), and the final
-    norm; an encoder-decoder's encoder layers two rmsnorms and one flash,
-    its decoder layers three rmsnorms and two flash (self and cross), and
-    ``enc_norm`` beside the final norm. The backward passes are plain."""
+    """Kernel launches of one train step: each layer's rmsnorms and its
+    flash_attention or ssd_scan (``pass_launches``), in the forward pass and
+    again in the checkpoint's recompute (``remat="full"``, every cell), and
+    the final norm; an encoder-decoder's encoder layers two rmsnorms and one
+    flash, its decoder layers three rmsnorms and two flash (self and cross),
+    and ``enc_norm`` beside the final norm. The backward passes are plain."""
     require(cfg.remat == "full", f"{cfg.name}: remat {cfg.remat!r}")
     if cfg.enc_dec:
         enc, dec = cfg.encoder_layers, cfg.num_layers
         return {"rmsnorm": 2 * (2 * enc + 3 * dec) + 2, "flash_attention": 2 * (enc + 2 * dec),
                 "decode_attention": 0, "ssd_scan": 0}
-    ssm = cfg.family == "ssm"
-    norms = 2 + (1 + bool(cfg.mla.q_lora_rank) if not ssm and cfg.attention == "mla" else 0)
-    return {"rmsnorm": 2 * norms * cfg.num_layers + 1, "flash_attention": 0 if ssm else 2 * cfg.num_layers,
-            "decode_attention": 0, "ssd_scan": 2 * cfg.num_layers if ssm else 0}
+    once = pass_launches(cfg)
+    return {k: 2 * v - (k == "rmsnorm") for k, v in once.items()}
 
 
 def free_memory() -> None:
@@ -1961,6 +2288,15 @@ def ssd_forgets_every_chunk(x, log_dA, Bm, Cm, *, chunk=256):
     return y.reshape(b, s, *y.shape[2:]), h
 
 
+def ssd_leaves_ragged_chunk_unwritten(x, log_dA, Bm, Cm, *, chunk=256):
+    """y's last partial 64-row chunk (its S % 64 rows, the last 64 where 64
+    divides S) is never written (zero): a kernel whose masked last chunk
+    stores nothing."""
+    y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=chunk)
+    s = x.shape[1] - (x.shape[1] % SSD_ROWS or SSD_ROWS)
+    return torch.cat([y[:, :s], torch.zeros_like(y[:, s:])], dim=1), h
+
+
 def ssd_drops_dbc(x, log_dA, Bm, Cm, *, chunk=256):
     """The backward pass gives B and C no gradient."""
     return ops.ssd_scan(x, log_dA, Bm.detach(), Cm.detach(), chunk=chunk)
@@ -1995,7 +2331,11 @@ PLANTED = {  # cell: (fault, the kernel it is planted in, the gates that must fa
 
 
 def moe_layer_count(cfg) -> int:
-    return cfg.num_layers - cfg.moe.first_k_dense if cfg.moe is not None else 0
+    """MoE layers of a decoder-only config: each group's MoE positions times
+    its repeats (a hybrid's ``is_moe_layer`` of each position in its period)."""
+    if cfg.moe is None:
+        return 0
+    return sum(n * sum(spec.channel == "moe" for spec in specs) for _, n, specs in build_model(cfg).groups)
 
 
 def recompute_routes_forward(routes, moe_layers: int) -> bool:
@@ -2713,6 +3053,16 @@ def main() -> int:
     free_memory()
     print(f"seamless launcher: {time.perf_counter() - t_launch:.1f} s; seamless-m4t-large-v2, kernel timings, the "
           f"served run and the launcher: {time.perf_counter() - t_sm:.1f} s")
+    # jamba-1.5-large-398b: no launcher run on the card (the full config does
+    # not fit, and the smoke config's head dim 16 has no flash kernel); the
+    # CPU tests drive its command line.
+    t_jb = time.perf_counter()
+    jamba_times = time_jamba_kernels(gen)
+    free_memory()
+    print(f"jamba kernel timings: {time.perf_counter() - t_jb:.1f} s")
+    jamba_counts = jamba_phase(args.seed)
+    free_memory()
+    print(f"jamba-1.5-large-398b, kernel timings and the served period: {time.perf_counter() - t_jb:.1f} s")
 
     train_times = time_train_kernels(gen)
     free_memory()
@@ -2724,11 +3074,11 @@ def main() -> int:
     train_launcher_phase(args.seed)
     colo_counts, colo_measured = colocation_phase(args.seed, name_power)
     scheduling_phase(colo_measured, name_power)
-    # a kernel's launches: the five serve paths' (h2o-danube-1.8b's two runs), the
+    # a kernel's launches: the six serve paths' (h2o-danube-1.8b's two runs), the
     # four training runs' and the co-located rounds'
     paths = [(ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [
-        (f"{DN_ARCH} run {r}", c) for r, c in danube_counts.items()] + [(DS_ARCH, deepseek_counts),
-                                                                        (SM_ARCH, seamless_counts)] + [
+        (f"{DN_ARCH} run {r}", c) for r, c in danube_counts.items()] + [
+        (DS_ARCH, deepseek_counts), (SM_ARCH, seamless_counts), (JB_ARCH, jamba_counts)] + [
         (f"train {a}", c) for a, c in train_counts.items()] + [("co-located rounds", colo_counts)]
 
     kernels = []
@@ -2804,6 +3154,27 @@ def main() -> int:
               f"{t['bound_ms']:.4f} ms by {t['bound_by']}, {t['bound_ms'] / t['ms']:.2f} of it; "
               f"{t['library_ms'] / t['ms']:.2f}x the library's speed){bwd}; {t['pairs']} visible (query, key) pairs "
               f"per (b, h); SDPA ran {t['library_kernels']} [{name_power}]")
+    for (name, shape), t in jamba_times.items():
+        if name == "rmsnorm":
+            what = "d_model" if shape[1] == JB_D_MODEL else "d_inner, the gated norm"
+            print(f"kernel rmsnorm jamba shape {shape[0]}x{shape[1]} ({what}) bf16: {t['ms']:.4f} ms (plain "
+                  f"{t['plain_ms']:.4f} ms, F.rms_norm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4g} ms by "
+                  f"{t['bound_by']}; {t['bound_ms'] / t['ms']:.2f} of the bound, {t['library_ms'] / t['ms']:.2f}x "
+                  f"F.rms_norm's speed); host {t['host_us']:.2f} us a call [{name_power}]")
+            continue
+        if name == "ssd_scan":
+            variant = shape[-1]
+            bc = "bf16 B/C views" if variant == ssd_mod.TENSOR_CORE else "fp32 B/C"
+            print(f"kernel ssd_scan jamba shape (B, S, H, P, G, N) {shape[:-1]} {bc} ({variant} kernel): "
+                  f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, library none, bound {t['bound_ms']:.4f} ms by "
+                  f"{t['bound_by']}, {t['bound_ms'] / t['ms']:.2f} of it) [{name_power}]")
+            continue
+        extra = (f"; {t['pairs']} visible (query, key) pairs per (b, h); SDPA ran {t['library_kernels']}"
+                 if name == "flash_attention" else f"; {t['split']} blocks a (b, kv head)")
+        print(f"kernel {name} jamba shape {shape} bf16: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, library "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
+              f"{t['bound_ms'] / t['ms']:.2f} of it; {t['library_ms'] / t['ms']:.2f}x the library's speed){extra} "
+              f"[{name_power}]")
     for (name, shape), t in train_times.items():
         library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         if (name, shape[-1:]) == ("rmsnorm", (DS_KV_LORA,)):

@@ -2,15 +2,15 @@
 
 Importing this package registers all ten of the JAX package's configs in
 ``base.REGISTRY``, field for field. The port's ``models.transformer.Model``
-runs six of them: the dense GQA configs minitron-8b, qwen3-32b (qk-norm),
+runs nine of them: the dense GQA configs minitron-8b, qwen3-32b (qk-norm),
 internlm2-20b, h2o-danube-1.8b (sliding window) and internvl2-2b (a stubbed
-vision frontend), and the attention-free SSM mamba2-370m. For the other four
-(deepseek-v3-671b and deepseek-v2-lite-16b: MLA and MoE; jamba-1.5-large-398b:
-a hybrid pattern with MoE; seamless-m4t-large-v2: an encoder-decoder stack)
-``models.transformer.check_supported`` raises ``NotImplementedError``. They
-are registered because ``families()`` is the calibration bridge's
-model-family universe (``bridge/profiles.py``), which reads only their
-geometry.
+vision frontend), the attention-free SSM mamba2-370m, deepseek-v3-671b and
+deepseek-v2-lite-16b (MLA and MoE) and jamba-1.5-large-398b (a hybrid
+pattern of Mamba-2 and attention layers with MoE). seamless-m4t-large-v2 (an
+encoder-decoder stack) runs in ``models.encdec.EncDecModel``;
+``models.factory.build_model`` picks the class. ``families()`` is also the
+calibration bridge's model-family universe (``bridge/profiles.py``), which
+reads only their geometry.
 """
 
 from repro_torch.configs.base import (  # noqa: F401

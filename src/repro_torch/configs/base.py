@@ -2,10 +2,10 @@
 
 :class:`ArchConfig` keeps every field and derived quantity of the reference
 (the shape grid ``SHAPES``, ``param_count``, ``layer_kind``, ...), so a
-config reads the same in both packages. The port runs the dense, SSM and
-MoE layouts (GQA or MLA attention, multi-token prediction):
-``models.transformer.Model`` raises ``NotImplementedError`` for the hybrid
-layout and encoder-decoder stacks. ``train_state_bytes_per_chip`` feeds the calibration bridge's
+config reads the same in both packages. The port runs the dense, SSM,
+MoE and hybrid layouts (GQA or MLA attention, multi-token prediction) in
+``models.transformer.Model`` and encoder-decoder stacks in
+``models.encdec.EncDecModel``. ``train_state_bytes_per_chip`` feeds the calibration bridge's
 memory figures. The dry-run's ``input_specs`` is not ported.
 """
 

@@ -17,6 +17,11 @@ seamless-m4t-large-v2's speech frames, its encoder's input) is fed the
 trainer's seeded stand-in embeddings (``data/frontend.py::frontend_embeds``)
 where the reference's launcher feeds zeros: zero frames make every encoder
 output row equal, so cross-attention would be uniform over them (ROADMAP C4).
+
+jamba-1.5-large-398b (the hybrid layout) serves with ``--smoke --device
+cpu``. On one card the launcher cannot take it: the full config (398 B
+parameters) does not fit, and the smoke config's head dim (16) has no flash
+kernel. ``chip_smoke.py`` serves one period of it at full width.
 """
 
 from __future__ import annotations

@@ -21,7 +21,10 @@ the launcher cannot take either: the full configs do not fit (15.7 B and
 and their smoke configs' attention head dims (q/k 24, v 16) have no flash
 kernel, whose wrapper raises. ``chip_smoke.py`` trains deepseek-v2-lite-16b
 at full width with its depth cut to 5 layers; the launcher has no depth
-flag, as the reference's has none.
+flag, as the reference's has none. jamba-1.5-large-398b (the hybrid
+layout: Mamba-2, attention and MoE layers, Adafactor) trains with ``--smoke
+--device cpu`` for the same two reasons: 398 B parameters, and a smoke head
+dim of 16.
 """
 
 from __future__ import annotations
@@ -38,9 +41,9 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(epilog="deepseek-v2-lite-16b and deepseek-v3-671b train only with --smoke "
-                                 "--device cpu: their full configs do not fit one card, and their smoke head "
-                                 "dims (q/k 24, v 16) have no flash kernel.")
+    ap = argparse.ArgumentParser(epilog="deepseek-v2-lite-16b, deepseek-v3-671b and jamba-1.5-large-398b train "
+                                 "only with --smoke --device cpu: their full configs do not fit one card, and "
+                                 "their smoke head dims (q/k 24, v 16; 16) have no flash kernel.")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--steps", type=int, default=100)

@@ -12,9 +12,8 @@ from repro_torch.models.transformer import Model
 
 def build_model(cfg: ArchConfig, ops=kernel_ops) -> Union[Model, EncDecModel]:
     """``EncDecModel`` for an encoder-decoder config, else the decoder-only
-    ``Model``, as the reference's factory; ``Model`` raises
-    ``NotImplementedError`` for the layouts the port does not run yet (the
-    hybrid one)."""
+    ``Model`` (dense, MoE, SSM and hybrid layouts), as the reference's
+    factory."""
     if cfg.enc_dec:
         return EncDecModel(cfg, ops=ops)
     return Model(cfg, ops=ops)

@@ -1,25 +1,31 @@
 """Decoder-only LM (the port's counterpart of the JAX package's
-``models/transformer.py`` ``Model``, dense, MoE and SSM groups): ``loss`` for
-training, ``prefill`` and ``decode_step`` for serving.
+``models/transformer.py`` ``Model``, dense, MoE, SSM and hybrid groups):
+``loss`` for training, ``prefill`` and ``decode_step`` for serving.
 
 The reference groups layers into ``lax.scan`` groups over stacked weights
-(``_layer_groups``, :56-75). The port keeps three of its layouts: a dense
-config is one group ``"dense"`` of attention + SwiGLU layers, an SSM config
-one group ``"ssm"`` of Mamba-2 mixers with no channel mixer, and an MoE
-config a group ``"dense"`` of its ``first_k_dense`` layers followed by a
-group ``"moe"`` of attention + MoE layers (deepseek-v2-lite-16b: 1 and 26,
-with MLA attention). Each group's layer kind ``"l0"`` is stacked over its
-layers; the port keeps those keys and the leading layer axis, and its scan is
-a Python loop over the groups in order and the stacked weights. Training
-wraps each layer in ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint``, ``remat="full"``), so a layer's forward runs again in the
-backward pass. A modality frontend's embeddings replace the first
-``frontend_positions`` rows of the token embeddings. The loss adds the MoE
-layers' load-balancing loss (``router_aux_weight``) and, with ``mtp_depth``,
-DeepSeek-V3's multi-token prediction (``_mtp_loss``). The hybrid layout
-raises ``NotImplementedError``, and so does an encoder-decoder stack, as the
-reference's ``Model`` cannot build one: ``models/factory.py`` gives it
-``models/encdec.py``'s ``EncDecModel``.
+(``_layer_groups``, :56-75). The port keeps its four layouts: a dense config
+is one group ``"dense"`` of attention + SwiGLU layers, an SSM config one
+group ``"ssm"`` of Mamba-2 mixers with no channel mixer, an MoE config a
+group ``"dense"`` of its ``first_k_dense`` layers followed by a group
+``"moe"`` of attention + MoE layers (deepseek-v2-lite-16b: 1 and 26, with MLA
+attention), and a hybrid config one group ``"blocks"`` of its
+``hybrid_pattern``'s period, repeated ``num_layers // period`` times, whose
+layers ``"l0"`` .. differ in their mixer (the pattern's ``"ssm"`` or
+``"attn"``) and channel (MoE where ``is_moe_layer`` of the position in the
+period, else SwiGLU): jamba-1.5-large-398b's period is ``ssm x4, attn, ssm
+x3`` with MoE at positions 1, 3, 5 and 7, repeated 9 times. Each group's
+layer kinds are stacked over its repeats; the port keeps those keys and the
+leading axis, and its scan is a Python loop over the groups in order, the
+repeats and the layers of a repeat. Training wraps each layer in
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``,
+``remat="full"``, around the whole repeat; the numbers are the same), so a
+layer's forward runs again in the backward pass. A modality frontend's
+embeddings replace the first ``frontend_positions`` rows of the token
+embeddings. The loss adds the MoE layers' load-balancing loss
+(``router_aux_weight``) and, with ``mtp_depth``, DeepSeek-V3's multi-token
+prediction (``_mtp_loss``). An encoder-decoder stack raises
+``NotImplementedError``, as the reference's ``Model`` cannot build one:
+``models/factory.py`` gives it ``models/encdec.py``'s ``EncDecModel``.
 
 A dense layer runs ``ops.rmsnorm`` twice and ``ops.flash_attention``
 (training, prefill) or ``ops.decode_attention`` (decode) once (qk-norm adds
@@ -27,7 +33,8 @@ two rmsnorms on rows of head_dim); an MLA layer runs ``ops.rmsnorm`` three
 times (``norm1``, ``kv_norm``, ``norm2``; q-LoRA adds one) and
 ``ops.flash_attention`` once in training and prefill, its decode no kernel
 but the norms; an SSM layer runs ``ops.rmsnorm`` twice (``norm1`` and the
-mixer's gated norm) and ``ops.ssd_scan`` once per full sequence. The final
+mixer's gated norm; a hybrid's SSM layer a third time, ``norm2`` before its
+channel mixer) and ``ops.ssd_scan`` once per full sequence. The final
 norm adds one rmsnorm. MoE layers dispatch through ``models/moe.py``'s sort
 path (ROADMAP C4), in training too, where the reference's ``Model`` without a
 mesh takes the one-hot oracle. With ``ops`` left at ``kernels.ops`` a CUDA
@@ -79,8 +86,17 @@ class LayerSpec:
 
 def _layer_groups(cfg: ArchConfig) -> List[Tuple[str, int, Tuple[LayerSpec, ...]]]:
     """(group name, repeat, per-repeat layer tuple), the reference's layouts
-    for an SSM, an MoE and a dense stack (``check_supported`` refuses the
-    hybrid one)."""
+    for a hybrid, an SSM, an MoE and a dense stack. A hybrid stack whose
+    period does not divide ``num_layers`` raises ``ValueError`` (the
+    reference asserts)."""
+    if cfg.hybrid_pattern is not None:
+        period = len(cfg.hybrid_pattern)
+        if cfg.num_layers % period:
+            raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} is not a multiple of the hybrid "
+                             f"pattern's period {period}")
+        layers = tuple(LayerSpec(kind, "moe" if cfg.is_moe_layer(j) else "dense")
+                       for j, kind in enumerate(cfg.hybrid_pattern))
+        return [("blocks", cfg.num_layers // period, layers)]
     if cfg.family == "ssm":
         return [("ssm", cfg.num_layers, (LayerSpec("ssm", "none"),))]
     if cfg.moe is not None:
@@ -94,11 +110,11 @@ def _layer_groups(cfg: ArchConfig) -> List[Tuple[str, int, Tuple[LayerSpec, ...]
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what ``Model`` does not run: the
-    hybrid layout (not ported yet), an encoder-decoder stack (that is
-    ``EncDecModel``'s, as in the reference) and remat ``"dots"``."""
+    """Raise ``NotImplementedError`` for what ``Model`` does not run: an
+    encoder-decoder stack (that is ``EncDecModel``'s, as in the reference)
+    and remat ``"dots"``; ``ValueError`` for an SSM layer without an
+    ``SSMConfig``."""
     unsupported = {
-        "a hybrid layer pattern": cfg.hybrid_pattern is not None,
         "an encoder-decoder stack": cfg.enc_dec,
         # no registered config uses the selective policy (keep matmul outputs)
         "remat 'dots'": cfg.remat == "dots",
@@ -108,7 +124,7 @@ def check_supported(cfg: ArchConfig) -> None:
     for feature, present in unsupported.items():
         if present:
             raise NotImplementedError(f"{cfg.name}: {feature} is not ported yet")
-    if cfg.family == "ssm":
+    if cfg.family == "ssm" or "ssm" in (cfg.hybrid_pattern or ()):
         mb._dims(cfg)  # raises without an SSMConfig
 
 

@@ -94,12 +94,20 @@ TC_SSD = [(4, 40, 32, 64, 1, 128, 256), (2, 64, 32, 64, 1, 128, 256), (2, 65, 32
           (1, 2000, 32, 64, 1, 128, 256), (2, 300, 3, 64, 1, 128, 256), (2, 300, 8, 64, 2, 32, 256),
           (1, 200, 2, 40, 1, 48, 256), (1, 129, 2, 32, 1, 64, 256)]
 SLICE_MAMBA_RMSNORM = [(8000, 1024), (8000, 2048), (4, 1024), (4, 2048)]
+# One period of jamba-1.5-large-398b served at full width (batch 4, prompt
+# 2000, decode over up to 2032 keys): the SSD scan at H 128, P 128, N 64 (the
+# tensor-core kernel's <2, 2, 4> instance in bf16, the generic one in fp32);
+# flash and decode at GQA 64/8, D 128; rmsnorm at d_model 8192 and at the
+# gated norm's d_inner 16384, the prefill's rows and a decode step's.
+JAMBA_SSD = [(4, 2000, 128, 128, 1, 64, 256), (2, 300, 128, 128, 1, 64, 256), (1, 40, 128, 128, 1, 64, 256)]
+JAMBA_DECODE = [(4, 64, 8, 2032, 128, v) for v in (1, 2001, 2032)]
+JAMBA_RMSNORM = [(8000, 8192), (8000, 16384), (4, 8192), (4, 16384)]
 # The rmsnorm planner's rows and widths: ragged row counts beside the serve
 # slices', row counts that are odd multiples of a few rows per SM, a width that
 # is no multiple of 8, narrow widths (a row in fewer lanes than a warp), and
 # widths of the repository's configs whose vector count is not a power of two.
 PLAN_ROWS = [1, 4, 33, 300, 700, 1200, 2000, 2001, 8000, 8001]
-PLAN_WIDTHS = [32, 64, 100, 128, 1024, 2048, 2560, 4096, 5120, 6144, 7168]
+PLAN_WIDTHS = [32, 64, 100, 128, 1024, 2048, 2560, 4096, 5120, 6144, 7168, 8192, 16384]
 H100_SMS = 132
 # Each row-register variant at ragged row counts and a single row; rows that
 # make every block walk more than one group of rows.
@@ -531,6 +539,15 @@ def test_rmsnorm_plan_splits_widths_that_are_no_power_of_two(d, vpt, tpr):
     assert (p.vpt, p.tpr) == (vpt, tpr)
 
 
+def test_rmsnorm_plan_at_jambas_shapes():
+    """bf16 on 132 SMs: d_model 8192 in 128 threads a row and the gated
+    norm's 16384 in 256, 8 vectors a thread, 2 and 1 rows a block; the
+    decode step's 4 rows one block each, 2 and 4 vectors a thread."""
+    got = {(r, d): tuple(rmsnorm_mod.plan(r, d, 2, True, H100_SMS)) for r, d in JAMBA_RMSNORM}
+    assert got == {(8000, 8192): (8, 128, 256, 1056), (8000, 16384): (8, 256, 256, 1056),
+                   (4, 8192): (2, 512, 512, 4), (4, 16384): (4, 512, 512, 4)}
+
+
 def test_rmsnorm_plan_at_the_serve_shapes():
     """bf16 on 132 SMs: a warp per row at d 1024 and 2048, two warps at 4096,
     in blocks of 256 threads; decode's 4 rows spread to one vector a thread,
@@ -934,6 +951,73 @@ def test_ssd_scan_kernel_matches_plain_at_the_slice(case, rng, cuda):
     for exp in (ref.ssd_ref(x, log_dA, Bm, Cm), ssd_chunked(x, log_dA, Bm, Cm, ssd_mod.ROWS)):
         _ssd_close(y, exp[0])
         _ssd_close(h, exp[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", JAMBA_SSD)
+@pytest.mark.parametrize("bc_dtype,variant", [("bfloat16", ssd_mod.TENSOR_CORE), ("float32", ssd_mod.GENERIC)])
+def test_ssd_scan_kernel_at_jambas_state(case, bc_dtype, variant, rng, cuda):
+    """jamba's N 64 x P 128 state, B and C as views of one conv output: bf16
+    takes the tensor-core kernel (214,016 bytes of shared memory, the
+    <2, 2, 4> instance), fp32 the generic one; each held to ``ssd_ref`` and
+    to ``ssd_chunked`` at the kernel's 64-row chunk."""
+    B, S, H, P, G, N, chunk = case
+    assert _build.library().repro_ssd_scan_tc_smem(N, P) == 214016 <= ssd_mod.SMEM_LIMIT
+    x = _t(_np(rng, B, S, H, P), "float32", cuda)
+    log_dA = _t(-np.abs(_np(rng, B, S, H)) * 0.1, "float32", cuda)
+    bc = _t(_np(rng, B, S, 2 * G * N), bc_dtype, cuda)
+    Bm, Cm = bc[..., : G * N].reshape(B, S, G, N), bc[..., G * N:].reshape(B, S, G, N)
+    before = dict(ssd_mod.variant_launches)
+    y, h = ops.ssd_scan(x, log_dA, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in ssd_mod.variant_launches.items()} == {
+        k: int(k == variant) for k in before}
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    for exp in (ref.ssd_ref(x, log_dA, Bm, Cm), ssd_chunked(x, log_dA, Bm, Cm, ssd_mod.ROWS)):
+        _ssd_close(y, exp[0])
+        _ssd_close(h, exp[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [300, 2000])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_at_jambas_heads(S, dtype, rng, cuda):
+    """GQA 64/8 at D 128 on the (B, S, H, D) projections viewed (B, H, S, D),
+    causal, batch 4 (S 2000: the jamba prefill)."""
+    q, k, v = (_t(_np(rng, 4, S, h, 128), dtype, cuda).transpose(1, 2) for h in (64, 8, 8))
+    n = flash_mod.launches
+    out = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == n + 1
+    _close(out, torch.cat([ref.attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1]) for i in range(4)]), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", JAMBA_DECODE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_at_jambas_heads(case, dtype, rng, cuda):
+    """Group 8 (64 query heads over 8 kv heads), D 128, over a 2032-slot cache."""
+    B, H, Hkv, S, D, valid = case
+    q = _t(_np(rng, B, H, D), dtype, cuda)
+    k, v = (_t(_np(rng, B, S, Hkv, D), dtype, cuda) for _ in range(2))
+    n = decode_mod.launches
+    out = ops.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert decode_mod.launches == n + 1
+    _close(out, ref.decode_attention_ref(q, k, v, valid), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d", JAMBA_RMSNORM)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_at_jambas_widths(rows, d, dtype, rng, cuda):
+    x = _t(_np(rng, rows, d), dtype, cuda)
+    scale = torch.from_numpy(_np(rng, d)).to(cuda)
+    n = rmsnorm_mod.launches
+    out = ops.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert rmsnorm_mod.launches == n + 1
+    _close(out, ref.rmsnorm_ref(x, scale), dtype)
 
 
 @pytest.mark.gpu

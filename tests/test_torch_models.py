@@ -32,7 +32,7 @@ from repro_torch.tree import leaves, leaves_with_paths
 
 TOL = 1e-5
 SSM_TOL = 1e-4
-ARCHS = ["minitron-8b", "mamba2-370m"]
+ARCHS = ["minitron-8b", "mamba2-370m", "jamba-1.5-large-398b"]
 
 
 def _np(rng, *shape):
@@ -209,9 +209,20 @@ def test_unported_features_raise(change):
     sliding-window attention and frontends are ported
     (tests/test_torch_train.py), and so are the ring-buffer and int8 KV caches
     (tests/test_torch_cache.py); MoE layers, MLA and multi-token prediction
-    serve and train (``test_ported_features_train_as_the_reference``)."""
+    serve and train (``test_ported_features_train_as_the_reference``). The
+    hybrid layout is ported (tests/test_torch_hybrid.py): on minitron-8b's
+    smoke config a hybrid pattern names SSM layers the config has no
+    ``SSMConfig`` for, and that raises ``ValueError``, as does a period that
+    does not divide ``num_layers``."""
     cfg = dataclasses.replace(smoke_config(get_config("minitron-8b")), **change)
     tokens = torch.zeros(2, 8, dtype=torch.long)
+    if "hybrid_pattern" in change:
+        with pytest.raises(ValueError, match="SSMConfig"):
+            Model(cfg)
+        ssm = smoke_config(get_config("mamba2-370m")).ssm
+        with pytest.raises(ValueError, match="num_layers 3 is not a multiple of the hybrid pattern's period 2"):
+            Model(dataclasses.replace(cfg, ssm=ssm, num_layers=3))
+        return
     with pytest.raises(NotImplementedError):
         Model(cfg).loss({}, tokens, tokens)
 

@@ -8,7 +8,10 @@ bf16 parameters within one bf16 step (2^-8 relative), since an fp32 result
 that differs in its last bit can round to the neighbouring bf16 value;
 schedules within 1e-7 relative; pipeline batches identical. Adafactor's
 parameters and accumulators within 1e-6 relative of the JAX package's, as
-AdamW's.
+AdamW's. Gradient compression: int8 codes and scales equal to the JAX
+package's (fp32 and bf16, exact .5 ties planted: both round half to even),
+10 steps of ``compress_grads`` within 1e-6 in outputs and residuals, and the
+twin of the reference's error-feedback property (hypothesis, 20 examples).
 """
 
 import os
@@ -21,9 +24,11 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from hypothesis import given, settings, strategies as st
 from repro.data.pipeline import DataConfig as JaxDataConfig
 from repro.data.pipeline import SyntheticPipeline as JaxPipeline
 from repro.optim import adamw as jadamw
+from repro.optim import compression as jcompression
 from repro.optim import schedules as jschedules
 
 from repro_torch.checkpoint.checkpoint import (
@@ -33,7 +38,7 @@ from repro_torch.checkpoint.checkpoint import (
     save_checkpoint,
 )
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
-from repro_torch.optim import schedules
+from repro_torch.optim import compression, schedules
 from repro_torch.optim.adamw import (
     Adafactor,
     AdafactorState,
@@ -215,6 +220,83 @@ def test_adafactor_updates_match_jax(shape, dtype, rng):
     _assert_tree_close(state.vc, jstate.vc)
     assert int(state.step) == int(jstate.step) == 3
     assert params["w"].dtype == getattr(torch, dtype) and state.vr["w"].dtype == torch.float32
+
+
+# ------------------------------------------------------------------ gradient compression
+
+
+@settings(max_examples=20, deadline=None, derandomize=True)
+@given(seed=st.integers(0, 1000))
+def test_compression_error_feedback_bounded(seed):
+    """Twin of ``test_optim_data_ckpt.py::test_compression_error_feedback_bounded``:
+    the error-feedback residual stays bounded, and the compressed gradients
+    summed over 30 steps converge to the true sum."""
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.standard_normal(64).astype(np.float32))
+    ef = compression.init_error_feedback({"g": g})
+    total_true = np.zeros(64)
+    total_comp = np.zeros(64)
+    for _ in range(30):
+        comp, ef = compression.compress_grads({"g": g}, ef)
+        total_true += g.numpy()
+        total_comp += comp["g"].numpy()
+    resid = np.abs(total_true - total_comp).max()
+    assert resid <= float(g.abs().max()) / 127.0 * 35
+    assert compression.compressed_bytes(1000, bits=8) == 500
+
+
+def _with_ties(rng, dtype):
+    """Standard normal values with an element of 127 (so the scale is exactly
+    1) and values at exact .5 ties, both signs, as ``dtype``."""
+    x = np.clip(rng.standard_normal(300) * 40, -120, 120).astype(np.float32)
+    x[:8] = [127.0, 0.5, 1.5, 2.5, -3.5, -0.5, 126.5, -125.5]
+    return x, torch.from_numpy(x).to(getattr(torch, dtype)), jnp.asarray(x, getattr(jnp, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_int8_matches_jax(dtype, rng):
+    """Codes and scale equal (``==``) to the JAX package's, the scale in
+    the input's dtype; the ties round half to even; and on a draw with no
+    planted scale, and on an all-zero tensor (the 1e-12 floor)."""
+    x, t, j = _with_ties(rng, dtype)
+    q, scale = compression.quantize_int8(t)
+    jq, jscale = jcompression.quantize_int8(j)
+    assert q.dtype == torch.int8 and scale.dtype == t.dtype and scale.shape == ()
+    assert str(jscale.dtype) == dtype
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    assert float(scale) == float(jscale) == 1.0
+    assert q[1:8].tolist() == [0, 2, 2, -4, 0, 126, -126]  # half to even
+    # the same values in both packages: scaled in numpy, then cast (a Python
+    # scalar times a bf16 array rounds the scalar to bf16 first in JAX, not in torch)
+    for a in (x[8:] * np.float32(0.37), np.zeros(5, np.float32)):
+        t, j = torch.from_numpy(a).to(getattr(torch, dtype)), jnp.asarray(a, getattr(jnp, dtype))
+        q, scale = compression.quantize_int8(t)
+        jq, jscale = jcompression.quantize_int8(j)
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        assert float(scale) == float(jscale)
+        np.testing.assert_array_equal(compression.dequantize_int8(q, scale).numpy(),
+                                      np.asarray(jcompression.dequantize_int8(jq, jscale)))
+
+
+def test_compress_grads_tracks_jax(rng):
+    """10 steps of error feedback on a bf16 and an fp32 leaf, fresh
+    gradients each step: the compressed gradients (in each leaf's dtype) and
+    the fp32 residuals within 1e-6 of the JAX package's."""
+    shapes = {"w": ((16, 24), "bfloat16"), "b": ((40,), "float32")}
+    params, jparams = _split({k: (np.zeros(s, np.float32), d) for k, (s, d) in shapes.items()})
+    ef, jef = compression.init_error_feedback(params), jcompression.init_error_feedback(jparams)
+    assert all(r.dtype == torch.float32 and r.shape == p.shape
+               for r, p in zip(leaves(ef.residual), leaves(params)))
+    for _ in range(10):
+        grads, jgrads = _split({k: (rng.standard_normal(s).astype(np.float32), d) for k, (s, d) in shapes.items()})
+        out, ef = compression.compress_grads(grads, ef)
+        jout, jef = jcompression.compress_grads(jgrads, jef)
+        for key in shapes:
+            assert out[key].dtype == grads[key].dtype and ef.residual[key].dtype == torch.float32
+            np.testing.assert_allclose(out[key].float().numpy(), np.asarray(jout[key], np.float32),
+                                       rtol=1e-6, atol=1e-6, err_msg=key)
+            np.testing.assert_allclose(ef.residual[key].numpy(), np.asarray(jef.residual[key]),
+                                       rtol=1e-6, atol=1e-6, err_msg=key)
 
 
 # ------------------------------------------------------------------ schedules

@@ -134,24 +134,41 @@ def test_analytic_terms_equal_the_reference(name):
 
 @pytest.mark.parametrize("name", ["jamba-1.5-large-398b", "seamless-m4t-large-v2"])
 def test_model_refuses_the_families_it_does_not_run(name):
-    """The two configs of the bridge's family universe that the decoder-only
-    ``Model`` does not run: it raises for their layouts (hybrid,
-    encoder-decoder), at full and at smoke size, as the reference's does.
-    ``build_model`` gives the encoder-decoder ``EncDecModel`` and still
-    raises for the hybrid layout."""
+    """The two configs of the bridge's family universe outside the dense,
+    MoE and SSM layouts, at full and at smoke size. The decoder-only
+    ``Model`` refuses the encoder-decoder stack, as the reference's does,
+    and ``build_model`` gives it ``EncDecModel``. jamba-1.5-large-398b's
+    hybrid layout it builds, with the reference's parameter tree: every
+    path and shape of ``param_defs`` equal."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.models.encdec import EncDecModel
     from repro_torch.models.factory import build_model
     from repro_torch.models.transformer import Model
 
-    for cfg in (get_config(name), smoke_config(get_config(name))):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Model(cfg)
+    for smoke in (False, True):
+        cfg = smoke_config(get_config(name)) if smoke else get_config(name)
         if cfg.enc_dec:
-            assert isinstance(build_model(cfg), EncDecModel)
-        else:
             with pytest.raises(NotImplementedError, match="not ported yet"):
-                build_model(cfg)
+                Model(cfg)
+            assert isinstance(build_model(cfg), EncDecModel)
+            continue
+        from repro.configs import get_config as jax_get_config
+        from repro.configs import smoke_config as jax_smoke_config
+        from repro.models.transformer import Model as JaxModel
+
+        jcfg = jax_smoke_config(jax_get_config(name)) if smoke else jax_get_config(name)
+        model = build_model(cfg)
+        assert isinstance(model, Model) and [(g, n) for g, n, _ in model.groups] == [("blocks", cfg.num_layers // 8)]
+        assert _def_shapes(model.param_defs()) == _def_shapes(JaxModel(jcfg).param_defs())
+
+
+def _def_shapes(tree, prefix=""):
+    """{path: shape} of a nested dict of either package's ParamDefs."""
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        out.update(_def_shapes(val, path) if isinstance(val, dict) else {path: tuple(val.shape)})
+    return out
 
 
 @pytest.mark.parametrize("name", ["deepseek-v3-671b", "deepseek-v2-lite-16b"])

@@ -52,11 +52,22 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tree import leaves, leaves_with_paths
 
 ARCHS = ["minitron-8b", "qwen3-32b", "internlm2-20b", "h2o-danube-1.8b", "internvl2-2b", "mamba2-370m",
-         "deepseek-v2-lite-16b", "deepseek-v3-671b"]
+         "deepseek-v2-lite-16b", "deepseek-v3-671b", "jamba-1.5-large-398b"]
 LOSS_RTOL = 1e-5
-GRAD_RTOL = {"mamba2-370m": 2e-4}  # others 1e-4
+GRAD_RTOL = {"mamba2-370m": 2e-4}  # others 1e-4; ``_grad_rtol`` gives a hybrid's SSM mixers 2e-4
 STEP_RTOL = 1e-4
 B, S = 2, 40  # S past the smoke window (32) and the SSM chunk (32), not a multiple of it
+
+
+def _grad_rtol(arch, path) -> float:
+    """The gradient tolerance of a leaf: 2e-4 for an SSM mixer's (the SSD
+    scan's), 1e-4 for the others; a hybrid's ``blocks/l<j>/mixer`` is an SSM
+    mixer where its pattern's position ``j`` is one."""
+    pattern = get_config(arch).hybrid_pattern
+    parts = path.split("/")
+    if pattern is not None and parts[0] == "blocks" and parts[2] == "mixer" and pattern[int(parts[1][1:])] == "ssm":
+        return 2e-4
+    return GRAD_RTOL.get(arch, 1e-4)
 
 
 def _rel_l2(a, b) -> float:
@@ -161,7 +172,7 @@ def test_loss_and_grads_match_jax(arch):
     assert sorted(ours) == sorted(theirs)
     for path, g in ours.items():
         assert g.shape == theirs[path].shape and g.dtype == torch.float32, path
-        assert _rel_l2(g.numpy(), theirs[path]) <= GRAD_RTOL.get(arch, 1e-4), path
+        assert _rel_l2(g.numpy(), theirs[path]) <= _grad_rtol(arch, path), path
 
 
 @pytest.mark.parametrize("arch", ["minitron-8b", "internvl2-2b", "mamba2-370m", "deepseek-v2-lite-16b",
