@@ -113,9 +113,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    - 20 steps through ``make_train_bundle`` and ``Trainer`` with the kernels
      (the main path: the launches of every step counted and asserted, per
      layer two rmsnorms and one flash_attention or ssd_scan in the forward
-     pass and again in its recompute, and the final norm), then the same 20
-     steps through the plain versions from the same weights and batches: the
-     kernel run's losses finite and falling, each step's gap to the plain run;
+     pass and again in its recompute, and the final norm), then the first 5
+     of those steps through the plain versions from the same weights and
+     batches: the kernel run's losses finite and falling, each of the 5
+     steps' gap to the plain run;
    - step time, peak memory and energy per step (``nvidia-smi``'s power
      draw, sampled through the run) against the 8 N T bound, and a profile
      of one step;
@@ -136,9 +137,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
      flash, per decoder layer three rmsnorms, causal and cross flash, twice;
      ``enc_norm`` and the final norm); the cross-entropy over all labels;
      the non-causal-as-causal fault must break both gates;
-12. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
+12. the multi-device layer on a single-rank NCCL group (``make_smoke_mesh``,
+   the (1, 1) mesh with the production axis names; the multi-rank arithmetic
+   is held to the JAX package's meshes by the CPU tests): internvl2-2b and
+   mamba2-370m at full width and depth and deepseek-v2-lite-16b at 5 layers,
+   at the training cells' widths, through the mesh bundle and the no-mesh
+   bundle from the same weights and batch: step 1's loss (printed: bitwise
+   equal or not), every gradient leaf within ``max(1.25 d0, 1e-6)`` relative
+   L2 of the no-mesh path's (``d0`` a second no-mesh evaluation's distance
+   from the first: the card's atomics in the MoE dispatch backward); then 3
+   steps through ``Trainer`` with the mesh bundle: each step's launches
+   equal to the no-mesh path's, finite losses, step 1's MoE routes equal to
+   the no-mesh run's; the step time beside the no-mesh median of phase 11
+   and the NCCL collectives a step issues; ``split_mesh`` and
+   ``submesh_for_job`` on the 1 x 1 mesh and the ``ValueError`` of 2 parts;
+13. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
    checkpointing under ``build/`` and restarting from it;
-13. co-location: the two training cells as jobs of ``colocation/stepper.py``'s
+14. co-location: the two training cells as jobs of ``colocation/stepper.py``'s
    ``TemporalStepper`` (one whole step per job per round, one process, the
    training phase's weights and settings), observed by ``EarlyStageProfiler``
    with the H100's peak and 8 N T FLOPs a step:
@@ -158,9 +173,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    - evict: mamba2-370m checkpointing every 2 steps under ``build/``, 3 steps,
      then ``evict``: step 2, and its state equal bit for bit to a host copy
      taken at that boundary.
-14. scheduling, on the card's host (no kernel runs here): EaCO's scheduling
+15. scheduling, on the card's host (no kernel runs here): EaCO's scheduling
    path (the roofline bridge, the cluster simulator, the control plane,
-   telemetry and the schedulers), fed what phase 13 measured:
+   telemetry and the schedulers), fed what phase 14 measured:
    - the calibration without profiles: its families, signatures and a hash
      of its saved bytes;
    - the goldens: ``tests/golden_metrics.json``'s ``schedulers`` (the 100-job
@@ -172,7 +187,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      10,000-job trace (96 nodes, half V100 and half A100), every job done;
      ``BENCH_scale.json``'s figures printed beside, not gated;
    - the card's readings into EaCO: the family replay's History with phase
-     13's set inflations recorded over it, a reading below 1.0 fed as 1.0
+     14's set inflations recorded over it, a reading below 1.0 fed as 1.0
      (the raw one printed beside), then EaCO on the family trace with it:
      every job done; its energy, JCT, violations, History hits and misses and
      the lookups of the card's signatures beside the calibration-only rows;
@@ -185,8 +200,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 ``--seed`` (default 0) draws other weights and prompts for the model phases.
 
 A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the six serve
-paths' (h2o-danube-1.8b's runs A and B), the four 20-step training runs' and
-the co-located rounds'.
+paths' (h2o-danube-1.8b's runs A and B), the four 20-step training runs',
+the mesh phase's 3-step runs and the co-located rounds'.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and prints
@@ -215,6 +230,7 @@ import types
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
@@ -236,6 +252,7 @@ from repro_torch.cluster.trace import (  # noqa: E402
     load_into,
 )
 from repro_torch.colocation.profiler import EarlyStageProfiler  # noqa: E402
+from repro_torch.colocation.spatial import split_mesh, submesh_for_job  # noqa: E402
 from repro_torch.colocation.stepper import ColocatedJob, TemporalStepper  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.baselines import FIFO, FIFOPacked, Gandiva  # noqa: E402
@@ -251,7 +268,10 @@ from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.ssd_scan import ROWS as SSD_ROWS  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import parallel  # noqa: E402
+from repro_torch.models import params as pu  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
 from repro_torch.optim.schedules import constant  # noqa: E402
 from repro_torch.roofline import hw  # noqa: E402
@@ -312,6 +332,9 @@ DS_H, DS_NOPE, DS_DQK, DS_DV, DS_D_MODEL, DS_KV_LORA, DS_DKV = 16, 128, 192, 128
 # 100 steps, under which 20 steps would barely move the loss).
 TRAIN_ARCHS = ("internvl2-2b", "mamba2-370m")
 TR_B, TR_SEQ, TR_STEPS, TR_LR = 4, 2048, 20, 3e-4
+# The plain versions' reference run of each training cell: its first steps,
+# the kernel run's gaps to them (the whole 20 would add ~2 min on a slow host).
+TR_PLAIN_STEPS = 5
 TR_H, TR_HKV = 16, 8  # internvl2-2b's attention heads (head_dim 128, as minitron-8b's)
 FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL, DS_ARCH: 1e-4, "seamless-m4t-large-v2": 1e-4}
 # deepseek-v2-lite-16b trained at full width with its depth cut to 1 dense + 4
@@ -319,6 +342,12 @@ FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL, DS_ARCH: 1e-4, "
 # state; the 27 layers would need ~188 GB): T = 8192 tokens a step, C = 960 an
 # expert.
 DS_TRAIN_LAYERS = 5
+# The mesh phase's cells (config, depth cut or 0) and Trainer steps; the
+# no-mesh main path's median step time of each training cell (train_phase).
+MESH_CELLS = (("internvl2-2b", 0), ("mamba2-370m", 0), ("deepseek-v2-lite-16b", DS_TRAIN_LAYERS))
+MESH_STEPS = 3
+MESH_GRAD_FLOOR = 1e-6
+TRAIN_MEDIAN_S = {}
 # The seamless-m4t-large-v2 phases (encoder-decoder): 24 encoder + 24 decoder
 # layers, d_model 1024, MHA 16/16 at head_dim 64, d_ff 8192, the vocab padded
 # to 256,256, 2.03 B parameters; the stub frontend's 1024 frames an utterance
@@ -2561,6 +2590,7 @@ def train_phase(arch: str, seed: int, layers: int = 0) -> dict:
     energy = (f"energy {power.joules / TR_STEPS:.2f} J/step ({power.watts:.1f} W mean draw over "
               f"{len(power.samples)} samples x {power.seconds:.3f} s, {TR_STEPS} steps)")
     steady = times[1:]
+    TRAIN_MEDIAN_S[arch] = float(np.median(steady))
     print(f"train {arch} step time: mean {np.mean(times) * 1e3:.3f} ms over {TR_STEPS} steps, steps 2-{TR_STEPS} "
           f"mean {np.mean(steady) * 1e3:.3f} median {np.median(steady) * 1e3:.3f} min {min(steady) * 1e3:.3f} ms; "
           f"bound 8 N T (N {n_active / 1e9:.4f} B active{'; the encoder at T = the frames' if cfg.enc_dec else ''}) "
@@ -2573,7 +2603,7 @@ def train_phase(arch: str, seed: int, layers: int = 0) -> dict:
     free_memory()
 
     ops.reset_launch_counts()
-    plain_trainer = Trainer(plain, pipe, quiet)
+    plain_trainer = Trainer(plain, pipe, dataclasses.replace(quiet, total_steps=TR_PLAIN_STEPS))
     plain_trainer.init_or_restore(seed, "cuda")
     plain_trainer.train()
     require(sum(ops.launch_counts().values()) == 0, "the plain training run launched a kernel")
@@ -2585,11 +2615,127 @@ def train_phase(arch: str, seed: int, layers: int = 0) -> dict:
     print(f"train {arch} losses, kernels: " + " ".join(f"{x:.5f}" for x in losses))
     print(f"train {arch} losses, plain:   " + " ".join(f"{x:.5f}" for x in plain_losses))
     print(f"train {arch}: largest per-step relative gap kernels vs plain {max(gaps):.4e} (step "
-          f"{int(np.argmax(gaps)) + 1}); plain step time steps 2-{TR_STEPS} median "
+          f"{int(np.argmax(gaps)) + 1} of {len(gaps)}); plain step time steps 2-{TR_PLAIN_STEPS} median "
           f"{np.median(plain_times[1:]) * 1e3:.3f} ms [{nvidia_smi('name,power.limit')}]")
     require(all(math.isfinite(x) for x in losses), f"{arch}: non-finite loss {losses}")
     require(losses[-1] < losses[0], f"{arch}: the loss did not fall: {losses[0]} -> {losses[-1]}")
     print(f"train {arch} phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def mesh_cell(arch: str, layers: int, mesh, seed: int, name_power: str) -> dict:
+    """One training cell on the 1 x 1 mesh against the no-mesh bundle: the
+    gradient gate leaf by leaf, then ``MESH_STEPS`` steps through the trainer
+    with the mesh bundle. Returns the trainer run's launches."""
+    t_cell = time.perf_counter()
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    flat = make_train_bundle(cfg, lr_schedule=constant(TR_LR))
+    meshed = make_train_bundle(cfg, mesh, lr_schedule=constant(TR_LR))
+    pipe = SyntheticPipeline(DataConfig(cfg.vocab_size, TR_SEQ, TR_B, seed=seed))
+    moe_layers = moe_layer_count(cfg)
+    params = flat.model.init(seed, "cuda")
+    shards = pu.shard(params, meshed.param_specs, mesh)  # at 1 x 1 the same tensors
+    require(all(a is b for a, b in zip(leaves(params), leaves(shards))), f"{arch}: a 1 x 1 shard is a copy")
+    batch = train_batch(cfg, pipe, 0)
+    with routed() as routes_flat:
+        loss0, _, grads0 = flat.grads_fn(params, batch)
+    _, _, again = flat.grads_fn(params, batch)
+    floor = grad_distances(again, grads0)[1]
+    del again
+    free_memory()
+    ops.reset_launch_counts()
+    parallel.reset_collectives()
+    with routed() as routes_mesh:
+        loss1, _, grads1 = meshed.grads_fn(shards, batch)
+    torch.cuda.synchronize()
+    launches, grad_collectives = ops.launch_counts(), parallel.collectives
+    got = grad_distances(grads1, grads0)[1]
+    del grads0, grads1, params, shards
+    free_memory()
+    limit = {p: max(FLOOR_RATIO * floor[p], MESH_GRAD_FLOOR) for p in floor}
+    worst = max((got[p] / limit[p], p) for p in got)
+    print(f"mesh {arch}: step 1's loss mesh {float(loss1)!r} no-mesh {float(loss0)!r} "
+          f"({'bitwise equal' if float(loss1) == float(loss0) else 'not bitwise equal'}); gradient leaves from the "
+          f"no-mesh path: largest {max(got.values()):.3e}, a second no-mesh evaluation's largest "
+          f"{max(floor.values()):.3e}; worst leaf {worst[1]} at {worst[0]:.3f} of its limit max(1.25 d0, "
+          f"{MESH_GRAD_FLOOR:g}); loss and gradient launches {launches}, {grad_collectives} NCCL collectives")
+    require(worst[0] <= 1.0, f"{arch}: the mesh gradient of {worst[1]} is {got[worst[1]]:.3e} from the no-mesh path's")
+    require(launches == train_launches(cfg), f"{arch}: mesh loss and gradient launches {launches}")
+    if moe_layers:
+        require(all(torch.equal(a, b) for a, b in zip(routes_mesh[:moe_layers], routes_flat[:moe_layers])),
+                f"{arch}: the mesh forward routed otherwise than the no-mesh forward")
+
+    per_step = train_launches(cfg)
+    deltas, collectives = [], []
+    step_fn = meshed.step_fn
+
+    def counted_step(*a):
+        before = ops.launch_counts()
+        parallel.reset_collectives()
+        out = step_fn(*a)
+        deltas.append({k: v - before[k] for k, v in ops.launch_counts().items()})
+        collectives.append(parallel.collectives)
+        return out
+
+    meshed.step_fn = counted_step
+    quiet = TrainerConfig(total_steps=MESH_STEPS, steps_per_epoch=10**9, ckpt_every_steps=10**9, log_every=10**9)
+    trainer = Trainer(meshed, pipe, quiet)
+    trainer.init_or_restore(seed, "cuda")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with routed() as routes:
+        trainer.train()
+    counts = ops.launch_counts()
+    losses = [h["loss"] for h in trainer.history]
+    times = [h["step_s"] for h in trainer.history]
+    del trainer
+    meshed.step_fn = step_fn
+    free_memory()
+    require(all(d == per_step for d in deltas), f"{arch}: mesh step launches {deltas}, expected {per_step}")
+    require(all(math.isfinite(x) for x in losses), f"{arch}: non-finite mesh loss {losses}")
+    if moe_layers:
+        require(all(torch.equal(a, b) for a, b in zip(routes[:moe_layers], routes_flat[:moe_layers])),
+                f"{arch}: the mesh trainer's step 1 routed otherwise than the no-mesh run")
+    median = TRAIN_MEDIAN_S.get(arch)
+    beside = f"the no-mesh main path's median {median * 1e3:.3f} ms (phase 11)" if median else "no no-mesh median"
+    print(f"mesh {arch} trainer: {MESH_STEPS} steps, losses " + " ".join(f"{x:.5f}" for x in losses)
+          + f"; launches per step {per_step} at every step; {collectives} NCCL collectives a step; step time steps "
+          f"2-{MESH_STEPS} median {np.median(times[1:]) * 1e3:.3f} ms beside {beside}"
+          + (f"; step 1's routes equal to the no-mesh run's in all {moe_layers} MoE layers" if moe_layers else "")
+          + f"; {time.perf_counter() - t_cell:.1f} s [{name_power}]")
+    return counts
+
+
+def mesh_phase(seed: int, name_power: str) -> dict:
+    """The training cells on the (1, 1) mesh of a single-rank NCCL group
+    (``mesh_cell``) and the spatial splits of that mesh; the group is
+    destroyed at the end. Returns the trainer runs' launches, summed."""
+    t_phase = time.perf_counter()
+    mesh = make_smoke_mesh("cuda")
+    try:
+        require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                f"the smoke mesh's group: {dist.get_backend()} of {dist.get_world_size()}")
+        print(f"mesh: {tuple(mesh.mesh_dim_names)} {mesh.mesh.tolist()} on {mesh.device_type}, a single-rank "
+              f"{dist.get_backend()} group (torch {torch.__version__})")
+        counts = {k: 0 for k in KERNELS}
+        for arch, layers in MESH_CELLS:
+            cell = mesh_cell(arch, layers, mesh, seed, name_power)
+            counts = {k: counts[k] + cell[k] for k in counts}
+        subs = split_mesh(mesh, 1, axis="data")
+        job = submesh_for_job(mesh, 0, 1, axis="data")
+        try:
+            split_mesh(mesh, 2, axis="data")
+            refused = "no error"
+        except ValueError as e:
+            refused = f"ValueError: {e}"
+        print(f"mesh spatial: split_mesh(1 part) {[(tuple(m.mesh_dim_names), m.mesh.tolist()) for m in subs]}, "
+              f"submesh_for_job(0, 1) {(tuple(job.mesh_dim_names), job.mesh.tolist())}, 2 parts: {refused}")
+        require(refused.startswith("ValueError"), "split_mesh took 2 parts of a 1-rank axis")
+    finally:
+        dist.destroy_process_group()
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s; launches of its trainer runs {counts}")
     return counts
 
 
@@ -3071,15 +3217,18 @@ def main() -> int:
     free_memory()
     train_counts[SM_ARCH] = train_phase(SM_ARCH, args.seed)
     free_memory()
+    mesh_counts = mesh_phase(args.seed, name_power)
+    free_memory()
     train_launcher_phase(args.seed)
     colo_counts, colo_measured = colocation_phase(args.seed, name_power)
     scheduling_phase(colo_measured, name_power)
     # a kernel's launches: the six serve paths' (h2o-danube-1.8b's two runs), the
-    # four training runs' and the co-located rounds'
+    # four training runs', the mesh runs' and the co-located rounds'
     paths = [(ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [
         (f"{DN_ARCH} run {r}", c) for r, c in danube_counts.items()] + [
         (DS_ARCH, deepseek_counts), (SM_ARCH, seamless_counts), (JB_ARCH, jamba_counts)] + [
-        (f"train {a}", c) for a, c in train_counts.items()] + [("co-located rounds", colo_counts)]
+        (f"train {a}", c) for a, c in train_counts.items()] + [("mesh", mesh_counts),
+                                                                ("co-located rounds", colo_counts)]
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -25,6 +25,10 @@ on which it initialises a job without state (default ``"cuda"``; never
 passed to an ``AnalyticBundle``), and a frontend's positions are fed the
 trainer's seeded stand-in embeddings (``data/frontend.py::frontend_embeds``),
 not zeros, whose gradient overflows at depth (ROADMAP C5).
+
+A job's bundle may be one on a mesh (``make_train_bundle(cfg, mesh)``): the
+stepper feeds it the global batch as it feeds any. A checkpoint of a mesh of
+more than one rank is A9b and raises.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch
 from repro_torch.checkpoint.checkpoint import AsyncCheckpointer, latest_checkpoint, restore_checkpoint
 from repro_torch.data.frontend import frontend_embeds
 from repro_torch.data.pipeline import SyntheticPipeline
+from repro_torch.models.parallel import NOT_PORTED
 from repro_torch.train.steps import TrainBundle
 from repro_torch.tree import leaves
 
@@ -133,6 +138,9 @@ class TemporalStepper:
                 else:
                     job.params, job.opt_state = job.bundle.init_state(seed + i, device)
             if job.ckpt_dir:
+                mesh = getattr(job.bundle, "mesh", None)
+                if mesh is not None and mesh.size() > 1:
+                    raise NotImplementedError(f"{job.name}: a checkpoint of a {mesh.size()}-rank mesh is {NOT_PORTED}")
                 self._ckpt[job.name] = AsyncCheckpointer(job.ckpt_dir)
 
     def _make_batch(self, job: ColocatedJob) -> Dict[str, torch.Tensor]:

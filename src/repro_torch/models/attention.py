@@ -50,53 +50,77 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import apply_rope, head_rmsnorm, rmsnorm, rope_tables, rotate
+from repro_torch.models.parallel import copy_to_model, group_slice, reduce_from_model, tensor_parallel
 from repro_torch.models.params import ParamDef, fan_in_init, ones_init
 
 Cache = Dict[str, torch.Tensor]
 
 
+def kv_spec(cfg: ArchConfig) -> Optional[str]:
+    """``"model"`` where the KV heads are sharded over the model axis, ``None``
+    where ``wk`` and ``wv`` are replicated (the reference's rule: sharded when
+    16, its production model axis, divides the KV heads)."""
+    return "model" if cfg.num_kv_heads % 16 == 0 else None
+
+
 def gqa_def(cfg: ArchConfig) -> Dict[str, ParamDef]:
     d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    kv = kv_spec(cfg)  # replicate when indivisible
     defs = {
-        "wq": ParamDef((d, H * hd), fan_in_init()),
-        "wk": ParamDef((d, Hkv * hd), fan_in_init()),
-        "wv": ParamDef((d, Hkv * hd), fan_in_init()),
-        "wo": ParamDef((H * hd, d), fan_in_init()),
+        "wq": ParamDef((d, H * hd), (None, "model"), fan_in_init()),
+        "wk": ParamDef((d, Hkv * hd), (None, kv), fan_in_init()),
+        "wv": ParamDef((d, Hkv * hd), (None, kv), fan_in_init()),
+        "wo": ParamDef((H * hd, d), ("model", None), fan_in_init()),
     }
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef((hd,), ones_init(), torch.float32)
-        defs["k_norm"] = ParamDef((hd,), ones_init(), torch.float32)
+        defs["q_norm"] = ParamDef((hd,), (None,), ones_init(), torch.float32)
+        defs["k_norm"] = ParamDef((hd,), (None,), ones_init(), torch.float32)
     return defs
+
+
+def _kv_weights(p: Dict[str, torch.Tensor], cfg: ArchConfig, par) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``wk`` and ``wv`` for this rank's heads: as they are (no mesh, or KV
+    heads sharded over ``"model"``), or, where they are replicated, the
+    columns of the KV heads that the rank's query heads use, entered into the
+    model region so that their gradient is summed over the ranks."""
+    if not tensor_parallel(par) or kv_spec(cfg) is not None:
+        return p["wk"], p["wv"]
+    hd = cfg.resolved_head_dim
+    k0, k1 = group_slice(cfg.num_heads, cfg.num_kv_heads, par)
+    return tuple(copy_to_model(p[name], par)[:, k0 * hd : k1 * hd] for name in ("wk", "wv"))
 
 
 def _gqa_qkv(
     p: Dict[str, torch.Tensor], cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
-    ops=kernel_ops,
+    ops=kernel_ops, par=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, S, d) -> q (B, S, H, hd), k and v (B, S, Hkv, hd), qk-normed if
-    the config says so, RoPE applied."""
+    the config says so, RoPE applied. On a mesh the rank's heads: H and Hkv
+    its own."""
     B, S, _ = x.shape
-    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = torch.matmul(x, p["wq"]).reshape(B, S, H, hd)
-    k = torch.matmul(x, p["wk"]).reshape(B, S, Hkv, hd)
-    v = torch.matmul(x, p["wv"]).reshape(B, S, Hkv, hd)
+    hd = cfg.resolved_head_dim
+    x = copy_to_model(x, par)
+    wk, wv = _kv_weights(p, cfg, par)
+    q = torch.matmul(x, p["wq"]).reshape(B, S, -1, hd)
+    k = torch.matmul(x, wk).reshape(B, S, -1, hd)
+    v = torch.matmul(x, wv).reshape(B, S, -1, hd)
     if cfg.qk_norm:
-        q = head_rmsnorm(p["q_norm"], q, ops=ops)
-        k = head_rmsnorm(p["k_norm"], k, ops=ops)
+        q = head_rmsnorm(copy_to_model(p["q_norm"], par), q, ops=ops)
+        k = head_rmsnorm(copy_to_model(p["k_norm"], par), k, ops=ops)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)  # shared by q and k
     return rotate(q, cos, sin), rotate(k, cos, sin), v
 
 
 def _gqa_attend(
     p: Dict[str, torch.Tensor], q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ops,
-    window: Optional[int] = None,
+    window: Optional[int] = None, par=None, causal: bool = True,
 ) -> torch.Tensor:
-    """Causal attention over (B, S, *, hd) projections, with an optional
-    sliding window, then the output projection."""
+    """Attention over (B, S, *, hd) projections, with an optional sliding
+    window, then the output projection (row-parallel on a mesh)."""
     B, S = q.shape[:2]
-    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
                             window=window)
-    return torch.matmul(o.transpose(1, 2).reshape(B, S, -1), p["wo"])
+    return reduce_from_model(torch.matmul(o.transpose(1, 2).reshape(B, S, -1), p["wo"]), par)
 
 
 def gqa_forward(
@@ -105,10 +129,11 @@ def gqa_forward(
     x: torch.Tensor,
     positions: torch.Tensor,
     ops=kernel_ops,
+    par=None,
 ) -> torch.Tensor:
     """Causal self-attention over a full sequence (training and prefill)."""
-    q, k, v = _gqa_qkv(p, cfg, x, positions, ops)
-    return _gqa_attend(p, q, k, v, ops, cfg.sliding_window)
+    q, k, v = _gqa_qkv(p, cfg, x, positions, ops, par)
+    return _gqa_attend(p, q, k, v, ops, cfg.sliding_window, par)
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -146,6 +171,16 @@ def gqa_make_cache(
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+def gqa_cache_spec(cfg: ArchConfig, batch_axes) -> Dict[str, tuple]:
+    """The cache's specs: batch over ``batch_axes``, the sequence over ``"model"``."""
+    spec = (batch_axes, "model", None, None)
+    out = {"k": spec, "v": spec}
+    if cfg.kv_cache_dtype == "int8":
+        out["k_scale"] = (batch_axes, "model", None)
+        out["v_scale"] = (batch_axes, "model", None)
+    return out
 
 
 def _entries(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Cache:
@@ -216,14 +251,17 @@ def cross_def(cfg: ArchConfig) -> Dict[str, ParamDef]:
 
 
 def cross_memory_kv(
-    p: Dict[str, torch.Tensor], cfg: ArchConfig, memory: torch.Tensor
+    p: Dict[str, torch.Tensor], cfg: ArchConfig, memory: torch.Tensor, par=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The encoder memory's (B, F, d) cross-attention K and V, each
-    (B, F, Hkv, hd), without RoPE: computed once per request."""
+    (B, F, Hkv, hd), without RoPE: computed once per request. On a mesh
+    the KV heads of the rank's query heads."""
     B, F, _ = memory.shape
-    Hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    k = torch.matmul(memory, p["wk"]).reshape(B, F, Hkv, hd)
-    v = torch.matmul(memory, p["wv"]).reshape(B, F, Hkv, hd)
+    hd = cfg.resolved_head_dim
+    memory = copy_to_model(memory, par)
+    wk, wv = _kv_weights(p, cfg, par)
+    k = torch.matmul(memory, wk).reshape(B, F, -1, hd)
+    v = torch.matmul(memory, wv).reshape(B, F, -1, hd)
     return k, v
 
 
@@ -233,6 +271,7 @@ def cross_forward(
     x: torch.Tensor,  # decoder hidden (B, Sq, d)
     memory_kv: Tuple[torch.Tensor, torch.Tensor],  # (k, v) of the encoder memory, (B, F, Hkv, hd)
     ops=kernel_ops,
+    par=None,
 ) -> torch.Tensor:
     """Every decoder position attends to all F memory rows (no mask, no
     RoPE): ``ops.flash_attention(causal=False)`` with Sq = the decoder's
@@ -240,15 +279,15 @@ def cross_forward(
     over all F keys, the same function, where flash would spend a 128-row
     query tile on one row."""
     B, Sq, _ = x.shape
-    H, hd = cfg.num_heads, cfg.resolved_head_dim
-    q = torch.matmul(x, p["wq"]).reshape(B, Sq, H, hd)
+    hd = cfg.resolved_head_dim
+    q = torch.matmul(copy_to_model(x, par), p["wq"]).reshape(B, Sq, -1, hd)
     k, v = memory_kv
     if Sq == 1:
         o = ops.decode_attention(q[:, 0], k, v, k.shape[1])  # (B, H, hd)
     else:
         o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False)
         o = o.transpose(1, 2)
-    return torch.matmul(o.reshape(B, Sq, -1), p["wo"])
+    return reduce_from_model(torch.matmul(o.reshape(B, Sq, -1), p["wo"]), par)
 
 
 # ---------------------------------------------------------------------------
@@ -263,28 +302,31 @@ def mla_def(cfg: ArchConfig) -> Dict[str, ParamDef]:
     qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
     defs: Dict[str, ParamDef] = {}
     if m.q_lora_rank:
-        defs["w_dq"] = ParamDef((d, m.q_lora_rank), fan_in_init())
-        defs["q_norm"] = ParamDef((m.q_lora_rank,), ones_init(), torch.float32)
-        defs["w_uq"] = ParamDef((m.q_lora_rank, H * qk_head), fan_in_init())
+        defs["w_dq"] = ParamDef((d, m.q_lora_rank), (None, None), fan_in_init())
+        defs["q_norm"] = ParamDef((m.q_lora_rank,), (None,), ones_init(), torch.float32)
+        defs["w_uq"] = ParamDef((m.q_lora_rank, H * qk_head), (None, "model"), fan_in_init())
     else:
-        defs["w_uq"] = ParamDef((d, H * qk_head), fan_in_init())
-    defs["w_dkv"] = ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim), fan_in_init())
-    defs["kv_norm"] = ParamDef((m.kv_lora_rank,), ones_init(), torch.float32)
-    defs["w_ukv"] = ParamDef((m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim)), fan_in_init())
-    defs["wo"] = ParamDef((H * m.v_head_dim, d), fan_in_init())
+        defs["w_uq"] = ParamDef((d, H * qk_head), (None, "model"), fan_in_init())
+    defs["w_dkv"] = ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim), (None, None), fan_in_init())
+    defs["kv_norm"] = ParamDef((m.kv_lora_rank,), (None,), ones_init(), torch.float32)
+    defs["w_ukv"] = ParamDef((m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim)), (None, "model"),
+                             fan_in_init())
+    defs["wo"] = ParamDef((H * m.v_head_dim, d), ("model", None), fan_in_init())
     return defs
 
 
-def _mla_q(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, ops=kernel_ops):
-    """(B, S, d) -> q_nope (B, S, H, nope), q_rope (B, S, H, rope) rotated."""
+def _mla_q(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, ops=kernel_ops, par=None):
+    """(B, S, d) -> q_nope (B, S, H, nope), q_rope (B, S, H, rope) rotated.
+    On a mesh the rank's heads: the q-LoRA latent is computed whole on every
+    rank and enters the model region after its norm."""
     m = cfg.mla
     B, S, _ = x.shape
     qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
     if m.q_lora_rank:
         cq = rmsnorm({"scale": p["q_norm"]}, torch.matmul(x, p["w_dq"]), ops=ops)
-        q = torch.matmul(cq, p["w_uq"]).reshape(B, S, cfg.num_heads, qk_head)
+        q = torch.matmul(copy_to_model(cq, par), p["w_uq"]).reshape(B, S, -1, qk_head)
     else:
-        q = torch.matmul(x, p["w_uq"]).reshape(B, S, cfg.num_heads, qk_head)
+        q = torch.matmul(copy_to_model(x, par), p["w_uq"]).reshape(B, S, -1, qk_head)
     q_nope = q[..., : m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -301,25 +343,29 @@ def _mla_ckv(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, ops=k
     return ckv, k_rope
 
 
-def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, ckv, k_rope, ops=kernel_ops) -> torch.Tensor:
+def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, ckv, k_rope, ops=kernel_ops, par=None) -> torch.Tensor:
     """Expand the latent into per-head K and V, causal attention at
-    (Dqk, Dv) = (nope + rope, v), then the output projection."""
+    (Dqk, Dv) = (nope + rope, v), then the output projection. On a mesh the
+    latent and the rope key (computed whole on every rank) enter the model
+    region here, and ``wo`` is row-parallel."""
     m = cfg.mla
     B, S, H = q_nope.shape[:3]
+    ckv, k_rope = copy_to_model(ckv, par), copy_to_model(k_rope, par)
     kv = torch.matmul(ckv, p["w_ukv"]).reshape(B, S, H, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = kv[..., : m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)], dim=-1)
     # the scale is 1/sqrt(q's head dim): the reference's explicit 1/sqrt(nope + rope)
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True)
-    return torch.matmul(o.transpose(1, 2).reshape(B, S, -1), p["wo"])
+    return reduce_from_model(torch.matmul(o.transpose(1, 2).reshape(B, S, -1), p["wo"]), par)
 
 
-def mla_forward(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, ops=kernel_ops) -> torch.Tensor:
+def mla_forward(p, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, ops=kernel_ops,
+                par=None) -> torch.Tensor:
     """Training / prefill path: expand the latent into per-head K/V."""
-    q_nope, q_rope = _mla_q(p, cfg, x, positions, ops)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, ops, par)
     ckv, k_rope = _mla_ckv(p, cfg, x, positions, ops)
-    return _mla_attend(p, cfg, q_nope, q_rope, ckv, k_rope, ops)
+    return _mla_attend(p, cfg, q_nope, q_rope, ckv, k_rope, ops, par)
 
 
 def mla_make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> Cache:
@@ -328,6 +374,10 @@ def mla_make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat
         "ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
         "kr": torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dtype, device=device),
     }
+
+
+def mla_cache_spec(cfg: ArchConfig, batch_axes) -> Dict[str, tuple]:
+    return {"ckv": (batch_axes, "model", None), "kr": (batch_axes, "model", None)}
 
 
 def mla_decode(

@@ -20,13 +20,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models.parallel import (
+    copy_to_model,
+    max_over_model,
+    reduce_from_data,
+    reduce_from_model,
+    sum_over_data,
+    tensor_parallel,
+)
 from repro_torch.models.params import ParamDef, fan_in_init, normal_init, ones_init
 
 Params = Dict[str, torch.Tensor]
 
 
 def rmsnorm_def(dim: int) -> Dict[str, ParamDef]:
-    return {"scale": ParamDef((dim,), ones_init(), torch.float32)}
+    return {"scale": ParamDef((dim,), (None,), ones_init(), torch.float32)}
 
 
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6, ops=kernel_ops) -> torch.Tensor:
@@ -66,15 +74,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def embedding_def(vocab: int, d_model: int) -> Dict[str, ParamDef]:
-    return {"table": ParamDef((vocab, d_model), normal_init(0.02))}
+    return {"table": ParamDef((vocab, d_model), ("model", None), normal_init(0.02))}
 
 
-def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed(params: Params, tokens: torch.Tensor, par=None) -> torch.Tensor:
+    """The tokens' rows of the table. On a model axis of more than one rank
+    the table is vocab-sharded: each rank looks up the tokens its rows own,
+    zeros for the others, and the ranks' rows are summed."""
+    table = params["table"]
+    if not tensor_parallel(par):
+        return table[tokens]
+    local = tokens - par.model_rank * table.shape[0]
+    own = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return reduce_from_model(torch.where(own[..., None], rows, 0.0), par)
 
 
 def lm_head_def(d_model: int, vocab: int) -> Dict[str, ParamDef]:
-    return {"w": ParamDef((d_model, vocab), fan_in_init())}
+    return {"w": ParamDef((d_model, vocab), (None, "model"), fan_in_init())}
 
 
 def token_cross_entropy(
@@ -83,21 +100,37 @@ def token_cross_entropy(
     labels: torch.Tensor,  # (B, S), -100 ignored
     vocab_size: int,
     chunk: int = 512,
+    par=None,
 ) -> torch.Tensor:
     """The cross-entropy of every token, (B, S) in fp32, 0 where the label is
     -100, a chunk of the sequence at a time: the (B, chunk, V) logits are
     computed in the head's dtype and widened to fp32, the padded vocab entries
-    masked to -1e30."""
+    masked to -1e30.
+
+    On a model axis of more than one rank the head is vocab-sharded: the
+    padded columns are masked at their global index, the max and the sum of
+    exponentials are reduced over ``"model"``, and the gold logit comes from
+    the shard that owns it."""
     S = hidden.shape[1]
     chunk = min(chunk, S)
+    hidden = copy_to_model(hidden, par)
     out = []
     for start in range(0, S, chunk):
         h, y = hidden[:, start : start + chunk], labels[:, start : start + chunk]
         logits = torch.matmul(h, head_w).float()
-        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        first = par.model_rank * logits.shape[-1] if tensor_parallel(par) else 0
+        vocab = first + torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(vocab < vocab_size, logits, -1e30)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
+        if tensor_parallel(par):
+            top = max_over_model(logits.amax(dim=-1, keepdim=True), par)
+            logz = torch.log(reduce_from_model((logits - top).exp().sum(dim=-1), par)) + top[..., 0]
+            local = y.long() - first
+            own = (local >= 0) & (local < logits.shape[-1])
+            gold = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+            gold = reduce_from_model(torch.where(own, gold, 0.0), par)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
         out.append((logz - gold) * (y >= 0).float())
     return torch.cat(out, dim=1)
 
@@ -108,25 +141,31 @@ def chunked_cross_entropy(
     labels: torch.Tensor,  # (B, S), -100 ignored
     vocab_size: int,
     chunk: int = 512,
+    par=None,
 ) -> torch.Tensor:
     """Mean cross-entropy over the labels that are not -100: the mean of
-    ``token_cross_entropy``."""
-    losses = token_cross_entropy(head_w, hidden, labels, vocab_size, chunk)
-    return losses.sum() / (labels >= 0).sum().float().clamp(min=1.0)
+    ``token_cross_entropy``. Under data parallelism the global mean, the sum
+    of the ranks' sums over the sum of their counts (not the mean of their
+    means: the ranks' rows hold different numbers of labels)."""
+    losses = token_cross_entropy(head_w, hidden, labels, vocab_size, chunk, par)
+    count = (labels >= 0).sum().float()
+    return reduce_from_data(losses.sum(), par) / sum_over_data(count, par).clamp(min=1.0)
 
 
 def swiglu_def(d_model: int, d_ff: int) -> Dict[str, ParamDef]:
     return {
-        "gate": ParamDef((d_model, d_ff), fan_in_init()),
-        "up": ParamDef((d_model, d_ff), fan_in_init()),
-        "down": ParamDef((d_ff, d_model), fan_in_init()),
+        "gate": ParamDef((d_model, d_ff), (None, "model"), fan_in_init()),
+        "up": ParamDef((d_model, d_ff), (None, "model"), fan_in_init()),
+        "down": ParamDef((d_ff, d_model), ("model", None), fan_in_init()),
     }
 
 
-def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
+def swiglu(params: Params, x: torch.Tensor, par=None) -> torch.Tensor:
+    """``gate`` and ``up`` column-parallel, ``down`` row-parallel on a mesh."""
+    x = copy_to_model(x, par)
     g = torch.matmul(x, params["gate"])
     u = torch.matmul(x, params["up"])
-    return torch.matmul(F.silu(g) * u, params["down"])
+    return reduce_from_model(torch.matmul(F.silu(g) * u, params["down"]), par)
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:

@@ -34,8 +34,14 @@ and the cross cache takes the prefill's compute dtype (the reference's
 ``make_cache`` names bf16, :189-190, but its prefill returns the compute
 dtype): ROADMAP C4. A decode step's cross-attention goes to
 ``ops.decode_attention`` over all F keys. The cache is written in place, as
-the decoder-only model's. Sharding specs (``param_specs``, ``cache_specs``,
-``_decode_shard_fn``) are not ported (one card).
+the decoder-only model's.
+
+On a mesh (``EncDecModel(cfg, mesh, batch_axes)``) training runs as the
+decoder-only ``Model``'s: the rank's rows of the tokens, labels and frames
+(``_constrain``), its heads in every self- and cross-attention, its columns
+of d_ff, its vocab rows of the embedding and the head. ``param_specs`` and
+``cache_specs`` are the reference's spec trees. Serving on a mesh
+(``_decode_shard_fn``, the sharded caches) is A9b.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import params as pu
+from repro_torch.models.parallel import NOT_PORTED, Parallel
 from repro_torch.models.common import (
     chunked_cross_entropy,
     embed,
@@ -69,11 +76,14 @@ class EncDecModel(nn.Module):
     """Seamless-style encoder-decoder: ``loss``, ``prefill`` and
     ``decode_step`` over an explicit parameter dict."""
 
-    def __init__(self, cfg: ArchConfig, ops=kernel_ops):
+    def __init__(self, cfg: ArchConfig, mesh=None, batch_axes: Tuple[str, ...] = ("data",), ops=kernel_ops):
         super().__init__()
         if not cfg.enc_dec:
             raise ValueError(f"{cfg.name} is not an encoder-decoder config")
         self.cfg = cfg
+        self.mesh = mesh
+        self.batch_axes = tuple(batch_axes)
+        self.par = None if mesh is None else Parallel(mesh, batch_axes)
         self.ops = ops
 
     # -- parameters ---------------------------------------------------------
@@ -110,7 +120,22 @@ class EncDecModel(nn.Module):
         }
 
     def init(self, seed: int = 0, device: Union[str, torch.device] = "cuda") -> Tree:
-        return pu.init_params(self.param_defs(), seed, device)
+        """The seeded tree on ``device``; on a mesh the rank's shards of it."""
+        params = pu.init_params(self.param_defs(), seed, device)
+        return params if self.mesh is None else pu.shard(params, self.param_specs(), self.mesh)
+
+    def param_specs(self) -> Tree:
+        return pu.partition_specs(self.param_defs())
+
+    def cache_specs(self) -> Tree:
+        baxes = self.batch_axes if len(self.batch_axes) > 1 else self.batch_axes[0]
+        kv = (None, baxes, "model", None, None)
+        cross = (None, baxes, None, attn.kv_spec(self.cfg), None)
+        return {"self": {s: kv for s in ("k", "v")}, "cross_k": cross, "cross_v": cross}
+
+    def _constrain(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """This rank's rows of a global batch tensor (all of it without a mesh)."""
+        return x if self.par is None else self.par.rows(x)
 
     @staticmethod
     def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -120,12 +145,10 @@ class EncDecModel(nn.Module):
     # -- encoder ------------------------------------------------------------
 
     def _enc_block(self, p: Tree, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        cfg, ops = self.cfg, self.ops
-        B, F, _ = x.shape
-        q, k, v = attn._gqa_qkv(p["mixer"], cfg, rmsnorm(p["norm1"], x, ops=ops), positions, ops)
-        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False)
-        x = x + torch.matmul(o.transpose(1, 2).reshape(B, F, -1), p["mixer"]["wo"])
-        return x + swiglu(p["channel"], rmsnorm(p["norm2"], x, ops=ops))
+        cfg, ops, par = self.cfg, self.ops, self.par
+        q, k, v = attn._gqa_qkv(p["mixer"], cfg, rmsnorm(p["norm1"], x, ops=ops), positions, ops, par)
+        x = x + attn._gqa_attend(p["mixer"], q, k, v, ops, par=par, causal=False)
+        return x + swiglu(p["channel"], rmsnorm(p["norm2"], x, ops=ops), par)
 
     def encode(self, params: Tree, frames: torch.Tensor, training: bool = False) -> torch.Tensor:
         """frames (B, F, d_model) -> the encoder's normed output, the memory
@@ -145,18 +168,20 @@ class EncDecModel(nn.Module):
     # -- decoder (training) ---------------------------------------------------
 
     def _dec_block(self, p: Tree, x: torch.Tensor, positions: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-        cfg, ops = self.cfg, self.ops
-        x = x + attn.gqa_forward(p["mixer"], cfg, rmsnorm(p["norm1"], x, ops=ops), positions, ops)
+        cfg, ops, par = self.cfg, self.ops, self.par
+        x = x + attn.gqa_forward(p["mixer"], cfg, rmsnorm(p["norm1"], x, ops=ops), positions, ops, par)
         h = rmsnorm(p["norm_x"], x, ops=ops)
-        x = x + attn.cross_forward(p["cross"], cfg, h, attn.cross_memory_kv(p["cross"], cfg, memory), ops)
-        return x + swiglu(p["channel"], rmsnorm(p["norm2"], x, ops=ops))
+        mem_kv = attn.cross_memory_kv(p["cross"], cfg, memory, par)
+        x = x + attn.cross_forward(p["cross"], cfg, h, mem_kv, ops, par)
+        return x + swiglu(p["channel"], rmsnorm(p["norm2"], x, ops=ops), par)
 
     def _hidden(self, params: Tree, tokens: torch.Tensor, frontend_embeds: Optional[torch.Tensor]):
-        """The decoder's final-normed output (B, S, d) over the encoded frames."""
+        """The decoder's final-normed output (B, S, d) over the encoded frames
+        (this rank's rows of the tokens and frames given)."""
         if frontend_embeds is None:
             raise ValueError(f"{self.cfg.name}: an encoder-decoder needs its frames (frontend_embeds)")
         memory = self.encode(params, frontend_embeds, training=True)
-        x = embed(params["embed"], tokens.long())
+        x = embed(params["embed"], tokens.long(), self.par)
         positions = self._positions(x)
         block = remat(self.cfg, self._dec_block)
         for p in _unstack(params["decoder"], self.cfg.num_layers):
@@ -168,8 +193,9 @@ class EncDecModel(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(the cross-entropy of every token, (B, S) in fp32 and 0 where the
         label is -100; the labels; the auxiliary loss, 0)."""
+        tokens, labels, frontend_embeds = map(self._constrain, (tokens, labels, frontend_embeds))
         h = self._hidden(params, tokens, frontend_embeds)
-        losses = token_cross_entropy(params["head"]["w"], h, labels, self.cfg.vocab_size)
+        losses = token_cross_entropy(params["head"]["w"], h, labels, self.cfg.vocab_size, par=self.par)
         return losses, labels, h.new_zeros((), dtype=torch.float32)
 
     def loss(
@@ -181,8 +207,9 @@ class EncDecModel(nn.Module):
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(the mean next-token cross-entropy, {"ce", "aux"}), as the
         reference's ``loss`` (:155-178)."""
+        tokens, labels, frontend_embeds = map(self._constrain, (tokens, labels, frontend_embeds))
         h = self._hidden(params, tokens, frontend_embeds)
-        ce = chunked_cross_entropy(params["head"]["w"], h, labels, self.cfg.vocab_size)
+        ce = chunked_cross_entropy(params["head"]["w"], h, labels, self.cfg.vocab_size, par=self.par)
         return ce, {"ce": ce, "aux": h.new_zeros((), dtype=torch.float32)}
 
     # -- serving --------------------------------------------------------------
@@ -210,6 +237,8 @@ class EncDecModel(nn.Module):
     ) -> Tuple[torch.Tensor, Tree]:
         """Encode the frames, run the decoder over the prompt: (last-position
         logits (B, padded_vocab), populated cache)."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"serving on a mesh is {NOT_PORTED}")
         if frontend_embeds is None:
             raise ValueError(f"{self.cfg.name}: an encoder-decoder needs its frames (frontend_embeds)")
         cfg, ops = self.cfg, self.ops
@@ -242,6 +271,8 @@ class EncDecModel(nn.Module):
         """tokens (B, 1) -> (logits (B, padded_vocab), cache updated in
         place): self-attention against the cache, cross-attention over all
         of the memory's K/V."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"serving on a mesh is {NOT_PORTED}")
         cfg, ops = self.cfg, self.ops
         cache_len = int(cache_len)  # one host read per step at most, none per layer
         x = embed(params["embed"], tokens.long())

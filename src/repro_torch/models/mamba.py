@@ -9,7 +9,18 @@ on a CUDA tensor the hand-written kernel, on a CPU tensor (or with
 ``kernels.ref.ssd_chunked``, the twin of the reference's. Decode is the O(1)
 recurrent update ``h = dA*h + dt*x (x) B; y = C.h + D*x``, which the reference
 computes outside any kernel and the port in plain PyTorch. The gated norm goes
-to ``ops.rmsnorm``. Sharding (``mamba_cache_spec``) is not ported.
+to ``ops.rmsnorm``.
+
+On a mesh the mixer runs on the rank's heads of ``d_inner``: ``w_z``,
+``w_x``, ``w_dt``, ``dt_bias``, ``A_log``, ``D``, ``conv_x``, ``norm`` and
+``w_out`` are sharded over ``"model"``; ``w_bc`` and ``conv_bc`` are
+replicated, B and C are computed whole on every rank and enter the model
+region after their conv, so their gradient is summed over the ranks. The
+gated norm normalises over the whole of ``d_inner``: on a model axis of more
+than one rank its mean of squares is summed over ``"model"`` in plain
+PyTorch (the kernel sees only the local slice); at one rank it is the
+``ops.rmsnorm`` kernel, as without a mesh. Serving on a mesh
+(``mamba_cache_spec``'s sharded caches) is A9b.
 
 Unlike the JAX package, whose arrays are immutable, ``mamba_decode`` updates
 the cache it is given (the conv windows and the fp32 state) in place.
@@ -25,6 +36,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import rmsnorm
+from repro_torch.models.parallel import copy_to_model, group_slice, reduce_from_model, sum_in_model, tensor_parallel
 from repro_torch.models.params import ParamDef, const_init, fan_in_init, normal_init, ones_init
 
 Cache = Dict[str, torch.Tensor]
@@ -43,18 +55,18 @@ def mamba_def(cfg: ArchConfig) -> Dict[str, ParamDef]:
     d_in, H, P_, G, N = _dims(cfg)
     d, W = cfg.d_model, cfg.ssm.conv_width
     return {
-        "w_z": ParamDef((d, d_in), fan_in_init()),
-        "w_x": ParamDef((d, d_in), fan_in_init()),
-        "w_bc": ParamDef((d, 2 * G * N), fan_in_init()),
-        "w_dt": ParamDef((d, H), fan_in_init()),
-        "dt_bias": ParamDef((H,), const_init(0.5), torch.float32),
+        "w_z": ParamDef((d, d_in), (None, "model"), fan_in_init()),
+        "w_x": ParamDef((d, d_in), (None, "model"), fan_in_init()),
+        "w_bc": ParamDef((d, 2 * G * N), (None, None), fan_in_init()),
+        "w_dt": ParamDef((d, H), (None, "model"), fan_in_init()),
+        "dt_bias": ParamDef((H,), ("model",), const_init(0.5), torch.float32),
         # A = -exp(A_log) in (-1, 0) per unit dt
-        "A_log": ParamDef((H,), const_init(0.9), torch.float32),
-        "D": ParamDef((H,), ones_init(), torch.float32),
-        "conv_x": ParamDef((W, d_in), normal_init(0.1)),
-        "conv_bc": ParamDef((W, 2 * G * N), normal_init(0.1)),
-        "norm": ParamDef((d_in,), ones_init(), torch.float32),
-        "w_out": ParamDef((d_in, d), fan_in_init()),
+        "A_log": ParamDef((H,), ("model",), const_init(0.9), torch.float32),
+        "D": ParamDef((H,), ("model",), ones_init(), torch.float32),
+        "conv_x": ParamDef((W, d_in), (None, "model"), normal_init(0.1)),
+        "conv_bc": ParamDef((W, 2 * G * N), (None, None), normal_init(0.1)),
+        "norm": ParamDef((d_in,), ("model",), ones_init(), torch.float32),
+        "w_out": ParamDef((d_in, d), ("model", None), fan_in_init()),
     }
 
 
@@ -80,39 +92,54 @@ def _conv_step(window: torch.Tensor, x_new: torch.Tensor, w: torch.Tensor):
     return window, out
 
 
-def _proj_inputs(p, cfg: ArchConfig, x: torch.Tensor):
-    z = torch.matmul(x, p["w_z"])
-    xs = torch.matmul(x, p["w_x"])
+def _proj_inputs(p, cfg: ArchConfig, x: torch.Tensor, par=None):
+    """z, xs, bc, dt: on a mesh z, xs and dt of the rank's heads (x enters
+    the model region), bc whole."""
+    xr = copy_to_model(x, par)
+    z = torch.matmul(xr, p["w_z"])
+    xs = torch.matmul(xr, p["w_x"])
     bc = torch.matmul(x, p["w_bc"])
-    dt = torch.matmul(x.float(), p["w_dt"].float())  # fp32, as the reference
+    dt = torch.matmul(xr.float(), p["w_dt"].float())  # fp32, as the reference
     dt = F.softplus(dt + p["dt_bias"])  # (B, S, H) fp32
     return z, xs, bc, dt
 
 
-def _mixer(p, cfg: ArchConfig, x: torch.Tensor, ops):
+def _gated_norm(scale: torch.Tensor, y: torch.Tensor, d_in: int, ops, par, eps: float = 1e-6) -> torch.Tensor:
+    """The rmsnorm of ``y`` over the whole of ``d_inner``: the kernel, or on a
+    model axis of more than one rank (``y`` the rank's slice) the mean of
+    squares summed over ``"model"``."""
+    if not tensor_parallel(par):
+        return rmsnorm({"scale": scale}, y, ops=ops)
+    yf = y.float()
+    var = sum_in_model(yf.square().sum(dim=-1, keepdim=True), par) / d_in
+    return (yf * torch.rsqrt(var + eps) * scale).to(y.dtype)
+
+
+def _mixer(p, cfg: ArchConfig, x: torch.Tensor, ops, par=None):
     """Full-sequence mixer -> (out, final SSD state, raw conv inputs xs and bc)."""
     s = cfg.ssm
     d_in, H, P_, G, N = _dims(cfg)
     B, S, _ = x.shape
-    z, xs_raw, bc_raw, dt = _proj_inputs(p, cfg, x)
+    z, xs_raw, bc_raw, dt = _proj_inputs(p, cfg, x, par)
     xs = F.silu(_causal_conv(xs_raw, p["conv_x"]))
-    bc = F.silu(_causal_conv(bc_raw, p["conv_bc"]))
-    Bm = bc[..., : G * N].reshape(B, S, G, N)  # strided views: the kernel reads them in place
-    Cm = bc[..., G * N :].reshape(B, S, G, N)
-    xh = xs.reshape(B, S, H, P_)
+    bc = copy_to_model(F.silu(_causal_conv(bc_raw, p["conv_bc"])), par)
+    g0, g1 = group_slice(H, G, par)
+    Bm = bc[..., g0 * N : g1 * N].reshape(B, S, -1, N)  # strided views: the kernel reads them in place
+    Cm = bc[..., (G + g0) * N : (G + g1) * N].reshape(B, S, -1, N)
+    xh = xs.reshape(B, S, -1, P_)
     A = -torch.exp(p["A_log"])  # (H,)
     log_dA = dt * A  # (B, S, H)
     y, h_final = ops.ssd_scan(xh * dt[..., None], log_dA, Bm, Cm, chunk=s.chunk)
     y = y + xh.float() * p["D"][:, None]
-    y = y.reshape(B, S, d_in).to(x.dtype)
+    y = y.reshape(B, S, -1).to(x.dtype)
     y = y * F.silu(z)
-    y = rmsnorm({"scale": p["norm"]}, y, ops=ops)
-    return torch.matmul(y, p["w_out"]), h_final, xs_raw, bc_raw
+    y = _gated_norm(p["norm"], y, d_in, ops, par)
+    return reduce_from_model(torch.matmul(y, p["w_out"]), par), h_final, xs_raw, bc_raw
 
 
-def mamba_forward(p, cfg: ArchConfig, x: torch.Tensor, ops=kernel_ops) -> torch.Tensor:
+def mamba_forward(p, cfg: ArchConfig, x: torch.Tensor, ops=kernel_ops, par=None) -> torch.Tensor:
     """Full-sequence forward (prefill without the cache). x: (B, S, d_model)."""
-    return _mixer(p, cfg, x, ops)[0]
+    return _mixer(p, cfg, x, ops, par)[0]
 
 
 def _last_inputs(raw: torch.Tensor, W: int) -> torch.Tensor:
@@ -137,6 +164,14 @@ def mamba_make_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16, device=N
         "h": torch.zeros((batch, H, N, P_), dtype=torch.float32, device=device),
         "conv_x": torch.zeros((batch, W, d_in), dtype=dtype, device=device),
         "conv_bc": torch.zeros((batch, W, 2 * G * N), dtype=dtype, device=device),
+    }
+
+
+def mamba_cache_spec(cfg: ArchConfig, batch_axes) -> Dict[str, tuple]:
+    return {
+        "h": (batch_axes, "model", None, None),
+        "conv_x": (batch_axes, None, "model"),
+        "conv_bc": (batch_axes, None, None),
     }
 
 

@@ -16,8 +16,20 @@ holds the two to the same semantics on one shard
 (``tests/test_models.py::test_moe_sort_matches_onehot``).
 
 ``moe_forward_onehot`` is the dense one-hot oracle (:88), kept for the tests.
-The expert-parallel layout (``ep_wide``, the two all-to-alls) waits for the
-multi-device layer (ROADMAP A9).
+
+On a mesh (``par``) ``moe_forward`` is the reference's expert-parallel
+layout. The router's probabilities and top-k are the rank's tokens' (its
+data shard's rows, replicated over ``"model"``), and the dispatch is per
+data shard, as the reference's ``shard_map``: C from the shard's tokens.
+The experts are sharded over ``"model"``; with the tokens replicated over
+``"model"`` the reference's forward all-to-all is a local slice of the
+dispatch buffer (the rank's experts' rows), and its return all-to-all is a
+sum over ``"model"`` of each rank's combine of its own experts' rows. The
+load-balancing loss is the product of two global means: the expert counts
+and the mean probabilities are summed over ``"data"`` first. The training
+step splits the batch over ``"data"`` (``B % n_data`` raises there; the
+reference's one-hot fallback for such a batch serves decode steps, A9b).
+``ep_wide`` (experts over both axes, used by no config) is A9b.
 """
 
 from __future__ import annotations
@@ -30,6 +42,14 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.models.common import swiglu, swiglu_def
+from repro_torch.models.parallel import (
+    NOT_PORTED,
+    copy_to_model,
+    reduce_from_data,
+    reduce_from_model,
+    sum_over_data,
+    tensor_parallel,
+)
 from repro_torch.models.params import ParamDef, fan_in_init, normal_init
 
 Params = Dict[str, torch.Tensor]
@@ -43,11 +63,13 @@ def moe_def(cfg: ArchConfig) -> Dict[str, ParamDef]:
     m = cfg.moe
     assert m is not None
     d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    # ep_wide: experts sharded across both mesh axes on the E dim
+    espec = ("model", "data") if m.ep_wide else "model"
     defs: Dict[str, ParamDef] = {
-        "router": ParamDef((d, E), normal_init(0.02), torch.float32),
-        "gate": ParamDef((E, d, f), fan_in_init()),
-        "up": ParamDef((E, d, f), fan_in_init()),
-        "down": ParamDef((E, f, d), fan_in_init()),
+        "router": ParamDef((d, E), (None, None), normal_init(0.02), torch.float32),
+        "gate": ParamDef((E, d, f), (espec, None, None), fan_in_init()),
+        "up": ParamDef((E, d, f), (espec, None, None), fan_in_init()),
+        "down": ParamDef((E, f, d), (espec, None, None), fan_in_init()),
     }
     if m.num_shared_experts:
         defs["shared"] = swiglu_def(d, m.num_shared_experts * f)
@@ -71,11 +93,16 @@ def _counts(ids: torch.Tensor, E: int) -> torch.Tensor:
     return torch.zeros(E, dtype=ids.dtype, device=ids.device).scatter_add_(0, ids, torch.ones_like(ids))
 
 
-def aux_load_balance_loss(probs: torch.Tensor, idx: torch.Tensor, E: int) -> torch.Tensor:
-    """Switch-style load-balancing loss: E * sum_e f_e * p_e."""
+def aux_load_balance_loss(probs: torch.Tensor, idx: torch.Tensor, E: int, par=None) -> torch.Tensor:
+    """Switch-style load-balancing loss: E * sum_e f_e * p_e, over the tokens
+    of every data shard (``par``: the counts and the shards' mean
+    probabilities summed over ``"data"``)."""
     flat_idx = idx.reshape(-1)
-    f = _counts(flat_idx, E).float() / max(flat_idx.numel(), 1)
+    shards = 1 if par is None else par.data_size
+    f = sum_over_data(_counts(flat_idx, E).float(), par) / max(flat_idx.numel() * shards, 1)
     pbar = probs.reshape(-1, E).mean(dim=0)
+    if par is not None:
+        pbar = reduce_from_data(pbar, par) / shards
     return E * (f * pbar).sum()
 
 
@@ -132,10 +159,14 @@ def _local_dispatch(xt: torch.Tensor, idx: torch.Tensor, C: int, E: int) -> Tupl
     return buf, dest
 
 
-def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, par=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, S, D) -> (B, S, D), aux loss: the sort dispatch on one shard, C
-    from all B * S tokens."""
+    from all B * S tokens (on a mesh the rank's data shard's, its experts'
+    rows computed and combined on the rank, the combine summed over
+    ``"model"``)."""
     m = cfg.moe
+    if par is not None and m.ep_wide:
+        raise NotImplementedError(f"{cfg.name}: ep_wide (experts over both mesh axes) is {NOT_PORTED}")
     B, S, D = x.shape
     T, E, k = B * S, m.num_experts, m.top_k
     C = _capacity(T, m)
@@ -143,16 +174,22 @@ def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor) -> Tuple[torch.Tens
     probs = router_probs(p, xt)
     w, idx = _top_k(probs, k)
     w = w.to(x.dtype)
-    aux = aux_load_balance_loss(probs, idx, E)
-    buf, dest = _local_dispatch(xt, idx, C, E)
-    grid = buf[: E * C].view(E, C, D)
+    aux = aux_load_balance_loss(probs, idx, E, par)
+    buf, dest = _local_dispatch(copy_to_model(xt, par), idx, C, E)
+    E_local = p["gate"].shape[0]  # the rank's experts, [e0, e0 + E_local)
+    e0 = par.model_rank * E_local if tensor_parallel(par) else 0
+    grid = buf[e0 * C : (e0 + E_local) * C].view(E_local, C, D)
     with torch.profiler.record_function(EXPERTS_RANGE):
         h = torch.bmm(grid, p["gate"])
         u = torch.bmm(grid, p["up"])
-        y = torch.bmm(F.silu(h) * u, p["down"]).view(E * C, D)
+        y = torch.bmm(F.silu(h) * u, p["down"]).view(E_local * C, D)
     y_pad = torch.cat([y, y.new_zeros((1, D))])
+    if tensor_parallel(par):  # another rank's expert, or past the capacity: the zero row
+        local = dest - e0 * C
+        dest = torch.where((local >= 0) & (local < E_local * C), local, E_local * C)
     rows = y_pad[dest].view(T, k, D)
-    out = torch.einsum("tkd,tk->td", rows, w).view(B, S, D)
+    out = torch.einsum("tkd,tk->td", rows, copy_to_model(w, par))
+    out = reduce_from_model(out, par).view(B, S, D)
     if m.num_shared_experts:
-        out = out + swiglu(p["shared"], x)
+        out = out + swiglu(p["shared"], x, par)
     return out, aux

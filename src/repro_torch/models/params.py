@@ -1,11 +1,23 @@
 """Parameter definitions (the port's counterpart of the JAX package's ``models/params.py``).
 
-A model is described by a nested dict of :class:`ParamDef` (shape, initialiser,
-dtype). ``init_params`` materialises it on a device from one seeded
-``torch.Generator``; ``from_jax_params`` carries a tree initialised by the JAX
-package across through numpy, so both packages can run the same weights. The
-key names and the stacked leading layer axis are the reference's. Sharding
-specs are not ported: the port runs on one card.
+A model is described by a nested dict of :class:`ParamDef` (shape, logical
+sharding spec, initialiser, dtype). ``init_params`` materialises it on a
+device from one seeded ``torch.Generator``; ``from_jax_params`` carries a
+tree initialised by the JAX package across through numpy, so both packages
+can run the same weights. The key names and the stacked leading layer axis
+are the reference's.
+
+A spec is a plain tuple with one entry per dimension: ``None``, a mesh axis
+name (``"model"``: heads, d_ff, experts, vocab; ``"data"`` and ``"pod"``:
+the batch, and the optimizer state under ZeRO) or a tuple of names. From the
+definition tree come the spec trees, with the reference's arithmetic:
+``partition_specs``, ``zero_specs`` (ZeRO: the largest free dimension that
+the data axes divide), ``fsdp_param_specs`` and ``strip_model_axis``. On a
+``torch.distributed`` ``DeviceMesh`` every rank holds plain local tensors:
+``shard`` cuts a full tree to the rank's shards, ``gather`` puts the full
+tree back together (a collective: every rank of the mesh calls it). A
+dimension sharded over several axes is cut row-major over them, the first
+axis the slowest, as the reference's meshes lay it out.
 """
 
 from __future__ import annotations
@@ -16,11 +28,13 @@ from typing import Any, Callable, Dict, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import leaves_with_paths
 
 Initializer = Callable[[torch.Generator, Tuple[int, ...], torch.dtype, torch.device], torch.Tensor]
 Tree = Dict[str, Any]
+Spec = Tuple[Any, ...]
 
 
 def _normal(gen, shape, dtype, device, std: float) -> torch.Tensor:
@@ -67,11 +81,19 @@ def const_init(value: float) -> Initializer:
 
 @dataclasses.dataclass
 class ParamDef:
-    """One parameter: shape, initialiser and dtype."""
+    """One parameter: shape, dtype, initialiser and logical sharding spec.
+
+    ``spec`` entries are logical axis names (``"model"`` / ``None``); the
+    ``data``/``pod`` axes are introduced only by the ZeRO transform."""
 
     shape: Tuple[int, ...]
+    spec: Spec
     init: Initializer = normal_init()
     dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self) -> None:
+        if len(self.shape) != len(self.spec):
+            raise ValueError(f"shape {self.shape} vs spec {self.spec} rank mismatch")
 
 
 def _map(fn: Callable[[str, ParamDef], Any], defs: Tree, prefix: str = "") -> Tree:
@@ -94,7 +116,7 @@ def stack(defs: Tree, n: int) -> Tree:
                 out[i] = d.init(gen, shape[1:], dtype, device)
             return out
 
-        return ParamDef((n,) + tuple(d.shape), init, d.dtype)
+        return ParamDef((n,) + tuple(d.shape), (None,) + tuple(d.spec), init, d.dtype)
 
     return _map(_stack, defs)
 
@@ -118,18 +140,141 @@ def param_bytes(defs: Tree) -> int:
     )
 
 
+def is_spec(x: Any) -> bool:
+    """A spec: a plain tuple (not an optimizer state's NamedTuple)."""
+    return isinstance(x, tuple) and not hasattr(x, "_fields")
+
+
+def spec_leaves(tree: Any, prefix: str = "") -> list:
+    """(``a/b/c`` path, spec) for every spec of a spec tree (nested dicts and
+    NamedTuples whose leaves are specs), depth first."""
+    if is_spec(tree):
+        return [(prefix, tree)]
+    items = tree.items() if isinstance(tree, dict) else zip(tree._fields, tree)
+    return [leaf for key, val in items for leaf in spec_leaves(val, f"{prefix}/{key}" if prefix else key)]
+
+
+def partition_specs(defs: Tree) -> Tree:
+    """The spec tree of a definition tree (the reference's ``PartitionSpec`` tree)."""
+    return _map(lambda _, d: tuple(d.spec), defs)
+
+
+def _entries(entry: Any) -> Tuple[str, ...]:
+    """The axis names of one spec entry: none, one, or a tuple of them."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def zero_specs(defs: Tree, data_axes: Tuple[str, ...], data_size: int) -> Tree:
+    """ZeRO/FSDP specs: additionally shard the largest unsharded, divisible
+    axis over the data axes. Params whose spec already uses a data axis are
+    returned unchanged (idempotent: FSDP'd weights feed straight through)."""
+
+    def _zero(_, d: ParamDef) -> Spec:
+        spec = list(d.spec)
+        if any(a in data_axes for s in spec for a in _entries(s)):
+            return tuple(spec)  # already data-sharded
+        # pick the largest dim that is unsharded and divisible
+        best, best_dim = -1, -1
+        for i, (dim, s) in enumerate(zip(d.shape, spec)):
+            if s is None and dim % data_size == 0 and dim > best_dim:
+                best, best_dim = i, dim
+        if best >= 0:
+            spec[best] = data_axes if len(data_axes) > 1 else data_axes[0]
+        return tuple(spec)
+
+    return _map(_zero, defs)
+
+
+def fsdp_param_specs(defs: Tree, data_axes: Tuple[str, ...], data_size: int) -> Tree:
+    """Weight specs with data-axis sharding on the largest free dim (ZeRO-3
+    semantics expressed through specs)."""
+    return zero_specs(defs, data_axes, data_size)
+
+
+def strip_model_axis(defs: Tree) -> Tree:
+    """Remove tensor-parallel (``"model"``) sharding from every param spec
+    (the reference's ZeRO-3 pure-DP layout)."""
+    return _map(lambda _, d: dataclasses.replace(d, spec=tuple(None if s == "model" else s for s in d.spec)), defs)
+
+
+def axis_size(mesh, name: str) -> int:
+    """The size of the mesh axis ``name`` (a ``DeviceMesh``'s dimension)."""
+    return mesh.size(mesh.mesh_dim_names.index(name))
+
+
+def _chunk(mesh, entry: Any) -> Tuple[int, int]:
+    """(this rank's chunk, the number of chunks) of a dimension sharded over
+    the axes of ``entry``, row-major over them."""
+    index, count = 0, 1
+    for name in _entries(entry):
+        if name not in mesh.mesh_dim_names:
+            raise ValueError(f"spec axis {name!r} is not an axis of the mesh {mesh.mesh_dim_names}")
+        n = axis_size(mesh, name)
+        index, count = index * n + mesh.get_local_rank(name), count * n
+    return index, count
+
+
+def shard_tensor(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's shard of the full tensor ``t``: each dimension of ``spec``
+    that names mesh axes cut into equal chunks. A tensor that no entry cuts is
+    returned as it is; a cut one is a copy, so the full one can be freed."""
+    out = t
+    for dim, entry in enumerate(spec):
+        index, count = _chunk(mesh, entry)
+        if count == 1:
+            continue
+        if t.shape[dim] % count:
+            raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not split into {count} shards ({spec})")
+        size = t.shape[dim] // count
+        out = out.narrow(dim, index * size, size)
+    return out if out is t else out.clone()
+
+
+def gather_tensor(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The full tensor of which ``t`` is this rank's shard: an all-gather over
+    each sharded dimension's axes, the innermost axis first."""
+    for dim, entry in enumerate(spec):
+        for name in reversed(_entries(entry)):
+            n = axis_size(mesh, name)
+            if n == 1:
+                continue
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t.contiguous(), group=mesh.get_group(name))
+            t = torch.cat(parts, dim=dim)
+    return t
+
+
+def shard(tree: Tree, specs: Tree, mesh) -> Tree:
+    """This rank's shards of a full tree (``specs`` a spec tree like it)."""
+    return map_with_specs(lambda t, spec: shard_tensor(t, spec, mesh), tree, specs)
+
+
+def gather(tree: Tree, specs: Tree, mesh) -> Tree:
+    """The full tree of which ``tree`` holds this rank's shards (every rank of
+    the mesh must call it, in the same order)."""
+    return map_with_specs(lambda t, spec: gather_tensor(t, spec, mesh), tree, specs)
+
+
+def map_with_specs(fn, tree: Tree, specs: Tree) -> Tree:
+    """``fn(tensor, spec)`` over a tree and its spec tree."""
+    return {k: fn(v, specs[k]) if is_spec(specs[k]) else map_with_specs(fn, v, specs[k]) for k, v in tree.items()}
+
+
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: torch.from_numpy cannot read it
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)  # exact
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
-def from_jax_params(tree: Tree, device: Union[str, torch.device], *, defs: Tree) -> Tree:
+def from_jax_params(tree: Tree, device: Union[str, torch.device], *, defs: Tree, mesh=None) -> Tree:
     """Tensors on ``device`` from a numpy tree of the JAX package's parameters.
 
     Each array keeps its own dtype (so a float32 copy of the tree stays float32).
     Keys and shapes are checked against ``defs`` (the port's ``param_defs()``);
-    a mismatch raises ``ValueError``.
+    a mismatch raises ``ValueError``. With a ``mesh`` the full tree is cut to
+    this rank's shards (``shard`` over ``partition_specs(defs)``).
     """
     got = {path for path, _ in leaves_with_paths(tree)}
     want = {path for path, _ in leaves_with_paths(defs)}
@@ -144,7 +289,8 @@ def from_jax_params(tree: Tree, device: Union[str, torch.device], *, defs: Tree)
             raise ValueError(f"{path}: shape {tuple(a.shape)}, expected {tuple(d.shape)}")
         return _to_tensor(a).to(device)
 
-    return _map(convert, defs)
+    full = _map(convert, defs)
+    return full if mesh is None else shard(full, partition_specs(defs), mesh)
 
 
 def _get(tree: Tree, path: str) -> Any:

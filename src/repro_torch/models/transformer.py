@@ -41,6 +41,20 @@ mesh takes the one-hot oracle. With ``ops`` left at ``kernels.ops`` a CUDA
 tensor goes through the hand-written kernels (in training through their
 autograd Functions); ``ops.PLAIN`` runs the same weights through the plain
 versions.
+
+``Model(cfg, mesh, batch_axes)`` on a ``torch.distributed`` ``DeviceMesh``
+of axes ``("data", "model")`` trains in explicit SPMD (``models/parallel.py``):
+``init`` gives the rank's shards of the seeded tree (``param_specs``), and
+``loss`` takes the global batch and keeps the rank's rows (``_constrain``, the
+reference's batch sharding over ``"data"``). Attention and Mamba-2 run on the
+rank's heads, the MLPs on its columns of d_ff, the MoE layers on its experts,
+the embedding and the head on its vocab rows; the kernels see the plain local
+tensors. The MoE layers take ``moe_forward`` with the mesh, dispatching per
+data shard, as the reference's ``Model`` does on a mesh. ``loss`` returns the
+global loss; its gradient is the rank's share, which the train step sums over
+``"data"``. ``param_specs`` and ``cache_specs`` are the reference's spec trees
+(plain tuples). Serving on a mesh is A9b: ``prefill`` and ``decode_step``
+raise.
 """
 
 from __future__ import annotations
@@ -59,6 +73,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as pu
+from repro_torch.models.parallel import NOT_PORTED, Parallel
 from repro_torch.models.common import (
     chunked_cross_entropy,
     embed,
@@ -166,10 +181,13 @@ def _unstack(tree: Tree, n: int) -> List[Tree]:
 class Model(nn.Module):
     """Decoder-only LM: ``loss``, ``prefill`` and ``decode_step`` over an explicit parameter dict."""
 
-    def __init__(self, cfg: ArchConfig, ops=kernel_ops):
+    def __init__(self, cfg: ArchConfig, mesh=None, batch_axes: Tuple[str, ...] = ("data",), ops=kernel_ops):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.mesh = mesh
+        self.batch_axes = tuple(batch_axes)
+        self.par = None if mesh is None else Parallel(mesh, batch_axes)
         self.ops = ops
         self.groups = _layer_groups(cfg)
         self.mla = _uses_mla(cfg)
@@ -203,7 +221,7 @@ class Model(nn.Module):
             defs[name] = pu.stack({f"l{j}": self._layer_def(s) for j, s in enumerate(layers)}, n)
         if cfg.mtp_depth:
             defs["mtp"] = {
-                "proj": pu.ParamDef((2 * cfg.d_model, cfg.d_model), pu.fan_in_init()),
+                "proj": pu.ParamDef((2 * cfg.d_model, cfg.d_model), (None, None), pu.fan_in_init()),
                 "norm_h": rmsnorm_def(cfg.d_model),
                 "norm_e": rmsnorm_def(cfg.d_model),
                 "block": self._layer_def(LayerSpec("attn", "dense")),
@@ -211,7 +229,36 @@ class Model(nn.Module):
         return defs
 
     def init(self, seed: int = 0, device: Union[str, torch.device] = "cuda") -> Tree:
-        return pu.init_params(self.param_defs(), seed, device)
+        """The seeded tree on ``device``; on a mesh the rank's shards of it."""
+        params = pu.init_params(self.param_defs(), seed, device)
+        return params if self.mesh is None else pu.shard(params, self.param_specs(), self.mesh)
+
+    def param_specs(self) -> Tree:
+        return pu.partition_specs(self.param_defs())
+
+    def cache_specs(self) -> Tree:
+        """The serving cache's specs, per group, with the leading layer axis."""
+        cfg = self.cfg
+        baxes = self.batch_axes if len(self.batch_axes) > 1 else self.batch_axes[0]
+        out: Tree = {}
+        for name, n, layers in self.groups:
+            per_layer = {}
+            for j, spec in enumerate(layers):
+                if spec.mixer == "attn":
+                    s = attn.mla_cache_spec(cfg, baxes) if self.mla else attn.gqa_cache_spec(cfg, baxes)
+                else:
+                    s = mb.mamba_cache_spec(cfg, baxes)
+                per_layer[f"l{j}"] = {k: (None,) + v for k, v in s.items()}
+            out[name] = per_layer
+        return out
+
+    def _constrain(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """This rank's rows of a global batch tensor (all of it without a mesh)."""
+        return x if self.par is None else self.par.rows(x)
+
+    def _refuse_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"{what} on a mesh is {NOT_PORTED}")
 
     def _head_weight(self, params: Tree) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -227,11 +274,11 @@ class Model(nn.Module):
         aux loss, 0 but for an MoE layer)."""
         h = rmsnorm(p["norm1"], x, ops=self.ops)
         if spec.mixer == "ssm":
-            h = mb.mamba_forward(p["mixer"], self.cfg, h, ops=self.ops)
+            h = mb.mamba_forward(p["mixer"], self.cfg, h, ops=self.ops, par=self.par)
         elif self.mla:
-            h = attn.mla_forward(p["mixer"], self.cfg, h, positions, ops=self.ops)
+            h = attn.mla_forward(p["mixer"], self.cfg, h, positions, ops=self.ops, par=self.par)
         else:
-            h = attn.gqa_forward(p["mixer"], self.cfg, h, positions, ops=self.ops)
+            h = attn.gqa_forward(p["mixer"], self.cfg, h, positions, ops=self.ops, par=self.par)
         x = x + h
         if spec.channel == "none":
             return x, x.new_zeros((), dtype=torch.float32)
@@ -243,8 +290,8 @@ class Model(nn.Module):
         0), or the MoE layer through the sort dispatch."""
         h = rmsnorm(p["norm2"], x, ops=self.ops)
         if spec.channel == "moe":
-            return moe_mod.moe_forward(p["channel"], self.cfg, h)
-        return swiglu(p["channel"], h), h.new_zeros((), dtype=torch.float32)
+            return moe_mod.moe_forward(p["channel"], self.cfg, h, self.par)
+        return swiglu(p["channel"], h, self.par), h.new_zeros((), dtype=torch.float32)
 
     def _scan_groups(self, params: Tree, x: torch.Tensor, positions: torch.Tensor):
         """Run the layers; returns (hidden, the layers' aux losses summed in
@@ -261,7 +308,7 @@ class Model(nn.Module):
     def _embed_inputs(
         self, params: Tree, tokens: torch.Tensor, frontend_embeds: Optional[torch.Tensor]
     ) -> torch.Tensor:
-        x = embed(params["embed"], tokens.long())
+        x = embed(params["embed"], tokens.long(), self.par)
         if frontend_embeds is not None:
             npos = frontend_embeds.shape[1]
             x = torch.cat([frontend_embeds.to(x.dtype), x[:, npos:]], dim=1)
@@ -269,7 +316,9 @@ class Model(nn.Module):
 
     def _trunk(self, params: Tree, tokens, labels, frontend_embeds):
         """(the final norm's output (B, S, d); the labels with the frontend's
-        positions set to -100; the aux loss; the positions)."""
+        positions set to -100; the aux loss; the positions), of this rank's
+        rows on a mesh."""
+        tokens, labels, frontend_embeds = map(self._constrain, (tokens, labels, frontend_embeds))
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
         x = self._embed_inputs(params, tokens, frontend_embeds)
@@ -290,7 +339,8 @@ class Model(nn.Module):
         where no label counts; the labels with the frontend's positions set to
         -100; the auxiliary loss)."""
         h, labels, aux, _ = self._trunk(params, tokens, labels, frontend_embeds)
-        return token_cross_entropy(self._head_weight(params), h, labels, self.cfg.vocab_size), labels, aux
+        losses = token_cross_entropy(self._head_weight(params), h, labels, self.cfg.vocab_size, par=self.par)
+        return losses, labels, aux
 
     def loss(
         self,
@@ -305,13 +355,13 @@ class Model(nn.Module):
         x the MTP cross-entropy, as the reference's ``loss`` (:254-277)."""
         cfg = self.cfg
         h, labels, aux, positions = self._trunk(params, tokens, labels, frontend_embeds)
-        ce = chunked_cross_entropy(self._head_weight(params), h, labels, cfg.vocab_size)
+        ce = chunked_cross_entropy(self._head_weight(params), h, labels, cfg.vocab_size, par=self.par)
         metrics = {"ce": ce, "aux": aux}
         loss = ce
         if cfg.moe is not None:
             loss = loss + cfg.moe.router_aux_weight * aux
         if cfg.mtp_depth:
-            mtp_ce = self._mtp_loss(params, h, tokens, labels, positions)
+            mtp_ce = self._mtp_loss(params, h, self._constrain(tokens), labels, positions)
             metrics["mtp_ce"] = mtp_ce
             loss = loss + MTP_LOSS_WEIGHT * mtp_ce
         return loss, metrics
@@ -323,12 +373,12 @@ class Model(nn.Module):
         reference) and the shared head; the labels rolled one step further,
         the last position ignored."""
         p, S = params["mtp"], tokens.shape[1]
-        emb_next = embed(params["embed"], torch.roll(tokens, -1, dims=1).long())
+        emb_next = embed(params["embed"], torch.roll(tokens, -1, dims=1).long(), self.par)
         z = torch.cat([rmsnorm(p["norm_h"], h, ops=self.ops), rmsnorm(p["norm_e"], emb_next, ops=self.ops)], dim=-1)
         z, _ = self._block_forward(LayerSpec("attn", "dense"), p["block"], torch.matmul(z, p["proj"]), positions)
         mtp_labels = torch.roll(labels, -1, dims=1)
         mtp_labels = torch.where(torch.arange(S, device=labels.device) >= S - 1, -100, mtp_labels)
-        return chunked_cross_entropy(self._head_weight(params), z, mtp_labels, self.cfg.vocab_size)
+        return chunked_cross_entropy(self._head_weight(params), z, mtp_labels, self.cfg.vocab_size, par=self.par)
 
     # -- serving ------------------------------------------------------------
 
@@ -365,6 +415,7 @@ class Model(nn.Module):
         """tokens (B, S) -> (last-position logits (B, padded_vocab), populated
         cache). A frontend's embeddings replace the first rows of the token
         embeddings, as in training (the reference's ``prefill``, :410-427)."""
+        self._refuse_mesh("serving")
         B, S = tokens.shape
         max_len = max_len or S
         if max_len < S:
@@ -410,6 +461,7 @@ class Model(nn.Module):
         self, params: Tree, cache: Tree, tokens: torch.Tensor, cache_len: Union[int, torch.Tensor]
     ) -> Tuple[torch.Tensor, Tree]:
         """tokens (B, 1) -> (logits (B, padded_vocab), cache updated in place)."""
+        self._refuse_mesh("serving")
         cache_len = int(cache_len)  # one host read per step at most, none per layer
         x = embed(params["embed"], tokens.long())
         for name, n, layers in self.groups:

@@ -16,12 +16,19 @@ layers, so the stacked ``(L, d)`` norm scales and the mamba ``(L, H)``
 in the reference. Unlike the reference, whose arrays are immutable,
 ``update`` writes the parameters and the state in place (what the
 reference's donated buffers amount to) and returns them.
+
+``state_specs`` gives the state's spec tree, as the reference's: AdamW's
+``m`` and ``v`` take the ZeRO specs (sharded over ``"data"``), Adafactor's
+accumulators the parameters' specs less the reduced axis. On a mesh the
+train step updates each AdamW leaf's ZeRO slice with ``update_leaf``.
+``clip_by_global_norm`` takes the global norm from its caller where the
+leaves are shards (a model-sharded leaf's squares summed over the ranks).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Tuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -73,24 +80,36 @@ class AdamW:
             v=tree_map(zeros, params),
         )
 
+    def state_specs(self, param_specs: Any, zero_param_specs: Any) -> AdamWState:
+        """Spec tree congruent with the state (ZeRO specs for m/v)."""
+        return AdamWState(step=(), m=zero_param_specs, v=zero_param_specs)
+
     @torch.no_grad()
     def update(
         self, grads: Any, state: AdamWState, params: Any, lr: Union[float, torch.Tensor]
     ) -> Tuple[Any, AdamWState]:
-        c = self.cfg
         step = state.step + 1
+        for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m), leaves(state.v)):
+            self.update_leaf(p, g, m, v, lr, step)
+        return params, AdamWState(step=step, m=state.m, v=state.v)
+
+    @torch.no_grad()
+    def update_leaf(self, p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                    lr: Union[float, torch.Tensor], step: torch.Tensor) -> None:
+        """One leaf's update at ``step`` (the state's step after it), in place:
+        ``p`` may be a view (a rank's ZeRO slice of its parameter), ``m`` and
+        ``v`` shaped like it."""
+        c = self.cfg
         bc1 = 1.0 - c.b1 ** step.float()
         bc2 = 1.0 - c.b2 ** step.float()
-        for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m), leaves(state.v)):
-            g = g.float()
-            m.mul_(c.b1).add_((1 - c.b1) * g)
-            v.mul_(c.b2).add_((1 - c.b2) * g.square())
-            delta = (m / bc1) / (torch.sqrt(v / bc2) + c.eps)
-            pf = p.float()
-            if p.ndim >= 2:  # the stacked layout: (L, d) norm scales too
-                delta = delta + c.weight_decay * pf
-            p.copy_(pf - lr * delta)  # rounded to the parameter's dtype
-        return params, AdamWState(step=step, m=state.m, v=state.v)
+        g = g.float()
+        m.mul_(c.b1).add_((1 - c.b1) * g)
+        v.mul_(c.b2).add_((1 - c.b2) * g.square())
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + c.eps)
+        pf = p.float()
+        if p.ndim >= 2:  # the stacked layout: (L, d) norm scales too
+            delta = delta + c.weight_decay * pf
+        p.copy_(pf - lr * delta)  # rounded to the parameter's dtype
 
 
 class Adafactor:
@@ -108,6 +127,15 @@ class Adafactor:
             vr=tree_map(lambda p: zeros(p.shape[:-1] if p.ndim >= 2 else p.shape, p), params),
             vc=tree_map(lambda p: zeros(p.shape[:-2] + p.shape[-1:] if p.ndim >= 2 else (), p), params),
         )
+
+    def state_specs(self, param_specs: Any, zero_param_specs: Any) -> AdafactorState:
+        def vr_spec(spec):
+            return tuple(spec[:-1])
+
+        def vc_spec(spec):
+            return tuple(spec[:-2] + spec[-1:]) if len(spec) >= 2 else ()
+
+        return AdafactorState(step=(), vr=_map_specs(vr_spec, param_specs), vc=_map_specs(vc_spec, param_specs))
 
     @torch.no_grad()
     def update(
@@ -137,11 +165,20 @@ class Adafactor:
         return params, AdafactorState(step=step, vr=state.vr, vc=state.vc)
 
 
+def _map_specs(fn: Callable, specs: Any) -> Any:
+    """``fn`` over the specs (plain tuples) of a nested dict of them."""
+    return {k: _map_specs(fn, v) if isinstance(v, dict) else fn(v) for k, v in specs.items()}
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sum(g.float().square().sum() for g in leaves(tree)))
 
 
-def clip_by_global_norm(tree: Any, max_norm: float) -> Tuple[Any, torch.Tensor]:
-    norm = global_norm(tree)
+def clip_by_global_norm(
+    tree: Any, max_norm: float, norm_fn: Optional[Callable[[Any], torch.Tensor]] = None
+) -> Tuple[Any, torch.Tensor]:
+    """The tree scaled to a global norm of at most ``max_norm``, and the norm
+    (``norm_fn``'s where the leaves are shards, else ``global_norm``)."""
+    norm = (norm_fn or global_norm)(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm

@@ -18,6 +18,10 @@ they are the encoder's input frames.
 
 A step's time is taken on the host clock and ends when the host reads the
 step's loss, which waits for the card.
+
+A bundle on a mesh (``make_train_bundle(cfg, mesh)``) trains unchanged: every
+rank feeds the global batch, of which the model keeps the rank's rows. A
+checkpoint of a mesh of more than one rank is A9b and raises.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from repro_torch.checkpoint.checkpoint import AsyncCheckpointer, latest_checkpoint, restore_checkpoint
 from repro_torch.data.frontend import frontend_embeds
 from repro_torch.data.pipeline import SyntheticPipeline
+from repro_torch.models.parallel import NOT_PORTED
 from repro_torch.train.steps import TrainBundle
 from repro_torch.tree import leaves
 
@@ -58,6 +63,9 @@ class Trainer:
         cfg: TrainerConfig,
         on_straggler: Optional[Callable[[int, float, float], None]] = None,
     ):
+        mesh = getattr(bundle, "mesh", None)
+        if cfg.ckpt_dir and mesh is not None and mesh.size() > 1:
+            raise NotImplementedError(f"a checkpoint of a {mesh.size()}-rank mesh is {NOT_PORTED}")
         self.bundle = bundle
         self.pipeline = pipeline
         self.cfg = cfg

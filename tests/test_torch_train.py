@@ -27,6 +27,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import jax
 import jax.numpy as jnp
@@ -42,10 +43,12 @@ from repro.train.steps import make_train_bundle as jax_make_train_bundle
 from repro_torch.configs import SHAPES, get_config, smoke_config
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
 from repro_torch.kernels import autograd, ops, ref
+from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.models import common
 from repro_torch.models.factory import build_model
 from repro_torch.models.params import from_jax_params
 from repro_torch.models.transformer import Model
+from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.optim.schedules import constant
 from repro_torch.train.steps import loss_and_grads, make_train_bundle
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -634,11 +637,55 @@ def test_zero_frontend_embeddings_overflow_the_gradient_at_depth():
     assert all(torch.isfinite(g).all() for g in leaves(grads))
 
 
-def test_bundle_refuses_what_is_not_ported():
+@pytest.fixture(scope="module")
+def smoke_mesh():
+    """A single-rank gloo group in this process, and its (1, 1) mesh."""
+    started = not dist.is_initialized()
+    mesh = make_smoke_mesh("cpu")
+    yield mesh
+    if started and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("case", ["no mesh: layout='zero3'", "no mesh: zero2_grads", "mesh: layout='zero3'",
+                                  "mesh: zero2_grads", "mesh: fsdp", "mesh: ep_wide"])
+def test_bundle_refuses_what_is_not_ported(case, request):
+    """Without a mesh ``layout`` and ``zero2_grads`` change nothing, as in the
+    reference: the step is the megatron step's, number for number. On a mesh
+    the ZeRO-3 layout, the ZeRO-2 accumulator, an FSDP config and ``ep_wide``
+    raise ``NotImplementedError`` naming ROADMAP A9b."""
+    cfg = smoke_config(get_config("deepseek-v2-lite-16b"))
+    kw = {"layout": "zero3"} if "zero3" in case else {"zero2_grads": True} if "zero2" in case else {}
+    if case.startswith("mesh"):
+        mesh = request.getfixturevalue("smoke_mesh")
+        if case == "mesh: fsdp":
+            cfg = smoke_config(get_config("deepseek-v3-671b"))
+        elif case == "mesh: ep_wide":
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_wide=True))
+        with pytest.raises(NotImplementedError, match="A9b"):
+            make_train_bundle(cfg, mesh, **kw)
+        return
+    batch = _to_torch(_batch("deepseek-v2-lite-16b"))
+    runs = []
+    for bundle in (make_train_bundle(cfg, lr_schedule=constant(1e-3)),
+                   make_train_bundle(cfg, lr_schedule=constant(1e-3), **kw)):
+        params, opt = bundle.init_state(0, "cpu")
+        params, _, metrics = bundle.step_fn(params, opt, batch)
+        runs.append((metrics, leaves(params)))
+    (m0, p0), (m1, p1) = runs
+    assert {k: float(v) for k, v in m0.items()} == {k: float(v) for k, v in m1.items()}
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+def test_bundle_and_factory_take_the_reference_signature():
+    """``make_train_bundle(cfg, mesh, batch_axes, opt_cfg, ...)`` and
+    ``build_model(cfg, mesh, batch_axes, ...)``: a positional third argument
+    is ``batch_axes``, as in the reference."""
     cfg = smoke_config(get_config("minitron-8b"))
-    for kw in ({"mesh": object()}, {"layout": "zero3"}, {"zero2_grads": True}):
-        with pytest.raises(NotImplementedError):
-            make_train_bundle(cfg, **kw)
+    bundle = make_train_bundle(cfg, None, ("data",), OptimizerConfig(name="adafactor"))
+    assert type(bundle.optimizer).__name__ == "Adafactor" and bundle.model.batch_axes == ("data",)
+    model = build_model(cfg, None, ("data",), ops.PLAIN)
+    assert model.ops is ops.PLAIN and model.mesh is None and model.batch_axes == ("data",)
 
 
 # ---------------------------------------------------------------- card: the Functions
