@@ -329,12 +329,9 @@ DS_H, DS_NOPE, DS_DQK, DS_DV, DS_D_MODEL, DS_KV_LORA, DS_DKV = 16, 128, 192, 128
 
 # The training cells: batch 4 x 2048 tokens, bf16, AdamW's defaults, a
 # constant rate at the reference's peak (its default schedule warms up over
-# 100 steps, under which 20 steps would barely move the loss).
-TRAIN_ARCHS = ("internvl2-2b", "mamba2-370m")
+# 100 steps, under which 20 steps would barely move the loss); 20 steps with
+# the kernels and 20 with the plain versions.
 TR_B, TR_SEQ, TR_STEPS, TR_LR = 4, 2048, 20, 3e-4
-# The plain versions' reference run of each training cell: its first steps,
-# the kernel run's gaps to them (the whole 20 would add ~2 min on a slow host).
-TR_PLAIN_STEPS = 5
 TR_H, TR_HKV = 16, 8  # internvl2-2b's attention heads (head_dim 128, as minitron-8b's)
 FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL, DS_ARCH: 1e-4, "seamless-m4t-large-v2": 1e-4}
 # deepseek-v2-lite-16b trained at full width with its depth cut to 1 dense + 4
@@ -342,12 +339,15 @@ FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL, DS_ARCH: 1e-4, "
 # state; the 27 layers would need ~188 GB): T = 8192 tokens a step, C = 960 an
 # expert.
 DS_TRAIN_LAYERS = 5
-# The mesh phase's cells (config, depth cut or 0) and Trainer steps; the
-# no-mesh main path's median step time of each training cell (train_phase).
-MESH_CELLS = (("internvl2-2b", 0), ("mamba2-370m", 0), ("deepseek-v2-lite-16b", DS_TRAIN_LAYERS))
+# The training cells that also run on the 1 x 1 mesh, its Trainer steps and
+# gradient floor; the no-mesh main path's median step time of each training
+# cell (train_phase) and the seconds the mesh runs take (mesh_gate,
+# mesh_trainer).
+MESH_ARCHS = ("internvl2-2b", "mamba2-370m", DS_ARCH)
 MESH_STEPS = 3
 MESH_GRAD_FLOOR = 1e-6
 TRAIN_MEDIAN_S = {}
+MESH_SECONDS = []
 # The seamless-m4t-large-v2 phases (encoder-decoder): 24 encoder + 24 decoder
 # layers, d_model 1024, MHA 16/16 at head_dim 64, d_ff 8192, the vocab padded
 # to 256,256, 2.03 B parameters; the stub frontend's 1024 frames an utterance
@@ -358,6 +358,8 @@ TRAIN_MEDIAN_S = {}
 SM_ARCH, SM_B, SM_PROMPT, SM_STEPS = "seamless-m4t-large-v2", 4, 200, 32
 SM_H, SM_D, SM_FRAMES, SM_D_MODEL = 16, 64, 1024, 1024
 SM_MAX_LEN = SM_PROMPT + SM_STEPS
+# The training cells in order (config, depth cut or 0).
+TRAIN_CELLS = (("internvl2-2b", 0), ("mamba2-370m", 0), (DS_ARCH, DS_TRAIN_LAYERS), (SM_ARCH, 0))
 # The jamba-1.5-large-398b phase (the hybrid layout): one period of its 72
 # layers (ssm x4, attn, ssm x3; MoE at positions 1, 3, 5 and 7, SwiGLU at the
 # others) at the published widths (d_model 8192, GQA 64/8 at head_dim 128,
@@ -2382,7 +2384,7 @@ def dropped_per_layer(routes, m, tokens: int) -> list:
     return [int((moe_mod._counts(r.reshape(-1), m.num_experts) - C).clamp(min=0).sum()) for r in routes]
 
 
-def gradient_gate(arch, cfg, bundle, plain, params, pipe) -> None:
+def gradient_gate(arch, cfg, bundle, plain, params, pipe, keep: bool = False):
     """One batch, the seeded weights: the per-token losses and the whole
     gradient through the kernels in bf16 and in fp32, through the plain
     versions in bf16 and in fp32 (the reference: the same weights widened
@@ -2404,7 +2406,10 @@ def gradient_gate(arch, cfg, bundle, plain, params, pipe) -> None:
     forward pass chose. The fp32 plain reference runs on the fp32 kernel
     path's expert choices (``routed``, ROADMAP C8). The bf16 paths and the
     faults are gated routed freely; the same runs held to those choices, and
-    the share of choices each bf16 run routes elsewhere, are printed."""
+    the share of choices each bf16 run routes elsewhere, are printed.
+
+    With ``keep``: returns the bf16 kernel path's loss, gradient and
+    forward routes (routed freely), the no-mesh run of ``mesh_gate``."""
     n, tol32 = cfg.num_layers, FP32_GRAD_RTOL[arch]
     moe_layers = moe_layer_count(cfg)
     params32 = tree_map(lambda t: t.float(), params)
@@ -2449,7 +2454,11 @@ def gradient_gate(arch, cfg, bundle, plain, params, pipe) -> None:
 
     loss_p, tok_p, grad_p, leaf_p, counts_p, _, routes_p = distances(plain.model, params)
     require(sum(counts_p.values()) == 0, "the plain path launched a kernel")
-    loss_k, tok_k, grad_k, leaf_k, counts, variants, routes_k = distances(bundle.model, params)
+    tokens_k, loss_k, grads_k, counts, variants, routes_k = run(bundle.model, params)
+    tok_k, (grad_k, leaf_k) = rel_l2(tokens_k, t32), grad_distances(grads_k, ref32)
+    kept = (loss_k, grads_k, routes_k) if keep else None
+    del tokens_k, grads_k
+    free_memory()
     require(counts == train_launches(cfg), f"{arch} kernel-path gradient launches {counts} != {train_launches(cfg)}")
     if cfg.family == "ssm":
         require(variants == {ssd_mod.TENSOR_CORE: 2 * n, ssd_mod.GENERIC: 0} and
@@ -2505,14 +2514,19 @@ def gradient_gate(arch, cfg, bundle, plain, params, pipe) -> None:
     for name, ratios, must_fail in faults:
         require(all(ratios[g] > FLOOR_RATIO for g in must_fail),
                 f"{arch}: a gate passes a planted fault ({name}): {ratios}")
+    return kept
 
 
-def train_phase(arch: str, seed: int, layers: int = 0) -> dict:
+def train_phase(arch: str, seed: int, layers: int = 0, mesh=None) -> tuple:
     """One training cell (its depth cut to ``layers`` if given): the
     gradient gate, 20 counted steps with the kernels (the main path), 20 with
     the plain versions, their times, memory, energy and a profile; for an MoE
     cell the routes of every step's forward pass and recompute held equal
-    and the dropped choices per layer. Returns the main path's launches."""
+    and the dropped choices per layer. With ``mesh`` (the 1 x 1 mesh) the
+    cell runs on it too: ``mesh_gate`` on the gradient gate's weights, batch
+    and no-mesh gradient, and ``mesh_trainer`` after the main path. Returns
+    the main path's launches and the mesh trainer run's (None without a
+    mesh)."""
     t_phase = time.perf_counter()
     cfg = get_config(arch)
     if layers:
@@ -2534,8 +2548,11 @@ def train_phase(arch: str, seed: int, layers: int = 0) -> dict:
     print(f"train {arch}: {depth} layers{cut}{moe}, d_model {cfg.d_model}, {n_params / 1e9:.4f} B "
           f"parameters (param_count), {sum(t.numel() for t in leaves(params)) / 1e9:.4f} B in the tree, init "
           f"{time.perf_counter() - t0:.1f} s; batch {TR_B} x {TR_SEQ}, remat {cfg.remat}, optimizer {cfg.optimizer}")
-    gradient_gate(arch, cfg, bundle, plain, params, pipe)
-    del params
+    kept = gradient_gate(arch, cfg, bundle, plain, params, pipe, keep=mesh is not None)
+    if mesh is not None:
+        meshed = make_train_bundle(cfg, mesh, lr_schedule=constant(TR_LR))
+        mesh_gate(arch, cfg, bundle, meshed, params, train_batch(cfg, pipe, 0), *kept)
+    del params, kept
     free_memory()
 
     # The main path: 20 steps through the trainer, each step's launches counted.
@@ -2578,6 +2595,7 @@ def train_phase(arch: str, seed: int, layers: int = 0) -> dict:
               f"{TR_B * TR_SEQ * cfg.moe.top_k}: step 1 {drops[0]}, step {len(steps)} {drops[-1]}, mean share "
               f"{np.mean([sum(d) for d in drops]) / (moe_layers * TR_B * TR_SEQ * cfg.moe.top_k):.4%}")
         require(len(steps) == TR_STEPS and all(same), f"{arch}: forward and recompute routes differ: {same}")
+    first_routes = routes[:moe_layers]  # step 1's forward pass
     del routes
     bundle.step_fn = step_fn
     times = [h["step_s"] for h in trainer.history]
@@ -2601,9 +2619,10 @@ def train_phase(arch: str, seed: int, layers: int = 0) -> dict:
                                                           train_batch(cfg, pipe, trainer.step)))
     del trainer
     free_memory()
+    mesh_counts = None if mesh is None else mesh_trainer(arch, cfg, meshed, pipe, seed, first_routes)
 
     ops.reset_launch_counts()
-    plain_trainer = Trainer(plain, pipe, dataclasses.replace(quiet, total_steps=TR_PLAIN_STEPS))
+    plain_trainer = Trainer(plain, pipe, quiet)
     plain_trainer.init_or_restore(seed, "cuda")
     plain_trainer.train()
     require(sum(ops.launch_counts().values()) == 0, "the plain training run launched a kernel")
@@ -2615,32 +2634,25 @@ def train_phase(arch: str, seed: int, layers: int = 0) -> dict:
     print(f"train {arch} losses, kernels: " + " ".join(f"{x:.5f}" for x in losses))
     print(f"train {arch} losses, plain:   " + " ".join(f"{x:.5f}" for x in plain_losses))
     print(f"train {arch}: largest per-step relative gap kernels vs plain {max(gaps):.4e} (step "
-          f"{int(np.argmax(gaps)) + 1} of {len(gaps)}); plain step time steps 2-{TR_PLAIN_STEPS} median "
+          f"{int(np.argmax(gaps)) + 1} of {len(gaps)}); plain step time steps 2-{TR_STEPS} median "
           f"{np.median(plain_times[1:]) * 1e3:.3f} ms [{nvidia_smi('name,power.limit')}]")
     require(all(math.isfinite(x) for x in losses), f"{arch}: non-finite loss {losses}")
     require(losses[-1] < losses[0], f"{arch}: the loss did not fall: {losses[0]} -> {losses[-1]}")
     print(f"train {arch} phase: {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, mesh_counts
 
 
-def mesh_cell(arch: str, layers: int, mesh, seed: int, name_power: str) -> dict:
-    """One training cell on the 1 x 1 mesh against the no-mesh bundle: the
-    gradient gate leaf by leaf, then ``MESH_STEPS`` steps through the trainer
-    with the mesh bundle. Returns the trainer run's launches."""
-    t_cell = time.perf_counter()
-    cfg = get_config(arch)
-    if layers:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
-    flat = make_train_bundle(cfg, lr_schedule=constant(TR_LR))
-    meshed = make_train_bundle(cfg, mesh, lr_schedule=constant(TR_LR))
-    pipe = SyntheticPipeline(DataConfig(cfg.vocab_size, TR_SEQ, TR_B, seed=seed))
-    moe_layers = moe_layer_count(cfg)
-    params = flat.model.init(seed, "cuda")
+def mesh_gate(arch, cfg, flat, meshed, params, batch, loss0: float, grads0, routes0) -> None:
+    """The mesh bundle's loss and gradient on the gradient gate's weights
+    and batch against the no-mesh kernel path's (``loss0``, ``grads0``,
+    ``routes0``, from ``gradient_gate``): the loss printed bitwise, each
+    gradient leaf within max(1.25 d0, ``MESH_GRAD_FLOOR``) of the no-mesh
+    path's, d0 a second no-mesh evaluation's distance; the no-mesh launches;
+    an MoE cell's routes equal."""
+    t0 = time.perf_counter()
+    mesh = meshed.mesh
     shards = pu.shard(params, meshed.param_specs, mesh)  # at 1 x 1 the same tensors
     require(all(a is b for a, b in zip(leaves(params), leaves(shards))), f"{arch}: a 1 x 1 shard is a copy")
-    batch = train_batch(cfg, pipe, 0)
-    with routed() as routes_flat:
-        loss0, _, grads0 = flat.grads_fn(params, batch)
     _, _, again = flat.grads_fn(params, batch)
     floor = grad_distances(again, grads0)[1]
     del again
@@ -2650,24 +2662,36 @@ def mesh_cell(arch: str, layers: int, mesh, seed: int, name_power: str) -> dict:
     with routed() as routes_mesh:
         loss1, _, grads1 = meshed.grads_fn(shards, batch)
     torch.cuda.synchronize()
-    launches, grad_collectives = ops.launch_counts(), parallel.collectives
+    launches, collectives = ops.launch_counts(), parallel.collectives
     got = grad_distances(grads1, grads0)[1]
-    del grads0, grads1, params, shards
+    del grads1, shards
     free_memory()
     limit = {p: max(FLOOR_RATIO * floor[p], MESH_GRAD_FLOOR) for p in floor}
     worst = max((got[p] / limit[p], p) for p in got)
-    print(f"mesh {arch}: step 1's loss mesh {float(loss1)!r} no-mesh {float(loss0)!r} "
-          f"({'bitwise equal' if float(loss1) == float(loss0) else 'not bitwise equal'}); gradient leaves from the "
+    MESH_SECONDS.append(time.perf_counter() - t0)
+    print(f"mesh {arch}: step 1's loss mesh {float(loss1)!r} no-mesh {loss0!r} "
+          f"({'bitwise equal' if float(loss1) == loss0 else 'not bitwise equal'}); gradient leaves from the "
           f"no-mesh path: largest {max(got.values()):.3e}, a second no-mesh evaluation's largest "
           f"{max(floor.values()):.3e}; worst leaf {worst[1]} at {worst[0]:.3f} of its limit max(1.25 d0, "
-          f"{MESH_GRAD_FLOOR:g}); loss and gradient launches {launches}, {grad_collectives} NCCL collectives")
+          f"{MESH_GRAD_FLOOR:g}); loss and gradient launches {launches}, {collectives} NCCL collectives "
+          f"({MESH_SECONDS[-1]:.1f} s)")
     require(worst[0] <= 1.0, f"{arch}: the mesh gradient of {worst[1]} is {got[worst[1]]:.3e} from the no-mesh path's")
     require(launches == train_launches(cfg), f"{arch}: mesh loss and gradient launches {launches}")
+    moe_layers = moe_layer_count(cfg)
     if moe_layers:
-        require(all(torch.equal(a, b) for a, b in zip(routes_mesh[:moe_layers], routes_flat[:moe_layers])),
+        require(all(torch.equal(a, b) for a, b in zip(routes_mesh[:moe_layers], routes0)),
                 f"{arch}: the mesh forward routed otherwise than the no-mesh forward")
 
+
+def mesh_trainer(arch, cfg, meshed, pipe, seed: int, first_routes) -> dict:
+    """``MESH_STEPS`` steps through the trainer with the mesh bundle: every
+    step's launches those of the no-mesh step, finite losses, an MoE cell's
+    step 1 routed as the no-mesh main path's (``first_routes``), the step
+    time beside the main path's median and the NCCL collectives a step.
+    Returns the run's launches."""
+    t0 = time.perf_counter()
     per_step = train_launches(cfg)
+    moe_layers = moe_layer_count(cfg)
     deltas, collectives = [], []
     step_fn = meshed.step_fn
 
@@ -2696,33 +2720,36 @@ def mesh_cell(arch: str, layers: int, mesh, seed: int, name_power: str) -> dict:
     require(all(d == per_step for d in deltas), f"{arch}: mesh step launches {deltas}, expected {per_step}")
     require(all(math.isfinite(x) for x in losses), f"{arch}: non-finite mesh loss {losses}")
     if moe_layers:
-        require(all(torch.equal(a, b) for a, b in zip(routes[:moe_layers], routes_flat[:moe_layers])),
-                f"{arch}: the mesh trainer's step 1 routed otherwise than the no-mesh run")
-    median = TRAIN_MEDIAN_S.get(arch)
-    beside = f"the no-mesh main path's median {median * 1e3:.3f} ms (phase 11)" if median else "no no-mesh median"
+        require(all(torch.equal(a, b) for a, b in zip(routes[:moe_layers], first_routes)),
+                f"{arch}: the mesh trainer's step 1 routed otherwise than the no-mesh main path")
+    MESH_SECONDS.append(time.perf_counter() - t0)
     print(f"mesh {arch} trainer: {MESH_STEPS} steps, losses " + " ".join(f"{x:.5f}" for x in losses)
           + f"; launches per step {per_step} at every step; {collectives} NCCL collectives a step; step time steps "
-          f"2-{MESH_STEPS} median {np.median(times[1:]) * 1e3:.3f} ms beside {beside}"
-          + (f"; step 1's routes equal to the no-mesh run's in all {moe_layers} MoE layers" if moe_layers else "")
-          + f"; {time.perf_counter() - t_cell:.1f} s [{name_power}]")
+          f"2-{MESH_STEPS} median {np.median(times[1:]) * 1e3:.3f} ms beside the no-mesh main path's median "
+          f"{TRAIN_MEDIAN_S[arch] * 1e3:.3f} ms"
+          + (f"; step 1's routes equal to the no-mesh main path's in all {moe_layers} MoE layers" if moe_layers else "")
+          + f" ({MESH_SECONDS[-1]:.1f} s) [{nvidia_smi('name,power.limit')}]")
     return counts
 
 
-def mesh_phase(seed: int, name_power: str) -> dict:
-    """The training cells on the (1, 1) mesh of a single-rank NCCL group
-    (``mesh_cell``) and the spatial splits of that mesh; the group is
-    destroyed at the end. Returns the trainer runs' launches, summed."""
-    t_phase = time.perf_counter()
+def training_phases(seed: int) -> tuple:
+    """The training cells (``train_phase``), those of ``MESH_ARCHS`` also on
+    the (1, 1) mesh of a single-rank NCCL group, then the spatial splits of
+    that mesh; the group is destroyed at the end. Returns each cell's main
+    path launches and the mesh trainer runs' launches, summed."""
     mesh = make_smoke_mesh("cuda")
     try:
         require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
                 f"the smoke mesh's group: {dist.get_backend()} of {dist.get_world_size()}")
         print(f"mesh: {tuple(mesh.mesh_dim_names)} {mesh.mesh.tolist()} on {mesh.device_type}, a single-rank "
-              f"{dist.get_backend()} group (torch {torch.__version__})")
-        counts = {k: 0 for k in KERNELS}
-        for arch, layers in MESH_CELLS:
-            cell = mesh_cell(arch, layers, mesh, seed, name_power)
-            counts = {k: counts[k] + cell[k] for k in counts}
+              f"{dist.get_backend()} group (torch {torch.__version__}); the cells {', '.join(MESH_ARCHS)} run on it")
+        train_counts, mesh_counts = {}, {k: 0 for k in KERNELS}
+        for arch, layers in TRAIN_CELLS:
+            train_counts[arch], on_mesh = train_phase(arch, seed, layers, mesh if arch in MESH_ARCHS else None)
+            free_memory()
+            if on_mesh is not None:
+                mesh_counts = {k: mesh_counts[k] + on_mesh[k] for k in KERNELS}
+        t0 = time.perf_counter()
         subs = split_mesh(mesh, 1, axis="data")
         job = submesh_for_job(mesh, 0, 1, axis="data")
         try:
@@ -2733,10 +2760,12 @@ def mesh_phase(seed: int, name_power: str) -> dict:
         print(f"mesh spatial: split_mesh(1 part) {[(tuple(m.mesh_dim_names), m.mesh.tolist()) for m in subs]}, "
               f"submesh_for_job(0, 1) {(tuple(job.mesh_dim_names), job.mesh.tolist())}, 2 parts: {refused}")
         require(refused.startswith("ValueError"), "split_mesh took 2 parts of a 1-rank axis")
+        MESH_SECONDS.append(time.perf_counter() - t0)
     finally:
         dist.destroy_process_group()
-    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s; launches of its trainer runs {counts}")
-    return counts
+    print(f"mesh phase (its gates and trainer runs within the training cells): {sum(MESH_SECONDS):.1f} s; "
+          f"launches of its trainer runs {mesh_counts}")
+    return train_counts, mesh_counts
 
 
 def train_launcher_phase(seed: int) -> None:
@@ -3212,13 +3241,7 @@ def main() -> int:
 
     train_times = time_train_kernels(gen)
     free_memory()
-    train_counts = {arch: train_phase(arch, args.seed) for arch in TRAIN_ARCHS}
-    train_counts[DS_ARCH] = train_phase(DS_ARCH, args.seed, DS_TRAIN_LAYERS)
-    free_memory()
-    train_counts[SM_ARCH] = train_phase(SM_ARCH, args.seed)
-    free_memory()
-    mesh_counts = mesh_phase(args.seed, name_power)
-    free_memory()
+    train_counts, mesh_counts = training_phases(args.seed)
     train_launcher_phase(args.seed)
     colo_counts, colo_measured = colocation_phase(args.seed, name_power)
     scheduling_phase(colo_measured, name_power)

@@ -24,8 +24,9 @@ AXES = ("data", "model")
 MULTI_POD_AXES = ("pod", "data", "model")
 
 
-def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda") -> DeviceMesh:
-    """The assigned production meshes over the running process group.
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The assigned production meshes, of CUDA devices, over the running
+    process group.
 
     single-pod: (16, 16) = 256 ranks, axes ("data", "model")
     multi-pod:  (2, 16, 16) = 512 ranks, axes ("pod", "data", "model")
@@ -39,7 +40,7 @@ def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda") -> De
     if have != need:
         raise ValueError(f"the {'multi-pod' if multi_pod else 'single-pod'} mesh {shape} needs a process group of "
                          f"{need} ranks; this one has {have}")
-    return init_device_mesh(device, shape, mesh_dim_names=axes)
+    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
 
 
 def make_smoke_mesh(device: str = "cuda") -> DeviceMesh:

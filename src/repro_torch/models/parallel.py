@@ -32,8 +32,9 @@ The model axis's collectives run only where it has more than one rank. At
 one rank they are identities, and an identity's node in the autograd graph
 would change the order in which the backward sums a tensor's gradients, so
 the bits of a bf16 gradient: a 1 x 1 mesh computes what the no-mesh path
-computes. The data axis's collectives always run (at one rank an all-reduce
-is a copy), so a single-rank NCCL group is driven by every step.
+computes. The data axis's all-reduces always run (at one rank an all-reduce
+is a copy), so a single-rank NCCL group is driven by every step; AdamW's
+ZeRO all-gather runs only where the data axis has more than one rank.
 
 ``collectives`` counts the collectives issued (``reset_collectives`` sets
 it to 0).

@@ -19,8 +19,9 @@ reference's donated buffers amount to) and returns them.
 
 ``state_specs`` gives the state's spec tree, as the reference's: AdamW's
 ``m`` and ``v`` take the ZeRO specs (sharded over ``"data"``), Adafactor's
-accumulators the parameters' specs less the reduced axis. On a mesh the
-train step updates each AdamW leaf's ZeRO slice with ``update_leaf``.
+accumulators the parameters' specs less the reduced axis. On a mesh
+``AdamW.update`` takes each leaf's ZeRO dimension: each rank updates its
+slice of the leaf and the slices are all-gathered over ``"data"``.
 ``clip_by_global_norm`` takes the global norm from its caller where the
 leaves are shards (a model-sharded leaf's squares summed over the ranks).
 """
@@ -28,10 +29,12 @@ leaves are shards (a model-sharded leaf's squares summed over the ranks).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
+import itertools
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.models.parallel import all_gather
 from repro_torch.tree import leaves, tree_map
 
 
@@ -86,30 +89,39 @@ class AdamW:
 
     @torch.no_grad()
     def update(
-        self, grads: Any, state: AdamWState, params: Any, lr: Union[float, torch.Tensor]
+        self, grads: Any, state: AdamWState, params: Any, lr: Union[float, torch.Tensor],
+        zero_dims: Optional[List[Optional[int]]] = None, par: Any = None,
     ) -> Tuple[Any, AdamWState]:
-        step = state.step + 1
-        for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m), leaves(state.v)):
-            self.update_leaf(p, g, m, v, lr, step)
-        return params, AdamWState(step=step, m=state.m, v=state.v)
-
-    @torch.no_grad()
-    def update_leaf(self, p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                    lr: Union[float, torch.Tensor], step: torch.Tensor) -> None:
-        """One leaf's update at ``step`` (the state's step after it), in place:
-        ``p`` may be a view (a rank's ZeRO slice of its parameter), ``m`` and
-        ``v`` shaped like it."""
+        """One step, in place. On a mesh ``par`` is the rank's place on it
+        (``models/parallel.py``) and ``zero_dims`` gives each leaf the
+        dimension its ZeRO spec shards over ``"data"`` (None: replicated):
+        ``m`` and ``v`` are the rank's slices, the rank updates its slice of
+        the parameter and the slices are all-gathered over ``"data"``. At a
+        data axis of 1 a slice is the whole leaf."""
         c = self.cfg
+        step = state.step + 1
         bc1 = 1.0 - c.b1 ** step.float()
         bc2 = 1.0 - c.b2 ** step.float()
-        g = g.float()
-        m.mul_(c.b1).add_((1 - c.b1) * g)
-        v.mul_(c.b2).add_((1 - c.b2) * g.square())
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + c.eps)
-        pf = p.float()
-        if p.ndim >= 2:  # the stacked layout: (L, d) norm scales too
-            delta = delta + c.weight_decay * pf
-        p.copy_(pf - lr * delta)  # rounded to the parameter's dtype
+        sliced = zero_dims is not None and par.data_size > 1
+        dims = zero_dims if sliced else itertools.repeat(None)
+        for p, g, m, v, dim in zip(leaves(params), leaves(grads), leaves(state.m), leaves(state.v), dims):
+            mine = p
+            if dim is not None:
+                n = p.shape[dim] // par.data_size
+                mine, g = p.narrow(dim, par.data_rank * n, n), g.narrow(dim, par.data_rank * n, n)
+            g = g.float()
+            m.mul_(c.b1).add_((1 - c.b1) * g)
+            v.mul_(c.b2).add_((1 - c.b2) * g.square())
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + c.eps)
+            pf = mine.float()
+            if p.ndim >= 2:  # the stacked layout: (L, d) norm scales too
+                delta = delta + c.weight_decay * pf
+            mine.copy_(pf - lr * delta)  # rounded to the parameter's dtype
+            if dim is not None:
+                parts = [torch.empty_like(mine, memory_format=torch.contiguous_format) for _ in range(par.data_size)]
+                all_gather(parts, mine.contiguous(), par.data_group)
+                p.copy_(torch.cat(parts, dim=dim))
+        return params, AdamWState(step=step, m=state.m, v=state.v)
 
 
 class Adafactor:

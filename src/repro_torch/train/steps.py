@@ -24,12 +24,13 @@ takes the *global* batch, of which the model keeps the rank's rows. The
 ranks' shares of the gradient are summed over ``"data"``; the clip's global
 norm counts a model-sharded leaf's squares across ``"model"`` and a
 replicated leaf once. AdamW's ``m`` and ``v`` are the rank's ZeRO slices over
-``"data"`` (``opt_specs``): each rank updates its slice of each parameter and
-the slices are all-gathered over ``"data"``. Adafactor keeps its state whole
-on each rank (a model axis of 1). What stays unported on a mesh raises
-``NotImplementedError`` naming ROADMAP A9b: ``layout="zero3"``,
-``zero2_grads``, ``cfg.fsdp``, ``ep_wide``, Adafactor on a model axis larger
-than 1, and serving.
+``"data"`` (``opt_specs``): in ``AdamW.update`` each rank updates its slice of
+each parameter and the slices are all-gathered over ``"data"`` (at a data
+axis of 1 a slice is the whole leaf, and nothing is gathered). Adafactor
+keeps its state whole on each rank (a model axis of 1). What stays unported
+on a mesh raises ``NotImplementedError`` naming ROADMAP A9b:
+``layout="zero3"``, ``zero2_grads``, ``cfg.fsdp``, ``ep_wide``, Adafactor on
+a model axis larger than 1, and serving.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import params as pu
 from repro_torch.models.factory import build_model
-from repro_torch.models.parallel import NOT_PORTED, all_gather, all_reduce, tensor_parallel
+from repro_torch.models.parallel import NOT_PORTED, all_reduce, tensor_parallel
 from repro_torch.optim.adamw import AdamW, AdamWState, OptimizerConfig, clip_by_global_norm, make_optimizer
 from repro_torch.optim.schedules import cosine_with_warmup
 from repro_torch.tree import leaves, tree_map, unflatten
@@ -166,24 +167,6 @@ def make_train_bundle(
         return (loss * scale, {k: v * scale for k, v in metrics.items()},
                 tree_map(lambda t: t * scale, grads))
 
-    @torch.no_grad()
-    def zero_update(grads, opt_state: AdamWState, params, lr):
-        """AdamW on the rank's ZeRO slices, the slices all-gathered over ``"data"``."""
-        step = opt_state.step + 1
-        for p, g, m, v, dim in zip(leaves(params), leaves(grads), leaves(opt_state.m), leaves(opt_state.v),
-                                   zero_dims):
-            if dim is None:
-                optimizer.update_leaf(p, g, m, v, lr, step)
-                continue
-            n = p.shape[dim] // par.data_size
-            mine = p.narrow(dim, par.data_rank * n, n)
-            optimizer.update_leaf(mine, g.narrow(dim, par.data_rank * n, n), m, v, lr, step)
-            if par.data_group is not None:
-                parts = [torch.empty_like(mine, memory_format=torch.contiguous_format) for _ in range(par.data_size)]
-                all_gather(parts, mine.contiguous(), par.data_group)
-                p.copy_(torch.cat(parts, dim=dim))
-        return params, AdamWState(step=step, m=opt_state.m, v=opt_state.v)
-
     def grads_fn(params, batch: Batch):
         """(loss, metrics, gradient) of one batch: accumulated over the
         microbatches; on a mesh the rank's shards of the full gradient, the
@@ -202,8 +185,8 @@ def make_train_bundle(
         norm_fn = None if par is None else (lambda g: mesh_global_norm(g, sharded, par))
         grads, gnorm = clip_by_global_norm(grads, grad_clip, norm_fn)
         lr = lr_schedule(opt_state.step)
-        if par is not None and zero_dims is not None:
-            params, opt_state = zero_update(grads, opt_state, params, lr)
+        if zero_dims is not None:
+            params, opt_state = optimizer.update(grads, opt_state, params, lr, zero_dims, par)
         else:
             params, opt_state = optimizer.update(grads, opt_state, params, lr)
         out_metrics = {

@@ -20,12 +20,14 @@ of ``train/steps.py``, ``colocation/spatial.py``) against the JAX package.
   no-mesh step: the loss and its metrics within 1e-5, the grad norm 1e-4,
   every gathered gradient and updated parameter within 1e-4 relative L2
   (an SSM mixer's 2e-4), equal expert routes. The batch labels a random
-  fifth of its tokens -100, so the ranks' rows hold different counts.
+  fifth of its tokens -100, so the ranks' rows hold different counts. Every
+  rank's results (replicated, or gathered) must equal the others' bit for
+  bit, so a rank whose replicated copies diverge fails.
 * Each planted collective fault (the row-parallel reduce skipped, a
   replicated weight's gradient not summed over ``"model"``, ``aux`` from
   local means, the loss as a mean of local means, the clip norm counting
   replicated leaves twice) fails the same 2 x 2 comparison by more than its
-  tolerance: what one card cannot show.
+  tolerance on every rank: what one card cannot show.
 * Twins of ``tests/test_system.py::test_spatial_mesh_split`` at 1 x 1 and at
   4 ranks; ``make_production_mesh`` on a 1-rank group; what stays unported
   on a mesh raises ``NotImplementedError`` naming A9b.
@@ -463,10 +465,11 @@ class _Background:
             failures += self._join("the JAX package's 2 x 2 run", self.reference, REFERENCE_TIMEOUT_S)
             assert not failures, "\n".join(failures)
             tmp = self.dir.name
-            port = {}
+            port = {}  # key -> {rank: that rank's result}
             for r in range(4):
                 with open(f"{tmp}/rank{r}.pkl", "rb") as f:
-                    port.update(pickle.load(f))
+                    for key, value in pickle.load(f).items():
+                        port.setdefault(key, {})[r] = value
             with open(f"{tmp}/jax.pkl", "rb") as f:
                 self._results = {"port": port, "jax": pickle.load(f)}
         return self._results
@@ -637,6 +640,28 @@ def test_shard_then_gather_is_the_identity(smoke_mesh):
 # ---------------------------------------------------------------- comparisons
 
 
+def _same(a, b) -> bool:
+    """Equal bit for bit: numbers, arrays, and dicts, lists and tuples of them."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def _port(results, key):
+    """The port's result for ``key``, held equal on every rank that ran it:
+    the loss, metrics and routes are replicated and the gradients and
+    parameters gathered, so a rank whose replicated copies diverged from the
+    others' (each rank reads its own copy of a replicated leaf) fails here."""
+    (first, ours), *others = sorted(results["port"][key].items())
+    for rank, theirs in others:
+        assert _same(ours, theirs), f"{key}: rank {rank}'s result differs from rank {first}'s"
+    return ours
+
+
 def _excess(arch: str, ours: dict, theirs: dict, jax_tree: bool) -> dict:
     """Each check's error over its tolerance (above 1: failed)."""
     grads = _flat(theirs["grads"]) if jax_tree else theirs["grads"]
@@ -666,7 +691,7 @@ def test_2x2_step_matches_the_reference_mesh(arch, results):
     """The port's 4 gloo ranks at (2, 2) and the JAX package's 2 x 2 mesh:
     deepseek-v2-lite-16b's MoE dispatched per data shard (C from half the
     tokens), routes equal."""
-    ours, theirs = results["port"][("2x2", arch, None)], results["jax"][arch]
+    ours, theirs = _port(results, ("2x2", arch, None)), results["jax"][arch]
     assert not _failed(_excess(arch, ours, theirs, jax_tree=True))
     if arch == "deepseek-v2-lite-16b":
         assert ours["metrics"]["aux"] > 0 and ours["routes"].shape == (B * S, 2)
@@ -675,16 +700,17 @@ def test_2x2_step_matches_the_reference_mesh(arch, results):
 @pytest.mark.parametrize("fault", list(FAULTS))
 def test_planted_collective_fault_fails_the_2x2_comparison(fault, results):
     arch = FAULTS[fault]
-    ours, theirs = results["port"][("2x2", arch, fault)], results["jax"][arch]
-    failed = _failed(_excess(arch, ours, theirs, jax_tree=True))
-    assert failed, f"{fault}: the comparison passed"
+    theirs = results["jax"][arch]
+    for rank, ours in sorted(results["port"][("2x2", arch, fault)].items()):  # each rank's view
+        failed = _failed(_excess(arch, ours, theirs, jax_tree=True))
+        assert failed, f"{fault}: the comparison passed on rank {rank}"
 
 
 def test_deepseek_mesh_step_is_not_the_no_mesh_step(background, results):
     """Why deepseek is held to the JAX package's mesh step: the capacity per
     data shard drops other choices than the no-mesh path's."""
     arch = "deepseek-v2-lite-16b"
-    ours = results["port"][("2x2", arch, None)]
+    ours = _port(results, ("2x2", arch, None))
     plain = _port_run(arch, background.inputs[arch])
     assert ours["loss"] != plain["loss"]
 
@@ -701,13 +727,13 @@ def _sub_mesh_cases():
 def test_sub_mesh_step_matches_the_no_mesh_step(shape, arch, variant, background, results):
     """(1, 2) and (2, 1), cut from the 2 x 2 mesh by ``split_mesh`` and run
     at once on its halves, against the port's own no-mesh step."""
-    ours = results["port"][(shape, arch, variant)]
+    ours = _port(results, (shape, arch, variant))
     plain = _port_run(arch, background.inputs[arch], microbatches=2 if variant else 1)
     assert not _failed(_excess(arch, ours, plain, jax_tree=False))
 
 
 def test_unported_on_a_mesh_raises_naming_a9b(results):
-    refusals = results["port"]["refusals"]
+    refusals = _port(results, "refusals")
     assert len(refusals) == 3
     for name, text in refusals.items():
         assert text.startswith("NotImplementedError") and "A9b" in text, (name, text)
@@ -717,12 +743,15 @@ def test_spatial_mesh_split_at_4_ranks(results):
     """Twin of ``test_system.py::test_spatial_mesh_split`` on the 2 x 2 rank
     grid: each split keeps the axis names, the rank lists are the grid's
     halves, a rank outside a sub-mesh has no coordinate there."""
-    spatial = results["port"]["spatial"]
+    by_rank = results["port"]["spatial"]
+    assert sorted(by_rank) == [0, 1, 2, 3]
     names = ("data", "model")
-    assert [(n, m) for n, m, _ in spatial["data"]] == [(names, [[0, 1]]), (names, [[2, 3]])]
-    assert [(n, m) for n, m, _ in spatial["model"]] == [(names, [[0], [2]]), (names, [[1], [3]])]
-    assert spatial["job"][:2] == (names, [[2, 3]])
-    assert spatial["3 parts"].startswith("ValueError") and "not divisible into 3 parts" in spatial["3 parts"]
-    # the pickles merge rank by rank: rank 3's view, in both halves
-    assert [c for _, _, c in spatial["data"]] == [None, (0, 1)]
-    assert [c for _, _, c in spatial["model"]] == [None, (1, 0)]
+    for rank, spatial in by_rank.items():
+        assert [(n, m) for n, m, _ in spatial["data"]] == [(names, [[0, 1]]), (names, [[2, 3]])]
+        assert [(n, m) for n, m, _ in spatial["model"]] == [(names, [[0], [2]]), (names, [[1], [3]])]
+        assert spatial["job"][:2] == (names, [[2, 3]])
+        assert spatial["3 parts"].startswith("ValueError") and "not divisible into 3 parts" in spatial["3 parts"]
+        # the rank's coordinate in each sub-mesh: its place in the rank list, None outside it
+        for _, ranks, coordinate in spatial["data"] + spatial["model"] + [spatial["job"]]:
+            where = [(i, j) for i, row in enumerate(ranks) for j, r in enumerate(row) if r == rank]
+            assert coordinate == (where[0] if where else None), (rank, ranks, coordinate)
