@@ -15,7 +15,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    fp64); then timed at the slices' shapes
    with CUDA events beside its plain version, one PyTorch library call where
    one computes the same function, and its bound (the SSD scan's generic
-   kernel also on fp32 B/C, its launches checked to be all generic);
+   kernel also on fp32 B/C, its launches checked to be all generic); then
+   the decode kernel's log-sum-exp (``split_decode_phase``): at minitron-8b's,
+   h2o-danube-1.8b's ring, seamless-m4t-large-v2's self cache and
+   jamba-1.5-large-398b's decode shapes, bf16 and fp32, the cache cut into 2,
+   4 and 8 sequence slices in JAX's padded blocks, the last past the valid
+   keys, each slice through the kernel with ``return_lse=True`` and merged as
+   a mesh merges its ranks' slices, against the unsplit kernel and the plain
+   version (2e-2 / 2e-5), ``lse`` against the plain ``lse`` at the same
+   tolerance, absolute; a planted kernel whose ``lse`` forgets ``ln lsum``
+   must fail; the kernel timed with and without ``lse`` at minitron-8b's and
+   h2o-danube-1.8b's shapes;
 3. minitron-8b at full width and depth (seeded random weights) served
    through ``make_serve_bundle`` and the launcher's ``greedy_generate``: batch 4,
    a 500-token prompt, 32 greedy decode steps. The launch counters must show
@@ -26,7 +36,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    2e-2 relative L2 at every step. Both bf16 paths are also held to the plain
    versions in fp32 (the same weights widened): the plain bf16 path's distance
    is the error bf16 itself makes in this model, the floor under the 2e-2, and
-   the kernel path's may not exceed 1.25 times it;
+   the kernel path's may not exceed 1.25 times it. Serving on a mesh
+   (``mesh_serve``, also in phases 4, 6 and 7): one prefill and 32 greedy
+   steps through ``make_serve_bundle(cfg, mesh)`` on a single-rank NCCL
+   group's (1, 1) mesh from the phase's weights and prompt, its tokens equal
+   and its logits bit for bit equal to the phase's kernel run, its launches
+   per prefill and per step the phase's, the NCCL collectives of a step
+   printed (the multi-rank arithmetic is held to the JAX package's meshes by
+   the CPU tests);
 4. mamba2-370m at full width and depth, the same way: batch 4, a 2000-token
    prompt (7 chunks of 256 and a ragged 208), 32 greedy decode steps; 97
    rmsnorm + 48 ssd_scan launches per prefill, all 48 of the tensor-core
@@ -200,8 +217,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 ``--seed`` (default 0) draws other weights and prompts for the model phases.
 
 A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the six serve
-paths' (h2o-danube-1.8b's runs A and B), the four 20-step training runs',
-the mesh phase's 3-step runs and the co-located rounds'.
+paths' (h2o-danube-1.8b's runs A and B), the four mesh serve runs', the four
+20-step training runs', the mesh phase's 3-step runs and the co-located
+rounds'.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and prints
@@ -372,6 +390,23 @@ JB_LAYERS, JB_EXPERTS = 8, 4
 JB_H, JB_HKV, JB_D, JB_D_MODEL, JB_D_INNER = 64, 8, 128, 8192, 16384
 JB_SSD_H, JB_SSD_P, JB_SSD_G, JB_SSD_N = 128, 128, 1, 64
 JB_MAX_LEN = JB_PROMPT + JB_STEPS
+# Serving on the single-rank NCCL mesh inside the serve phases of minitron-8b,
+# mamba2-370m, deepseek-v2-lite-16b and seamless-m4t-large-v2: one prefill and
+# MESH_SERVE_STEPS greedy steps from each phase's weights and prompt; each
+# run's launches and seconds (mesh_serve).
+MESH_SERVE_STEPS = 32
+MESH_SERVE_COUNTS = {}
+MESH_SERVE_SECONDS = {}
+# The split-decode phase: the decode kernel with its log-sum-exp on a cache cut
+# into 2, 4 and 8 sequence slices in JAX's padded blocks (the last slice past
+# the valid keys), merged as a mesh merges its ranks' slices (B, H, Hkv, S, D).
+SPLIT_SHAPES = {
+    "minitron-8b": (B, H, HKV, MAX_LEN, D),
+    "h2o-danube-1.8b ring": (DN_B, DN_H, DN_HKV, DN_WINDOW, DN_D),
+    "seamless self cache": (SM_B, SM_H, SM_H, SM_MAX_LEN, SM_D),
+    "jamba": (JB_B, JB_H, JB_HKV, JB_MAX_LEN, JB_D),
+}
+SPLITS = (2, 4, 8)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 TRAIN_CKPT_DIR = os.path.join(BUILD_DIR, "chip_smoke_train_ckpt")
 
@@ -1221,6 +1256,147 @@ def logits_gates(label: str, kernel: list, plain_bf16: list, exact: list, *, fp3
           f"step{tail}" + (f"; {len(caught)} planted faults caught" if caught else "") + ": ok")
 
 
+def mesh_serve(arch: str, cfg, params, tokens, gen_out, per_prefill: dict, per_step: dict, max_len: int,
+               frames=None) -> None:
+    """A serve phase's run on the single-rank NCCL mesh: ``make_serve_bundle(cfg,
+    mesh)`` from the phase's weights (at 1 x 1 the rank's shards are the same
+    tensors) and prompt, one prefill and ``MESH_SERVE_STEPS`` greedy steps.
+    Its tokens must equal the phase's kernel run's (``gen_out``) and its
+    logits equal them bit for bit (at one model rank the mesh path is the
+    no-mesh path); its launches per prefill and per step those of the phase;
+    the NCCL collectives of the prefill and of each step printed. The group
+    is destroyed at the end. The run's launches go to MESH_SERVE_COUNTS."""
+    t0 = time.perf_counter()
+    mesh = make_smoke_mesh("cuda")
+    try:
+        require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                f"the smoke mesh's group: {dist.get_backend()} of {dist.get_world_size()}")
+        bundle = make_serve_bundle(cfg, mesh, batch=tokens.shape[0], max_len=max_len)
+        shards = pu.shard(params, bundle.param_specs, mesh)
+        require(all(a is b for a, b in zip(leaves(params), leaves(shards))), f"{arch}: a 1 x 1 shard is a copy")
+        prompt = tokens.shape[1]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        parallel.reset_collectives()
+        logits, cache = bundle.prefill_fn(shards, tokens, frames)
+        require(ops.launch_counts() == per_prefill, f"{arch}: mesh prefill launches {ops.launch_counts()}")
+        collectives = [parallel.collectives]
+        all_logits, generated = [logits], []
+        nxt = logits.argmax(-1, keepdim=True)
+        for i in range(MESH_SERVE_STEPS):
+            generated.append(nxt[:, 0])
+            before = ops.launch_counts()
+            parallel.reset_collectives()
+            logits, cache = bundle.decode_fn(shards, cache, nxt, prompt + i)
+            delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            require(delta == per_step, f"{arch}: mesh decode step {i} launches {delta}")
+            collectives.append(parallel.collectives)
+            all_logits.append(logits)
+            nxt = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        MESH_SERVE_COUNTS[arch] = ops.launch_counts()
+        del cache
+    finally:
+        dist.destroy_process_group()
+    same_tokens = torch.equal(torch.stack(generated, 1), gen_out.tokens[:, :MESH_SERVE_STEPS])
+    same_logits = [torch.equal(a, b) for a, b in zip(all_logits, gen_out.logits)]
+    MESH_SERVE_SECONDS[arch] = time.perf_counter() - t0
+    print(f"mesh serve {arch}: make_serve_bundle(cfg, mesh) on the (1, 1) NCCL mesh, prefill {prompt} x"
+          f"{tokens.shape[0]} and {MESH_SERVE_STEPS} greedy steps from the phase's weights and prompt: tokens "
+          f"{'equal' if same_tokens else 'NOT equal'} to the phase's kernel run, logits bit for bit equal at "
+          f"{sum(same_logits)} of {len(same_logits)} steps; launches {per_prefill} a prefill and {per_step} a step, "
+          f"as the phase's; NCCL collectives: prefill {collectives[0]}, a step {sorted(set(collectives[1:]))} "
+          f"({MESH_SERVE_SECONDS[arch]:.1f} s) [{nvidia_smi('name,power.limit')}]")
+    require(same_tokens and all(same_logits), f"{arch}: the mesh serve is not the no-mesh serve")
+
+
+def lse_of_max_score(q, k, v, valid_len, return_lse=False):
+    """A decode kernel whose log-sum-exp forgets ``ln lsum``: the real
+    kernel's output beside ``M ln 2``, each head's largest valid score (the
+    plain version's), where the kernel writes ``M ln 2 + ln lsum``."""
+    out = ops.decode_attention(q, k, v, valid_len)
+    if not return_lse:
+        return out
+    S, rep = k.shape[1], q.shape[1] // k.shape[2]
+    s = torch.einsum("bhd,bshd->bhs", q.float(), k.repeat_interleave(rep, dim=2).float()) / math.sqrt(q.shape[-1])
+    s = torch.where(torch.arange(S, device=q.device) < valid_len, s, -math.inf)
+    return out, s.amax(dim=-1) if S else torch.full(q.shape[:2], -math.inf, device=q.device)
+
+
+def split_merge(fn, q, k, v, valid: int, n: int):
+    """``fn`` (a decode with ``return_lse``) on each of ``n`` slices of the
+    cache in JAX's padded blocks, merged as a mesh merges its ranks' slices;
+    the merged output, and each slice's ``lse``."""
+    outs, lses = [], []
+    for lo, hi in (parallel.seq_slice(k.shape[1], n, r) for r in range(n)):
+        o, lse = fn(q, k[:, lo:hi], v[:, lo:hi], min(max(valid - lo, 0), hi - lo), return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    return ref.merge_decode_partials(outs, lses), lses
+
+
+def split_decode_phase(gen, name_power: str) -> dict:
+    """The decode kernel's log-sum-exp, which the mesh path merges across
+    ranks, at the serve phases' decode shapes (``SPLIT_SHAPES``), bf16 and
+    fp32: the output with ``return_lse`` equal to the output without it; the
+    kernel's ``lse`` within the dtype's tolerance (absolute) of the plain
+    ``lse``; the cache cut into 2, 4 and 8 slices (padded blocks, the last
+    slice past the valid keys, its ``lse`` ``-inf``) and merged by
+    ``ref.merge_decode_partials``, within the tolerance of the unsplit kernel
+    and of the plain version; a planted kernel whose ``lse`` forgets ``ln
+    lsum`` must fail the fp32 gates at every shape. Then the kernel timed with
+    and without ``lse`` at minitron-8b's and h2o-danube-1.8b's shapes beside
+    its bound. Returns the timings."""
+    t0 = time.perf_counter()
+    timings = {}
+    for label, (b, h, hkv, s, d) in SPLIT_SHAPES.items():
+        worst = {}
+        for dtype in DTYPES:
+            tol = TOL[dtype]
+            q = randn(gen, b, h, d, dtype=dtype)
+            k, v = randn(gen, b, s, hkv, d, dtype=dtype), randn(gen, b, s, hkv, d, dtype=dtype)
+            for n in SPLITS:
+                valid = parallel.seq_slice(s, n, n - 1)[0]  # the last slice holds no valid key
+                whole, lse = ops.decode_attention(q, k, v, valid, return_lse=True)
+                require(torch.equal(whole, ops.decode_attention(q, k, v, valid)), f"{label}: return_lse moved the output")
+                plain, plain_lse = ref.decode_attention_ref(q, k, v, valid, return_lse=True)
+                lse_err = float((lse - plain_lse).abs().max())
+                require(lse_err <= tol, f"split decode {label} {dtype}: lse {lse_err:.3e} from the plain lse")
+                merged, lses = split_merge(ops.decode_attention, q, k, v, valid, n)
+                require(bool(torch.isneginf(lses[-1]).all()), f"{label}: the empty slice's lse is not -inf")
+                errs = (max_abs_err(merged, whole, dtype), max_abs_err(merged, plain, dtype))
+                fault = split_merge(lse_of_max_score, q, k, v, valid, n)[0]
+                fault_errs = (float((fault.float() - whole.float()).abs().max()),
+                              float((lse_of_max_score(q, k, v, valid, return_lse=True)[1] - plain_lse).abs().max()))
+                caught = fault_errs[0] > tol or fault_errs[1] > tol
+                # the merge weighs a lone slice 1 whatever its lse: only two or more valid slices show the fault
+                if dtype == torch.float32:
+                    require(fault_errs[1] > tol and (fault_errs[0] > tol or n == 2),
+                            f"split decode {label}: the planted lse fault passes the fp32 gates {fault_errs}")
+                worst[(str(dtype)[6:], n)] = (lse_err, *errs, *fault_errs, caught)
+        print(f"split decode {label} (B, H, Hkv, S, D) {(b, h, hkv, s, d)}: " + "; ".join(
+            f"{dt} {n} slices lse {e[0]:.2e}, merged vs unsplit {e[1]:.2e} vs plain {e[2]:.2e}, planted lse fault "
+            f"{e[3]:.2e} / lse {e[4]:.2e} ({'caught' if e[5] else 'passes'})" for (dt, n), e in worst.items())
+            + f" (tolerance bf16 {TOL[torch.bfloat16]}, fp32 {TOL[torch.float32]}): ok")
+    bf = torch.bfloat16
+    for label in ("minitron-8b", "h2o-danube-1.8b ring"):
+        b, h, hkv, s, d = SPLIT_SHAPES[label]
+        kv_bytes = 2 * b * s * hkv * d * 2
+        cache = copies(lambda: (randn(gen, b, h, d), randn(gen, b, s, hkv, d), randn(gen, b, s, hkv, d)), kv_bytes)
+        t = {"ms": time_ms(lambda q, k, v: ops.decode_attention(q, k, v, s), cache),
+             "lse_ms": time_ms(lambda q, k, v: ops.decode_attention(q, k, v, s, return_lse=True), cache),
+             "plain_ms": time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, s, return_lse=True), cache)}
+        t["bound_ms"], t["bound_by"] = bound(kv_bytes + 2 * b * h * d * 2 + b * h * 4, 4 * b * h * s * d, bf)
+        timings[label] = t
+        print(f"kernel decode_attention {label} shape {(b, h, hkv, s, d)} bf16, all {s} keys valid: without lse "
+              f"{t['ms']:.4f} ms, with lse {t['lse_ms']:.4f} ms (plain with lse {t['plain_ms']:.4f} ms, library none, "
+              f"bound {t['bound_ms']:.4f} ms by {t['bound_by']}, {t['bound_ms'] / t['lse_ms']:.2f} of it) "
+              f"[{name_power}]")
+    free_memory()
+    print(f"split decode phase: {time.perf_counter() - t0:.1f} s")
+    return timings
+
+
 def model_phase(seed: int) -> dict:
     cfg = get_config(ARCH)
     bundle = make_serve_bundle(cfg, max_len=MAX_LEN)
@@ -1269,6 +1445,9 @@ def model_phase(seed: int) -> dict:
     print(f"per-step launches: prefill {n_norm} rmsnorm + {cfg.num_layers} flash, "
           f"each of {STEPS} decode steps {n_norm} rmsnorm + {cfg.num_layers} decode: ok")
     del cache
+    mesh_serve(ARCH, cfg, params, tokens, gen_out,
+               {"rmsnorm": n_norm, "flash_attention": cfg.num_layers, "decode_attention": 0, "ssd_scan": 0},
+               {"rmsnorm": n_norm, "flash_attention": 0, "decode_attention": cfg.num_layers, "ssd_scan": 0}, MAX_LEN)
     print_breakdown(bundle, params, tokens, gen_out.tokens[:, :1])
 
     # The same tokens, teacher-forced through the plain versions with the same
@@ -1336,6 +1515,7 @@ def mamba_phase(seed: int) -> dict:
     print(f"per-step launches: prefill {n_norm} rmsnorm + {cfg.num_layers} ssd_scan, "
           f"each of {MB_STEPS} decode steps {n_norm} rmsnorm and no ssd_scan: ok")
     del cache
+    mesh_serve(MB_ARCH, cfg, params, tokens, gen_out, per_prefill, per_step, MB_PROMPT + MB_STEPS)
     print_breakdown(bundle, params, tokens, gen_out.tokens[:, :1], MB_PROMPT)
 
     # Teacher-forced on the kernel path's tokens: the plain path in bf16, then
@@ -1623,6 +1803,7 @@ def deepseek_phase(seed: int) -> dict:
     print(f"deepseek per-step launches: prefill {n_norm} rmsnorm + {n} flash, each of {DS_STEPS} decode steps "
           f"{n_norm} rmsnorm and no flash or decode_attention (MLA decodes in the latent space); cache {want}: ok")
     del cache
+    mesh_serve(DS_ARCH, cfg, params, tokens, gen_out, per_prefill, per_step, max_len)
     moe_layers, C = n - m.first_k_dense, moe_mod._capacity(DS_B * DS_PROMPT, m)
     drops = dropped_per_layer(routes_bf16[:moe_layers], m, DS_B * DS_PROMPT)
     print(f"deepseek routing at prefill (kernel path, bf16): {DS_B * DS_PROMPT * m.top_k} choices a layer, capacity "
@@ -1785,6 +1966,7 @@ def seamless_phase(seed: int) -> dict:
           f"{per_step['decode_attention']} decode ({n_dec} self, {n_dec} cross over {SM_FRAMES} frames); cache "
           f"{want} bf16: ok")
     del cache
+    mesh_serve(SM_ARCH, cfg, params, tokens, gen_out, per_prefill, per_step, SM_MAX_LEN, frames)
     print_breakdown(bundle, params, tokens, gen_out.tokens[:, :1], SM_PROMPT, frames)
 
     # Teacher-forced on the kernel path's tokens over the same frames: the
@@ -3197,6 +3379,7 @@ def main() -> int:
     torch.cuda.synchronize()
     times = time_kernels(gen)
     torch.cuda.synchronize()
+    split_times = split_decode_phase(gen, name_power)
 
     # Each serve path's main run, counted from 0; a kernel's launches are their sum.
     dense_counts = model_phase(args.seed)
@@ -3250,8 +3433,11 @@ def main() -> int:
     paths = [(ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [
         (f"{DN_ARCH} run {r}", c) for r, c in danube_counts.items()] + [
         (DS_ARCH, deepseek_counts), (SM_ARCH, seamless_counts), (JB_ARCH, jamba_counts)] + [
+        (f"mesh serve {a}", c) for a, c in MESH_SERVE_COUNTS.items()] + [
         (f"train {a}", c) for a, c in train_counts.items()] + [("mesh", mesh_counts),
                                                                 ("co-located rounds", colo_counts)]
+    print(f"mesh serve runs: {', '.join(f'{a} {t:.1f} s' for a, t in MESH_SERVE_SECONDS.items())}; "
+          f"{sum(MESH_SERVE_SECONDS.values()):.1f} s in all")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3282,6 +3468,9 @@ def main() -> int:
               f"{t['bound_ms'] / t['ms']:.2f} of the bound, {t['library_ms'] / t['ms']:.2f}x F.rms_norm's "
               f"speed); host {t['host_us']:.2f} us a call (F.rms_norm {t['library_host_us']:.2f} us, "
               f"ratio {t['host_ratio']:.3f}) [{name_power}]")
+    for label, t in split_times.items():
+        print(f"kernel decode_attention {label} bf16 with lse: {t['lse_ms']:.4f} ms, without {t['ms']:.4f} ms (plain "
+              f"{t['plain_ms']:.4f} ms, library none, bound {t['bound_ms']:.4f} ms by {t['bound_by']}) [{name_power}]")
     for (name, shape), t in danube_times.items():
         extra = ""
         if name == "flash_attention":

@@ -42,8 +42,8 @@ _SIGNATURES = {
     "repro_rmsnorm": (_vp, _vp, _vp, _ll, _i, _ll, _f, _i, _i, _i, _i, _i, _vp),
     # q, k, v, o, strides[12], B, H, Hkv, Sq, Sk, D, Dv, causal, window, dtype, stream
     "repro_flash_attention": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp),
-    # q, k, v, o, strides[6], B, H, Hkv, D, valid, split, dtype, stream
-    "repro_decode_attention": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp),
+    # q, k, v, o, lse (or null), strides[6], B, H, Hkv, D, valid, split, dtype, stream
+    "repro_decode_attention": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp),
     # x, log_dA, Bm, Cm, y, h, strides[15], B, S, H, G, N, P, dtype, variant, stream
     "repro_ssd_scan": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _vp),
     # N, P -> bytes of shared memory of the tensor-core ssd_scan kernel

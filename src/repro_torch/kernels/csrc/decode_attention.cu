@@ -29,7 +29,10 @@
 // does. The merge pushes rather than pulls: every block stores its state into
 // the shared memory of the rank that owns each share of the outputs, so one
 // cluster barrier separates the stores from a merge that reads only local
-// shared memory. No workspace and no second kernel are needed.
+// shared memory. No workspace and no second kernel are needed. On request
+// the cluster's rank 0 also writes each head's natural-log log-sum-exp,
+// M ln 2 + ln L, so that a caller can merge the outputs of slices of one
+// cache exactly (a mesh that splits the cache over its sequence).
 //
 // The valid length is an int argument (no device sync per layer); keys past
 // it are never read, and the last range may be ragged, so S need not divide a
@@ -50,6 +53,7 @@ constexpr int kStageKeys = 128;   // keys per stage of the ring
 constexpr int kMaxStages = 4;
 constexpr int kRingBudget = 128 * 1024;  // bytes of the ring at most
 constexpr int kThreads = 128;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kWarps = kThreads / 32;
 
 struct DecodeArgs {
@@ -57,6 +61,7 @@ struct DecodeArgs {
   const void* k;  // (B, S, Hkv, D) through strides
   const void* v;
   void* o;        // (B, H, D) contiguous
+  float* lse;     // (B, H) fp32, or null: no log-sum-exp is written
   long long ks_b, ks_s, ks_h, vs_b, vs_s, vs_h;
   int H, Hkv, rep, valid, split, stages;
   float scale_log2;  // log2(e) / sqrt(D)
@@ -327,6 +332,11 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
     }
     const float inv = lsum == 0.f ? 0.f : 1.f / lsum;  // no valid key gives 0, as on the TPU
     for (int q = 0; q < a.split; ++q) w_s[q * REP + tid] *= inv;
+    // The natural-log log-sum-exp of the scores: the state a merge across
+    // slices of the cache needs (-inf where no key is valid, weight 0 there).
+    if (a.lse != nullptr && rank == 0)
+      a.lse[static_cast<long long>(b) * a.H + hk * a.rep + tid] =
+          lsum == 0.f ? __int_as_float(static_cast<int>(0xff800000u)) : mx * kLn2 + logf(lsum);  // -inf
   }
   __syncthreads();
   const int i0 = rank * share, i1 = min(nout, i0 + share);
@@ -402,9 +412,10 @@ int launch_dim(const DecodeArgs& a, int groups, int D, cudaStream_t stream) {
 
 // q, o: (B, H, D) contiguous; k, v: (B, S, Hkv, D) through strides[6] =
 // (k, v) x (batch, seq, head) in elements; only positions < valid are read.
+// lse: (B, H) fp32 contiguous, or null (no log-sum-exp written).
 // split: blocks per (batch, kv head) cluster, 1..8 (kernels/decode_attention.py
 // plans it).
-extern "C" int repro_decode_attention(const void* q, const void* k, const void* v, void* o,
+extern "C" int repro_decode_attention(const void* q, const void* k, const void* v, void* o, float* lse,
                                       const long long* strides, int B, int H, int Hkv, int D,
                                       int valid, int split, int dtype, void* stream) {
   const int rep = H / Hkv;
@@ -415,6 +426,7 @@ extern "C" int repro_decode_attention(const void* q, const void* k, const void* 
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = lse;
   a.ks_b = strides[0], a.ks_s = strides[1], a.ks_h = strides[2];
   a.vs_b = strides[3], a.vs_s = strides[4], a.vs_h = strides[5];
   a.H = H;

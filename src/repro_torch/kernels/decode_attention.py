@@ -11,10 +11,15 @@ keys into shared memory with asynchronous bulk copies; the blocks merge their
 partial softmax states through distributed shared memory, so a call is one
 launch with no workspace. ``valid_len`` is a plain int, so no layer waits on
 the device for it. A key row is read by D/8 lanes of 8 elements, rounded up to
-a power of two: at D = 80, 16 lanes of which 6 idle.
+a power of two: at D = 80, 16 lanes of which 6 idle. With ``return_lse`` the
+kernel also writes each head's log-sum-exp, from which the slices of a cache
+split over a mesh's ranks are merged exactly (``ref.merge_decode_partials``);
+the launch is the same, counted the same.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -45,10 +50,14 @@ def decode_attention(
     k: torch.Tensor,  # (B, S, Hkv, D) cache
     v: torch.Tensor,
     valid_len: int,  # number of valid cache entries
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """-> out (B, H, D); with ``return_lse`` (out, lse): ``lse`` (B, H) fp32,
+    the natural-log log-sum-exp of each head's valid scaled scores, ``-inf``
+    where no key is valid (the kernel's out is 0 there)."""
     global launches
     if q.device.type == "cpu":
-        return ref.decode_attention_ref(q, k, v, valid_len)
+        return ref.decode_attention_ref(q, k, v, valid_len, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     B, H, D = q.shape
@@ -62,17 +71,18 @@ def decode_attention(
     _build.check_operands("decode_attention", q, k, v)
     valid = max(0, min(int(valid_len), S))
     out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None  # the kernel writes all
     if out.numel() == 0:
-        return out
+        return (out, lse.fill_(-math.inf)) if return_lse else out
     split = plan_split(B * Hkv, valid, _build.sm_count(q.device))
     if B * Hkv * split >= 2**31:
         raise ValueError(f"decode_attention: {B * Hkv} groups exceed the grid limit")
     strides = _build.strides_array([*k.stride()[:3], *v.stride()[:3]])
     lib = _build.library()
     code = lib.repro_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(), strides,
         B, H, Hkv, D, valid, split, _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device),
     )
     _build.check(code, "decode_attention")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

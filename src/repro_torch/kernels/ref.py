@@ -10,7 +10,10 @@ chunked ``ssd_chunked``, the plain version that the wrapper and ``ops.PLAIN``
 use (the twin of the JAX package's ``models/mamba.py`` one), and the
 step-by-step ``ssd_ref``, the exact oracle for it and for the kernel.
 ``decode_attention_split`` repeats the decode kernel's split and merge
-arithmetic, so that the CPU tests hold that arithmetic to the JAX package.
+arithmetic, so that the CPU tests hold that arithmetic to the JAX package;
+with ``return_lse`` both decode versions also give the log-sum-exp that
+``merge_decode_partials`` needs to merge the slices of a cache that a mesh
+splits over its sequence (``models/parallel.py::merge_over_model``).
 """
 
 from __future__ import annotations
@@ -59,7 +62,12 @@ def decode_attention_ref(
     k: torch.Tensor,  # (B, S, Hkv, D) cache
     v: torch.Tensor,
     valid_len: int,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """-> out (B, H, D); with ``return_lse`` also the natural-log
+    log-sum-exp of the valid keys' scaled scores, (B, H) in fp32, ``-inf``
+    where no key is valid (the output there is the mean of V, ROADMAP C4;
+    ``merge_decode_partials`` gives it weight 0)."""
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -69,7 +77,10 @@ def decode_attention_ref(
     mask = torch.arange(S, device=q.device)[None, None, :] < valid_len
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhs,bshd->bhd", p, vh.float()).to(q.dtype)
+    out = torch.einsum("bhs,bshd->bhd", p, vh.float()).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(torch.where(mask, s, -math.inf), dim=-1)
 
 
 def key_ranges(valid: int, split: int) -> List[Tuple[int, int]]:
@@ -84,11 +95,15 @@ def decode_attention_split(
     v: torch.Tensor,
     valid_len: int,
     split: int,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The decode kernel's arithmetic: the valid keys cut into ``split`` ranges
     as the kernel's cluster cuts them, each range's softmax state (m, l, o) in
     fp32 in the log2 domain, then the merge
-    ``out = sum 2^(m_i - M) o_i / sum 2^(m_i - M) l_i``. No valid key gives 0."""
+    ``out = sum 2^(m_i - M) o_i / sum 2^(m_i - M) l_i``. No valid key gives 0.
+    With ``return_lse`` also what the kernel's ``lse`` output holds,
+    ``M ln 2 + ln sum 2^(m_i - M) l_i`` (B, H) in fp32, ``-inf`` where no key
+    is valid."""
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -108,11 +123,39 @@ def decode_attention_split(
         ls.append(p.sum(dim=-1))
         os.append(torch.einsum("bgrn,bngd->bgrd", p, v[:, lo:hi].float()))
     m_all = torch.stack(ms)
-    w = torch.exp2(m_all - m_all.amax(dim=0))
+    top = m_all.amax(dim=0)
+    w = torch.exp2(m_all - top)
     l = (torch.stack(ls) * w).sum(dim=0)
     o = (torch.stack(os) * w[..., None]).sum(dim=0)
     out = torch.where(l[..., None] > 0, o / torch.where(l > 0, l, 1.0)[..., None], 0.0)
-    return out.reshape(B, H, D).to(q.dtype)
+    out = out.reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, top * math.log(2.0) + torch.log(torch.where(l > 0, l, 1.0)), -math.inf)
+    return out, lse.reshape(B, H)
+
+
+def merge_decode_partials(outs, lses, return_lse: bool = False):
+    """The exact merge of decode attention over the slices of a cache:
+    ``outs`` (n, B, H, D) (a stacked tensor or a list), each slice's output,
+    and ``lses`` (n, B, H), each slice's natural-log log-sum-exp;
+    ``out = sum_r exp(lse_r - LSE) out_r`` with ``LSE = log sum_r exp lse_r``,
+    in fp32, returned in the outputs' dtype. A slice of ``lse = -inf`` (no
+    valid key) weighs 0 whatever its output holds; where every slice is
+    empty the output is 0 (and ``LSE`` is ``-inf``)."""
+    outs = torch.stack(list(outs)) if isinstance(outs, (list, tuple)) else outs
+    lses = torch.stack(list(lses)) if isinstance(lses, (list, tuple)) else lses
+    lses = lses.float()
+    top = lses.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    w = torch.exp(lses - top)  # exactly 0 for an empty slice
+    total = w.sum(dim=0)
+    live = total > 0
+    o = (torch.where(w[..., None] > 0, outs.float(), 0.0) * w[..., None]).sum(dim=0)
+    out = torch.where(live[..., None], o / torch.where(live, total, 1.0)[..., None], 0.0).to(outs.dtype)
+    if not return_lse:
+        return out
+    return out, torch.where(live, top + torch.log(torch.where(live, total, 1.0)), -math.inf)
 
 
 def ssd_ref(

@@ -22,6 +22,20 @@ jamba-1.5-large-398b (the hybrid layout) serves with ``--smoke --device
 cpu``. On one card the launcher cannot take it: the full config (398 B
 parameters) does not fit, and the smoke config's head dim (16) has no flash
 kernel. ``chip_smoke.py`` serves one period of it at full width.
+
+The launcher serves on one card. The reference's launcher serves every full
+config on its production mesh of 256 ranks (``make_production_mesh`` says
+what world size it needs); here a caller that starts its own process group
+serves on a mesh through the same bundle, every rank feeding the global
+prompts and reading the global logits, e.g. in a script run with
+``OMP_NUM_THREADS=1 PYTHONPATH=src torchrun --nproc-per-node 4 script.py``::
+
+    dist.init_process_group("gloo")  # "nccl" with one card a rank
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    cfg = smoke_config(get_config("minitron-8b"))
+    bundle = make_serve_bundle(cfg, mesh, batch=4, max_len=64)
+    params = bundle.model.init(0, "cpu")  # the rank's shards of the seeded tree
+    gen = greedy_generate(bundle, params, tokens, 16)  # tokens (4, S), the same on every rank
 """
 
 from __future__ import annotations
@@ -99,7 +113,7 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    bundle = make_serve_bundle(cfg, max_len=args.prompt_len + args.decode_steps)
+    bundle = make_serve_bundle(cfg, batch=args.batch, max_len=args.prompt_len + args.decode_steps)
     params = bundle.model.init(args.seed, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)

@@ -33,6 +33,17 @@ weight-absorbed decode: attention in the latent space as plain matmuls and a
 softmax, as the reference leaves it to XLA (no Pallas kernel maps to it). The
 cache keeps the normed latent ``ckv`` and the rotated rope key ``kr``.
 
+Serving on a mesh keeps each layer's cache split by its sequence over
+``"model"`` in JAX's padded blocks, every head on every rank, as the
+reference's ``gqa_cache_spec`` and ``mla_cache_spec`` lay it out: a prefill
+lays its head-split K/V over the cache's slots (quantized first for int8)
+and trades heads for slots in one all-to-all (``gqa_write_prompt``); a
+decode step gathers q and the new K/V over ``"model"``, lets the slot's
+owner write it, attends on each rank to its slice
+(``ops.decode_attention(..., return_lse=True)``; MLA in plain PyTorch) and
+merges the slices exactly (``parallel.merge_over_model``). At one model rank
+both are the no-mesh path, bit for bit.
+
 Cross-attention (``cross_def``, ``cross_memory_kv``, ``cross_forward``,
 :205-232) is the encoder-decoder's: GQA weights, K and V projected once from
 the encoder memory without RoPE, ``ops.flash_attention(causal=False)`` with
@@ -50,7 +61,15 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import apply_rope, head_rmsnorm, rmsnorm, rope_tables, rotate
-from repro_torch.models.parallel import copy_to_model, group_slice, reduce_from_model, tensor_parallel
+from repro_torch.models.parallel import (
+    copy_to_model,
+    gather_over_model,
+    group_slice,
+    heads_to_sequence,
+    merge_over_model,
+    reduce_from_model,
+    tensor_parallel,
+)
 from repro_torch.models.params import ParamDef, fan_in_init, ones_init
 
 Cache = Dict[str, torch.Tensor]
@@ -192,20 +211,72 @@ def _entries(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Cache:
     return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
 
 
-def gqa_write_prompt(cfg: ArchConfig, cache: Cache, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Write a prompt's K/V (B, S, Hkv, hd) into a layer's cache in place: at
-    slots 0..S-1, or, where a ring buffer of W <= S slots holds the window,
+def cache_slots(cfg: ArchConfig, max_len: int) -> int:
+    """W, the sequence length of a layer's K/V cache: ``max_len``, or for a
+    sliding-window config ``min(max_len, window)`` (the ring buffer)."""
+    return max_len if cfg.sliding_window is None else min(max_len, cfg.sliding_window)
+
+
+def _place(cfg: ArchConfig, dest: Cache, entries: Cache, W: int) -> None:
+    """Write a prompt's entries (B, S, ...) into ``dest`` (B, W, ...) in place:
+    at slots 0..S-1, or, where a ring buffer of W <= S slots holds the window,
     the last W positions at slot ``pos % W`` (the reference's ``idx = (S - W +
     arange(W)) % W``, ``models/transformer.py:470-475``)."""
-    S, W = k.shape[1], cache["k"].shape[1]
-    entries = _entries(cache, k, v)
+    S = entries["k"].shape[1]
     if cfg.sliding_window is not None and S >= W:
-        idx = torch.arange(S - W, S, device=k.device) % W
+        idx = torch.arange(S - W, S, device=entries["k"].device) % W
         for name, val in entries.items():
-            cache[name].index_copy_(1, idx, val[:, S - W:])
+            dest[name].index_copy_(1, idx, val[:, S - W:])
     else:
         for name, val in entries.items():
-            cache[name][:, :S] = val
+            dest[name][:, :S] = val
+
+
+def gqa_write_prompt(cfg: ArchConfig, cache: Cache, k: torch.Tensor, v: torch.Tensor, par=None,
+                     W: Optional[int] = None) -> None:
+    """Write a prompt's K/V (B, S, Hkv, hd) into a layer's cache in place
+    (``_place``: slots 0..S-1, or the ring's last W positions at ``pos %
+    W``), quantized first for an int8 cache. On a model axis of more than
+    one rank (the mesh's prefill cache) ``k`` and ``v`` hold the rank's KV
+    heads, the cache the rank's slots (``Parallel.seq_slice``) of all heads,
+    and ``W`` is the whole cache's length: the entries are laid out over all
+    W slots, then ``heads_to_sequence`` trades heads for slots."""
+    entries = _entries(cache, k, v)  # the int8 codes and scales before the split, as the reference
+    if not tensor_parallel(par):
+        _place(cfg, cache, entries, cache["k"].shape[1])
+        return
+    B = k.shape[0]
+    full = {name: val.new_zeros((B, W) + tuple(val.shape[2:])) for name, val in entries.items()}
+    _place(cfg, full, entries, W)
+    for name, val in full.items():
+        cache[name].copy_(heads_to_sequence(val, cfg.num_heads, cfg.num_kv_heads, par))
+
+
+
+def _gather_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig, par):
+    """One token's q (B, 1, h, hd) and new K/V (B, 1, g, hd) of the rank's
+    heads -> all heads on every rank, q (B, H, hd), k and v (B, Hkv, hd),
+    in one all-gather over ``"model"`` (a KV head that two ranks share comes
+    from either: their copies are equal)."""
+    B, hd = q.shape[0], cfg.resolved_head_dim
+    nq, nk = q.shape[2] * hd, k.shape[2] * hd
+    parts = gather_over_model(torch.cat([q.reshape(B, nq), k.reshape(B, nk), v.reshape(B, nk)], dim=1), par)
+    q_all = torch.cat([t[:, :nq] for t in parts], dim=1).view(B, -1, hd)
+    k_all = q.new_empty((B, cfg.num_kv_heads, hd))
+    v_all = torch.empty_like(k_all)
+    for j, t in enumerate(parts):
+        g0, g1 = group_slice(cfg.num_heads, cfg.num_kv_heads, par, j)
+        k_all[:, g0:g1] = t[:, nq : nq + nk].view(B, -1, hd)
+        v_all[:, g0:g1] = t[:, nq + nk:].view(B, -1, hd)
+    return q_all, k_all, v_all
+
+
+def _write_token(cache: Cache, entries: Cache, slot: int, lo: int, hi: int) -> None:
+    """One token's entries (B, ...) into the cache at ``slot``, by the rank
+    whose slots [lo, hi) hold it (all of them without a mesh)."""
+    if lo <= slot < hi:
+        for name, val in entries.items():
+            cache[name][:, slot - lo] = val
 
 
 def gqa_decode(
@@ -215,30 +286,49 @@ def gqa_decode(
     cache: Cache,
     cache_len: int,  # number of tokens already cached
     ops=kernel_ops,
+    par=None,
+    W: Optional[int] = None,  # on a mesh: the whole cache's length
 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step; writes the new K/V in place at slot ``cache_len``, or
     ``cache_len % W`` in a sliding-window ring. The ring holds the last W
     positions, the window's keys, so no window mask is needed: the first
-    ``min(cache_len + 1, W)`` slots are valid."""
+    ``min(cache_len + 1, W)`` slots are valid.
+
+    On a model axis of more than one rank (the reference's seq-sharded
+    decode, :151-195) the cache holds the rank's slots of all heads: q and
+    the new K/V are gathered over ``"model"``, only the owner of the slot
+    writes it, each rank attends to its slice (``return_lse``; its valid keys
+    ``clamp(valid - lo, 0, hi - lo)``), ``merge_over_model`` merges the
+    slices exactly, and the rank's heads go into the row-parallel ``wo``."""
     B = x.shape[0]
     positions = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _gqa_qkv(p, cfg, x, positions, ops)
-    W = cache["k"].shape[1]
+    q, k_new, v_new = _gqa_qkv(p, cfg, x, positions, ops, par)
+    sharded = tensor_parallel(par)
+    W = W if sharded else cache["k"].shape[1]
     if cfg.sliding_window is not None:
         slot = cache_len % W
     elif 0 <= cache_len < W:
         slot = cache_len
     else:
         raise IndexError(f"cache_len {cache_len} outside a cache of {W} positions")
-    for name, val in _entries(cache, k_new[:, 0], v_new[:, 0]).items():
-        cache[name][:, slot] = val
+    lo, hi = par.seq_slice(W) if sharded else (0, W)
+    if sharded:
+        q, k_new, v_new = _gather_heads(q, k_new, v_new, cfg, par)
+    else:
+        q, k_new, v_new = q[:, 0], k_new[:, 0], v_new[:, 0]
+    _write_token(cache, _entries(cache, k_new, v_new), slot, lo, hi)
     k, v = cache["k"], cache["v"]
     if "k_scale" in cache:
         k = dequantize_kv(k, cache["k_scale"], k_new.dtype)
         v = dequantize_kv(v, cache["v_scale"], k_new.dtype)
     valid = min(cache_len + 1, W)
-    o = ops.decode_attention(q[:, 0], k, v, valid)  # (B, H, hd)
-    return torch.matmul(o.reshape(B, 1, -1), p["wo"]), cache
+    if not sharded:
+        o = ops.decode_attention(q, k, v, valid)  # (B, H, hd)
+        return torch.matmul(o.reshape(B, 1, -1), p["wo"]), cache
+    o, lse = ops.decode_attention(q, k, v, min(max(valid - lo, 0), hi - lo), return_lse=True)
+    o = merge_over_model(o, lse, par)
+    h0, h1 = par.model_slice(cfg.num_heads)
+    return reduce_from_model(torch.matmul(o[:, h0:h1].reshape(B, 1, -1), p["wo"]), par), cache
 
 
 # ---------------------------------------------------------------------------
@@ -387,31 +477,56 @@ def mla_decode(
     cache: Cache,
     cache_len: int,  # number of tokens already cached
     ops=kernel_ops,
+    par=None,
+    S: Optional[int] = None,  # on a mesh: the whole cache's length
 ) -> Tuple[torch.Tensor, Cache]:
     """Weight-absorbed decode: attention runs in the latent space and the
-    cache stays compressed. Writes the new entry in place at ``cache_len``."""
+    cache stays compressed. Writes the new entry in place at ``cache_len``.
+
+    On a model axis of more than one rank the cache holds the rank's slots
+    (the reference's seq-sharded decode, :357-383): the latent queries of
+    the rank's heads are gathered over ``"model"``, only the slot's owner
+    writes the new entry, each rank's partial softmax over its slice (plain
+    PyTorch, as without a mesh) is merged by ``merge_over_model``, and the
+    rank's heads go through ``w_uv`` and the row-parallel ``wo``."""
     m = cfg.mla
     B, H = x.shape[0], cfg.num_heads
-    S = cache["ckv"].shape[1]
+    sharded = tensor_parallel(par)
+    S = S if sharded else cache["ckv"].shape[1]
     if not 0 <= cache_len < S:
         raise IndexError(f"cache_len {cache_len} outside a cache of {S} positions")
+    lo, hi = par.seq_slice(S) if sharded else (0, S)
     positions = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _mla_q(p, cfg, x, positions, ops)  # (B, 1, H, *)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, ops, par)  # (B, 1, h, *), the rank's heads
     ckv_new, kr_new = _mla_ckv(p, cfg, x, positions, ops)
-    cache["ckv"][:, cache_len] = ckv_new[:, 0]
-    cache["kr"][:, cache_len] = kr_new[:, 0]
+    if lo <= cache_len < hi:  # the slot's owner
+        cache["ckv"][:, cache_len - lo] = ckv_new[:, 0]
+        cache["kr"][:, cache_len - lo] = kr_new[:, 0]
     ckv, kr = cache["ckv"], cache["kr"]
 
-    w_ukv = p["w_ukv"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim)
-    w_uk = w_ukv[..., : m.qk_nope_head_dim]  # (r, H, nope)
-    w_uv = w_ukv[..., m.qk_nope_head_dim:]  # (r, H, v)
+    w_ukv = p["w_ukv"].reshape(m.kv_lora_rank, -1, m.qk_nope_head_dim + m.v_head_dim)
+    w_uk = w_ukv[..., : m.qk_nope_head_dim]  # (r, h, nope)
+    w_uv = w_ukv[..., m.qk_nope_head_dim:]  # (r, h, v)
     # absorb: q in latent space
-    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)  # (B, 1, H, r)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)  # (B, 1, h, r)
+    if sharded:
+        r = m.kv_lora_rank
+        parts = gather_over_model(torch.cat([q_lat, q_rope], dim=-1), par)
+        q_all = torch.cat(parts, dim=2)  # (B, 1, H, r + rope)
+        q_lat, q_rope = q_all[..., :r], q_all[..., r:]
     scores = torch.einsum("bqhr,bsr->bhqs", q_lat, ckv) + torch.einsum("bqhe,bse->bhqs", q_rope, kr)
     scores = scores.float() * (1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim))
-    valid = (torch.arange(S, device=x.device) < cache_len + 1)[None, None, None, :]
-    scores = torch.where(valid, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(ckv.dtype)
-    o_lat = torch.einsum("bhqs,bsr->bqhr", probs, ckv)  # (B, 1, H, r)
-    o = torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)  # (B, 1, H, v)
-    return torch.matmul(o.reshape(B, 1, -1), p["wo"]), cache
+    valid = (torch.arange(hi - lo, device=x.device) < cache_len + 1 - lo)[None, None, None, :]
+    if not sharded:
+        probs = torch.softmax(torch.where(valid, scores, -1e30), dim=-1).to(ckv.dtype)
+        o_lat = torch.einsum("bhqs,bsr->bqhr", probs, ckv)  # (B, 1, H, r)
+    else:  # this slice's softmax state: its probabilities and log-sum-exp (-inf where empty)
+        lse = torch.logsumexp(torch.where(valid, scores, -math.inf), dim=-1)  # (B, H, 1)
+        top = torch.where(torch.isfinite(lse), lse, 0.0)
+        probs = torch.where(valid, torch.exp(scores - top[..., None]), 0.0).to(ckv.dtype)
+        o_lat = torch.einsum("bhqs,bsr->bqhr", probs, ckv)
+        o_lat = merge_over_model(o_lat[:, 0], lse[..., 0], par)[:, None]  # (B, 1, H, r)
+        h0, h1 = par.model_slice(H)
+        o_lat = o_lat[:, :, h0:h1]
+    o = torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)  # (B, 1, h, v)
+    return reduce_from_model(torch.matmul(o.reshape(B, 1, -1), p["wo"]), par), cache

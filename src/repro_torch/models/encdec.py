@@ -40,8 +40,12 @@ On a mesh (``EncDecModel(cfg, mesh, batch_axes)``) training runs as the
 decoder-only ``Model``'s: the rank's rows of the tokens, labels and frames
 (``_constrain``), its heads in every self- and cross-attention, its columns
 of d_ff, its vocab rows of the embedding and the head. ``param_specs`` and
-``cache_specs`` are the reference's spec trees. Serving on a mesh
-(``_decode_shard_fn``, the sharded caches) is A9b.
+``cache_specs`` are the reference's spec trees. Serving on a mesh takes the
+global batch and returns the global logits on every rank: the rank's rows
+(all of them where the batch does not split over ``"data"``), its heads,
+the self cache split by its sequence over ``"model"`` as the decoder-only
+model's, and the cross cache split by its heads where 16 divides the KV
+heads (the reference's ``cache_specs``, :193-200), else whole on every rank.
 """
 
 from __future__ import annotations
@@ -55,7 +59,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import params as pu
-from repro_torch.models.parallel import NOT_PORTED, Parallel
+from repro_torch.models.parallel import (
+    Parallel,
+    global_logits,
+    group_slice,
+    serve_rows,
+    tensor_parallel,
+    whole_length,
+)
 from repro_torch.models.common import (
     chunked_cross_entropy,
     embed,
@@ -67,7 +78,7 @@ from repro_torch.models.common import (
     swiglu_def,
     token_cross_entropy,
 )
-from repro_torch.models.transformer import _layer, _unstack, remat
+from repro_torch.models.transformer import _layer, _unstack, remat, serve_cache_specs
 
 Tree = Dict[str, Any]
 
@@ -217,16 +228,32 @@ class EncDecModel(nn.Module):
     def make_cache(self, batch: int, max_len: int, frames: int, dtype=torch.bfloat16, device=None) -> Tree:
         """Zeroed cache: ``{"self": {"k", "v"}}`` of (L, batch, W, Hkv, hd)
         (``attention.gqa_make_cache``'s layout per layer) and ``cross_k``,
-        ``cross_v`` of (L, batch, frames, Hkv, hd), all in ``dtype``."""
+        ``cross_v`` of (L, batch, frames, Hkv, hd), all in ``dtype``. On a
+        mesh only the rank's shard of each leaf (``serve_cache_specs``)."""
         cfg = self.cfg
         L, F = cfg.num_layers, frames
-        self_c = attn.gqa_make_cache(cfg, batch, max_len, dtype, device)
+        self_c = attn.gqa_make_cache(cfg, batch, max_len, dtype, "meta")
         cross = (L, batch, F, cfg.num_kv_heads, cfg.resolved_head_dim)
+        shapes = {"self": {k: (L,) + tuple(a.shape) for k, a in self_c.items()}, "cross_k": cross, "cross_v": cross}
+        dtypes = {"self": {k: a.dtype for k, a in self_c.items()}, "cross_k": dtype, "cross_v": dtype}
+        if self.mesh is not None:
+            specs = serve_cache_specs(self, batch)
+            shapes = {"self": {k: pu.local_shape(v, specs["self"][k], self.mesh) for k, v in shapes["self"].items()},
+                      **{k: pu.local_shape(shapes[k], specs[k], self.mesh) for k in ("cross_k", "cross_v")}}
         return {
-            "self": {k: a.new_zeros((L,) + a.shape) for k, a in self_c.items()},
-            "cross_k": torch.zeros(cross, dtype=dtype, device=device),
-            "cross_v": torch.zeros(cross, dtype=dtype, device=device),
+            "self": {k: torch.zeros(v, dtype=dtypes["self"][k], device=device) for k, v in shapes["self"].items()},
+            **{k: torch.zeros(shapes[k], dtype=dtype, device=device) for k in ("cross_k", "cross_v")},
         }
+
+    def _cross_heads(self, k: torch.Tensor) -> torch.Tensor:
+        """The cross cache's K or V (B, F, *, hd) for this rank's query heads:
+        as it is where the cache holds the rank's KV heads (sharded over
+        ``"model"`` where 16 divides them, ``encdec.py:193-200``), else the
+        rank's group of the replicated heads."""
+        if not tensor_parallel(self.par) or attn.kv_spec(self.cfg) is not None:
+            return k
+        g0, g1 = group_slice(self.cfg.num_heads, self.cfg.num_kv_heads, self.par)
+        return k[:, :, g0:g1]
 
     def prefill(
         self,
@@ -236,52 +263,61 @@ class EncDecModel(nn.Module):
         max_len: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Tree]:
         """Encode the frames, run the decoder over the prompt: (last-position
-        logits (B, padded_vocab), populated cache)."""
-        if self.mesh is not None:
-            raise NotImplementedError(f"serving on a mesh is {NOT_PORTED}")
+        logits (B, padded_vocab), populated cache). On a mesh every rank takes
+        the global batch and returns the global logits and its shard of the
+        cache: the self cache's slots of all heads, the cross cache's heads
+        where they are sharded, else all of them."""
         if frontend_embeds is None:
             raise ValueError(f"{self.cfg.name}: an encoder-decoder needs its frames (frontend_embeds)")
-        cfg, ops = self.cfg, self.ops
+        cfg, ops, par = self.cfg, self.ops, self.par
         B, S = tokens.shape
         max_len = max_len or S
         if max_len < S:
             raise ValueError(f"max_len {max_len} is shorter than the prompt ({S})")
+        tokens, frontend_embeds = serve_rows(tokens, par, B), serve_rows(frontend_embeds, par, B)
         memory = self.encode(params, frontend_embeds)
-        x = embed(params["embed"], tokens.long())
+        x = embed(params["embed"], tokens.long(), par)
         positions = self._positions(x)
         cache = self.make_cache(B, max_len, memory.shape[1], x.dtype, x.device)
+        W = attn.cache_slots(cfg, max_len)
         for i in range(cfg.num_layers):
             p, c = _layer(params["decoder"], i), _layer(cache["self"], i)
             h = rmsnorm(p["norm1"], x, ops=ops)
-            q, k, v = attn._gqa_qkv(p["mixer"], cfg, h, positions, ops)
-            attn.gqa_write_prompt(cfg, c, k, v)
-            x = x + attn._gqa_attend(p["mixer"], q, k, v, ops, cfg.sliding_window)
+            q, k, v = attn._gqa_qkv(p["mixer"], cfg, h, positions, ops, par)
+            attn.gqa_write_prompt(cfg, c, k, v, par, W)
+            x = x + attn._gqa_attend(p["mixer"], q, k, v, ops, cfg.sliding_window, par)
             h = rmsnorm(p["norm_x"], x, ops=ops)
-            ck, cv = attn.cross_memory_kv(p["cross"], cfg, memory)
+            # a cache of replicated KV heads holds all of them; the rank attends with its own
+            replicated = tensor_parallel(par) and attn.kv_spec(cfg) is None
+            ck, cv = attn.cross_memory_kv(p["cross"], cfg, memory, None if replicated else par)
             cache["cross_k"][i].copy_(ck)
             cache["cross_v"][i].copy_(cv)
-            x = x + attn.cross_forward(p["cross"], cfg, h, (ck, cv), ops)
-            x = x + swiglu(p["channel"], rmsnorm(p["norm2"], x, ops=ops))
+            ck, cv = self._cross_heads(ck), self._cross_heads(cv)
+            x = x + attn.cross_forward(p["cross"], cfg, h, (ck, cv), ops, par)
+            x = x + swiglu(p["channel"], rmsnorm(p["norm2"], x, ops=ops), par)
         h = rmsnorm(params["final_norm"], x, ops=ops)
-        return torch.matmul(h[:, -1], params["head"]["w"]), cache
+        return global_logits(torch.matmul(h[:, -1], params["head"]["w"]), par, B), cache
 
     def decode_step(
         self, params: Tree, cache: Tree, tokens: torch.Tensor, cache_len: Union[int, torch.Tensor]
     ) -> Tuple[torch.Tensor, Tree]:
         """tokens (B, 1) -> (logits (B, padded_vocab), cache updated in
         place): self-attention against the cache, cross-attention over all
-        of the memory's K/V."""
-        if self.mesh is not None:
-            raise NotImplementedError(f"serving on a mesh is {NOT_PORTED}")
-        cfg, ops = self.cfg, self.ops
+        of the memory's K/V. On a mesh the global tokens in, the global
+        logits out, the rank's shard of the cache updated."""
+        cfg, ops, par = self.cfg, self.ops, self.par
         cache_len = int(cache_len)  # one host read per step at most, none per layer
-        x = embed(params["embed"], tokens.long())
+        B = tokens.shape[0]
+        tokens = serve_rows(tokens, par, B)
+        W = whole_length(cache["self"]["k"], 2, par)
+        x = embed(params["embed"], tokens.long(), par)
         for i in range(cfg.num_layers):
             p, c = _layer(params["decoder"], i), _layer(cache["self"], i)
-            o, _ = attn.gqa_decode(p["mixer"], cfg, rmsnorm(p["norm1"], x, ops=ops), c, cache_len, ops)
+            o, _ = attn.gqa_decode(p["mixer"], cfg, rmsnorm(p["norm1"], x, ops=ops), c, cache_len, ops, par, W)
             x = x + o
             h = rmsnorm(p["norm_x"], x, ops=ops)
-            x = x + attn.cross_forward(p["cross"], cfg, h, (cache["cross_k"][i], cache["cross_v"][i]), ops)
-            x = x + swiglu(p["channel"], rmsnorm(p["norm2"], x, ops=ops))
+            memory_kv = (self._cross_heads(cache["cross_k"][i]), self._cross_heads(cache["cross_v"][i]))
+            x = x + attn.cross_forward(p["cross"], cfg, h, memory_kv, ops, par)
+            x = x + swiglu(p["channel"], rmsnorm(p["norm2"], x, ops=ops), par)
         h = rmsnorm(params["final_norm"], x, ops=ops)
-        return torch.matmul(h, params["head"]["w"])[:, 0], cache
+        return global_logits(torch.matmul(h[:, 0], params["head"]["w"]), par, B), cache

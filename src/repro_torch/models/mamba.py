@@ -19,8 +19,10 @@ region after their conv, so their gradient is summed over the ranks. The
 gated norm normalises over the whole of ``d_inner``: on a model axis of more
 than one rank its mean of squares is summed over ``"model"`` in plain
 PyTorch (the kernel sees only the local slice); at one rank it is the
-``ops.rmsnorm`` kernel, as without a mesh. Serving on a mesh
-(``mamba_cache_spec``'s sharded caches) is A9b.
+``ops.rmsnorm`` kernel, as without a mesh. Serving on a mesh keeps the
+rank's heads of the SSD state and its channels of ``conv_x``
+(``mamba_cache_spec``), ``conv_bc`` whole: ``mamba_prefill`` and
+``mamba_decode`` take ``par`` as the training forward does.
 
 Unlike the JAX package, whose arrays are immutable, ``mamba_decode`` updates
 the cache it is given (the conv windows and the fp32 state) in place.
@@ -148,10 +150,12 @@ def _last_inputs(raw: torch.Tensor, W: int) -> torch.Tensor:
     return F.pad(raw[:, -W:], (0, 0, max(W - raw.shape[1], 0), 0))
 
 
-def mamba_prefill(p, cfg: ArchConfig, x: torch.Tensor, ops=kernel_ops) -> Tuple[torch.Tensor, Cache]:
+def mamba_prefill(p, cfg: ArchConfig, x: torch.Tensor, ops=kernel_ops, par=None) -> Tuple[torch.Tensor, Cache]:
     """Full-sequence forward that also returns the decode cache (final SSD
-    state + conv windows over the last ``conv_width`` raw inputs)."""
-    out, h_final, xs_raw, bc_raw = _mixer(p, cfg, x, ops)
+    state + conv windows over the last ``conv_width`` raw inputs); on a mesh
+    the rank's heads of the state and channels of ``conv_x``, as
+    ``mamba_cache_spec`` splits them."""
+    out, h_final, xs_raw, bc_raw = _mixer(p, cfg, x, ops, par)
     W = cfg.ssm.conv_width
     cache = {"h": h_final, "conv_x": _last_inputs(xs_raw, W), "conv_bc": _last_inputs(bc_raw, W)}
     return out, cache
@@ -176,12 +180,15 @@ def mamba_cache_spec(cfg: ArchConfig, batch_axes) -> Dict[str, tuple]:
 
 
 def mamba_decode(
-    p, cfg: ArchConfig, x: torch.Tensor, cache: Cache, ops=kernel_ops
+    p, cfg: ArchConfig, x: torch.Tensor, cache: Cache, ops=kernel_ops, par=None
 ) -> Tuple[torch.Tensor, Cache]:
-    """One-token recurrent step, x: (B, 1, d_model); updates ``cache`` in place."""
+    """One-token recurrent step, x: (B, 1, d_model); updates ``cache`` in
+    place. On a mesh the rank's heads (its slice of ``d_inner``, its state
+    and ``conv_x`` channels), the gated norm summed over ``"model"``, the
+    row-parallel ``w_out``."""
     d_in, H, P_, G, N = _dims(cfg)
     B = x.shape[0]
-    z, xs, bc, dt = _proj_inputs(p, cfg, x)
+    z, xs, bc, dt = _proj_inputs(p, cfg, x, par)
     _, xs1 = _conv_step(cache["conv_x"], xs[:, 0], p["conv_x"])
     _, bc1 = _conv_step(cache["conv_bc"], bc[:, 0], p["conv_bc"])
     xs1 = F.silu(xs1)
@@ -191,7 +198,10 @@ def mamba_decode(
     rep = H // G
     if rep > 1:
         Bm, Cm = Bm.repeat_interleave(rep, dim=1), Cm.repeat_interleave(rep, dim=1)
-    xh = xs1.reshape(B, H, P_).float()
+    if tensor_parallel(par):  # the groups of the rank's heads
+        h0, h1 = par.model_slice(H)
+        Bm, Cm = Bm[:, h0:h1], Cm[:, h0:h1]
+    xh = xs1.reshape(B, -1, P_).float()
     dt1 = dt[:, 0]  # (B, H)
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt1 * A)  # (B, H)
@@ -201,7 +211,7 @@ def mamba_decode(
     )
     y = torch.einsum("bhn,bhnp->bhp", Cm.float(), h)
     y = y + xh * p["D"][:, None]
-    y = y.reshape(B, 1, d_in).to(x.dtype)
+    y = y.reshape(B, 1, -1).to(x.dtype)
     y = y * F.silu(z)
-    y = rmsnorm({"scale": p["norm"]}, y, ops=ops)
-    return torch.matmul(y, p["w_out"]), cache
+    y = _gated_norm(p["norm"], y, d_in, ops, par)
+    return reduce_from_model(torch.matmul(y, p["w_out"]), par), cache

@@ -27,8 +27,11 @@ dispatch buffer (the rank's experts' rows), and its return all-to-all is a
 sum over ``"model"`` of each rank's combine of its own experts' rows. The
 load-balancing loss is the product of two global means: the expert counts
 and the mean probabilities are summed over ``"data"`` first. The training
-step splits the batch over ``"data"`` (``B % n_data`` raises there; the
-reference's one-hot fallback for such a batch serves decode steps, A9b).
+step splits the batch over ``"data"`` (``B % n_data`` raises there).
+Serving a batch that does not split over ``"data"`` (batch 1 on a data
+axis of 2) takes the reference's one-hot fallback (:166-169),
+``moe_forward_onehot`` with ``par``: every rank holds all the tokens, and
+only the experts are split.
 ``ep_wide`` (experts over both axes, used by no config) is A9b.
 """
 
@@ -112,9 +115,12 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return w / w.sum(dim=-1, keepdim=True), idx
 
 
-def moe_forward_onehot(p: Params, cfg: ArchConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_forward_onehot(p: Params, cfg: ArchConfig, x: torch.Tensor, par=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, S, D) -> (B, S, D), aux loss: the dense one-hot dispatch, the
-    oracle the sort path is held to."""
+    oracle the sort path is held to, and on a mesh the reference's fallback
+    for a batch that does not split over the data axes (every rank holds
+    all its tokens, C from all of them): the rank's experts' rows computed
+    and combined on the rank, the combine summed over ``"model"``."""
     m = cfg.moe
     B, S, D = x.shape
     T, E, k = B * S, m.num_experts, m.top_k
@@ -130,15 +136,18 @@ def moe_forward_onehot(p: Params, cfg: ArchConfig, x: torch.Tensor) -> Tuple[tor
     disp = (F.one_hot(idx, E).to(x.dtype)[..., None]
             * F.one_hot(torch.where(keep, slot, C), C + 1).to(x.dtype)[:, :, None, :])  # (T, k, E, C+1)
     disp = disp[..., :C]
-    buf = torch.einsum("td,tkec->ecd", xt, disp)  # (E, C, D)
+    E_local = p["gate"].shape[0]  # the rank's experts, [e0, e0 + E_local)
+    e0 = par.model_rank * E_local if tensor_parallel(par) else 0
+    disp = disp[:, :, e0 : e0 + E_local]
+    buf = torch.einsum("td,tkec->ecd", copy_to_model(xt, par), disp)  # (E_local, C, D)
     h = torch.einsum("ecd,edf->ecf", buf, p["gate"])
     u = torch.einsum("ecd,edf->ecf", buf, p["up"])
     out_e = torch.einsum("ecf,efd->ecd", F.silu(h) * u, p["down"])
-    combine = disp * w.to(x.dtype)[..., None, None]
-    out = torch.einsum("ecd,tkec->td", out_e, combine).reshape(B, S, D)
+    combine = disp * copy_to_model(w, par).to(x.dtype)[..., None, None]
+    out = reduce_from_model(torch.einsum("ecd,tkec->td", out_e, combine), par).reshape(B, S, D)
     aux = aux_load_balance_loss(probs, idx, E)
     if m.num_shared_experts:
-        out = out + swiglu(p["shared"], x)
+        out = out + swiglu(p["shared"], x, par)
     return out, aux
 
 
@@ -159,11 +168,14 @@ def _local_dispatch(xt: torch.Tensor, idx: torch.Tensor, C: int, E: int) -> Tupl
     return buf, dest
 
 
-def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, par=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, par=None,
+                with_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, S, D) -> (B, S, D), aux loss: the sort dispatch on one shard, C
     from all B * S tokens (on a mesh the rank's data shard's, its experts'
     rows computed and combined on the rank, the combine summed over
-    ``"model"``)."""
+    ``"model"``). Serving passes ``with_aux=False``: the loss, which it
+    discards, is not computed (on a mesh it would cost two all-reduces over
+    ``"data"`` a layer), and aux is None."""
     m = cfg.moe
     if par is not None and m.ep_wide:
         raise NotImplementedError(f"{cfg.name}: ep_wide (experts over both mesh axes) is {NOT_PORTED}")
@@ -174,7 +186,7 @@ def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, par=None) -> Tuple[
     probs = router_probs(p, xt)
     w, idx = _top_k(probs, k)
     w = w.to(x.dtype)
-    aux = aux_load_balance_loss(probs, idx, E, par)
+    aux = aux_load_balance_loss(probs, idx, E, par) if with_aux else None
     buf, dest = _local_dispatch(copy_to_model(xt, par), idx, C, E)
     E_local = p["gate"].shape[0]  # the rank's experts, [e0, e0 + E_local)
     e0 = par.model_rank * E_local if tensor_parallel(par) else 0

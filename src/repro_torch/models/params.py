@@ -17,7 +17,10 @@ the data axes divide), ``fsdp_param_specs`` and ``strip_model_axis``. On a
 ``shard`` cuts a full tree to the rank's shards, ``gather`` puts the full
 tree back together (a collective: every rank of the mesh calls it). A
 dimension sharded over several axes is cut row-major over them, the first
-axis the slowest, as the reference's meshes lay it out.
+axis the slowest, as the reference's meshes lay it out. A serving cache's
+sequence need not split evenly: ``shard(..., padded=True)``,
+``local_shape`` and ``gather(..., shapes=)`` cut and join it in JAX's
+padded blocks of ``ceil(n / count)``.
 """
 
 from __future__ import annotations
@@ -216,50 +219,101 @@ def _chunk(mesh, entry: Any) -> Tuple[int, int]:
     return index, count
 
 
-def shard_tensor(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+def _cut(n: int, index: int, count: int) -> Tuple[int, int]:
+    """[lo, hi) of chunk ``index`` of ``count`` of a dimension of ``n``: equal
+    chunks, or where ``count`` does not divide ``n`` JAX's padded blocks of
+    ``ceil(n / count)``, the last ones short or empty."""
+    size = -(-n // count)
+    lo = min(index * size, n)
+    return lo, min(lo + size, n)
+
+
+def local_shape(shape: Tuple[int, ...], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of this rank's shard of a full tensor of ``shape`` (padded
+    blocks where a dimension does not split evenly, as ``shard_tensor(...,
+    padded=True)`` cuts it)."""
+    out = []
+    for n, entry in zip(shape, spec):
+        lo, hi = _cut(n, *_chunk(mesh, entry))
+        out.append(hi - lo)
+    return tuple(out)
+
+
+def shard_tensor(t: torch.Tensor, spec: Spec, mesh, padded: bool = False) -> torch.Tensor:
     """This rank's shard of the full tensor ``t``: each dimension of ``spec``
-    that names mesh axes cut into equal chunks. A tensor that no entry cuts is
-    returned as it is; a cut one is a copy, so the full one can be freed."""
+    that names mesh axes cut into equal chunks, or with ``padded`` (a cache's
+    sequence) into JAX's padded blocks where they do not divide it. A tensor
+    that no entry cuts is returned as it is; a cut one is a copy, so the full
+    one can be freed."""
     out = t
     for dim, entry in enumerate(spec):
         index, count = _chunk(mesh, entry)
         if count == 1:
             continue
-        if t.shape[dim] % count:
+        if t.shape[dim] % count and not padded:
             raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not split into {count} shards ({spec})")
-        size = t.shape[dim] // count
-        out = out.narrow(dim, index * size, size)
+        lo, hi = _cut(t.shape[dim], index, count)
+        out = out.narrow(dim, lo, hi - lo)
     return out if out is t else out.clone()
 
 
-def gather_tensor(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+def gather_tensor(t: torch.Tensor, spec: Spec, mesh, shape=None) -> torch.Tensor:
     """The full tensor of which ``t`` is this rank's shard: an all-gather over
-    each sharded dimension's axes, the innermost axis first."""
+    each sharded dimension's axes, the innermost axis first. ``shape``, the
+    full tensor's, is needed where a dimension was cut into padded blocks:
+    each rank's piece is padded to the block before the gathers and the
+    result cut back to the full size."""
     for dim, entry in enumerate(spec):
-        for name in reversed(_entries(entry)):
-            n = axis_size(mesh, name)
-            if n == 1:
+        names = _entries(entry)
+        count = math.prod(axis_size(mesh, name) for name in names)
+        if count == 1:
+            continue
+        n = shape[dim] if shape is not None else t.shape[dim] * count
+        block = -(-n // count)
+        if t.shape[dim] < block:
+            t = torch.nn.functional.pad(t.movedim(dim, -1), (0, block - t.shape[dim])).movedim(-1, dim)
+        for name in reversed(names):
+            k = axis_size(mesh, name)
+            if k == 1:
                 continue
-            parts = [torch.empty_like(t) for _ in range(n)]
+            parts = [torch.empty_like(t) for _ in range(k)]
             dist.all_gather(parts, t.contiguous(), group=mesh.get_group(name))
             t = torch.cat(parts, dim=dim)
+        t = t.narrow(dim, 0, n)
     return t
 
 
-def shard(tree: Tree, specs: Tree, mesh) -> Tree:
-    """This rank's shards of a full tree (``specs`` a spec tree like it)."""
-    return map_with_specs(lambda t, spec: shard_tensor(t, spec, mesh), tree, specs)
+def shard(tree: Tree, specs: Tree, mesh, padded: bool = False) -> Tree:
+    """This rank's shards of a full tree (``specs`` a spec tree like it);
+    ``padded`` for a cache tree, whose sequence may not split evenly."""
+    return map_with_specs(lambda t, spec: shard_tensor(t, spec, mesh, padded), tree, specs)
 
 
-def gather(tree: Tree, specs: Tree, mesh) -> Tree:
+def gather(tree: Tree, specs: Tree, mesh, shapes: Tree = None) -> Tree:
     """The full tree of which ``tree`` holds this rank's shards (every rank of
-    the mesh must call it, in the same order)."""
-    return map_with_specs(lambda t, spec: gather_tensor(t, spec, mesh), tree, specs)
+    the mesh must call it, in the same order). ``shapes``, a tree like it of
+    the full shapes (a serve bundle's ``cache_shapes``), for a cache tree cut
+    into padded blocks."""
+    if shapes is None:
+        return map_with_specs(lambda t, spec: gather_tensor(t, spec, mesh), tree, specs)
+    return {k: gather_tensor(v, specs[k], mesh, shapes[k]) if is_spec(specs[k]) else gather(v, specs[k], mesh, shapes[k])
+            for k, v in tree.items()}
 
 
 def map_with_specs(fn, tree: Tree, specs: Tree) -> Tree:
     """``fn(tensor, spec)`` over a tree and its spec tree."""
     return {k: fn(v, specs[k]) if is_spec(specs[k]) else map_with_specs(fn, v, specs[k]) for k, v in tree.items()}
+
+
+def strip_batch_axes(specs: Tree, batch_axes: Tuple[str, ...]) -> Tree:
+    """A spec tree with every entry that names a batch axis set to ``None``:
+    a serving cache whose batch does not split over the data axes stays split
+    by its sequence only (the reference's ``make_serve_bundle``,
+    ``train/steps.py:283-300``)."""
+    def strip(spec: Spec) -> Spec:
+        return tuple(None if any(a in batch_axes for a in _entries(e)) else e for e in spec)
+
+    return {k: strip(v) if is_spec(v) else strip_batch_axes(v, batch_axes) for k, v in specs.items()}
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:

@@ -53,8 +53,20 @@ tensors. The MoE layers take ``moe_forward`` with the mesh, dispatching per
 data shard, as the reference's ``Model`` does on a mesh. ``loss`` returns the
 global loss; its gradient is the rank's share, which the train step sums over
 ``"data"``. ``param_specs`` and ``cache_specs`` are the reference's spec trees
-(plain tuples). Serving on a mesh is A9b: ``prefill`` and ``decode_step``
-raise.
+(plain tuples).
+
+Serving on a mesh (the reference's ``make_serve_bundle(cfg, mesh)``): every
+rank takes the global tokens and returns the global logits (its vocab
+columns gathered over ``"model"``, its rows over ``"data"``) and its shard
+of the cache (``serve_cache_specs``; ``make_cache`` allocates the rank's
+shapes only). The batch splits over ``"data"`` where it divides, else every
+data rank computes all rows and an MoE layer takes the reference's one-hot
+fallback (the counterpart of its ``_decode_shard_fn``, :190-207). Attention
+runs on the rank's heads in prefill and keeps the rank's slots of the
+sequence, every head, in the cache; decode merges the ranks' slices
+(``models/attention.py``). Mamba-2 keeps the rank's heads of its state and
+channels of ``conv_x``. At one model rank the mesh path is the no-mesh path,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -73,7 +85,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as pu
-from repro_torch.models.parallel import NOT_PORTED, Parallel
+from repro_torch.models.parallel import Parallel, global_logits, serve_rows, tensor_parallel, whole_length
 from repro_torch.models.common import (
     chunked_cross_entropy,
     embed,
@@ -178,6 +190,16 @@ def _unstack(tree: Tree, n: int) -> List[Tree]:
     return layers
 
 
+def serve_cache_specs(model, batch: int) -> Tree:
+    """``model.cache_specs()`` for a serving batch of ``batch``: stripped of
+    the batch axes where the batch does not split over them (the reference's
+    ``make_serve_bundle``, ``train/steps.py:283-300``)."""
+    specs = model.cache_specs()
+    if model.par is None or model.par.splits_rows(batch):
+        return specs
+    return pu.strip_batch_axes(specs, model.batch_axes)
+
+
 class Model(nn.Module):
     """Decoder-only LM: ``loss``, ``prefill`` and ``decode_step`` over an explicit parameter dict."""
 
@@ -256,10 +278,6 @@ class Model(nn.Module):
         """This rank's rows of a global batch tensor (all of it without a mesh)."""
         return x if self.par is None else self.par.rows(x)
 
-    def _refuse_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(f"{what} on a mesh is {NOT_PORTED}")
-
     def _head_weight(self, params: Tree) -> torch.Tensor:
         if self.cfg.tie_embeddings:
             return params["embed"]["table"].T
@@ -292,6 +310,17 @@ class Model(nn.Module):
         if spec.channel == "moe":
             return moe_mod.moe_forward(p["channel"], self.cfg, h, self.par)
         return swiglu(p["channel"], h, self.par), h.new_zeros((), dtype=torch.float32)
+
+    def _serve_channel(self, spec: LayerSpec, p: Tree, x: torch.Tensor, onehot: bool) -> torch.Tensor:
+        """The channel mixer's residual branch in serving: no aux loss; an
+        MoE layer whose batch does not split over ``"data"`` (``onehot``)
+        takes the reference's one-hot fallback (``moe.py:166-169``)."""
+        if spec.channel != "moe":
+            return self._channel(spec, p, x)[0]
+        h = rmsnorm(p["norm2"], x, ops=self.ops)
+        if onehot:
+            return moe_mod.moe_forward_onehot(p["channel"], self.cfg, h, self.par)[0]
+        return moe_mod.moe_forward(p["channel"], self.cfg, h, self.par, with_aux=False)[0]
 
     def _scan_groups(self, params: Tree, x: torch.Tensor, positions: torch.Tensor):
         """Run the layers; returns (hidden, the layers' aux losses summed in
@@ -390,18 +419,23 @@ class Model(nn.Module):
         cache adds ``k_scale`` and ``v_scale``, (L, B, W, Hkv)), an MLA
         group's ``{"ckv", "kr"}``, (L, B, max_len, kv_lora_rank) and
         (L, B, max_len, qk_rope), or ``{"ssm": {"l0": {"h", "conv_x",
-        "conv_bc"}}}`` (fp32 state, conv windows in ``dtype``)."""
+        "conv_bc"}}}`` (fp32 state, conv windows in ``dtype``). On a mesh
+        only the rank's shard of each leaf (``serve_cache_specs``)."""
         cache: Tree = {}
+        specs = None if self.mesh is None else serve_cache_specs(self, batch)
         for name, n, layers in self.groups:
             per_layer = {}
             for j, spec in enumerate(layers):
                 if spec.mixer == "ssm":
-                    c = mb.mamba_make_cache(self.cfg, batch, dtype, device)
+                    c = mb.mamba_make_cache(self.cfg, batch, dtype, "meta")
                 elif self.mla:
-                    c = attn.mla_make_cache(self.cfg, batch, max_len, dtype, device)
+                    c = attn.mla_make_cache(self.cfg, batch, max_len, dtype, "meta")
                 else:
-                    c = attn.gqa_make_cache(self.cfg, batch, max_len, dtype, device)
-                per_layer[f"l{j}"] = {k: a.new_zeros((n,) + a.shape) for k, a in c.items()}
+                    c = attn.gqa_make_cache(self.cfg, batch, max_len, dtype, "meta")
+                shapes = {k: (n,) + tuple(a.shape) for k, a in c.items()}
+                if specs is not None:
+                    shapes = {k: pu.local_shape(v, specs[name][f"l{j}"][k], self.mesh) for k, v in shapes.items()}
+                per_layer[f"l{j}"] = {k: torch.zeros(shapes[k], dtype=a.dtype, device=device) for k, a in c.items()}
             cache[name] = per_layer
         return cache
 
@@ -414,74 +448,101 @@ class Model(nn.Module):
     ) -> Tuple[torch.Tensor, Tree]:
         """tokens (B, S) -> (last-position logits (B, padded_vocab), populated
         cache). A frontend's embeddings replace the first rows of the token
-        embeddings, as in training (the reference's ``prefill``, :410-427)."""
-        self._refuse_mesh("serving")
+        embeddings, as in training (the reference's ``prefill``, :410-427).
+        On a mesh every rank takes the global batch and returns the global
+        logits and its shard of the cache."""
         B, S = tokens.shape
         max_len = max_len or S
         if max_len < S:
             raise ValueError(f"max_len {max_len} is shorter than the prompt ({S})")
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+        tokens, frontend_embeds = serve_rows(tokens, self.par, B), serve_rows(frontend_embeds, self.par, B)
+        rows = tokens.shape[0]
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(rows, S)
         x = self._embed_inputs(params, tokens, frontend_embeds)
         cache = self.make_cache(B, max_len, dtype=x.dtype, device=x.device)
+        onehot = self.par is not None and not self.par.splits_rows(B)
         for name, n, layers in self.groups:
             for i in range(n):
                 p, c = _layer(params[name], i), _layer(cache[name], i)
                 for j, spec in enumerate(layers):
-                    x = self._prefill_block(spec, p[f"l{j}"], x, positions, c[f"l{j}"])
+                    x = self._prefill_block(spec, p[f"l{j}"], x, positions, c[f"l{j}"], max_len, onehot)
         h = rmsnorm(params["final_norm"], x, ops=self.ops)
-        return torch.matmul(h[:, -1], self._head_weight(params)), cache
+        return global_logits(torch.matmul(h[:, -1], self._head_weight(params)), self.par, B), cache
 
-    def _prefill_block(self, spec: LayerSpec, p: Tree, x, positions, cache: Tree) -> torch.Tensor:
+    def _prefill_block(self, spec: LayerSpec, p: Tree, x, positions, cache: Tree, max_len: int,
+                       onehot: bool) -> torch.Tensor:
         """One layer over the prompt; writes its cache into the layer's
         slice. An MLA layer computes its latent once for the attention and
         the cache (the reference computes it twice, ``transformer.py:453-454``;
-        the values are the same)."""
-        cfg, S = self.cfg, x.shape[1]
+        the values are the same). On a mesh the rank's heads attend, and the
+        cache keeps the rank's slots of the sequence (an MLA latent, whole on
+        every rank, is cut there; GQA's K/V go through ``heads_to_sequence``)."""
+        cfg, S, par = self.cfg, x.shape[1], self.par
         h = rmsnorm(p["norm1"], x, ops=self.ops)
         if spec.mixer == "ssm":
-            out, c = mb.mamba_prefill(p["mixer"], cfg, h, ops=self.ops)
+            out, c = mb.mamba_prefill(p["mixer"], cfg, h, ops=self.ops, par=par)
             for key, val in c.items():
                 cache[key].copy_(val)
         elif self.mla:
-            q_nope, q_rope = attn._mla_q(p["mixer"], cfg, h, positions, self.ops)
+            q_nope, q_rope = attn._mla_q(p["mixer"], cfg, h, positions, self.ops, par)
             ckv, kr = attn._mla_ckv(p["mixer"], cfg, h, positions, self.ops)
-            out = attn._mla_attend(p["mixer"], cfg, q_nope, q_rope, ckv, kr, self.ops)
-            cache["ckv"][:, :S] = ckv
-            cache["kr"][:, :S] = kr
+            out = attn._mla_attend(p["mixer"], cfg, q_nope, q_rope, ckv, kr, self.ops, par)
+            lo, hi = par.seq_slice(max_len) if tensor_parallel(par) else (0, max_len)
+            n = max(min(S, hi) - lo, 0)  # the prompt's positions among the rank's slots
+            cache["ckv"][:, :n] = ckv[:, lo : lo + n]
+            cache["kr"][:, :n] = kr[:, lo : lo + n]
         else:
-            q, k, v = attn._gqa_qkv(p["mixer"], cfg, h, positions, self.ops)
-            out = attn._gqa_attend(p["mixer"], q, k, v, self.ops, cfg.sliding_window)
-            attn.gqa_write_prompt(cfg, cache, k, v)
+            q, k, v = attn._gqa_qkv(p["mixer"], cfg, h, positions, self.ops, par)
+            out = attn._gqa_attend(p["mixer"], q, k, v, self.ops, cfg.sliding_window, par)
+            attn.gqa_write_prompt(cfg, cache, k, v, par, attn.cache_slots(cfg, max_len))
         x = x + out
         if spec.channel != "none":
-            x = x + self._channel(spec, p, x)[0]
+            x = x + self._serve_channel(spec, p, x, onehot)
         return x
 
     def decode_step(
         self, params: Tree, cache: Tree, tokens: torch.Tensor, cache_len: Union[int, torch.Tensor]
     ) -> Tuple[torch.Tensor, Tree]:
-        """tokens (B, 1) -> (logits (B, padded_vocab), cache updated in place)."""
-        self._refuse_mesh("serving")
+        """tokens (B, 1) -> (logits (B, padded_vocab), cache updated in place).
+        On a mesh every rank takes the global tokens, updates its shard of
+        the cache and returns the global logits."""
         cache_len = int(cache_len)  # one host read per step at most, none per layer
-        x = embed(params["embed"], tokens.long())
+        B = tokens.shape[0]
+        tokens = serve_rows(tokens, self.par, B)
+        onehot = self.par is not None and not self.par.splits_rows(B)
+        seq = self._cache_length(cache)
+        x = embed(params["embed"], tokens.long(), self.par)
         for name, n, layers in self.groups:
             for i in range(n):
                 p, c = _layer(params[name], i), _layer(cache[name], i)
                 for j, spec in enumerate(layers):
-                    x = self._block_decode(spec, p[f"l{j}"], x, c[f"l{j}"], cache_len)
+                    x = self._block_decode(spec, p[f"l{j}"], x, c[f"l{j}"], cache_len, seq, onehot)
         h = rmsnorm(params["final_norm"], x, ops=self.ops)
-        return torch.matmul(h, self._head_weight(params))[:, 0], cache
+        return global_logits(torch.matmul(h[:, 0], self._head_weight(params)), self.par, B), cache
 
-    def _block_decode(self, spec: LayerSpec, p: Tree, x, cache: Tree, cache_len: int) -> torch.Tensor:
-        """One layer for one token; updates the layer's cache slice in place."""
+    def _cache_length(self, cache: Tree) -> Optional[int]:
+        """On a model axis of more than one rank, the whole sequence of the
+        attention caches of which ``cache`` holds this rank's slots (W, or
+        max_len for MLA); else None (each layer reads its own)."""
+        for name, _, layers in self.groups:
+            for j, spec in enumerate(layers):
+                if spec.mixer == "attn":
+                    return whole_length(cache[name][f"l{j}"]["ckv" if self.mla else "k"], 2, self.par)
+        return None
+
+    def _block_decode(self, spec: LayerSpec, p: Tree, x, cache: Tree, cache_len: int, seq: Optional[int],
+                      onehot: bool) -> torch.Tensor:
+        """One layer for one token; updates the layer's cache slice in place
+        (``seq``: the whole attention cache's length on a mesh)."""
+        cfg, par = self.cfg, self.par
         h = rmsnorm(p["norm1"], x, ops=self.ops)
         if spec.mixer == "ssm":
-            h, _ = mb.mamba_decode(p["mixer"], self.cfg, h, cache, ops=self.ops)
+            h, _ = mb.mamba_decode(p["mixer"], cfg, h, cache, ops=self.ops, par=par)
         elif self.mla:
-            h, _ = attn.mla_decode(p["mixer"], self.cfg, h, cache, cache_len, ops=self.ops)
+            h, _ = attn.mla_decode(p["mixer"], cfg, h, cache, cache_len, ops=self.ops, par=par, S=seq)
         else:
-            h, _ = attn.gqa_decode(p["mixer"], self.cfg, h, cache, cache_len, ops=self.ops)
+            h, _ = attn.gqa_decode(p["mixer"], cfg, h, cache, cache_len, ops=self.ops, par=par, W=seq)
         x = x + h
         if spec.channel != "none":
-            x = x + self._channel(spec, p, x)[0]
+            x = x + self._serve_channel(spec, p, x, onehot)
         return x

@@ -29,8 +29,13 @@ each parameter and the slices are all-gathered over ``"data"`` (at a data
 axis of 1 a slice is the whole leaf, and nothing is gathered). Adafactor
 keeps its state whole on each rank (a model axis of 1). What stays unported
 on a mesh raises ``NotImplementedError`` naming ROADMAP A9b:
-``layout="zero3"``, ``zero2_grads``, ``cfg.fsdp``, ``ep_wide``, Adafactor on
-a model axis larger than 1, and serving.
+``layout="zero3"``, ``zero2_grads``, ``cfg.fsdp``, ``ep_wide`` and Adafactor
+on a model axis larger than 1.
+
+The serve bundle on a mesh is the reference's ``make_serve_bundle(cfg,
+mesh)``: the megatron weights, the batch over ``"data"``, the attention
+caches split by their sequence over ``"model"``, the Mamba-2 state by its
+heads (``models/transformer.py``, ``models/encdec.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import params as pu
 from repro_torch.models.factory import build_model
+from repro_torch.models.transformer import serve_cache_specs
 from repro_torch.models.parallel import NOT_PORTED, all_reduce, tensor_parallel
 from repro_torch.optim.adamw import AdamW, AdamWState, OptimizerConfig, clip_by_global_norm, make_optimizer
 from repro_torch.optim.schedules import cosine_with_warmup
@@ -228,20 +234,55 @@ class ServeBundle:
     prefill_fn: Callable  # (params, tokens, frontend_embeds=None) -> (logits, cache)
     decode_fn: Callable  # (params, cache, tokens, cache_len) -> (logits, cache)
     max_len: int
+    mesh: Any = None
+    param_specs: Any = None  # on a mesh: the parameters' spec tree (the reference's param_shardings)
+    cache_specs: Any = None  # on a mesh: the cache's (cache_shardings), stripped of the batch axes where needed
+    cache_shapes: Any = None  # the whole cache's shapes at ``batch`` rows (abstract_cache)
 
 
-def make_serve_bundle(cfg: ArchConfig, max_len: int = 2048, ops=kernel_ops, mesh=None) -> ServeBundle:
-    """Serving entry points for one device (the reference's ``mesh=None``
-    case); the cache holds ``max_len`` positions and takes its batch from the
-    prompt. ``prefill_fn`` forwards a frontend's embeddings (an
-    encoder-decoder's frames, which its prefill requires).
+def make_serve_bundle(
+    cfg: ArchConfig,
+    mesh: Optional[Any] = None,
+    batch_axes: Tuple[str, ...] = ("data",),
+    batch: int = 1,
+    max_len: int = 2048,
+    q_chunk: int = 1024,
+    *,
+    ops=kernel_ops,
+) -> ServeBundle:
+    """Serving entry points, on one device or on ``mesh`` (a ``DeviceMesh``
+    of axes ``("data", "model")``), with the reference's signature. The
+    cache holds ``max_len`` positions and takes its batch from the prompt;
+    ``batch`` sets the spec tree and shapes the bundle reports (a batch that
+    does not split over the data axes keeps its cache split by sequence
+    only). ``prefill_fn`` forwards a frontend's embeddings (an
+    encoder-decoder's frames, which its prefill requires). ``q_chunk`` is
+    the reference's query tile of its plain attention; the flash kernel
+    tiles its own queries, so it changes nothing here.
     ``ops=kernels.ops.PLAIN`` runs the plain versions instead of the kernels
-    (the reference run on the card). Serving on a ``mesh`` is A9b."""
-    if mesh is not None:
-        raise NotImplementedError(f"serving on a mesh is {NOT_PORTED}")
-    model = build_model(cfg, ops=ops)
+    (the reference run on the card).
+
+    On a mesh every rank holds its shards of the parameters (``init`` or
+    ``params.shard`` over ``param_specs``), feeds the global tokens (and
+    frames) to both functions and gets the global logits back (the
+    reference's ``out_shardings=None``) with its own shard of the cache
+    (``cache_specs``; ``params.gather(cache, cache_specs, mesh,
+    cache_shapes)`` puts the whole cache together). An FSDP config
+    (jamba-1.5-large-398b, deepseek-v3-671b) serves with the megatron
+    weights: the reference's bundle shards them over the data axes too and
+    gathers them in the step, which changes no number (FSDP is A9b, ROADMAP
+    C4). ``ep_wide`` raises ``NotImplementedError`` naming A9b."""
+    if mesh is not None and cfg.moe is not None and cfg.moe.ep_wide:
+        raise NotImplementedError(f"{cfg.name}: serving ep_wide on a mesh is {NOT_PORTED}")
+    model = build_model(cfg, mesh, batch_axes, ops=ops)
+    flat = model if mesh is None else build_model(cfg, ops=ops)
+    size = (batch, max_len, cfg.frontend_positions) if cfg.enc_dec else (batch, max_len)
+    shapes = tree_map(lambda a: tuple(a.shape), flat.make_cache(*size, device="meta"))
 
     def prefill(params, tokens, frontend_embeds=None):
         return model.prefill(params, tokens, frontend_embeds, max_len=max_len)
 
-    return ServeBundle(cfg, model, prefill, model.decode_step, max_len)
+    if mesh is None:
+        return ServeBundle(cfg, model, prefill, model.decode_step, max_len, cache_shapes=shapes)
+    return ServeBundle(cfg, model, prefill, model.decode_step, max_len, mesh, model.param_specs(),
+                       serve_cache_specs(model, batch), shapes)

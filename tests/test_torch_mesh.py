@@ -30,12 +30,15 @@ of ``train/steps.py``, ``colocation/spatial.py``) against the JAX package.
   tolerance on every rank: what one card cannot show.
 * Twins of ``tests/test_system.py::test_spatial_mesh_split`` at 1 x 1 and at
   4 ranks; ``make_production_mesh`` on a 1-rank group; what stays unported
-  on a mesh raises ``NotImplementedError`` naming A9b.
+  on a mesh raises ``NotImplementedError`` naming A9b; serving on the 1-rank
+  mesh is the no-mesh path bit for bit (serving on a mesh is held to the JAX
+  package in ``tests/test_torch_mesh_serve.py``).
 The card's test of the mesh step is ``tests/test_torch_mesh_card.py`` (a
 file without JAX, which the card's machine runs).
 """
 
 import contextlib
+import dataclasses
 import datetime
 import os
 import pathlib
@@ -612,20 +615,50 @@ def test_one_rank_mesh_bundles_co_locate_through_the_stepper(smoke_mesh):
     assert losses[0] == losses[1] and all(len(x) == 3 for x in losses[0])
 
 
-@pytest.mark.parametrize("what", ["serve", "prefill", "encoder-decoder decode", "multi-axis batch"])
+@pytest.mark.parametrize("what", ["serve ep_wide", "multi-axis batch"])
 def test_unported_on_a_one_rank_mesh_raises_naming_a9b(what, smoke_mesh):
-    """Serving on a mesh and a batch over several axes (the layout refusals
-    are ``test_torch_train.py::test_bundle_refuses_what_is_not_ported``)."""
+    """Serving an ``ep_wide`` config on a mesh and a batch over several axes
+    (the layout refusals are
+    ``test_torch_train.py::test_bundle_refuses_what_is_not_ported``)."""
     cfg = smoke_config(get_config("deepseek-v2-lite-16b"))
     calls = {
-        "serve": lambda: make_serve_bundle(cfg, mesh=smoke_mesh),
-        "prefill": lambda: build_model(cfg, smoke_mesh).prefill({}, torch.zeros(1, 4, dtype=torch.long)),
-        "encoder-decoder decode": lambda: build_model(smoke_config(get_config("seamless-m4t-large-v2")),
-                                                      smoke_mesh).decode_step({}, {}, None, 0),
+        "serve ep_wide": lambda: make_serve_bundle(
+            dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_wide=True)), smoke_mesh),
         "multi-axis batch": lambda: build_model(cfg, smoke_mesh, ("pod", "data")),
     }
     with pytest.raises(NotImplementedError, match="A9b"):
         calls[what]()
+
+
+@pytest.mark.parametrize("what", ["serve", "prefill", "encoder-decoder decode"])
+def test_one_rank_mesh_serves_as_the_no_mesh_path(what, smoke_mesh):
+    """What raised before serving on a mesh was ported: the bundle, a
+    ``Model.prefill`` and an ``EncDecModel.decode_step`` on the (1, 1) mesh
+    give the no-mesh path's logits and cache bit for bit (at one model rank
+    the mesh path is the no-mesh path; ``tests/test_torch_mesh_serve.py``
+    holds the multi-rank arithmetic to the JAX package)."""
+    arch = "seamless-m4t-large-v2" if what == "encoder-decoder decode" else "deepseek-v2-lite-16b"
+    cfg = smoke_config(get_config(arch))
+    flat, meshed = build_model(cfg), build_model(cfg, smoke_mesh)
+    params = flat.init(1, "cpu")
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 6)))
+    frames = torch.from_numpy(rng.standard_normal((2, cfg.frontend_positions, cfg.d_model)).astype(np.float32))
+    runs = []
+    for model in (flat, meshed):
+        if what == "serve":
+            bundle = make_serve_bundle(cfg, None if model is flat else smoke_mesh, batch=2, max_len=9)
+            logits, cache = bundle.prefill_fn(params, tokens)
+            logits, cache = bundle.decode_fn(params, cache, logits.argmax(-1, keepdim=True), 6)
+        elif what == "prefill":
+            logits, cache = model.prefill(params, tokens, max_len=8)
+        else:
+            logits, cache = model.prefill(params, tokens, frames, max_len=8)
+            logits, cache = model.decode_step(params, cache, logits.argmax(-1, keepdim=True), 6)
+        runs.append((logits, dict(leaves_with_paths(cache))))
+    (l0, c0), (l1, c1) = runs
+    assert torch.equal(l0, l1) and c0.keys() == c1.keys()
+    assert all(torch.equal(c0[k], c1[k]) for k in c0)
 
 
 def test_shard_then_gather_is_the_identity(smoke_mesh):

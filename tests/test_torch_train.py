@@ -820,17 +820,22 @@ def test_rmsnorm_function_on_the_kv_norm_slice_on_the_card(dtype, rng, cuda):
     ((2, 300, 4, 64, 1, 128), torch.float32),  # the generic kernel
 ])
 def test_ssd_scan_function_on_the_card(case, bc_dtype, rng, cuda):
-    """B and C as strided views of one conv output, whose gradient is checked."""
+    """B and C as strided views of one conv output, whose gradient is checked.
+    Every input comes from the test's seeded generator, and both sides take
+    the kernels' own 64-row chunks (``ssd_scan.ROWS``): the plain forward
+    scans in them, and so does the Function's plain backward, as the plain
+    side's. Against the 256-row plain scan the forward's distance rode on the
+    draw of ``log_dA`` (ROADMAP C2)."""
     from repro_torch.kernels import ssd_scan as mod
 
     b, s, h, p, g, n = case
     x = _card(rng, (b, s, h, p), torch.float32, cuda)
-    log_dA = (-torch.rand((b, s, h), device=cuda) * 0.2).requires_grad_()
+    log_dA = torch.from_numpy((-rng.random((b, s, h)) * 0.2).astype(np.float32)).to(cuda).requires_grad_()
     bc = _card(rng, (b, s, 2 * g * n), bc_dtype, cuda)
 
     def run(fn):
         return lambda x, a, bc: fn(x, a, bc[..., : g * n].reshape(b, s, g, n),
-                                   bc[..., g * n:].reshape(b, s, g, n), chunk=256)[0]
+                                   bc[..., g * n:].reshape(b, s, g, n), chunk=mod.ROWS)[0]
 
     _against_plain(run(ops.ssd_scan), run(ops.PLAIN.ssd_scan), (x, log_dA, bc), 2e-4, mod)
 
