@@ -287,7 +287,7 @@ def gqa_decode(
     cache_len: int,  # number of tokens already cached
     ops=kernel_ops,
     par=None,
-    W: Optional[int] = None,  # on a mesh: the whole cache's length
+    max_len: Optional[int] = None,  # on a mesh: the positions the whole cache was made for
 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step; writes the new K/V in place at slot ``cache_len``, or
     ``cache_len % W`` in a sliding-window ring. The ring holds the last W
@@ -304,7 +304,7 @@ def gqa_decode(
     positions = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _gqa_qkv(p, cfg, x, positions, ops, par)
     sharded = tensor_parallel(par)
-    W = W if sharded else cache["k"].shape[1]
+    W = cache_slots(cfg, max_len) if sharded else cache["k"].shape[1]
     if cfg.sliding_window is not None:
         slot = cache_len % W
     elif 0 <= cache_len < W:
@@ -478,7 +478,7 @@ def mla_decode(
     cache_len: int,  # number of tokens already cached
     ops=kernel_ops,
     par=None,
-    S: Optional[int] = None,  # on a mesh: the whole cache's length
+    max_len: Optional[int] = None,  # on a mesh: the whole cache's length
 ) -> Tuple[torch.Tensor, Cache]:
     """Weight-absorbed decode: attention runs in the latent space and the
     cache stays compressed. Writes the new entry in place at ``cache_len``.
@@ -492,7 +492,7 @@ def mla_decode(
     m = cfg.mla
     B, H = x.shape[0], cfg.num_heads
     sharded = tensor_parallel(par)
-    S = S if sharded else cache["ckv"].shape[1]
+    S = max_len if sharded else cache["ckv"].shape[1]
     if not 0 <= cache_len < S:
         raise IndexError(f"cache_len {cache_len} outside a cache of {S} positions")
     lo, hi = par.seq_slice(S) if sharded else (0, S)

@@ -65,7 +65,6 @@ from repro_torch.models.parallel import (
     group_slice,
     serve_rows,
     tensor_parallel,
-    whole_length,
 )
 from repro_torch.models.common import (
     chunked_cross_entropy,
@@ -299,21 +298,25 @@ class EncDecModel(nn.Module):
         return global_logits(torch.matmul(h[:, -1], params["head"]["w"]), par, B), cache
 
     def decode_step(
-        self, params: Tree, cache: Tree, tokens: torch.Tensor, cache_len: Union[int, torch.Tensor]
+        self, params: Tree, cache: Tree, tokens: torch.Tensor, cache_len: Union[int, torch.Tensor],
+        max_len: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Tree]:
         """tokens (B, 1) -> (logits (B, padded_vocab), cache updated in
         place): self-attention against the cache, cross-attention over all
         of the memory's K/V. On a mesh the global tokens in, the global
-        logits out, the rank's shard of the cache updated."""
+        logits out, the rank's shard of the cache updated; on a model axis of
+        more than one rank ``max_len``, what the cache was made for, is
+        required (``ValueError`` without it)."""
         cfg, ops, par = self.cfg, self.ops, self.par
         cache_len = int(cache_len)  # one host read per step at most, none per layer
+        if tensor_parallel(par) and max_len is None:
+            raise ValueError("decode_step on a model axis of more than one rank needs the cache's max_len")
         B = tokens.shape[0]
         tokens = serve_rows(tokens, par, B)
-        W = whole_length(cache["self"]["k"], 2, par)
         x = embed(params["embed"], tokens.long(), par)
         for i in range(cfg.num_layers):
             p, c = _layer(params["decoder"], i), _layer(cache["self"], i)
-            o, _ = attn.gqa_decode(p["mixer"], cfg, rmsnorm(p["norm1"], x, ops=ops), c, cache_len, ops, par, W)
+            o, _ = attn.gqa_decode(p["mixer"], cfg, rmsnorm(p["norm1"], x, ops=ops), c, cache_len, ops, par, max_len)
             x = x + o
             h = rmsnorm(p["norm_x"], x, ops=ops)
             memory_kv = (self._cross_heads(cache["cross_k"][i]), self._cross_heads(cache["cross_v"][i]))

@@ -37,8 +37,8 @@ is a copy), so a single-rank NCCL group is driven by every step; AdamW's
 ZeRO all-gather runs only where the data axis has more than one rank.
 
 Serving on a mesh keeps the attention caches split by their sequence
-over ``"model"`` in JAX's padded blocks (``Parallel.seq_slice``,
-``slot_owner``): ``heads_to_sequence`` is the all-to-all that turns
+over ``"model"`` in JAX's padded blocks (``seq_slice``, the one place
+that cuts them): ``heads_to_sequence`` is the all-to-all that turns
 prefill's head-split K/V into the rank's slots of all heads, and
 ``merge_over_model`` merges the ranks' partial decode attention through
 each slice's log-sum-exp. ``global_logits`` gives every rank the global
@@ -101,11 +101,6 @@ def seq_slice(W: int, n: int, rank: int) -> Tuple[int, int]:
     return lo, min(lo + block, W)
 
 
-def slot_owner(slot: int, W: int, n: int) -> int:
-    """The rank whose ``seq_slice`` of a sequence of ``W`` over ``n`` ranks holds ``slot``."""
-    return slot // -(-W // n)
-
-
 class Parallel:
     """One rank's place on a mesh of axes ``("data", "model")`` (either may
     be absent: size 1), the batch split over ``batch_axes`` = ``("data",)``.
@@ -153,10 +148,6 @@ class Parallel:
         """[lo, hi) of this rank's (or model rank ``rank``'s) slots of a cache
         sequence of ``W`` split over ``"model"`` (``seq_slice``)."""
         return seq_slice(W, self.model_size, self.model_rank if rank is None else rank)
-
-    def slot_owner(self, slot: int, W: int) -> int:
-        """The model rank whose slice of a sequence of ``W`` holds ``slot``."""
-        return slot_owner(slot, W, self.model_size)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -285,7 +276,7 @@ def heads_to_sequence(t: torch.Tensor, heads: int, groups: int, par: Optional[Pa
     if not tensor_parallel(par):
         return t
     n, W = par.model_size, t.shape[1]
-    block = -(-W // n)
+    block = seq_slice(W, n, 0)[1]  # rank 0's slice is a whole block
     x = torch.nn.functional.pad(t.movedim(1, 0), (0, 0) * (t.dim() - 1) + (0, n * block - W)).contiguous()
     got = torch.empty_like(x)  # chunk j: rank j's heads at this rank's block of slots
     all_to_all(got, x, par.model_group)
@@ -309,13 +300,3 @@ def merge_over_model(o: torch.Tensor, lse: torch.Tensor, par: Optional[Parallel]
     packed = torch.cat([o.float().reshape(B, H * D), lse.float()], dim=1)
     parts = torch.stack(gather_over_model(packed, par))
     return merge_decode_partials(parts[:, :, : H * D].reshape(-1, B, H, D), parts[:, :, H * D :]).to(o.dtype)
-
-
-def whole_length(t: torch.Tensor, dim: int, par: Optional[Parallel]) -> Optional[int]:
-    """On a model axis of more than one rank, the whole length of a sequence
-    that ``t`` holds this rank's slice of along ``dim``: the slices' lengths
-    summed over ``"model"`` (one all-reduce); None without one."""
-    if not tensor_parallel(par):
-        return None
-    n = torch.tensor([t.shape[dim]], dtype=torch.int64, device=t.device)
-    return int(all_reduce(n, par.model_group))

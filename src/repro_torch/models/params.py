@@ -18,9 +18,9 @@ the data axes divide), ``fsdp_param_specs`` and ``strip_model_axis``. On a
 tree back together (a collective: every rank of the mesh calls it). A
 dimension sharded over several axes is cut row-major over them, the first
 axis the slowest, as the reference's meshes lay it out. A serving cache's
-sequence need not split evenly: ``shard(..., padded=True)``,
-``local_shape`` and ``gather(..., shapes=)`` cut and join it in JAX's
-padded blocks of ``ceil(n / count)``.
+sequence need not split evenly: ``local_shape`` and ``gather(...,
+shapes=)`` size and join it in JAX's padded blocks
+(``parallel.seq_slice``).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.models.parallel import seq_slice
 from repro_torch.tree import leaves_with_paths
 
 Initializer = Callable[[torch.Generator, Tuple[int, ...], torch.dtype, torch.device], torch.Tensor]
@@ -219,41 +220,30 @@ def _chunk(mesh, entry: Any) -> Tuple[int, int]:
     return index, count
 
 
-def _cut(n: int, index: int, count: int) -> Tuple[int, int]:
-    """[lo, hi) of chunk ``index`` of ``count`` of a dimension of ``n``: equal
-    chunks, or where ``count`` does not divide ``n`` JAX's padded blocks of
-    ``ceil(n / count)``, the last ones short or empty."""
-    size = -(-n // count)
-    lo = min(index * size, n)
-    return lo, min(lo + size, n)
-
-
 def local_shape(shape: Tuple[int, ...], spec: Spec, mesh) -> Tuple[int, ...]:
-    """The shape of this rank's shard of a full tensor of ``shape`` (padded
-    blocks where a dimension does not split evenly, as ``shard_tensor(...,
-    padded=True)`` cuts it)."""
+    """The shape of this rank's shard of a full tensor of ``shape``: JAX's
+    padded blocks (``seq_slice``) where a dimension does not split evenly."""
     out = []
     for n, entry in zip(shape, spec):
-        lo, hi = _cut(n, *_chunk(mesh, entry))
+        index, count = _chunk(mesh, entry)
+        lo, hi = seq_slice(n, count, index)
         out.append(hi - lo)
     return tuple(out)
 
 
-def shard_tensor(t: torch.Tensor, spec: Spec, mesh, padded: bool = False) -> torch.Tensor:
+def shard_tensor(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """This rank's shard of the full tensor ``t``: each dimension of ``spec``
-    that names mesh axes cut into equal chunks, or with ``padded`` (a cache's
-    sequence) into JAX's padded blocks where they do not divide it. A tensor
-    that no entry cuts is returned as it is; a cut one is a copy, so the full
-    one can be freed."""
+    that names mesh axes cut into equal chunks. A tensor that no entry cuts is
+    returned as it is; a cut one is a copy, so the full one can be freed."""
     out = t
     for dim, entry in enumerate(spec):
         index, count = _chunk(mesh, entry)
         if count == 1:
             continue
-        if t.shape[dim] % count and not padded:
+        if t.shape[dim] % count:
             raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not split into {count} shards ({spec})")
-        lo, hi = _cut(t.shape[dim], index, count)
-        out = out.narrow(dim, lo, hi - lo)
+        size = t.shape[dim] // count
+        out = out.narrow(dim, index * size, size)
     return out if out is t else out.clone()
 
 
@@ -269,7 +259,7 @@ def gather_tensor(t: torch.Tensor, spec: Spec, mesh, shape=None) -> torch.Tensor
         if count == 1:
             continue
         n = shape[dim] if shape is not None else t.shape[dim] * count
-        block = -(-n // count)
+        block = seq_slice(n, count, 0)[1]  # rank 0's piece is a whole block
         if t.shape[dim] < block:
             t = torch.nn.functional.pad(t.movedim(dim, -1), (0, block - t.shape[dim])).movedim(-1, dim)
         for name in reversed(names):
@@ -283,10 +273,9 @@ def gather_tensor(t: torch.Tensor, spec: Spec, mesh, shape=None) -> torch.Tensor
     return t
 
 
-def shard(tree: Tree, specs: Tree, mesh, padded: bool = False) -> Tree:
-    """This rank's shards of a full tree (``specs`` a spec tree like it);
-    ``padded`` for a cache tree, whose sequence may not split evenly."""
-    return map_with_specs(lambda t, spec: shard_tensor(t, spec, mesh, padded), tree, specs)
+def shard(tree: Tree, specs: Tree, mesh) -> Tree:
+    """This rank's shards of a full tree (``specs`` a spec tree like it)."""
+    return map_with_specs(lambda t, spec: shard_tensor(t, spec, mesh), tree, specs)
 
 
 def gather(tree: Tree, specs: Tree, mesh, shapes: Tree = None) -> Tree:

@@ -85,7 +85,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as pu
-from repro_torch.models.parallel import Parallel, global_logits, serve_rows, tensor_parallel, whole_length
+from repro_torch.models.parallel import Parallel, global_logits, serve_rows, tensor_parallel
 from repro_torch.models.common import (
     chunked_cross_entropy,
     embed,
@@ -501,47 +501,40 @@ class Model(nn.Module):
         return x
 
     def decode_step(
-        self, params: Tree, cache: Tree, tokens: torch.Tensor, cache_len: Union[int, torch.Tensor]
+        self, params: Tree, cache: Tree, tokens: torch.Tensor, cache_len: Union[int, torch.Tensor],
+        max_len: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Tree]:
         """tokens (B, 1) -> (logits (B, padded_vocab), cache updated in place).
         On a mesh every rank takes the global tokens, updates its shard of
-        the cache and returns the global logits."""
+        the cache and returns the global logits. On a model axis of more than
+        one rank the cache holds the rank's slots only, so ``max_len``, what
+        the cache was made for, is required (``ValueError`` without it)."""
         cache_len = int(cache_len)  # one host read per step at most, none per layer
+        if tensor_parallel(self.par) and max_len is None:
+            raise ValueError("decode_step on a model axis of more than one rank needs the cache's max_len")
         B = tokens.shape[0]
         tokens = serve_rows(tokens, self.par, B)
         onehot = self.par is not None and not self.par.splits_rows(B)
-        seq = self._cache_length(cache)
         x = embed(params["embed"], tokens.long(), self.par)
         for name, n, layers in self.groups:
             for i in range(n):
                 p, c = _layer(params[name], i), _layer(cache[name], i)
                 for j, spec in enumerate(layers):
-                    x = self._block_decode(spec, p[f"l{j}"], x, c[f"l{j}"], cache_len, seq, onehot)
+                    x = self._block_decode(spec, p[f"l{j}"], x, c[f"l{j}"], cache_len, max_len, onehot)
         h = rmsnorm(params["final_norm"], x, ops=self.ops)
         return global_logits(torch.matmul(h[:, 0], self._head_weight(params)), self.par, B), cache
 
-    def _cache_length(self, cache: Tree) -> Optional[int]:
-        """On a model axis of more than one rank, the whole sequence of the
-        attention caches of which ``cache`` holds this rank's slots (W, or
-        max_len for MLA); else None (each layer reads its own)."""
-        for name, _, layers in self.groups:
-            for j, spec in enumerate(layers):
-                if spec.mixer == "attn":
-                    return whole_length(cache[name][f"l{j}"]["ckv" if self.mla else "k"], 2, self.par)
-        return None
-
-    def _block_decode(self, spec: LayerSpec, p: Tree, x, cache: Tree, cache_len: int, seq: Optional[int],
+    def _block_decode(self, spec: LayerSpec, p: Tree, x, cache: Tree, cache_len: int, max_len: Optional[int],
                       onehot: bool) -> torch.Tensor:
-        """One layer for one token; updates the layer's cache slice in place
-        (``seq``: the whole attention cache's length on a mesh)."""
+        """One layer for one token; updates the layer's cache slice in place."""
         cfg, par = self.cfg, self.par
         h = rmsnorm(p["norm1"], x, ops=self.ops)
         if spec.mixer == "ssm":
             h, _ = mb.mamba_decode(p["mixer"], cfg, h, cache, ops=self.ops, par=par)
         elif self.mla:
-            h, _ = attn.mla_decode(p["mixer"], cfg, h, cache, cache_len, ops=self.ops, par=par, S=seq)
+            h, _ = attn.mla_decode(p["mixer"], cfg, h, cache, cache_len, ops=self.ops, par=par, max_len=max_len)
         else:
-            h, _ = attn.gqa_decode(p["mixer"], cfg, h, cache, cache_len, ops=self.ops, par=par, W=seq)
+            h, _ = attn.gqa_decode(p["mixer"], cfg, h, cache, cache_len, ops=self.ops, par=par, max_len=max_len)
         x = x + h
         if spec.channel != "none":
             x = x + self._serve_channel(spec, p, x, onehot)

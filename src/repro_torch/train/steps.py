@@ -255,7 +255,8 @@ def make_serve_bundle(
     cache holds ``max_len`` positions and takes its batch from the prompt;
     ``batch`` sets the spec tree and shapes the bundle reports (a batch that
     does not split over the data axes keeps its cache split by sequence
-    only). ``prefill_fn`` forwards a frontend's embeddings (an
+    only), so on a mesh both functions raise ``ValueError`` for a prompt of
+    another batch. ``prefill_fn`` forwards a frontend's embeddings (an
     encoder-decoder's frames, which its prefill requires). ``q_chunk`` is
     the reference's query tile of its plain attention; the flash kernel
     tiles its own queries, so it changes nothing here.
@@ -279,10 +280,20 @@ def make_serve_bundle(
     size = (batch, max_len, cfg.frontend_positions) if cfg.enc_dec else (batch, max_len)
     shapes = tree_map(lambda a: tuple(a.shape), flat.make_cache(*size, device="meta"))
 
+    def rows(tokens):
+        if mesh is not None and tokens.shape[0] != batch:
+            raise ValueError(f"a batch of {tokens.shape[0]} rows on a bundle made for batch={batch}: its cache "
+                             "specs and shapes would not be the cache's")
+
     def prefill(params, tokens, frontend_embeds=None):
+        rows(tokens)
         return model.prefill(params, tokens, frontend_embeds, max_len=max_len)
 
+    def decode(params, cache, tokens, cache_len):
+        rows(tokens)
+        return model.decode_step(params, cache, tokens, cache_len, max_len=max_len)
+
     if mesh is None:
-        return ServeBundle(cfg, model, prefill, model.decode_step, max_len, cache_shapes=shapes)
-    return ServeBundle(cfg, model, prefill, model.decode_step, max_len, mesh, model.param_specs(),
+        return ServeBundle(cfg, model, prefill, decode, max_len, cache_shapes=shapes)
+    return ServeBundle(cfg, model, prefill, decode, max_len, mesh, model.param_specs(),
                        serve_cache_specs(model, batch), shapes)

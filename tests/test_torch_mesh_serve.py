@@ -390,6 +390,31 @@ def _gather_data(t: torch.Tensor, par) -> list:
     return parts
 
 
+def _refusals(mesh) -> dict:
+    """Whether the mesh serve refuses, with ``ValueError`` and before any
+    collective, what its cache specs would not describe: a prompt of another
+    batch than the bundle's, and a decode step without the cache's
+    ``max_len`` on a model axis of 2 ranks."""
+    cfg = _config("minitron-8b")
+    _, _, max_len, batch, _ = CASES["minitron-8b"]
+    bundle = make_serve_bundle(cfg, mesh, batch=batch, max_len=max_len)
+    params = bundle.model.init(0, "cpu")
+    cache = bundle.model.make_cache(batch, max_len, device="cpu")
+    calls = {
+        "prefill of another batch": lambda: bundle.prefill_fn(params, torch.zeros((batch // 2, 3), dtype=torch.long)),
+        "decode of another batch": lambda: bundle.decode_fn(params, cache, torch.zeros((2 * batch, 1), dtype=torch.long), 3),
+        "decode without max_len": lambda: bundle.model.decode_step(params, cache, torch.zeros((batch, 1), dtype=torch.long), 3),
+    }
+    out = {}
+    for what, call in calls.items():
+        try:
+            call()
+            out[what] = np.array(False)
+        except ValueError:
+            out[what] = np.array(True)
+    return out
+
+
 def _rank_main(rank: int, world: int, tmp: str) -> None:
     """One gloo rank of the 4-rank world: the (2, 2) serves (clean, then each
     fault), then the (1, 2) and (2, 1) sub-meshes; its results pickled."""
@@ -399,6 +424,7 @@ def _rank_main(rank: int, world: int, tmp: str) -> None:
     inputs = pickle.load(open(f"{tmp}/inputs.pkl", "rb"))
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
     out = {("2x2", name, None): _serve(name, inputs[name], mesh) for name in CASES}
+    out[("2x2", "refusals", None)] = _refusals(mesh)
     for fault, name in FAULTS.items():
         module, attr, fn = _PATCHES[fault]
         orig = getattr(module, attr)
@@ -596,6 +622,11 @@ def test_2x2_int8_serve_keeps_the_no_mesh_codes(background, results):
     assert not _failed(_excess(name, ours, plain))
 
 
+def test_2x2_serve_refuses_what_its_cache_specs_do_not_describe(results):
+    ours = _port(results, ("2x2", "refusals", None))
+    assert all(bool(raised) for raised in ours.values()), ours
+
+
 @pytest.mark.parametrize("fault", list(FAULTS))
 def test_planted_fault_fails_the_2x2_comparison(fault, results):
     name = FAULTS[fault]
@@ -623,11 +654,12 @@ def test_the_uneven_split_and_the_empty_slices_are_exercised():
     empty; h2o's ring writes slots 12..17, across its ranks' boundary at 16."""
     assert [parallel.seq_slice(19, 2, r) for r in (0, 1)] == [(0, 10), (10, 19)]
     assert [parallel.seq_slice(1, 2, r) for r in (0, 1)] == [(0, 1), (1, 1)]
-    assert parallel.slot_owner(9, 19, 2) == 0 and parallel.slot_owner(10, 19, 2) == 1
     _, prompt, max_len, _, _ = CASES["minitron-8b, empty slices"]
     assert prompt + STEPS <= parallel.seq_slice(max_len, 2, 0)[1]
     _, prompt, _, _, _ = CASES["h2o-danube-1.8b"]
-    assert {parallel.slot_owner((prompt + i) % 32, 32, 2) for i in range(STEPS)} == {0, 1}
+    owners = {r for i in range(STEPS) for r in (0, 1)
+              if parallel.seq_slice(32, 2, r)[0] <= (prompt + i) % 32 < parallel.seq_slice(32, 2, r)[1]}
+    assert owners == {0, 1}
 
 
 # ---------------------------------------------------------------- one rank, in process
