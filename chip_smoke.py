@@ -25,7 +25,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    version (2e-2 / 2e-5), ``lse`` against the plain ``lse`` at the same
    tolerance, absolute; a planted kernel whose ``lse`` forgets ``ln lsum``
    must fail; the kernel timed with and without ``lse`` at minitron-8b's and
-   h2o-danube-1.8b's shapes;
+   h2o-danube-1.8b's shapes, beside the library's memory-efficient attention
+   with its log-sum-exp on K/V expanded to the query heads;
 3. minitron-8b at full width and depth (seeded random weights) served
    through ``make_serve_bundle`` and the launcher's ``greedy_generate``: batch 4,
    a 500-token prompt, 32 greedy decode steps. The launch counters must show
@@ -43,7 +44,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and its logits bit for bit equal to the phase's kernel run, its launches
    per prefill and per step the phase's, the NCCL collectives of a step
    printed (the multi-rank arithmetic is held to the JAX package's meshes by
-   the CPU tests);
+   the CPU tests; 8 steps since PR 29, 32 before);
 4. mamba2-370m at full width and depth, the same way: batch 4, a 2000-token
    prompt (7 chunks of 256 and a ragged 208), 32 greedy decode steps; 97
    rmsnorm + 48 ssd_scan launches per prefill, all 48 of the tensor-core
@@ -166,8 +167,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
    steps through ``Trainer`` with the mesh bundle: each step's launches
    equal to the no-mesh path's, finite losses, step 1's MoE routes equal to
    the no-mesh run's; the step time beside the no-mesh median of phase 11
-   and the NCCL collectives a step issues; ``split_mesh`` and
-   ``submesh_for_job`` on the 1 x 1 mesh and the ``ValueError`` of 2 parts;
+   and the NCCL collectives a step issues; then deepseek-v3-671b trained
+   with its own recipe on that mesh (``v3_phase``: FSDP weights, Adafactor,
+   MTP; the published widths, 3 dense + 1 MoE layer of 16 experts, 5.23 B
+   parameters): the gradient gate on 2 of the 4 rows (the fp32 trees of
+   the whole batch do not fit beside each other), the rope-box fault at 128
+   heads; the 1 x 1 FSDP step's loss and every gradient leaf bitwise equal
+   to the no-mesh kernel path's, 39 rmsnorm + 9 flash launches a step
+   (MTP's 6 + 1 among them), the collectives with the FSDP gathers and
+   reduce-scatters among them; 3 ``Trainer`` steps on the mesh at 4 x 2048
+   (its main path), Adafactor's state shaped by the reference's
+   ``state_specs``; ``split_mesh`` and ``submesh_for_job`` on the 1 x 1 mesh
+   and the ``ValueError`` of 2 parts;
 13. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
    checkpointing under ``build/`` and restarting from it;
 14. co-location: the two training cells as jobs of ``colocation/stepper.py``'s
@@ -218,8 +229,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the six serve
 paths' (h2o-danube-1.8b's runs A and B), the four mesh serve runs', the four
-20-step training runs', the mesh phase's 3-step runs and the co-located
-rounds'.
+20-step training runs', deepseek-v3-671b's 3 mesh steps, the mesh phase's
+3-step runs and the co-located rounds'.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and prints
@@ -351,12 +362,23 @@ DS_H, DS_NOPE, DS_DQK, DS_DV, DS_D_MODEL, DS_KV_LORA, DS_DKV = 16, 128, 192, 128
 # the kernels and 20 with the plain versions.
 TR_B, TR_SEQ, TR_STEPS, TR_LR = 4, 2048, 20, 3e-4
 TR_H, TR_HKV = 16, 8  # internvl2-2b's attention heads (head_dim 128, as minitron-8b's)
-FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL, DS_ARCH: 1e-4, "seamless-m4t-large-v2": 1e-4}
+FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL, DS_ARCH: 1e-4, "seamless-m4t-large-v2": 1e-4,
+                  "deepseek-v3-671b": 1e-4}
 # deepseek-v2-lite-16b trained at full width with its depth cut to 1 dense + 4
 # MoE layers (2.84 B parameters, ~34 GB with bf16 gradients and fp32 AdamW
 # state; the 27 layers would need ~188 GB): T = 8192 tokens a step, C = 960 an
 # expert.
 DS_TRAIN_LAYERS = 5
+# deepseek-v3-671b trained with its own recipe (FSDP weights, Adafactor, MTP
+# depth 1) on the 1 x 1 mesh, at the published widths (d_model 7168, MLA over
+# 128 heads at (Dqk, Dv) = (192, 128), q_lora 1536, kv_lora 512, d_ff 18432,
+# d_ff_expert 2048, top-8 + 1 shared, vocab 129,280), its depth cut to 3 dense +
+# 1 MoE layer and its experts to 16: 5.23 B parameters, 10.45 GB in bf16. The
+# fp32 gates hold the widened weights, their gradient and the reference's
+# (~21 GB each), so they take V3_GATE_ROWS of the batch's 4 rows, the kernel
+# path's fp32 gradient parked on the host while the reference's is computed.
+V3_ARCH, V3_LAYERS, V3_EXPERTS, V3_GATE_ROWS = "deepseek-v3-671b", 4, 16, 2
+V3_H, V3_D_MODEL, V3_Q_LORA = 128, 7168, 1536
 # The training cells that also run on the 1 x 1 mesh, its Trainer steps and
 # gradient floor; the no-mesh main path's median step time of each training
 # cell (train_phase) and the seconds the mesh runs take (mesh_gate,
@@ -394,7 +416,7 @@ JB_MAX_LEN = JB_PROMPT + JB_STEPS
 # mamba2-370m, deepseek-v2-lite-16b and seamless-m4t-large-v2: one prefill and
 # MESH_SERVE_STEPS greedy steps from each phase's weights and prompt; each
 # run's launches and seconds (mesh_serve).
-MESH_SERVE_STEPS = 32
+MESH_SERVE_STEPS = 8  # 32 until PR 29, which cut it to make room for the deepseek-v3-671b cell
 MESH_SERVE_COUNTS = {}
 MESH_SERVE_SECONDS = {}
 # The split-decode phase: the decode kernel with its log-sum-exp on a cache cut
@@ -1386,12 +1408,25 @@ def split_decode_phase(gen, name_power: str) -> dict:
         t = {"ms": time_ms(lambda q, k, v: ops.decode_attention(q, k, v, s), cache),
              "lse_ms": time_ms(lambda q, k, v: ops.decode_attention(q, k, v, s, return_lse=True), cache),
              "plain_ms": time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, s, return_lse=True), cache)}
+        # the library: memory-efficient SDPA with its log-sum-exp, K/V expanded to the query heads beforehand
+        expanded = [(q[:, :, None], *(x.repeat_interleave(h // hkv, dim=2).transpose(1, 2) for x in (k, v)))
+                    for q, k, v in cache]
+        library = lambda q, k, v: torch.ops.aten._scaled_dot_product_efficient_attention(  # noqa: E731
+            q, k, v, None, True)
+        t["library_ms"] = time_ms(library, expanded)
+        out, lse = ops.decode_attention(*cache[0], s, return_lse=True)
+        lib_out, lib_lse = library(*expanded[0])[:2]
+        t["library_err"] = (float((lib_out[:, :, 0].float() - out.float()).abs().max()),
+                            float((lib_lse[:, :, 0] - lse).abs().max()))
+        del expanded
         t["bound_ms"], t["bound_by"] = bound(kv_bytes + 2 * b * h * d * 2 + b * h * 4, 4 * b * h * s * d, bf)
         timings[label] = t
         print(f"kernel decode_attention {label} shape {(b, h, hkv, s, d)} bf16, all {s} keys valid: without lse "
-              f"{t['ms']:.4f} ms, with lse {t['lse_ms']:.4f} ms (plain with lse {t['plain_ms']:.4f} ms, library none, "
-              f"bound {t['bound_ms']:.4f} ms by {t['bound_by']}, {t['bound_ms'] / t['lse_ms']:.2f} of it) "
-              f"[{name_power}]")
+              f"{t['ms']:.4f} ms, with lse {t['lse_ms']:.4f} ms (plain with lse {t['plain_ms']:.4f} ms, library "
+              f"{t['library_ms']:.4f} ms: aten._scaled_dot_product_efficient_attention with compute_log_sumexp on K/V "
+              f"expanded to the {h} query heads, its output {t['library_err'][0]:.2e} and its lse "
+              f"{t['library_err'][1]:.2e} from the kernel's; bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
+              f"{t['bound_ms'] / t['lse_ms']:.2f} of it) [{name_power}]")
     free_memory()
     print(f"split decode phase: {time.perf_counter() - t0:.1f} s")
     return timings
@@ -2335,12 +2370,21 @@ def time_train_kernels(gen) -> dict:
     dkv, scale = randn(gen, rows, DS_DKV).requires_grad_(), randn(gen, DS_KV_LORA, dtype=torch.float32).requires_grad_()
     t["bwd_ms"] = time_backward(gen, lambda a, s: ops.rmsnorm(a[:, :DS_KV_LORA], s), (dkv, scale))
     out[("rmsnorm", (rows, DS_KV_LORA))] = t
-    mla = time_flash(gen, TR_B, DS_H, TR_SEQ, TR_SEQ, DS_DQK, DS_DV, True, v_row=DS_NOPE + DS_DV)
-    q, k = (randn(gen, TR_B, TR_SEQ, DS_H, DS_DQK).requires_grad_() for _ in range(2))
-    kv = randn(gen, TR_B, TR_SEQ, DS_H, DS_NOPE + DS_DV).requires_grad_()
-    mla["bwd_ms"] = time_backward(gen, lambda q, k, kv: ops.flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), kv[..., DS_NOPE:].transpose(1, 2)), (q, k, kv))
-    out[("flash_attention", (TR_B, DS_H, DS_H, TR_SEQ, DS_DQK, DS_DV))] = mla
+    # deepseek-v3-671b's cell (MLA at 128 heads, d_model 7168, q_lora 1536)
+    for d in (V3_D_MODEL, V3_Q_LORA):
+        t = time_rmsnorm(gen, rows, d)
+        x, scale = randn(gen, rows, d).requires_grad_(), randn(gen, d, dtype=torch.float32).requires_grad_()
+        t["bwd_ms"] = time_backward(gen, lambda a, s: ops.rmsnorm(a, s), (x, scale))
+        out[("rmsnorm", (rows, d))] = t
+    for h in (DS_H, V3_H):  # deepseek-v2-lite-16b's heads and deepseek-v3-671b's
+        mla = time_flash(gen, TR_B, h, TR_SEQ, TR_SEQ, DS_DQK, DS_DV, True, v_row=DS_NOPE + DS_DV)
+        q, k = (randn(gen, TR_B, TR_SEQ, h, DS_DQK).requires_grad_() for _ in range(2))
+        kv = randn(gen, TR_B, TR_SEQ, h, DS_NOPE + DS_DV).requires_grad_()
+        mla["bwd_ms"] = time_backward(gen, lambda q, k, kv: ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), kv[..., DS_NOPE:].transpose(1, 2)), (q, k, kv))
+        out[("flash_attention", (TR_B, h, h, TR_SEQ, DS_DQK, DS_DV))] = mla
+        del q, k, kv
+        free_memory()
     return out
 
 
@@ -2405,14 +2449,20 @@ def train_launches(cfg) -> dict:
     again in the checkpoint's recompute (``remat="full"``, every cell), and
     the final norm; an encoder-decoder's encoder layers two rmsnorms and one
     flash, its decoder layers three rmsnorms and two flash (self and cross),
-    and ``enc_norm`` beside the final norm. The backward passes are plain."""
+    and ``enc_norm`` beside the final norm; multi-token prediction its
+    ``norm_h`` and ``norm_e`` and its layer's norms and flash, once. The
+    backward passes are plain."""
     require(cfg.remat == "full", f"{cfg.name}: remat {cfg.remat!r}")
     if cfg.enc_dec:
         enc, dec = cfg.encoder_layers, cfg.num_layers
         return {"rmsnorm": 2 * (2 * enc + 3 * dec) + 2, "flash_attention": 2 * (enc + 2 * dec),
                 "decode_attention": 0, "ssd_scan": 0}
     once = pass_launches(cfg)
-    return {k: 2 * v - (k == "rmsnorm") for k, v in once.items()}
+    out = {k: 2 * v - (k == "rmsnorm") for k, v in once.items()}
+    if cfg.mtp_depth:  # MTP (not rematerialised): norm_h, norm_e and one dense layer's norms and flash
+        out["rmsnorm"] += cfg.mtp_depth * (4 + (1 + bool(cfg.mla.q_lora_rank) if cfg.attention == "mla" else 0))
+        out["flash_attention"] += cfg.mtp_depth
+    return out
 
 
 def free_memory() -> None:
@@ -2423,11 +2473,12 @@ def free_memory() -> None:
 
 def grad_distances(grads, reference) -> tuple:
     """The relative L2 distance of two gradient trees, flattened, and of each
-    leaf (a stacked tensor of all layers), by its path."""
+    leaf (a stacked tensor of all layers), by its path; a leaf of ``grads``
+    parked on the host is brought to the reference's device one at a time."""
     num = den = 0.0
     per_leaf = {}
     for (path, g), r in zip(leaves_with_paths(grads), leaves(reference)):
-        n = float((g.float() - r.float()).square().sum(dtype=torch.float64))
+        n = float((g.to(r.device).float() - r.float()).square().sum(dtype=torch.float64))
         d = float(r.float().square().sum(dtype=torch.float64))
         num, den = num + n, den + d
         per_leaf[path] = math.sqrt(n / d) if d else (0.0 if n == 0 else math.inf)
@@ -2540,6 +2591,10 @@ PLANTED = {  # cell: (fault, the kernel it is planted in, the gates that must fa
     SM_ARCH: [
         ("flash_attention treats causal=False as causal", "flash_attention", flash_treats_noncausal_as_causal, BOTH),
     ],
+    V3_ARCH: [  # at 128 heads
+        ("flash_attention ignores Q K^T's third 64-column box (the rope columns 128-191)", "flash_attention",
+         flash_ignores_rope_box, BOTH),
+    ],
 }
 
 
@@ -2566,7 +2621,7 @@ def dropped_per_layer(routes, m, tokens: int) -> list:
     return [int((moe_mod._counts(r.reshape(-1), m.num_experts) - C).clamp(min=0).sum()) for r in routes]
 
 
-def gradient_gate(arch, cfg, bundle, plain, params, pipe, keep: bool = False):
+def gradient_gate(arch, cfg, bundle, plain, params, pipe, keep: bool = False, rows: int = TR_B, park: bool = False):
     """One batch, the seeded weights: the per-token losses and the whole
     gradient through the kernels in bf16 and in fp32, through the plain
     versions in bf16 and in fp32 (the reference: the same weights widened
@@ -2591,11 +2646,15 @@ def gradient_gate(arch, cfg, bundle, plain, params, pipe, keep: bool = False):
     the share of choices each bf16 run routes elsewhere, are printed.
 
     With ``keep``: returns the bf16 kernel path's loss, gradient and
-    forward routes (routed freely), the no-mesh run of ``mesh_gate``."""
+    forward routes (routed freely), the no-mesh run of ``mesh_gate``. The
+    gates take the first ``rows`` rows of the batch; with ``park`` the fp32
+    kernel path's gradient waits on the host while the reference's is
+    computed (three fp32 trees of deepseek-v3-671b's cell do not fit)."""
     n, tol32 = cfg.num_layers, FP32_GRAD_RTOL[arch]
     moe_layers = moe_layer_count(cfg)
     params32 = tree_map(lambda t: t.float(), params)
-    batch = train_batch(cfg, pipe, 0)
+    batch = {k: v[:rows] for k, v in train_batch(cfg, pipe, 0).items()}
+    tokens_in = batch["tokens"].numel()
 
     def run(model, weights, replay=None):
         """The per-token losses, the loss and the gradient, the launches of
@@ -2614,9 +2673,14 @@ def gradient_gate(arch, cfg, bundle, plain, params, pipe, keep: bool = False):
     # fp32 kernels first: the plain fp32 reference takes their expert choices
     tok32_k, loss_k32, grads_k32, counts32, variants32, routes32 = run(bundle.model, params32)
     require(counts32 == train_launches(cfg), f"{arch} fp32 kernel-path launches {counts32}")
+    if park:
+        grads_k32 = tree_map(lambda t: t.to("cpu"), grads_k32)
+        free_memory()
     held = routes32 or None
     t32, loss32, ref32, counts_ref, _, _ = run(plain.model, params32, held)
     require(sum(counts_ref.values()) == 0, "the plain path launched a kernel")
+    del params32  # the fp32 runs are done
+    free_memory()
     tok_k32, grad_k32 = rel_l2(tok32_k, t32), grad_distances(grads_k32, ref32)[0]
     del grads_k32
     free_memory()
@@ -2655,13 +2719,11 @@ def gradient_gate(arch, cfg, bundle, plain, params, pipe, keep: bool = False):
                 ("bf16 kernels vs fp32", routed_elsewhere(routes_k, routes32, cfg.moe.num_experts)),
                 ("bf16 plain vs fp32", routed_elsewhere(routes_p, routes32, cfg.moe.num_experts))))
         print(f"train {arch} gradient gate routing, (token, choice) pairs routed to another expert: {routes_shown}; "
-              f"dropped choices per MoE layer (fp32 kernels) {dropped_per_layer(routes32, cfg.moe, TR_B * TR_SEQ)} of "
-              f"{TR_B * TR_SEQ * cfg.moe.top_k} a layer")
+              f"dropped choices per MoE layer (fp32 kernels) {dropped_per_layer(routes32, cfg.moe, tokens_in)} of "
+              f"{tokens_in * cfg.moe.top_k} a layer")
         _, tok_ph, grad_ph, leaf_ph, _, _, _ = distances(plain.model, params, held)
         _, tok_kh, _, leaf_kh, _, _, _ = distances(bundle.model, params, held)
         gates["held to the fp32 routes"] = (tok_ph, grad_ph, leaf_ph, tok_kh, leaf_kh, held)
-    del params32
-    free_memory()
     faults = []
     for label, (tok_pl, grad_pl, leaf_pl, tok_kn, leaf_kn, replay) in gates.items():
         for name, model, must_fail in faulty:
@@ -2865,11 +2927,14 @@ def mesh_gate(arch, cfg, flat, meshed, params, batch, loss0: float, grads0, rout
                 f"{arch}: the mesh forward routed otherwise than the no-mesh forward")
 
 
-def mesh_trainer(arch, cfg, meshed, pipe, seed: int, first_routes) -> dict:
+def mesh_trainer(arch, cfg, meshed, pipe, seed: int, first_routes=None) -> dict:
     """``MESH_STEPS`` steps through the trainer with the mesh bundle: every
     step's launches those of the no-mesh step, finite losses, an MoE cell's
-    step 1 routed as the no-mesh main path's (``first_routes``), the step
-    time beside the main path's median and the NCCL collectives a step.
+    step 1 routed as the no-mesh main path's (``first_routes``, where the
+    cell has one), the step time beside the main path's median and the NCCL
+    collectives a step (with FSDP, its gathers and reduce-scatters among
+    them); the optimizer state's shapes those of ``opt_specs`` cut from the
+    full tree's (Adafactor's ``vr``/``vc``: the reference's ``state_specs``).
     Returns the run's launches."""
     t0 = time.perf_counter()
     per_step = train_launches(cfg)
@@ -2882,7 +2947,7 @@ def mesh_trainer(arch, cfg, meshed, pipe, seed: int, first_routes) -> dict:
         parallel.reset_collectives()
         out = step_fn(*a)
         deltas.append({k: v - before[k] for k, v in ops.launch_counts().items()})
-        collectives.append(parallel.collectives)
+        collectives.append((parallel.collectives, parallel.fsdp_gathers, parallel.fsdp_scatters))
         return out
 
     meshed.step_fn = counted_step
@@ -2896,29 +2961,126 @@ def mesh_trainer(arch, cfg, meshed, pipe, seed: int, first_routes) -> dict:
     counts = ops.launch_counts()
     losses = [h["loss"] for h in trainer.history]
     times = [h["step_s"] for h in trainer.history]
-    del trainer
+    full = meshed.optimizer.init(meshed.full_like(trainer.params, meshed.param_specs))
+    want = [pu.local_shape(tuple(t.shape), spec, meshed.mesh)
+            for t, (_, spec) in zip(leaves(full), pu.spec_leaves(meshed.opt_specs))]
+    state_shapes = [tuple(t.shape) for t in leaves(trainer.opt_state)] == want
+    del trainer, full
     meshed.step_fn = step_fn
     free_memory()
     require(all(d == per_step for d in deltas), f"{arch}: mesh step launches {deltas}, expected {per_step}")
     require(all(math.isfinite(x) for x in losses), f"{arch}: non-finite mesh loss {losses}")
-    if moe_layers:
+    require(state_shapes, f"{arch}: the optimizer state's shapes are not those of its specs")
+    if moe_layers and first_routes is not None:
         require(all(torch.equal(a, b) for a, b in zip(routes[:moe_layers], first_routes)),
                 f"{arch}: the mesh trainer's step 1 routed otherwise than the no-mesh main path")
     MESH_SECONDS.append(time.perf_counter() - t0)
+    median = (f" beside the no-mesh main path's median {TRAIN_MEDIAN_S[arch] * 1e3:.3f} ms"
+              if arch in TRAIN_MEDIAN_S else "")
+    fsdp = (f" (FSDP gathers {sorted({g for _, g, _ in collectives})}, reduce-scatters "
+            f"{sorted({r for _, _, r in collectives})} of them)" if any(g for _, g, _ in collectives) else "")
     print(f"mesh {arch} trainer: {MESH_STEPS} steps, losses " + " ".join(f"{x:.5f}" for x in losses)
-          + f"; launches per step {per_step} at every step; {collectives} NCCL collectives a step; step time steps "
-          f"2-{MESH_STEPS} median {np.median(times[1:]) * 1e3:.3f} ms beside the no-mesh main path's median "
-          f"{TRAIN_MEDIAN_S[arch] * 1e3:.3f} ms"
-          + (f"; step 1's routes equal to the no-mesh main path's in all {moe_layers} MoE layers" if moe_layers else "")
+          + f"; launches per step {per_step} at every step; {[c for c, _, _ in collectives]} NCCL collectives a step"
+          f"{fsdp}; {type(meshed.optimizer).__name__}'s state shaped by its specs, cut from the full tree's: "
+          f"{state_shapes}; step time steps 2-{MESH_STEPS} median {np.median(times[1:]) * 1e3:.3f} ms{median}"
+          + (f"; step 1's routes equal to the no-mesh main path's in all {moe_layers} MoE layers"
+             if moe_layers and first_routes is not None else "")
           + f" ({MESH_SECONDS[-1]:.1f} s) [{nvidia_smi('name,power.limit')}]")
+    return counts
+
+
+def v3_config():
+    """deepseek-v3-671b at its published widths, its depth cut to ``V3_LAYERS``
+    (3 dense + 1 MoE) and its experts to ``V3_EXPERTS``."""
+    cfg = get_config(V3_ARCH)
+    return dataclasses.replace(cfg, num_layers=V3_LAYERS, moe=dataclasses.replace(cfg.moe, num_experts=V3_EXPERTS))
+
+
+def v3_phase(seed: int, mesh) -> dict:
+    """deepseek-v3-671b trained with its own recipe (FSDP, Adafactor, MTP) at
+    its published widths (``v3_config``): (a) ``gradient_gate`` on
+    ``V3_GATE_ROWS`` rows (the 1.25x rule against fp32 plain, fp32 kernels
+    within 1e-4 on held routes, the planted rope-box fault); (b) the mesh
+    bundle on the (1, 1) mesh (FSDP over a data axis of one rank: every leaf
+    gathered and reduce-scattered by a single-rank NCCL group) from the
+    gate's weights and rows: the loss and every gradient leaf bitwise equal
+    to the no-mesh kernel path's, the launches exact, the routes equal, the
+    collectives and the FSDP gathers and reduce-scatters among them printed;
+    (c) ``MESH_STEPS`` ``Trainer`` steps on the mesh at 4 x 2048 (the main
+    path of this cell): exact launches, finite losses, Adafactor's
+    ``vr``/``vc`` shaped by the reference's ``state_specs``. Returns (c)'s
+    launches."""
+    t_phase = time.perf_counter()
+    cfg, full = v3_config(), get_config(V3_ARCH)
+    bundle = make_train_bundle(cfg, lr_schedule=constant(TR_LR))
+    plain = make_train_bundle(cfg, lr_schedule=constant(TR_LR), ops=ops.PLAIN)
+    meshed = make_train_bundle(cfg, mesh, lr_schedule=constant(TR_LR))
+    pipe = SyntheticPipeline(DataConfig(cfg.vocab_size, TR_SEQ, TR_B, seed=seed))
+    t0 = time.perf_counter()
+    params = bundle.model.init(seed, "cuda")
+    torch.cuda.synchronize()
+    n_tree, n_bytes = sum(t.numel() for t in leaves(params)), sum(t.numel() * t.element_size() for t in leaves(params))
+    dense = cfg.moe.first_k_dense
+    m = cfg.mla
+    print(f"train {V3_ARCH}: d_model {cfg.d_model}, MLA over {cfg.num_heads} heads at (Dqk, Dv) = "
+          f"({m.qk_nope_head_dim + m.qk_rope_head_dim}, {m.v_head_dim}), q_lora {m.q_lora_rank}, kv_lora "
+          f"{m.kv_lora_rank}, d_ff {cfg.d_ff}, d_ff_expert {cfg.moe.d_ff_expert}, top-{cfg.moe.top_k} + "
+          f"{cfg.moe.num_shared_experts} shared (capacity {moe_mod._capacity(TR_B * TR_SEQ, cfg.moe)} an expert), "
+          f"vocab "
+          f"{cfg.vocab_size}, MTP depth {cfg.mtp_depth}, {cfg.optimizer}, fsdp {cfg.fsdp}; {n_tree:,} parameters "
+          f"({n_bytes / 1e9:.2f} GB in bf16), init {time.perf_counter() - t0:.1f} s; batch {TR_B} x {TR_SEQ}")
+    print(f"train {V3_ARCH} reduced: num_layers {full.num_layers} → {cfg.num_layers} ({dense} dense + "
+          f"{cfg.num_layers - dense} MoE), num_experts {full.moe.num_experts} → {cfg.moe.num_experts}; the gradient "
+          f"gates on {V3_GATE_ROWS} of the batch's {TR_B} rows")
+    torch.cuda.reset_peak_memory_stats()
+    loss0, grads0, routes0 = gradient_gate(V3_ARCH, cfg, bundle, plain, params, pipe, keep=True, rows=V3_GATE_ROWS,
+                                           park=True)
+    print(f"train {V3_ARCH} gradient gates: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({time.perf_counter() - t_phase:.1f} s into the phase)")
+
+    t0 = time.perf_counter()
+    batch = {k: v[:V3_GATE_ROWS] for k, v in train_batch(cfg, pipe, 0).items()}
+    shards = pu.shard(params, meshed.param_specs, mesh)
+    require(all(a is b for a, b in zip(leaves(params), leaves(shards))), f"{V3_ARCH}: a 1 x 1 shard is a copy")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    parallel.reset_collectives()
+    with routed() as routes_mesh:
+        loss1, _, grads1 = meshed.grads_fn(shards, batch)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    collectives = (parallel.collectives, parallel.fsdp_gathers, parallel.fsdp_scatters)
+    differ = [p for (p, a), b in zip(leaves_with_paths(grads1), leaves(grads0)) if not torch.equal(a, b)]
+    moe_layers = moe_layer_count(cfg)
+    same_routes = all(torch.equal(a, b) for a, b in zip(routes_mesh[:moe_layers], routes0))
+    n_leaves = len(leaves(grads0))
+    del grads0, grads1, shards, params
+    free_memory()
+    MESH_SECONDS.append(time.perf_counter() - t0)
+    print(f"mesh {V3_ARCH}: FSDP over the data axis of the (1, 1) NCCL mesh, Adafactor; step 1's loss mesh "
+          f"{float(loss1)!r} no-mesh {loss0!r} ({'bitwise equal' if float(loss1) == loss0 else 'NOT bitwise equal'}); "
+          f"gradient leaves bitwise equal to the no-mesh kernel path's: {n_leaves - len(differ)} of {n_leaves}"
+          f"{' (differ: ' + ', '.join(differ[:5]) + ')' if differ else ''}; "
+          f"routes {'equal' if same_routes else 'NOT equal'}; "
+          f"loss and gradient launches {launches}; {collectives[0]} NCCL collectives, of which {collectives[1]} FSDP "
+          f"gathers and {collectives[2]} reduce-scatters ({MESH_SECONDS[-1]:.1f} s)")
+    require(float(loss1) == loss0 and not differ, f"{V3_ARCH}: the 1 x 1 mesh step is not the no-mesh step")
+    require(launches == train_launches(cfg), f"{V3_ARCH}: mesh loss and gradient launches {launches}")
+    require(same_routes, f"{V3_ARCH}: the mesh forward routed otherwise than the no-mesh forward")
+    torch.cuda.reset_peak_memory_stats()
+    counts = mesh_trainer(V3_ARCH, cfg, meshed, pipe, seed)
+    print(f"train {V3_ARCH} phase: {time.perf_counter() - t_phase:.1f} s; the mesh trainer's peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{nvidia_smi('name,power.limit')}]")
     return counts
 
 
 def training_phases(seed: int) -> tuple:
     """The training cells (``train_phase``), those of ``MESH_ARCHS`` also on
-    the (1, 1) mesh of a single-rank NCCL group, then the spatial splits of
-    that mesh; the group is destroyed at the end. Returns each cell's main
-    path launches and the mesh trainer runs' launches, summed."""
+    the (1, 1) mesh of a single-rank NCCL group, then deepseek-v3-671b on
+    that mesh (``v3_phase``) and the spatial splits of the mesh; the group is
+    destroyed at the end. Returns each cell's main path launches
+    (deepseek-v3-671b's: its mesh trainer run) and the other mesh trainer
+    runs' launches, summed."""
     mesh = make_smoke_mesh("cuda")
     try:
         require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
@@ -2931,6 +3093,8 @@ def training_phases(seed: int) -> tuple:
             free_memory()
             if on_mesh is not None:
                 mesh_counts = {k: mesh_counts[k] + on_mesh[k] for k in KERNELS}
+        train_counts[f"{V3_ARCH} on the mesh"] = v3_phase(seed, mesh)
+        free_memory()
         t0 = time.perf_counter()
         subs = split_mesh(mesh, 1, axis="data")
         job = submesh_for_job(mesh, 0, 1, axis="data")
@@ -3541,7 +3705,8 @@ def main() -> int:
         if (name, shape[-1:]) == ("rmsnorm", (DS_KV_LORA,)):
             shape = f"{shape} of rows {DS_DKV} wide (deepseek kv_norm, read in place)"
         elif name == "flash_attention" and len(shape) == 6:
-            shape = f"(B, H, Hkv, S, Dqk, Dv) {shape} causal (deepseek, the MLA views); SDPA ran {t['library_kernels']}"
+            cell = "deepseek-v3-671b" if shape[1] == V3_H else DS_ARCH
+            shape = f"(B, H, Hkv, S, Dqk, Dv) {shape} causal ({cell}, the MLA views); SDPA ran {t['library_kernels']}"
         print(f"kernel {name} train shape {shape} bf16: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
               f"library {library}, bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
               f"{t['bound_ms'] / t['ms']:.2f} of it); its Function's plain backward {t['bwd_ms']:.4f} ms "

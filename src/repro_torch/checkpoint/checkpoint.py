@@ -108,9 +108,10 @@ def latest_checkpoint(directory: str) -> Optional[str]:
     return os.path.join(directory, ckpts[-1]) if ckpts else None
 
 
-def restore_checkpoint(path: str, like: Any) -> Tuple[Any, Dict[str, Any]]:
-    """Restore into the structure of ``like``; each leaf takes the device
-    and dtype of ``like``'s leaf."""
+def restore_checkpoint(path: str, like: Any, device=None) -> Tuple[Any, Dict[str, Any]]:
+    """Restore into the structure of ``like``; each leaf takes the dtype of
+    ``like``'s leaf and its device, or ``device`` where given (``like`` may
+    then lie on the meta device)."""
     with open(os.path.join(path, "tree.json")) as f:
         manifest = json.load(f)
     targets = leaves(like)
@@ -121,7 +122,7 @@ def restore_checkpoint(path: str, like: Any) -> Tuple[Any, Dict[str, Any]]:
     for a, t in zip(stored, targets):
         if tuple(a.shape) != tuple(t.shape):
             raise ValueError(f"checkpoint leaf shape {tuple(a.shape)} != expected {tuple(t.shape)}")
-        arrays.append(a.to(device=t.device, dtype=t.dtype))
+        arrays.append(a.to(device=device or t.device, dtype=t.dtype))
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     return unflatten(like, arrays), meta

@@ -27,8 +27,10 @@ trainer's seeded stand-in embeddings (``data/frontend.py::frontend_embeds``),
 not zeros, whose gradient overflows at depth (ROADMAP C5).
 
 A job's bundle may be one on a mesh (``make_train_bundle(cfg, mesh)``): the
-stepper feeds it the global batch as it feeds any. A checkpoint of a mesh of
-more than one rank is A9b and raises.
+stepper feeds it the global batch as it feeds any, and its epoch checkpoint
+is the no-mesh format, as the trainer's (``TrainBundle.gather_state``,
+written by the mesh's first rank; ``evict`` waits at a barrier, then every
+rank cuts its shards from it).
 """
 
 from __future__ import annotations
@@ -43,7 +45,6 @@ import torch
 from repro_torch.checkpoint.checkpoint import AsyncCheckpointer, latest_checkpoint, restore_checkpoint
 from repro_torch.data.frontend import frontend_embeds
 from repro_torch.data.pipeline import SyntheticPipeline
-from repro_torch.models.parallel import NOT_PORTED
 from repro_torch.train.steps import TrainBundle
 from repro_torch.tree import leaves
 
@@ -138,9 +139,6 @@ class TemporalStepper:
                 else:
                     job.params, job.opt_state = job.bundle.init_state(seed + i, device)
             if job.ckpt_dir:
-                mesh = getattr(job.bundle, "mesh", None)
-                if mesh is not None and mesh.size() > 1:
-                    raise NotImplementedError(f"{job.name}: a checkpoint of a {mesh.size()}-rank mesh is {NOT_PORTED}")
                 self._ckpt[job.name] = AsyncCheckpointer(job.ckpt_dir)
 
     def _make_batch(self, job: ColocatedJob) -> Dict[str, torch.Tensor]:
@@ -193,12 +191,13 @@ class TemporalStepper:
     def _on_epoch(self, job: ColocatedJob) -> None:
         """Epoch boundary: the paper's natural checkpoint (Alg. 1 line 12+)."""
         ck = self._ckpt.get(job.name)
-        if ck is not None:
-            ck.save(
-                job.step,
-                {"params": job.params, "opt": job.opt_state},
-                {"epoch": job.epoch, "name": job.name},
-            )
+        if ck is None:
+            return
+        tree = {"params": job.params, "opt": job.opt_state}
+        if isinstance(job.bundle, TrainBundle):
+            tree = job.bundle.gather_state(job.params, job.opt_state)
+        if tree is not None:
+            ck.save(job.step, tree, {"epoch": job.epoch, "name": job.name})
 
     def run(self, max_rounds: int = 10_000) -> Dict[str, Any]:
         rounds = 0
@@ -207,6 +206,9 @@ class TemporalStepper:
             rounds += 1
         for ck in self._ckpt.values():
             ck.wait()
+        for job in self.jobs:  # on a mesh no rank reads before the first has written
+            if job.name in self._ckpt and isinstance(job.bundle, TrainBundle):
+                job.bundle.barrier()
         return self.report()
 
     def evict(self, name: str) -> ColocatedJob:
@@ -217,11 +219,15 @@ class TemporalStepper:
         ck = self._ckpt.pop(name, None)
         if ck is not None:
             ck.wait()
+            trained = isinstance(job.bundle, TrainBundle)
+            if trained:
+                job.bundle.barrier()
             path = latest_checkpoint(job.ckpt_dir)
-            if path is not None:
-                state, meta = restore_checkpoint(
-                    path, {"params": job.params, "opt": job.opt_state}
-                )
+            if path is not None and trained:
+                job.params, job.opt_state, meta = job.bundle.restore(path, job.params, job.opt_state)
+                job.step = int(meta["step"])
+            elif path is not None:
+                state, meta = restore_checkpoint(path, {"params": job.params, "opt": job.opt_state})
                 job.params, job.opt_state = state["params"], state["opt"]
                 job.step = int(meta["step"])
         else:

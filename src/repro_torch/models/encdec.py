@@ -61,6 +61,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import params as pu
 from repro_torch.models.parallel import (
     Parallel,
+    gather_shards,
     global_logits,
     group_slice,
     serve_rows,
@@ -77,12 +78,12 @@ from repro_torch.models.common import (
     swiglu_def,
     token_cross_entropy,
 )
-from repro_torch.models.transformer import _layer, _unstack, remat, serve_cache_specs
+from repro_torch.models.transformer import Layout, _layer, remat, serve_cache_specs
 
 Tree = Dict[str, Any]
 
 
-class EncDecModel(nn.Module):
+class EncDecModel(Layout, nn.Module):
     """Seamless-style encoder-decoder: ``loss``, ``prefill`` and
     ``decode_step`` over an explicit parameter dict."""
 
@@ -95,6 +96,7 @@ class EncDecModel(nn.Module):
         self.batch_axes = tuple(batch_axes)
         self.par = None if mesh is None else Parallel(mesh, batch_axes)
         self.ops = ops
+        self.stacks = ("encoder", "decoder")
 
     # -- parameters ---------------------------------------------------------
 
@@ -129,14 +131,6 @@ class EncDecModel(nn.Module):
             "head": lm_head_def(cfg.d_model, cfg.padded_vocab),
         }
 
-    def init(self, seed: int = 0, device: Union[str, torch.device] = "cuda") -> Tree:
-        """The seeded tree on ``device``; on a mesh the rank's shards of it."""
-        params = pu.init_params(self.param_defs(), seed, device)
-        return params if self.mesh is None else pu.shard(params, self.param_specs(), self.mesh)
-
-    def param_specs(self) -> Tree:
-        return pu.partition_specs(self.param_defs())
-
     def cache_specs(self) -> Tree:
         baxes = self.batch_axes if len(self.batch_axes) > 1 else self.batch_axes[0]
         kv = (None, baxes, "model", None, None)
@@ -154,8 +148,10 @@ class EncDecModel(nn.Module):
 
     # -- encoder ------------------------------------------------------------
 
-    def _enc_block(self, p: Tree, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def _enc_block(self, p: Tree, x: torch.Tensor, positions: torch.Tensor,
+                   fsdp: Optional[Tree] = None) -> torch.Tensor:
         cfg, ops, par = self.cfg, self.ops, self.par
+        p = gather_shards(p, fsdp, par)
         q, k, v = attn._gqa_qkv(p["mixer"], cfg, rmsnorm(p["norm1"], x, ops=ops), positions, ops, par)
         x = x + attn._gqa_attend(p["mixer"], q, k, v, ops, par=par, causal=False)
         return x + swiglu(p["channel"], rmsnorm(p["norm2"], x, ops=ops), par)
@@ -168,17 +164,19 @@ class EncDecModel(nn.Module):
         positions = self._positions(x)
         n = self.cfg.encoder_layers
         if training:
-            block, layers = remat(self.cfg, self._enc_block), _unstack(params["encoder"], n)
+            block, (layers, dims) = remat(self.cfg, self._enc_block), self._layers(params, "encoder", n)
         else:
-            block, layers = self._enc_block, (_layer(params["encoder"], i) for i in range(n))
+            block, layers, dims = self._enc_block, (_layer(params["encoder"], i) for i in range(n)), None
         for p in layers:
-            x = block(p, x, positions)
+            x = block(p, x, positions, dims)
         return rmsnorm(params["enc_norm"], x, ops=self.ops)
 
     # -- decoder (training) ---------------------------------------------------
 
-    def _dec_block(self, p: Tree, x: torch.Tensor, positions: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    def _dec_block(self, p: Tree, x: torch.Tensor, positions: torch.Tensor, memory: torch.Tensor,
+                   fsdp: Optional[Tree] = None) -> torch.Tensor:
         cfg, ops, par = self.cfg, self.ops, self.par
+        p = gather_shards(p, fsdp, par)
         x = x + attn.gqa_forward(p["mixer"], cfg, rmsnorm(p["norm1"], x, ops=ops), positions, ops, par)
         h = rmsnorm(p["norm_x"], x, ops=ops)
         mem_kv = attn.cross_memory_kv(p["cross"], cfg, memory, par)
@@ -194,8 +192,9 @@ class EncDecModel(nn.Module):
         x = embed(params["embed"], tokens.long(), self.par)
         positions = self._positions(x)
         block = remat(self.cfg, self._dec_block)
-        for p in _unstack(params["decoder"], self.cfg.num_layers):
-            x = block(p, x, positions, memory)
+        layers, dims = self._layers(params, "decoder", self.cfg.num_layers)
+        for p in layers:
+            x = block(p, x, positions, memory, dims)
         return rmsnorm(params["final_norm"], x, ops=self.ops)
 
     def token_losses(
@@ -204,6 +203,7 @@ class EncDecModel(nn.Module):
         """(the cross-entropy of every token, (B, S) in fp32 and 0 where the
         label is -100; the labels; the auxiliary loss, 0)."""
         tokens, labels, frontend_embeds = map(self._constrain, (tokens, labels, frontend_embeds))
+        params = self._gather_top(params)
         h = self._hidden(params, tokens, frontend_embeds)
         losses = token_cross_entropy(params["head"]["w"], h, labels, self.cfg.vocab_size, par=self.par)
         return losses, labels, h.new_zeros((), dtype=torch.float32)
@@ -218,6 +218,7 @@ class EncDecModel(nn.Module):
         """(the mean next-token cross-entropy, {"ce", "aux"}), as the
         reference's ``loss`` (:155-178)."""
         tokens, labels, frontend_embeds = map(self._constrain, (tokens, labels, frontend_embeds))
+        params = self._gather_top(params)
         h = self._hidden(params, tokens, frontend_embeds)
         ce = chunked_cross_entropy(params["head"]["w"], h, labels, self.cfg.vocab_size, par=self.par)
         return ce, {"ce": ce, "aux": h.new_zeros((), dtype=torch.float32)}

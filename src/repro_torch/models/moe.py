@@ -20,7 +20,9 @@ holds the two to the same semantics on one shard
 On a mesh (``par``) ``moe_forward`` is the reference's expert-parallel
 layout. The router's probabilities and top-k are the rank's tokens' (its
 data shard's rows, replicated over ``"model"``), and the dispatch is per
-data shard, as the reference's ``shard_map``: C from the shard's tokens.
+data shard, as the reference's ``shard_map``: C from the shard's tokens
+(the data shard is the batch group's, ``("pod", "data")`` on the multi-pod
+mesh, every rank under ZeRO-3).
 The experts are sharded over ``"model"``; with the tokens replicated over
 ``"model"`` the reference's forward all-to-all is a local slice of the
 dispatch buffer (the rank's experts' rows), and its return all-to-all is a
@@ -32,7 +34,8 @@ Serving a batch that does not split over ``"data"`` (batch 1 on a data
 axis of 2) takes the reference's one-hot fallback (:166-169),
 ``moe_forward_onehot`` with ``par``: every rank holds all the tokens, and
 only the experts are split.
-``ep_wide`` (experts over both axes, used by no config) is A9b.
+``ep_wide`` (experts over both axes, used by no config; its only users are
+the reference's ``launch/perf.py`` variants) is ROADMAP A8's.
 """
 
 from __future__ import annotations

@@ -45,28 +45,56 @@ each slice's log-sum-exp. ``global_logits`` gives every rank the global
 logits. A serving batch that does not split over
 ``"data"`` is computed whole on every data rank (``splits_rows``).
 
-``collectives`` counts the collectives issued (``reset_collectives`` sets
-it to 0).
+A batch over several axes (``("pod", "data")`` on the multi-pod mesh, every
+axis under the ZeRO-3 layout) is split over the flattened group of those
+axes in JAX's major order: ``Parallel``'s ``"data"`` group is that group (a
+single batch axis's own group where only one of them has more than one
+rank), so every ``"data"`` collective below runs over the whole batch
+group. ``"model"`` is the tensor-parallel axis only where it carries no
+batch.
+
+FSDP (``gather_shards``): a leaf whose spec shards a dimension over the
+batch axes is all-gathered along it where the model uses it (each layer's
+leaves inside its remat'd block, so the recompute gathers again; the leaves
+outside the layer stacks once per loss), the leaves of one dtype in one
+collective; the backward reduce-scatters (sums) the full gradients into the
+rank's shards in one, so those leaves' gradients need no data all-reduce
+after the step. At a batch group of one rank the gather and the
+reduce-scatter are copies that run as collectives all the same (a
+single-rank NCCL group is driven by them). A gathered leaf collects its
+uses' gradients in the order the leaf itself would, so a 1 x 1 mesh still
+computes the no-mesh path's bits, as long as each leaf is gathered once
+where its gradient sums several uses (two gathers of the head, one for the
+trunk's cross-entropy and one for MTP's, would split its chunks' sum in
+two).
+
+``collectives`` counts the collectives issued, ``fsdp_gathers`` and
+``fsdp_scatters`` the FSDP gathers and gradient reduce-scatters among them
+(``reset_collectives`` sets all three to 0).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.kernels.ref import merge_decode_partials
+from repro_torch.tree import leaves, unflatten
 
-MESH_AXES = ("data", "model")
-NOT_PORTED = "not ported yet (ROADMAP A9b)"
+MESH_AXES = ("pod", "data", "model")
+NOT_PORTED = "not ported yet (ROADMAP A8)"
 
-collectives = 0
+collectives = fsdp_gathers = fsdp_scatters = 0
+# the flattened batch groups made so far, by the default group and the ranks
+_GROUPS: Dict[tuple, object] = {}
 
 
 def reset_collectives() -> None:
-    global collectives
-    collectives = 0
+    global collectives, fsdp_gathers, fsdp_scatters
+    collectives = fsdp_gathers = fsdp_scatters = 0
 
 
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -92,6 +120,24 @@ def all_to_all(out: torch.Tensor, t: torch.Tensor, group) -> None:
     dist.all_to_all_single(out, t, group=group)
 
 
+def gather_dim(t: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
+    """The ``n`` ranks' ``t`` of ``group`` joined along ``dim`` in rank order (counted)."""
+    parts = [torch.empty_like(t, memory_format=torch.contiguous_format) for _ in range(n)]
+    all_gather(parts, t.contiguous(), group)
+    return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
+    """The sum over the ``n`` ranks of ``group`` of ``t``, cut into ``n``
+    equal chunks along ``dim``: this rank's chunk (counted)."""
+    global collectives
+    collectives += 1
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
 def seq_slice(W: int, n: int, rank: int) -> Tuple[int, int]:
     """[lo, hi) of rank ``rank``'s slots of a sequence of ``W`` split over
     ``n`` ranks as JAX pads an uneven split: blocks of ``ceil(W / n)``, the
@@ -101,24 +147,84 @@ def seq_slice(W: int, n: int, rank: int) -> Tuple[int, int]:
     return lo, min(lo + block, W)
 
 
+def batch_group(mesh, batch_axes: Tuple[str, ...]) -> Tuple[int, int, object]:
+    """(ranks, this rank's index, group) of the batch split over
+    ``batch_axes``, flattened in JAX's major order (the first axis the
+    slowest: ``pod_rank * n_data + data_rank``). Where at most one of the
+    axes has more than one rank its own group serves (the first axis's at
+    one rank); otherwise every rank of the mesh makes every flattened group
+    of the mesh with ``dist.new_group``, in the same order (a sub-mesh of the
+    world each rank its own, with local synchronization), once per process."""
+    names = tuple(mesh.mesh_dim_names)
+    axes = [a for a in batch_axes if a in names]
+    if not axes:
+        return 1, 0, None
+    sizes = [mesh.size(names.index(a)) for a in axes]
+    index = 0
+    for a, n in zip(axes, sizes):
+        index = index * n + mesh.get_local_rank(a)
+    wide = [a for a, n in zip(axes, sizes) if n > 1]
+    if len(wide) <= 1:
+        return math.prod(sizes), index, mesh.get_group((wide or axes)[0])
+    dims = [names.index(a) for a in axes]
+    if dims != sorted(dims):
+        raise ValueError(f"the batch axes {tuple(batch_axes)} are not in the mesh's order {names}")
+    grid = mesh.mesh.permute([i for i in range(len(names)) if i not in dims] + dims)
+    local = mesh.size() < dist.get_world_size()
+    me, mine = dist.get_rank(), None
+    for ranks in grid.reshape(-1, math.prod(sizes)).tolist():
+        key = (dist.group.WORLD, tuple(ranks))
+        if key not in _GROUPS and (not local or me in ranks):
+            _GROUPS[key] = dist.new_group(ranks, use_local_synchronization=local)
+        if me in ranks:
+            mine = _GROUPS[key]
+            if ranks.index(me) != index:
+                raise AssertionError(f"rank {me} is {ranks.index(me)} of its batch group, {index} in JAX's order")
+    return math.prod(sizes), index, mine
+
+
 class Parallel:
-    """One rank's place on a mesh of axes ``("data", "model")`` (either may
-    be absent: size 1), the batch split over ``batch_axes`` = ``("data",)``.
-    A batch over several axes (the multi-pod mesh) is A9b."""
+    """One rank's place on a mesh of axes among ``("pod", "data", "model")``
+    (any may be absent: size 1), the batch split over ``batch_axes``: the
+    ``data_*`` attributes are the batch group's (the flattened group of the
+    batch axes, ``batch_group``), the ``model_*`` ones the tensor-parallel
+    axis's (size 1 where ``"model"`` carries the batch)."""
 
     def __init__(self, mesh, batch_axes: Tuple[str, ...] = ("data",)):
         names = tuple(mesh.mesh_dim_names)
-        if tuple(batch_axes) != ("data",) or not set(names) <= set(MESH_AXES):
-            raise NotImplementedError(f"a mesh of axes {names} with the batch over {tuple(batch_axes)} is {NOT_PORTED}")
+        batch_axes = tuple(batch_axes)
+        if not set(names) <= set(MESH_AXES) or not set(batch_axes) <= set(MESH_AXES):
+            raise ValueError(f"a mesh of axes {names} with the batch over {batch_axes}: the axes are {MESH_AXES}")
         self.mesh = mesh
-        self.model_size, self.model_rank, self.model_group = self._axis("model")
-        self.data_size, self.data_rank, self.data_group = self._axis("data")
+        self.batch_axes = batch_axes
+        self.model_size, self.model_rank, self.model_group = (
+            (1, 0, None) if "model" in batch_axes else self._axis("model"))
+        self.data_size, self.data_rank, self.data_group = batch_group(mesh, batch_axes)
 
     def _axis(self, name: str):
         names = self.mesh.mesh_dim_names
         if name not in names:
             return 1, 0, None
         return self.mesh.size(names.index(name)), self.mesh.get_local_rank(name), self.mesh.get_group(name)
+
+    def group_of(self, entry) -> Optional[Tuple[int, object]]:
+        """(ranks, group) of the axes that a spec entry shards a dimension
+        over (``"model"``, or the batch axes); None where it is not cut."""
+        axes = tuple(a for a in (entry if isinstance(entry, tuple) else (entry,)) if a is not None)
+        if not axes:
+            return None
+        if axes == ("model",) and "model" not in self.batch_axes:
+            return (self.model_size, self.model_group) if self.model_size > 1 else None
+        if axes == self.batch_axes:
+            return (self.data_size, self.data_group) if self.data_size > 1 else None
+        raise ValueError(f"a dimension sharded over {axes} with the batch over {self.batch_axes}")
+
+    def barrier(self) -> None:
+        """Every rank of the mesh waits for every other: a zero all-reduced
+        over each mesh axis in turn (no group spans a sub-mesh's ranks)."""
+        token = torch.zeros(1, device=self.mesh.device_type)
+        for name in self.mesh.mesh_dim_names:
+            dist.all_reduce(token, group=self.mesh.get_group(name))
 
     def rows(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """This rank's rows of a global batch tensor (the reference's batch
@@ -180,6 +286,60 @@ class _SumBothWays(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return all_reduce(grad.contiguous().clone(), ctx.group), None
+
+
+class _GatherShards(torch.autograd.Function):
+    """FSDP over one bucket of leaves of one dtype: each shard all-gathered
+    along its dimension over the batch group, in one collective; the full
+    gradients reduce-scattered (summed) back into the shards, in one."""
+
+    @staticmethod
+    def forward(ctx, dims, n, group, *shards):
+        global fsdp_gathers
+        ctx.dims, ctx.n, ctx.group = dims, n, group
+        ctx.shapes = [tuple(t.movedim(d, 0).shape) for t, d in zip(shards, dims)]
+        fsdp_gathers += 1
+        flat = torch.cat([t.movedim(d, 0).reshape(-1) for t, d in zip(shards, dims)])
+        every = gather_dim(flat[None], 0, n, group)  # (n, the bucket's elements)
+        out, start = [], 0
+        for d, shape in zip(dims, ctx.shapes):
+            size = math.prod(shape)
+            part = every[:, start : start + size].reshape((n * shape[0],) + shape[1:])
+            out.append(part.movedim(0, d).contiguous())
+            start += size
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        global fsdp_scatters
+        fsdp_scatters += 1
+        n = ctx.n
+        flat = torch.cat([g.movedim(d, 0).reshape(n, -1) for g, d in zip(grads, ctx.dims)], dim=1)
+        mine = reduce_scatter(flat, 0, n, ctx.group)[0]
+        out, start = [], 0
+        for d, shape in zip(ctx.dims, ctx.shapes):
+            size = math.prod(shape)
+            out.append(mine[start : start + size].reshape(shape).movedim(0, d).contiguous())
+            start += size
+        return (None, None, None) + tuple(out)
+
+
+def gather_shards(tree, dims, par: Optional[Parallel]):
+    """FSDP: ``tree`` with each leaf that ``dims`` (a tree like it of ints
+    or None; None for all) gives a dimension gathered whole along it over
+    the batch group, the leaves of one dtype in one collective
+    (``_GatherShards``); the other leaves as they are."""
+    if dims is None:
+        return tree
+    flat = leaves(tree)
+    picked = [(i, d) for i, d in enumerate(leaves(dims)) if d is not None]
+    for dtype in dict.fromkeys(flat[i].dtype for i, _ in picked):
+        bucket = [(i, d) for i, d in picked if flat[i].dtype == dtype]
+        full = _GatherShards.apply(tuple(d for _, d in bucket), par.data_size, par.data_group,
+                                   *(flat[i] for i, _ in bucket))
+        for (i, _), t in zip(bucket, full):
+            flat[i] = t
+    return unflatten(tree, flat)
 
 
 def tensor_parallel(par: Optional[Parallel]) -> bool:

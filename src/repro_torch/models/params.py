@@ -16,8 +16,11 @@ the data axes divide), ``fsdp_param_specs`` and ``strip_model_axis``. On a
 ``torch.distributed`` ``DeviceMesh`` every rank holds plain local tensors:
 ``shard`` cuts a full tree to the rank's shards, ``gather`` puts the full
 tree back together (a collective: every rank of the mesh calls it). A
-dimension sharded over several axes is cut row-major over them, the first
-axis the slowest, as the reference's meshes lay it out. A serving cache's
+dimension sharded over several axes (``("pod", "data")``, or ``("data",
+"model")`` under ZeRO-3) is cut row-major over them, the first axis the
+slowest, as the reference's meshes lay it out; ``batch_dims`` names the
+dimension of each leaf that the batch axes cut (FSDP's), ``full_shape`` the
+whole tensor's shape of a shard. A serving cache's
 sequence need not split evenly: ``local_shape`` and ``gather(...,
 shapes=)`` size and join it in JAX's padded blocks
 (``parallel.seq_slice``).
@@ -222,9 +225,10 @@ def _chunk(mesh, entry: Any) -> Tuple[int, int]:
 
 def local_shape(shape: Tuple[int, ...], spec: Spec, mesh) -> Tuple[int, ...]:
     """The shape of this rank's shard of a full tensor of ``shape``: JAX's
-    padded blocks (``seq_slice``) where a dimension does not split evenly."""
+    padded blocks (``seq_slice``) where a dimension does not split evenly (a
+    spec shorter than the shape leaves the last dimensions whole)."""
     out = []
-    for n, entry in zip(shape, spec):
+    for n, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
         index, count = _chunk(mesh, entry)
         lo, hi = seq_slice(n, count, index)
         out.append(hi - lo)
@@ -289,9 +293,28 @@ def gather(tree: Tree, specs: Tree, mesh, shapes: Tree = None) -> Tree:
             for k, v in tree.items()}
 
 
-def map_with_specs(fn, tree: Tree, specs: Tree) -> Tree:
-    """``fn(tensor, spec)`` over a tree and its spec tree."""
-    return {k: fn(v, specs[k]) if is_spec(specs[k]) else map_with_specs(fn, v, specs[k]) for k, v in tree.items()}
+def map_with_specs(fn, tree: Any, specs: Any) -> Any:
+    """``fn(tensor, spec)`` over a tree and its spec tree (nested dicts and
+    NamedTuples, as an optimizer's state)."""
+    if is_spec(specs):
+        return fn(tree, specs)
+    if isinstance(specs, dict):
+        return {k: map_with_specs(fn, v, specs[k]) for k, v in tree.items()}
+    return type(tree)(*(map_with_specs(fn, t, s) for t, s in zip(tree, specs)))
+
+
+def full_shape(shape: Tuple[int, ...], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The full tensor's shape of a shard of ``shape`` cut evenly by ``spec``
+    (a spec shorter than the shape leaves the last dimensions whole)."""
+    return tuple(n * _chunk(mesh, entry)[1] for n, entry in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
+def batch_dims(specs: Any, batch_axes: Tuple[str, ...]) -> Any:
+    """A tree like the spec tree: for each leaf the dimension its spec
+    shards over the batch axes (FSDP, ZeRO), None where none is."""
+    axes = tuple(batch_axes)
+    return map_with_specs(lambda _, spec: next((i for i, e in enumerate(spec) if _entries(e) == axes), None),
+                          specs, specs)
 
 
 def strip_batch_axes(specs: Tree, batch_axes: Tuple[str, ...]) -> Tree:
@@ -311,13 +334,14 @@ def _to_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
-def from_jax_params(tree: Tree, device: Union[str, torch.device], *, defs: Tree, mesh=None) -> Tree:
+def from_jax_params(tree: Tree, device: Union[str, torch.device], *, defs: Tree, mesh=None, specs: Tree = None) -> Tree:
     """Tensors on ``device`` from a numpy tree of the JAX package's parameters.
 
     Each array keeps its own dtype (so a float32 copy of the tree stays float32).
     Keys and shapes are checked against ``defs`` (the port's ``param_defs()``);
     a mismatch raises ``ValueError``. With a ``mesh`` the full tree is cut to
-    this rank's shards (``shard`` over ``partition_specs(defs)``).
+    this rank's shards (``shard`` over ``specs``: a bundle's ``param_specs``,
+    by default ``partition_specs(defs)``).
     """
     got = {path for path, _ in leaves_with_paths(tree)}
     want = {path for path, _ in leaves_with_paths(defs)}
@@ -333,7 +357,7 @@ def from_jax_params(tree: Tree, device: Union[str, torch.device], *, defs: Tree,
         return _to_tensor(a).to(device)
 
     full = _map(convert, defs)
-    return full if mesh is None else shard(full, partition_specs(defs), mesh)
+    return full if mesh is None else shard(full, partition_specs(defs) if specs is None else specs, mesh)
 
 
 def _get(tree: Tree, path: str) -> Any:

@@ -43,7 +43,8 @@ autograd Functions); ``ops.PLAIN`` runs the same weights through the plain
 versions.
 
 ``Model(cfg, mesh, batch_axes)`` on a ``torch.distributed`` ``DeviceMesh``
-of axes ``("data", "model")`` trains in explicit SPMD (``models/parallel.py``):
+of axes ``("data", "model")`` (or ``("pod", "data", "model")``) trains in
+explicit SPMD (``models/parallel.py``):
 ``init`` gives the rank's shards of the seeded tree (``param_specs``), and
 ``loss`` takes the global batch and keeps the rank's rows (``_constrain``, the
 reference's batch sharding over ``"data"``). Attention and Mamba-2 run on the
@@ -53,7 +54,13 @@ tensors. The MoE layers take ``moe_forward`` with the mesh, dispatching per
 data shard, as the reference's ``Model`` does on a mesh. ``loss`` returns the
 global loss; its gradient is the rank's share, which the train step sums over
 ``"data"``. ``param_specs`` and ``cache_specs`` are the reference's spec trees
-(plain tuples).
+(plain tuples). A train bundle's FSDP or ZeRO-3 layout (``Layout.use_specs``)
+shards leaves over the batch axes too: each layer's block gathers its
+layer's leaves first, and ``loss`` gathers the leaves outside the stacks
+(``embed``, ``head``, ``final_norm``, ``mtp``) once
+(``parallel.gather_shards``); the batch may span several mesh axes
+(``("pod", "data")``, or every axis under ZeRO-3, where ``"model"`` carries
+no tensor parallelism).
 
 Serving on a mesh (the reference's ``make_serve_bundle(cfg, mesh)``): every
 rank takes the global tokens and returns the global logits (its vocab
@@ -85,7 +92,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as pu
-from repro_torch.models.parallel import Parallel, global_logits, serve_rows, tensor_parallel
+from repro_torch.models.parallel import Parallel, gather_shards, global_logits, serve_rows, tensor_parallel
 from repro_torch.models.common import (
     chunked_cross_entropy,
     embed,
@@ -97,6 +104,7 @@ from repro_torch.models.common import (
     swiglu_def,
     token_cross_entropy,
 )
+from repro_torch.tree import leaves, tree_map
 
 Tree = Dict[str, Any]
 
@@ -200,7 +208,55 @@ def serve_cache_specs(model, batch: int) -> Tree:
     return pu.strip_batch_axes(specs, model.batch_axes)
 
 
-class Model(nn.Module):
+class Layout:
+    """How a model's parameters lie on its mesh: ``partition_specs`` of its
+    definitions, or a train bundle's FSDP or ZeRO-3 specs (``use_specs``),
+    whose batch-sharded leaves the model gathers where it uses them."""
+
+    specs: Optional[Tree] = None
+    fsdp: Optional[Tree] = None
+    stacks: Tuple[str, ...] = ()  # the stacked layer groups, gathered layer by layer
+
+    def use_specs(self, specs: Tree) -> None:
+        """Lay the parameters out by ``specs`` (a train bundle's FSDP or
+        ZeRO-3 spec tree) instead of ``partition_specs``: ``init`` cuts by
+        them, and a leaf that they shard over the batch axes is gathered where
+        it is used (``fsdp``, each leaf's dimension or None)."""
+        self.specs = specs
+        dims = pu.batch_dims(specs, self.batch_axes)
+        self.fsdp = dims if any(d is not None for d in leaves(dims)) else None
+
+    def _gather_top(self, params: Tree) -> Tree:
+        """``params`` with each leaf outside the stacked groups (``stacks``)
+        gathered whole, once for the whole loss (as it is without FSDP): one
+        gather node per leaf, whose gradient then sums all its uses (the
+        trunk's and MTP's cross-entropy chunks) in the order the no-mesh
+        leaf's would."""
+        if self.fsdp is None:
+            return params
+        return {k: v if k in self.stacks else gather_shards(v, self.fsdp[k], self.par) for k, v in params.items()}
+
+    def _layers(self, params: Tree, name: str, n: int):
+        """(the ``n`` layers of group ``name`` for training, each layer's FSDP
+        dimensions): a leaf sharded along its layer axis is gathered whole
+        before the ``_unstack``, the others inside each layer's block."""
+        if self.fsdp is None:
+            return _unstack(params[name], n), None
+        dims = self.fsdp[name]
+        whole = tree_map(lambda d: d if d == 0 else None, dims)
+        return _unstack(gather_shards(params[name], whole, self.par), n), tree_map(
+            lambda d: None if d in (None, 0) else d - 1, dims)
+
+    def param_specs(self) -> Tree:
+        return pu.partition_specs(self.param_defs()) if self.specs is None else self.specs
+
+    def init(self, seed: int = 0, device: Union[str, torch.device] = "cuda") -> Tree:
+        """The seeded tree on ``device``; on a mesh the rank's shards of it."""
+        params = pu.init_params(self.param_defs(), seed, device)
+        return params if self.mesh is None else pu.shard(params, self.param_specs(), self.mesh)
+
+
+class Model(Layout, nn.Module):
     """Decoder-only LM: ``loss``, ``prefill`` and ``decode_step`` over an explicit parameter dict."""
 
     def __init__(self, cfg: ArchConfig, mesh=None, batch_axes: Tuple[str, ...] = ("data",), ops=kernel_ops):
@@ -212,6 +268,7 @@ class Model(nn.Module):
         self.par = None if mesh is None else Parallel(mesh, batch_axes)
         self.ops = ops
         self.groups = _layer_groups(cfg)
+        self.stacks = tuple(name for name, _, _ in self.groups)
         self.mla = _uses_mla(cfg)
 
     # -- parameters ---------------------------------------------------------
@@ -250,14 +307,6 @@ class Model(nn.Module):
             }
         return defs
 
-    def init(self, seed: int = 0, device: Union[str, torch.device] = "cuda") -> Tree:
-        """The seeded tree on ``device``; on a mesh the rank's shards of it."""
-        params = pu.init_params(self.param_defs(), seed, device)
-        return params if self.mesh is None else pu.shard(params, self.param_specs(), self.mesh)
-
-    def param_specs(self) -> Tree:
-        return pu.partition_specs(self.param_defs())
-
     def cache_specs(self) -> Tree:
         """The serving cache's specs, per group, with the leading layer axis."""
         cfg = self.cfg
@@ -286,10 +335,12 @@ class Model(nn.Module):
     # -- training -----------------------------------------------------------
 
     def _block_forward(
-        self, spec: LayerSpec, p: Tree, x: torch.Tensor, positions: torch.Tensor
+        self, spec: LayerSpec, p: Tree, x: torch.Tensor, positions: torch.Tensor, fsdp: Optional[Tree] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One layer over the full sequence, without a cache: (x, the layer's
-        aux loss, 0 but for an MoE layer)."""
+        aux loss, 0 but for an MoE layer); ``fsdp``, the layer's FSDP
+        dimensions, gathers its weights first."""
+        p = gather_shards(p, fsdp, self.par)
         h = rmsnorm(p["norm1"], x, ops=self.ops)
         if spec.mixer == "ssm":
             h = mb.mamba_forward(p["mixer"], self.cfg, h, ops=self.ops, par=self.par)
@@ -328,9 +379,10 @@ class Model(nn.Module):
         block = remat(self.cfg, self._block_forward)
         total = x.new_zeros((), dtype=torch.float32)
         for name, n, layers in self.groups:
-            for p in _unstack(params[name], n):
+            stacked, dims = self._layers(params, name, n)
+            for p in stacked:
                 for j, spec in enumerate(layers):
-                    x, aux = block(spec, p[f"l{j}"], x, positions)
+                    x, aux = block(spec, p[f"l{j}"], x, positions, None if dims is None else dims[f"l{j}"])
                     total = total + aux
         return x, total
 
@@ -367,6 +419,7 @@ class Model(nn.Module):
         """(the next-token cross-entropy of every token, (B, S) in fp32 and 0
         where no label counts; the labels with the frontend's positions set to
         -100; the auxiliary loss)."""
+        params = self._gather_top(params)
         h, labels, aux, _ = self._trunk(params, tokens, labels, frontend_embeds)
         losses = token_cross_entropy(self._head_weight(params), h, labels, self.cfg.vocab_size, par=self.par)
         return losses, labels, aux
@@ -383,6 +436,7 @@ class Model(nn.Module):
         ``router_aux_weight`` x aux for an MoE config and ``MTP_LOSS_WEIGHT``
         x the MTP cross-entropy, as the reference's ``loss`` (:254-277)."""
         cfg = self.cfg
+        params = self._gather_top(params)
         h, labels, aux, positions = self._trunk(params, tokens, labels, frontend_embeds)
         ce = chunked_cross_entropy(self._head_weight(params), h, labels, cfg.vocab_size, par=self.par)
         metrics = {"ce": ce, "aux": aux}

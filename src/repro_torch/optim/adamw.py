@@ -18,23 +18,30 @@ in the reference. Unlike the reference, whose arrays are immutable,
 reference's donated buffers amount to) and returns them.
 
 ``state_specs`` gives the state's spec tree, as the reference's: AdamW's
-``m`` and ``v`` take the ZeRO specs (sharded over ``"data"``), Adafactor's
-accumulators the parameters' specs less the reduced axis. On a mesh
-``AdamW.update`` takes each leaf's ZeRO dimension: each rank updates its
-slice of the leaf and the slices are all-gathered over ``"data"``.
-``clip_by_global_norm`` takes the global norm from its caller where the
-leaves are shards (a model-sharded leaf's squares summed over the ranks).
+``m`` and ``v`` take the ZeRO specs (sharded over the batch axes),
+Adafactor's accumulators the parameters' specs less the reduced axis. On a
+mesh ``AdamW.update`` takes each leaf's ZeRO dimension: each rank updates
+its slice of the leaf and the slices are all-gathered over the batch axes.
+``Adafactor.update`` takes the groups that shard each dimension of each
+leaf: a mean over a sharded dimension is a sum all-reduced over its group
+divided by the full length, and the update clip's RMS sums the squares over
+every group that shards the leaf. A 1-D leaf's ``vr`` is whole on every
+rank (its spec is ``()``, as the reference's), so a sharded 1-D leaf's
+gradient is gathered whole for it. ``clip_by_global_norm`` takes the global
+norm from its caller where the leaves are shards.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.models.parallel import all_gather
+from repro_torch.models.parallel import all_gather, all_reduce, gather_dim
 from repro_torch.tree import leaves, tree_map
 
 
@@ -90,25 +97,29 @@ class AdamW:
     @torch.no_grad()
     def update(
         self, grads: Any, state: AdamWState, params: Any, lr: Union[float, torch.Tensor],
-        zero_dims: Optional[List[Optional[int]]] = None, par: Any = None,
+        zero_dims: Optional[List[Optional[int]]] = None, par: Any = None, sliced: Optional[List[bool]] = None,
     ) -> Tuple[Any, AdamWState]:
         """One step, in place. On a mesh ``par`` is the rank's place on it
         (``models/parallel.py``) and ``zero_dims`` gives each leaf the
-        dimension its ZeRO spec shards over ``"data"`` (None: replicated):
-        ``m`` and ``v`` are the rank's slices, the rank updates its slice of
-        the parameter and the slices are all-gathered over ``"data"``. At a
-        data axis of 1 a slice is the whole leaf."""
+        dimension its ZeRO spec adds over the batch axes (None: the
+        parameter is its own slice, or replicated): ``m`` and ``v`` are the
+        rank's slices, the rank updates its slice of the parameter and the
+        slices are all-gathered over the batch axes. ``sliced`` flags the
+        gradients that are that slice already (ZeRO-2's accumulator). At a
+        batch group of one rank a slice is the whole leaf."""
         c = self.cfg
         step = state.step + 1
         bc1 = 1.0 - c.b1 ** step.float()
         bc2 = 1.0 - c.b2 ** step.float()
-        sliced = zero_dims is not None and par.data_size > 1
-        dims = zero_dims if sliced else itertools.repeat(None)
-        for p, g, m, v, dim in zip(leaves(params), leaves(grads), leaves(state.m), leaves(state.v), dims):
+        cut = zero_dims is not None and par.data_size > 1
+        dims = zero_dims if cut else itertools.repeat(None)
+        for p, g, m, v, dim, ready in zip(leaves(params), leaves(grads), leaves(state.m), leaves(state.v), dims,
+                                          sliced or itertools.repeat(False)):
             mine = p
             if dim is not None:
                 n = p.shape[dim] // par.data_size
-                mine, g = p.narrow(dim, par.data_rank * n, n), g.narrow(dim, par.data_rank * n, n)
+                mine = p.narrow(dim, par.data_rank * n, n)
+                g = g if ready else g.narrow(dim, par.data_rank * n, n)
             g = g.float()
             m.mul_(c.b1).add_((1 - c.b1) * g)
             v.mul_(c.b2).add_((1 - c.b2) * g.square())
@@ -151,30 +162,64 @@ class Adafactor:
 
     @torch.no_grad()
     def update(
-        self, grads: Any, state: AdafactorState, params: Any, lr: Union[float, torch.Tensor]
+        self, grads: Any, state: AdafactorState, params: Any, lr: Union[float, torch.Tensor],
+        dim_groups: Optional[List[List[Optional[tuple]]]] = None,
     ) -> Tuple[Any, AdafactorState]:
+        """One step, in place. On a mesh ``dim_groups`` gives, for each leaf
+        and each of its dimensions, the (ranks, group) that shards it (None:
+        whole, or cut over one rank; ``Parallel.group_of``); the leaves, their
+        gradients and the accumulators are the rank's shards."""
         c = self.cfg
         step = state.step + 1
         beta = 1.0 - (step.float() + 1.0) ** (-c.decay_rate)
-        for p, g, vr, vc in zip(leaves(params), leaves(grads), leaves(state.vr), leaves(state.vc)):
+        groups = dim_groups or itertools.repeat(None)
+        for p, g, vr, vc, cut in zip(leaves(params), leaves(grads), leaves(state.vr), leaves(state.vc), groups):
+            cut = cut or [None] * p.ndim
             g = g.float()
+            if p.ndim == 1 and cut[0] is not None:  # vr is whole: so is the gradient it takes
+                n, group = cut[0]
+                g, mine = gather_dim(g, 0, n, group), g.shape[0] * dist.get_rank(group)
+                cut = [None]
             g2 = g.square() + 1e-30
             if p.ndim >= 2:
-                vr.mul_(beta).add_((1 - beta) * g2.mean(dim=-1))
-                vc.mul_(beta).add_((1 - beta) * g2.mean(dim=-2))
-                rfac = torch.rsqrt(vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=1e-30))
+                vr.mul_(beta).add_((1 - beta) * _mean(g2, -1, cut[-1]))
+                vc.mul_(beta).add_((1 - beta) * _mean(g2, -2, cut[-2]))
+                rfac = torch.rsqrt(vr / torch.clamp(_mean(vr, -1, cut[-2], keepdim=True), min=1e-30))
                 delta = g * rfac[..., None] * torch.rsqrt(vc)[..., None, :]
             else:
                 vr.mul_(beta).add_((1 - beta) * g2)
                 delta = g * torch.rsqrt(vr)
             # update clipping: RMS(delta) <= clip_threshold over the whole stacked leaf
-            rms = torch.sqrt(delta.square().mean() + 1e-30)
+            rms = torch.sqrt(_mean_all(delta.square(), cut) + 1e-30)
             delta = delta / torch.clamp(rms / c.clip_threshold, min=1.0)
+            if delta.shape != p.shape:  # a gathered 1-D leaf: the rank's part
+                delta = delta.narrow(0, mine, p.shape[0])
             pf = p.float()
             if p.ndim >= 2:
                 delta = delta + c.weight_decay * pf
             p.copy_(pf - lr * delta)  # rounded to the parameter's dtype
         return params, AdafactorState(step=step, vr=state.vr, vc=state.vc)
+
+
+def _mean(t: torch.Tensor, dim: int, cut: Optional[tuple], keepdim: bool = False) -> torch.Tensor:
+    """The mean over ``dim`` of the full tensor of which ``t`` is a shard,
+    ``cut`` the (ranks, group) that shards ``dim`` (None: ``t`` holds it whole)."""
+    if cut is None:
+        return t.mean(dim=dim, keepdim=keepdim)
+    n, group = cut
+    return all_reduce(t.sum(dim=dim, keepdim=keepdim), group) / (t.shape[dim] * n)
+
+
+def _mean_all(t: torch.Tensor, cuts: List[Optional[tuple]]) -> torch.Tensor:
+    """The mean of every element of the full tensor of which ``t`` is a
+    shard, ``cuts`` each dimension's (ranks, group) or None."""
+    cuts = [x for x in cuts if x is not None]
+    if not cuts:
+        return t.mean()
+    total = t.sum()
+    for n, group in cuts:
+        all_reduce(total, group)
+    return total / (t.numel() * math.prod(n for n, _ in cuts))
 
 
 def _map_specs(fn: Callable, specs: Any) -> Any:

@@ -17,20 +17,38 @@ deepseek-v3-671b), and the metrics carry the loss's ``ce`` and ``aux`` (and
 ``zero2_grads`` change nothing, as in the reference.
 
 On a ``torch.distributed`` ``DeviceMesh`` (``launch/mesh.py``) the train
-step is the reference's megatron layout in explicit SPMD: every rank holds
-its shards of the parameters (``param_specs``; ``init_state`` draws the full
-tree from the seed and cuts it, so the values are the no-mesh path's) and
-takes the *global* batch, of which the model keeps the rank's rows. The
-ranks' shares of the gradient are summed over ``"data"``; the clip's global
-norm counts a model-sharded leaf's squares across ``"model"`` and a
-replicated leaf once. AdamW's ``m`` and ``v`` are the rank's ZeRO slices over
-``"data"`` (``opt_specs``): in ``AdamW.update`` each rank updates its slice of
-each parameter and the slices are all-gathered over ``"data"`` (at a data
-axis of 1 a slice is the whole leaf, and nothing is gathered). Adafactor
-keeps its state whole on each rank (a model axis of 1). What stays unported
-on a mesh raises ``NotImplementedError`` naming ROADMAP A9b:
-``layout="zero3"``, ``zero2_grads``, ``cfg.fsdp``, ``ep_wide`` and Adafactor
-on a model axis larger than 1.
+step is one of the reference's three layouts in explicit SPMD. Every rank
+holds its shards of the parameters (``param_specs``; ``init_state`` draws
+the full tree from the seed and cuts it, so the values are the no-mesh
+path's) and takes the *global* batch, of which the model keeps the rank's
+rows (the batch split over the flattened group of ``batch_axes``,
+``models/parallel.py``).
+
+* ``"megatron"``: tensor parallelism over ``"model"``; the ranks' shares of
+  the gradient summed over the batch axes. AdamW's ``m`` and ``v`` are the
+  rank's ZeRO slices over the batch axes (``opt_specs``): in
+  ``AdamW.update`` each rank updates its slice of each parameter and the
+  slices are all-gathered.
+* ``cfg.fsdp`` (jamba-1.5-large-398b, deepseek-v3-671b): the megatron specs
+  with the largest free dimension that the batch axes divide sharded over
+  them too (``fsdp_param_specs``). The model gathers such a leaf where it
+  uses it and reduce-scatters its gradient (``parallel.gather_shards``), so
+  only the leaves that no dimension shards keep the all-reduce. The
+  optimizer's state is the shard's.
+* ``layout="zero3"``: the batch over every mesh axis, no tensor
+  parallelism (``strip_model_axis``), FSDP over all the ranks.
+
+``zero2_grads`` with ``microbatches > 1`` reduce-scatters each microbatch's
+gradient into the rank's ZeRO slice and accumulates the slices in fp32 (the
+reference's ``shard_acc``); AdamW updates from the slices. Where the
+parameters are already sharded over the batch axes (FSDP, ZeRO-3) the ZeRO
+slice is the shard, and ``zero2_grads`` changes nothing, as in the
+reference. The clip's global norm sums a leaf's squares over every axis
+that shards it (``mesh_global_norm``). Adafactor's ``vr`` and ``vc`` take
+the reference's ``state_specs`` of the parameter specs; its means and its
+update clip sum over the axes that shard what they reduce. A checkpoint
+(``gather_state``, ``restore``) is written and read in the no-mesh format.
+``ep_wide`` on a mesh raises ``NotImplementedError`` naming ROADMAP A8.
 
 The serve bundle on a mesh is the reference's ``make_serve_bundle(cfg,
 mesh)``: the megatron weights, the batch over ``"data"``, the attention
@@ -50,8 +68,9 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import params as pu
 from repro_torch.models.factory import build_model
 from repro_torch.models.transformer import serve_cache_specs
-from repro_torch.models.parallel import NOT_PORTED, all_reduce, tensor_parallel
-from repro_torch.optim.adamw import AdamW, AdamWState, OptimizerConfig, clip_by_global_norm, make_optimizer
+from repro_torch.checkpoint.checkpoint import restore_checkpoint
+from repro_torch.models.parallel import NOT_PORTED, all_reduce, gather_dim, reduce_scatter
+from repro_torch.optim.adamw import AdamW, OptimizerConfig, clip_by_global_norm, make_optimizer
 from repro_torch.optim.schedules import cosine_with_warmup
 from repro_torch.tree import leaves, tree_map, unflatten
 
@@ -66,8 +85,8 @@ class TrainBundle:
     step_fn: Callable  # (params, opt_state, batch) -> (params, opt_state, metrics)
     grads_fn: Optional[Callable] = None  # (params, batch) -> (loss, metrics, the gradient step_fn clips and applies)
     mesh: Any = None
-    param_specs: Any = None  # on a mesh: the parameters' spec tree
-    opt_specs: Any = None  # on a mesh: the optimizer state's (ZeRO specs for AdamW's m and v)
+    param_specs: Any = None  # on a mesh: the parameters' spec tree (the reference's param_shardings)
+    opt_specs: Any = None  # on a mesh: the optimizer state's (opt_shardings)
     batch_axes: Tuple[str, ...] = ("data",)
 
     def init_state(self, seed: int = 0, device: Union[str, torch.device] = "cuda"):
@@ -77,20 +96,51 @@ class TrainBundle:
         return params, self.init_opt(params)
 
     def init_opt(self, params):
-        """The optimizer's fresh state for ``params``: on a mesh AdamW's ``m``
-        and ``v`` are the rank's ZeRO slices of its shards."""
-        opt_state = self.optimizer.init(params)
-        if self.mesh is not None and isinstance(opt_state, AdamWState):
-            cut = lambda t, spec: pu.shard_tensor(t, _data_only(spec), self.mesh)  # noqa: E731
-            opt_state = AdamWState(opt_state.step, pu.map_with_specs(cut, opt_state.m, self.opt_specs.m),
-                                   pu.map_with_specs(cut, opt_state.v, self.opt_specs.v))
-        return opt_state
+        """The optimizer's fresh state for ``params``: on a mesh the rank's
+        shards, by ``opt_specs``, of the state of the full parameters
+        (AdamW's ZeRO slices, Adafactor's accumulators)."""
+        if self.mesh is None:
+            return self.optimizer.init(params)
+        device = leaves(params)[0].device
+        full = self.optimizer.init(self.full_like(params, self.param_specs))
+        return pu.map_with_specs(lambda t, spec: torch.zeros(pu.local_shape(t.shape, spec, self.mesh),
+                                                             dtype=t.dtype, device=device), full, self.opt_specs)
 
+    def full_like(self, tree, specs):
+        """Tensors on the meta device in the full shapes of ``tree``'s shards
+        (cut by the spec tree ``specs``)."""
+        return pu.map_with_specs(lambda t, spec: torch.empty(pu.full_shape(t.shape, spec, self.mesh), dtype=t.dtype,
+                                                             device="meta"), tree, specs)
 
-def _data_only(spec: pu.Spec) -> pu.Spec:
-    """A ZeRO spec's ``"data"`` entries alone: what cuts a rank's (already
-    model-sharded) parameter into its ZeRO slice."""
-    return tuple(e if e == "data" else None for e in spec)
+    def gather_state(self, params, opt_state):
+        """``{"params", "opt"}`` whole, as a no-mesh run holds them (what a
+        checkpoint writes). On a mesh every rank must call it (the shards are
+        gathered from all); the mesh's first rank gets the tree, the others
+        None."""
+        tree = {"params": params, "opt": opt_state}
+        if self.mesh is None:
+            return tree
+        whole = pu.gather(tree, {"params": self.param_specs, "opt": self.opt_specs}, self.mesh)
+        return whole if int(self.mesh.mesh.flatten()[0]) == torch.distributed.get_rank() else None
+
+    def restore(self, path: str, params, opt_state):
+        """(params, opt_state, meta) from the checkpoint at ``path``, which
+        holds the whole tree (the no-mesh format, from a mesh of any shape):
+        on a mesh each rank reads it and cuts its shards."""
+        like = {"params": params, "opt": opt_state}
+        if self.mesh is None:
+            state, meta = restore_checkpoint(path, like)
+        else:
+            specs = {"params": self.param_specs, "opt": self.opt_specs}
+            state, meta = restore_checkpoint(path, self.full_like(like, specs), device=leaves(params)[0].device)
+            state = pu.shard(state, specs, self.mesh)
+        return state["params"], state["opt"], meta
+
+    def barrier(self) -> None:
+        """On a mesh every rank waits for every other (before any reads what
+        the first wrote); nothing without one."""
+        if self.model.par is not None:
+            self.model.par.barrier()
 
 
 def loss_of(model, params, batch: Batch):
@@ -111,18 +161,18 @@ def loss_and_grads(model, params, batch: Batch) -> Tuple[torch.Tensor, Dict[str,
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, unflatten(params, grads)
 
 
-def _refuse_on_mesh(cfg: ArchConfig, model, opt_cfg: OptimizerConfig, layout: str, zero2_grads: bool) -> None:
-    par = model.par
-    unported = {
-        f"layout={layout!r}": layout != "megatron",
-        "zero2_grads": zero2_grads,
-        f"{cfg.name}: fsdp": cfg.fsdp,
-        f"{cfg.name}: ep_wide": cfg.moe is not None and cfg.moe.ep_wide,
-        f"Adafactor on a model axis of {par.model_size}": opt_cfg.name == "adafactor" and tensor_parallel(par),
-    }
-    for what, present in unported.items():
-        if present:
-            raise NotImplementedError(f"{what} on a mesh is {NOT_PORTED}")
+LAYOUTS = ("megatron", "zero3")
+
+
+def layout_specs(model, layout: str, fsdp: bool) -> Tuple[Any, Any]:
+    """(the parameters' spec tree, the ZeRO specs of the optimizer's state)
+    of a model on its mesh, as the reference's ``make_train_bundle`` makes
+    them (``train/steps.py:80-105``)."""
+    defs, axes, n = model.param_defs(), model.batch_axes, model.par.data_size
+    if layout == "zero3":
+        defs = pu.strip_model_axis(defs)
+    specs = pu.fsdp_param_specs(defs, axes, n) if fsdp or layout == "zero3" else pu.partition_specs(defs)
+    return specs, pu.zero_specs(defs, axes, n)
 
 
 def make_train_bundle(
@@ -138,23 +188,36 @@ def make_train_bundle(
     ops=kernel_ops,
 ) -> TrainBundle:
     """The train step, on one device or on ``mesh`` (a ``DeviceMesh`` of axes
-    ``("data", "model")``). ``microbatches > 1`` accumulates the gradients of
-    equal slices of the batch in fp32, as the reference does.
-    ``ops=kernels.ops.PLAIN`` runs the plain versions instead of the kernels
-    (the reference run on the card)."""
+    among ``("pod", "data", "model")``), with the reference's signature.
+    ``microbatches > 1`` accumulates the gradients of equal slices of the
+    batch in fp32, as the reference does. ``ops=kernels.ops.PLAIN`` runs the
+    plain versions instead of the kernels (the reference run on the card)."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: one of {LAYOUTS}")
+    if mesh is not None and layout == "zero3":
+        batch_axes = tuple(mesh.mesh_dim_names)  # pure data parallelism over every axis
+    if mesh is not None and cfg.moe is not None and cfg.moe.ep_wide:
+        raise NotImplementedError(f"{cfg.name}: ep_wide on a mesh is {NOT_PORTED}")
     model = build_model(cfg, mesh, batch_axes, ops=ops)
     opt_cfg = opt_cfg or OptimizerConfig(name=cfg.optimizer)
     optimizer = make_optimizer(opt_cfg)
     lr_schedule = lr_schedule or cosine_with_warmup(3e-4, 100, 10_000)
-    par, zero_dims = model.par, None
+    par = model.par
+    zero2 = zero2_grads and microbatches > 1 and par is not None
     if par is not None:
-        _refuse_on_mesh(cfg, model, opt_cfg, layout, zero2_grads)
-        defs = model.param_defs()
-        param_specs = pu.partition_specs(defs)
-        opt_specs = optimizer.state_specs(param_specs, pu.zero_specs(defs, model.batch_axes, par.data_size))
-        sharded = [any(e == "model" for e in spec) for _, spec in pu.spec_leaves(param_specs)]
-        zero_dims = ([_zero_dim(spec) for _, spec in pu.spec_leaves(opt_specs.m)]
-                     if isinstance(optimizer, AdamW) else None)
+        param_specs, zspecs = layout_specs(model, layout, cfg.fsdp)
+        model.use_specs(param_specs)
+        opt_specs = optimizer.state_specs(param_specs, zspecs)
+        specs = [spec for _, spec in pu.spec_leaves(param_specs)]
+        # FSDP leaves: their gradient comes reduce-scattered out of the model
+        fsdp = [d is not None for d in leaves(pu.batch_dims(param_specs, model.batch_axes))]
+        # the dimension each ZeRO spec adds over the batch axes (None: the
+        # parameter is its own slice already, or stays replicated)
+        zero_dims = [next((i for i, (z, p) in enumerate(zip(zs, ps)) if z != p), None)
+                     for (_, zs), ps in zip(pu.spec_leaves(zspecs), specs)]
+        sliced = [zero2 and d is not None for d in zero_dims]
+        norm_axes = [shard_axes(spec, model.batch_axes) + ("data",) * cut for spec, cut in zip(specs, sliced)]
+        dim_groups = [[par.group_of(e) for e in spec] for spec in specs]
 
     def accumulate(params, batch: Batch):
         rows = batch["tokens"].shape[0]
@@ -166,6 +229,9 @@ def make_train_bundle(
             mb = {k: v[i * n : (i + 1) * n] for k, v in batch.items()}
             mb_loss, mb_metrics, g = loss_and_grads(model, params, mb)
             g = tree_map(lambda t: t.float(), g)
+            if zero2:  # ZeRO-2: this microbatch's gradient summed into the rank's slices
+                g = unflatten(g, [zero2_slice(t, d, par) if cut else t
+                                  for t, d, cut in zip(leaves(g), zero_dims, sliced)])
             grads = g if grads is None else tree_map(torch.Tensor.add_, grads, g)
             loss = loss + mb_loss
             metrics = {k: metrics.get(k, 0.0) + v for k, v in mb_metrics.items()}
@@ -176,25 +242,33 @@ def make_train_bundle(
     def grads_fn(params, batch: Batch):
         """(loss, metrics, gradient) of one batch: accumulated over the
         microbatches; on a mesh the rank's shards of the full gradient, the
-        ranks' shares summed over ``"data"``."""
+        ranks' shares summed over the batch axes (reduce-scattered for an
+        FSDP leaf, and with ZeRO-2 into each leaf's ZeRO slice; all-reduced
+        for the rest)."""
         if microbatches > 1:
             loss, metrics, grads = accumulate(params, batch)
         else:
             loss, metrics, grads = loss_and_grads(model, params, batch)
         if par is not None and par.data_group is not None:
-            for g in leaves(grads):
-                all_reduce(g, par.data_group)
+            for g, reduced, cut in zip(leaves(grads), fsdp, sliced):
+                if not (reduced or cut):
+                    all_reduce(g, par.data_group)
         return loss, metrics, grads
 
     def train_step(params, opt_state, batch: Batch):
         loss, metrics, grads = grads_fn(params, batch)
-        norm_fn = None if par is None else (lambda g: mesh_global_norm(g, sharded, par))
+        norm_fn = None if par is None else (lambda g: mesh_global_norm(g, norm_axes, par))
         grads, gnorm = clip_by_global_norm(grads, grad_clip, norm_fn)
         lr = lr_schedule(opt_state.step)
-        if zero_dims is not None:
-            params, opt_state = optimizer.update(grads, opt_state, params, lr, zero_dims, par)
-        else:
+        if par is None:
             params, opt_state = optimizer.update(grads, opt_state, params, lr)
+        elif isinstance(optimizer, AdamW):
+            params, opt_state = optimizer.update(grads, opt_state, params, lr, zero_dims, par, sliced)
+        else:
+            if zero2:  # the factored moments take the slices whole again
+                grads = unflatten(grads, [gather_dim(g, d, par.data_size, par.data_group) if cut else g
+                                          for g, d, cut in zip(leaves(grads), zero_dims, sliced)])
+            params, opt_state = optimizer.update(grads, opt_state, params, lr, dim_groups)
         out_metrics = {
             "loss": loss.float(),
             "grad_norm": gnorm,
@@ -208,23 +282,34 @@ def make_train_bundle(
     return TrainBundle(cfg, model, optimizer, train_step, grads_fn, mesh, param_specs, opt_specs, model.batch_axes)
 
 
+def zero2_slice(g: torch.Tensor, dim: int, par) -> torch.Tensor:
+    """ZeRO-2: one microbatch's gradient (the rank's share) summed over the
+    batch axes into the rank's slice along its ZeRO dimension ``dim``."""
+    return reduce_scatter(g, dim, par.data_size, par.data_group)
+
+
+def shard_axes(spec: pu.Spec, batch_axes: Tuple[str, ...]) -> Tuple[str, ...]:
+    """Which of ``Parallel``'s groups, ``"model"`` and ``"data"`` (the batch
+    axes), shard a leaf of ``spec``."""
+    entries = [e if isinstance(e, tuple) else (e,) for e in spec]
+    model = ("model",) in entries and "model" not in batch_axes
+    return ("model",) * model + ("data",) * (tuple(batch_axes) in entries)
+
+
 def mesh_global_norm(grads, sharded, par) -> torch.Tensor:
     """The global norm of the full gradient from a rank's shards: the squares
-    of a leaf that ``sharded`` flags (a model-sharded leaf) summed over
-    ``"model"``, a replicated leaf's counted once; summed over the leaves in
-    order, as ``global_norm`` sums them."""
+    of a leaf summed over each group that ``sharded`` names for it
+    (``shard_axes``: ``"model"``, ``"data"``), a replicated leaf's counted
+    once; summed over the leaves in order, as ``global_norm`` sums them. A
+    group of one rank sums nothing."""
     squares = [g.float().square().sum() for g in leaves(grads)]
-    picked = [i for i, s in enumerate(sharded) if s]
-    if tensor_parallel(par) and picked:
-        summed = all_reduce(torch.stack([squares[i] for i in picked]), par.model_group)
-        for j, i in enumerate(picked):
-            squares[i] = summed[j]
+    for axis, size, group in (("model", par.model_size, par.model_group), ("data", par.data_size, par.data_group)):
+        picked = [i for i, s in enumerate(sharded) if axis in s]
+        if size > 1 and picked:
+            summed = all_reduce(torch.stack([squares[i] for i in picked]), group)
+            for j, i in enumerate(picked):
+                squares[i] = summed[j]
     return torch.sqrt(sum(squares))
-
-
-def _zero_dim(spec: pu.Spec) -> Optional[int]:
-    """The dimension a ZeRO spec shards over ``"data"`` (None: replicated)."""
-    return next((i for i, e in enumerate(spec) if e == "data"), None)
 
 
 @dataclasses.dataclass
@@ -271,8 +356,8 @@ def make_serve_bundle(
     cache_shapes)`` puts the whole cache together). An FSDP config
     (jamba-1.5-large-398b, deepseek-v3-671b) serves with the megatron
     weights: the reference's bundle shards them over the data axes too and
-    gathers them in the step, which changes no number (FSDP is A9b, ROADMAP
-    C4). ``ep_wide`` raises ``NotImplementedError`` naming A9b."""
+    gathers them in the step, which changes no number (ROADMAP C4).
+    ``ep_wide`` raises ``NotImplementedError`` naming A8."""
     if mesh is not None and cfg.moe is not None and cfg.moe.ep_wide:
         raise NotImplementedError(f"{cfg.name}: serving ep_wide on a mesh is {NOT_PORTED}")
     model = build_model(cfg, mesh, batch_axes, ops=ops)

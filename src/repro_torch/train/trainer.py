@@ -20,8 +20,12 @@ A step's time is taken on the host clock and ends when the host reads the
 step's loss, which waits for the card.
 
 A bundle on a mesh (``make_train_bundle(cfg, mesh)``) trains unchanged: every
-rank feeds the global batch, of which the model keeps the rank's rows. A
-checkpoint of a mesh of more than one rank is A9b and raises.
+rank feeds the global batch, of which the model keeps the rank's rows. Its
+checkpoint is the no-mesh format (``TrainBundle.gather_state``): every rank
+takes part in gathering the state whole, the mesh's first rank writes it,
+and every rank waits at a barrier before any reads one; a restore cuts each
+rank's shards from the whole tree, so a run may resume on a mesh of another
+shape, or on none (the reference's reshard on restore).
 """
 
 from __future__ import annotations
@@ -34,10 +38,9 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.checkpoint import AsyncCheckpointer, latest_checkpoint, restore_checkpoint
+from repro_torch.checkpoint.checkpoint import AsyncCheckpointer, latest_checkpoint
 from repro_torch.data.frontend import frontend_embeds
 from repro_torch.data.pipeline import SyntheticPipeline
-from repro_torch.models.parallel import NOT_PORTED
 from repro_torch.train.steps import TrainBundle
 from repro_torch.tree import leaves
 
@@ -63,9 +66,6 @@ class Trainer:
         cfg: TrainerConfig,
         on_straggler: Optional[Callable[[int, float, float], None]] = None,
     ):
-        mesh = getattr(bundle, "mesh", None)
-        if cfg.ckpt_dir and mesh is not None and mesh.size() > 1:
-            raise NotImplementedError(f"a checkpoint of a {mesh.size()}-rank mesh is {NOT_PORTED}")
         self.bundle = bundle
         self.pipeline = pipeline
         self.cfg = cfg
@@ -86,13 +86,19 @@ class Trainer:
         """Fresh init on ``device``, or resume from the latest checkpoint if one exists."""
         self.params, self.opt_state = self.bundle.init_state(seed, device)
         if self.cfg.ckpt_dir:
+            self.bundle.barrier()
             path = latest_checkpoint(self.cfg.ckpt_dir)
             if path is not None:
-                state, meta = restore_checkpoint(path, {"params": self.params, "opt": self.opt_state})
-                self.params, self.opt_state = state["params"], state["opt"]
+                self.params, self.opt_state, meta = self.bundle.restore(path, self.params, self.opt_state)
                 self.step = int(meta["step"])
                 return f"restored step {self.step} from {path}"
         return "fresh init"
+
+    def _save(self) -> None:
+        """A checkpoint of this step (written by the mesh's first rank)."""
+        tree = self.bundle.gather_state(self.params, self.opt_state)
+        if tree is not None:
+            self.ckpt.save(self.step, tree, {"epoch": self.step // self.cfg.steps_per_epoch})
 
     def _batch(self, step: int) -> Dict[str, torch.Tensor]:
         tokens, labels = self.pipeline.batch_at(step)
@@ -125,12 +131,11 @@ class Trainer:
                 self._rollback()
                 continue
             if self.ckpt and (self.step % c.ckpt_every_steps == 0 or self.step % c.steps_per_epoch == 0):
-                self.ckpt.save(self.step, {"params": self.params, "opt": self.opt_state},
-                               {"epoch": self.step // c.steps_per_epoch})
+                self._save()
         if self.ckpt:
-            self.ckpt.save(self.step, {"params": self.params, "opt": self.opt_state},
-                           {"epoch": self.step // c.steps_per_epoch})
+            self._save()
             self.ckpt.wait()
+            self.bundle.barrier()
         return self.report()
 
     def _track(self, dt: float, loss: float) -> None:
@@ -153,13 +158,15 @@ class Trainer:
         self.rollbacks += 1
         if not self.cfg.ckpt_dir:
             return
+        if self.ckpt and self.bundle.mesh is not None:
+            self.ckpt.wait()  # on a mesh every rank lists what the first has written
+        self.bundle.barrier()
         path = latest_checkpoint(self.cfg.ckpt_dir)
         if path is None:
             return
         if self.ckpt:
             self.ckpt.wait()
-        state, meta = restore_checkpoint(path, {"params": self.params, "opt": self.opt_state})
-        self.params, self.opt_state = state["params"], state["opt"]
+        self.params, self.opt_state, meta = self.bundle.restore(path, self.params, self.opt_state)
         # skip past the offending window (counter-based pipeline => pure jump)
         self.step = int(meta["step"]) + 1
 

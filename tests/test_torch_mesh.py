@@ -29,10 +29,12 @@ of ``train/steps.py``, ``colocation/spatial.py``) against the JAX package.
   replicated leaves twice) fails the same 2 x 2 comparison by more than its
   tolerance on every rank: what one card cannot show.
 * Twins of ``tests/test_system.py::test_spatial_mesh_split`` at 1 x 1 and at
-  4 ranks; ``make_production_mesh`` on a 1-rank group; what stays unported
-  on a mesh raises ``NotImplementedError`` naming A9b; serving on the 1-rank
-  mesh is the no-mesh path bit for bit (serving on a mesh is held to the JAX
-  package in ``tests/test_torch_mesh_serve.py``).
+  4 ranks; ``make_production_mesh`` on a 1-rank group; what raised naming
+  A9b before it was ported (Adafactor on a model axis, checkpoints of 4
+  ranks, a batch over several axes) runs; serving ``ep_wide`` raises naming
+  A8; serving on the 1-rank mesh is the no-mesh path bit for bit (serving
+  on a mesh is held to the JAX package in ``tests/test_torch_mesh_serve.py``,
+  the training layouts of A9b in ``tests/test_torch_mesh_layouts.py``).
 The card's test of the mesh step is ``tests/test_torch_mesh_card.py`` (a
 file without JAX, which the card's machine runs).
 """
@@ -81,7 +83,7 @@ from repro_torch.optim.schedules import constant
 from repro_torch.train import steps
 from repro_torch.train.steps import make_serve_bundle, make_train_bundle
 from repro_torch.train.trainer import Trainer, TrainerConfig
-from repro_torch.tree import leaves_with_paths
+from repro_torch.tree import leaves, leaves_with_paths
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MESH_ARCHS = ["internvl2-2b", "mamba2-370m", "deepseek-v2-lite-16b", "seamless-m4t-large-v2", "qwen3-32b"]
@@ -328,7 +330,7 @@ def _planted(fault: str):
         "aux from local means": (moe, "aux_load_balance_loss", lambda probs, idx, E, par=None: aux(probs, idx, E)),
         "loss as a mean of local means": (transformer, "chunked_cross_entropy", _loss_of_local_means),
         "clip norm counts replicated leaves twice": (
-            steps, "mesh_global_norm", lambda grads, sharded, par: norm(grads, [True] * len(sharded), par)),
+            steps, "mesh_global_norm", lambda grads, sharded, par: norm(grads, [("model",)] * len(sharded), par)),
     }
     module, name, fn = patches[fault]
     orig = getattr(module, name)
@@ -366,26 +368,29 @@ def _port_run(arch: str, case: dict, mesh=None, microbatches: int = 1) -> dict:
             "routes": None if routes is None else routes.numpy()}
 
 
-def _refusals(mesh) -> dict:
-    """What stays unported raises NotImplementedError naming A9b (as text)."""
+def _refusals(mesh, tmp: str) -> dict:
+    """What raised before A9b was ported, now run on the 2 x 2 mesh: each
+    run's losses (``tests/test_torch_mesh_layouts.py`` holds these layouts
+    to the JAX package)."""
     cfg = smoke_config(get_config("minitron-8b"))
-    out = {}
-
-    def attempt(name, fn):
-        try:
-            fn()
-            out[name] = "no error"
-        except NotImplementedError as e:
-            out[name] = f"NotImplementedError: {e}"
-
-    attempt("Adafactor on a model axis of 2",
-            lambda: make_train_bundle(cfg, mesh, opt_cfg=OptimizerConfig(name="adafactor")))
-    bundle = make_train_bundle(cfg, mesh)
     pipe = SyntheticPipeline(DataConfig(cfg.vocab_size, 8, 2))
-    with tempfile.TemporaryDirectory() as d:
-        attempt("a checkpoint on 4 ranks", lambda: Trainer(bundle, pipe, TrainerConfig(ckpt_dir=d)))
-        attempt("a co-located job's checkpoint on 4 ranks", lambda: TemporalStepper(
-            [ColocatedJob("job", bundle, pipe, 2, 1, ckpt_dir=d)], device="cpu"))
+    quiet = TrainerConfig(total_steps=2, steps_per_epoch=10**9, ckpt_every_steps=10**9, log_every=10**9)
+    out = {}
+    tr = Trainer(make_train_bundle(cfg, mesh, opt_cfg=OptimizerConfig(name="adafactor")), pipe, quiet)
+    tr.init_or_restore(0, "cpu")
+    tr.train()
+    out["Adafactor on a model axis of 2"] = [h["loss"] for h in tr.history]
+    tr = Trainer(make_train_bundle(cfg, mesh), pipe, dataclasses.replace(quiet, ckpt_dir=f"{tmp}/refusals"))
+    tr.init_or_restore(0, "cpu")
+    tr.train()
+    again = Trainer(make_train_bundle(cfg, mesh), pipe, dataclasses.replace(quiet, ckpt_dir=f"{tmp}/refusals",
+                                                                            total_steps=3))
+    again.init_or_restore(1, "cpu")
+    again.train()
+    out["a checkpoint on 4 ranks"] = [h["loss"] for h in tr.history + again.history]
+    job = ColocatedJob("job", make_train_bundle(cfg, mesh), pipe, 2, 1, ckpt_dir=f"{tmp}/refusals-job")
+    TemporalStepper([job], device="cpu").run()
+    out["a co-located job's checkpoint on 4 ranks"] = job.losses
     return out
 
 
@@ -418,7 +423,7 @@ def _rank_main(rank: int, world: int, tmp: str) -> None:
     for fault, arch in FAULTS.items():
         with _planted(fault):
             out[("2x2", arch, fault)] = _port_run(arch, inputs[arch], mesh)
-    out["refusals"] = _refusals(mesh)
+    out["refusals"] = _refusals(mesh, tmp)
     out["spatial"] = _spatial(mesh)
     for shape, axis in (("1x2", "data"), ("2x1", "model")):
         for half, (sub, archs) in enumerate(zip(split_mesh(mesh, 2, axis=axis), HALVES[shape])):
@@ -617,17 +622,27 @@ def test_one_rank_mesh_bundles_co_locate_through_the_stepper(smoke_mesh):
 
 @pytest.mark.parametrize("what", ["serve ep_wide", "multi-axis batch"])
 def test_unported_on_a_one_rank_mesh_raises_naming_a9b(what, smoke_mesh):
-    """Serving an ``ep_wide`` config on a mesh and a batch over several axes
-    (the layout refusals are
+    """Serving an ``ep_wide`` config on a mesh still raises, naming ROADMAP
+    A8, where ``ep_wide`` now stands; a batch over ``("pod", "data")`` on a
+    1-rank mesh of axes ``("pod", "data", "model")`` steps as the no-mesh
+    path, bit for bit (the layout cases are
     ``test_torch_train.py::test_bundle_refuses_what_is_not_ported``)."""
     cfg = smoke_config(get_config("deepseek-v2-lite-16b"))
-    calls = {
-        "serve ep_wide": lambda: make_serve_bundle(
-            dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_wide=True)), smoke_mesh),
-        "multi-axis batch": lambda: build_model(cfg, smoke_mesh, ("pod", "data")),
-    }
-    with pytest.raises(NotImplementedError, match="A9b"):
-        calls[what]()
+    if what == "serve ep_wide":
+        with pytest.raises(NotImplementedError, match="A8"):
+            make_serve_bundle(dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_wide=True)), smoke_mesh)
+        return
+    pod = init_device_mesh("cpu", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))) for k in ("tokens", "labels")}
+    runs = []
+    for mesh, axes in ((None, ("data",)), (pod, ("pod", "data"))):
+        bundle = make_train_bundle(cfg, mesh, axes, lr_schedule=constant(LR))
+        params, opt = bundle.init_state(0, "cpu")
+        params, opt, metrics = bundle.step_fn(params, opt, batch)
+        runs.append(({k: float(v) for k, v in metrics.items()}, leaves(params), leaves(opt)))
+    assert runs[1][0] == runs[0][0] and bundle.model.par.batch_axes == ("pod", "data")
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1] + runs[0][2], runs[1][1] + runs[1][2]))
 
 
 @pytest.mark.parametrize("what", ["serve", "prefill", "encoder-decoder decode"])
@@ -766,10 +781,14 @@ def test_sub_mesh_step_matches_the_no_mesh_step(shape, arch, variant, background
 
 
 def test_unported_on_a_mesh_raises_naming_a9b(results):
-    refusals = _port(results, "refusals")
-    assert len(refusals) == 3
-    for name, text in refusals.items():
-        assert text.startswith("NotImplementedError") and "A9b" in text, (name, text)
+    """What raised naming A9b before it was ported runs at 4 ranks: Adafactor
+    on a model axis of 2 trains, a Trainer checkpoints and a second one
+    resumes from it at step 2 (3 losses in all), a co-located job
+    checkpoints at its epoch's end; every loss finite."""
+    runs = _port(results, "refusals")
+    assert {name: len(losses) for name, losses in runs.items()} == {
+        "Adafactor on a model axis of 2": 2, "a checkpoint on 4 ranks": 3, "a co-located job's checkpoint on 4 ranks": 2}
+    assert all(np.isfinite(losses).all() for losses in runs.values())
 
 
 def test_spatial_mesh_split_at_4_ranks(results):
