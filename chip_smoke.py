@@ -12,10 +12,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the strided views the models pass), the kernel-test sweeps and ragged
    edges (the SSD scan's two kernels also
    under steep decay at the slice, against the recurrence in fp32 and in
-   fp64); then timed at the slices' shapes
+   fp64, and ``ssd_scan.tc_smem``, the dry run's shared-memory size of the
+   tensor-core kernel, held to the library's); then timed at the slices' shapes
    with CUDA events beside its plain version, one PyTorch library call where
    one computes the same function, and its bound (the SSD scan's generic
-   kernel also on fp32 B/C, its launches checked to be all generic); then
+   kernel also on fp32 B/C, its launches checked to be all generic; the
+   decode wrapper's host time a call beside the library's); then
    the decode kernel's log-sum-exp (``split_decode_phase``): at minitron-8b's,
    h2o-danube-1.8b's ring, seamless-m4t-large-v2's self cache and
    jamba-1.5-large-398b's decode shapes, bf16 and fp32, the cache cut into 2,
@@ -128,16 +130,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
      path with a fault planted in one kernel's output must break the 1.25
      rule in both (the mean loss's distances are printed, not gated: see
      ``gradient_gate``);
-   - 20 steps through ``make_train_bundle`` and ``Trainer`` with the kernels
-     (the main path: the launches of every step counted and asserted, per
-     layer two rmsnorms and one flash_attention or ssd_scan in the forward
-     pass and again in its recompute, and the final norm), then the first 5
-     of those steps through the plain versions from the same weights and
-     batches: the kernel run's losses finite and falling, each of the 5
-     steps' gap to the plain run;
+   - 7 steps (``TR_STEPS``) through ``make_train_bundle`` and ``Trainer``
+     with the kernels (the main path: the launches of every step counted
+     and asserted, per layer two rmsnorms and one flash_attention or
+     ssd_scan in the forward pass and again in its recompute, and the final
+     norm), then the same steps through the plain versions from the same
+     weights and batches: the kernel run's losses finite and falling, each
+     step's gap to the plain run;
    - step time, peak memory and energy per step (``nvidia-smi``'s power
      draw, sampled through the run) against the 8 N T bound, and a profile
      of one step;
+   - internvl2-2b with remat ``"dots"`` (the weight products' outputs kept,
+     the rest and the kernels recomputed: ``launch/perf.py``'s B2 policy):
+     one loss and gradient from the gate's weights and batch, bitwise equal
+     to full remat's with full remat's launches; then 5 trainer steps, their
+     launches, median step time and peak memory beside the main path's;
    - then deepseek-v2-lite-16b the same way at full width with its depth cut
      to 1 dense + 4 MoE layers (the whole model's weights, gradients and fp32
      AdamW state would need ~188 GB): 31 rmsnorm + 10 flash launches a step
@@ -175,10 +182,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    heads; the 1 x 1 FSDP step's loss and every gradient leaf bitwise equal
    to the no-mesh kernel path's, 39 rmsnorm + 9 flash launches a step
    (MTP's 6 + 1 among them), the collectives with the FSDP gathers and
-   reduce-scatters among them; 3 ``Trainer`` steps on the mesh at 4 x 2048
+   reduce-scatters among them; ``launch/perf.py``'s B2 (``ep_wide``, the
+   experts over both mesh axes with the data axis's all-to-all, and remat
+   ``"dots"``) on the same mesh, weights and rows: the loss and every leaf
+   bitwise equal to the no-mesh gradient, the routes equal, the launches
+   exact, the collectives by kind; 3 ``Trainer`` steps on the mesh at 4 x 2048
    (its main path), Adafactor's state shaped by the reference's
    ``state_specs``; ``split_mesh`` and ``submesh_for_job`` on the 1 x 1 mesh
-   and the ``ValueError`` of 2 parts;
+   and the ``ValueError`` of 2 parts; then the dry-run twin
+   (``launch/dryrun.py``), run on the host in a process of its own: its
+   reckoned per-device peak of internvl2-2b's main-path step and of
+   deepseek-v3-671b's mesh trainer step within 10 % of the card's
+   ``max_memory_allocated`` for the same step (less what was allocated
+   before its state);
 13. ``launch/train.py`` on the card: internvl2-2b for 3 steps, and mamba2-370m
    checkpointing under ``build/`` and restarting from it;
 14. co-location: the two training cells as jobs of ``colocation/stepper.py``'s
@@ -229,7 +245,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the six serve
 paths' (h2o-danube-1.8b's runs A and B), the four mesh serve runs', the four
-20-step training runs', deepseek-v3-671b's 3 mesh steps, the mesh phase's
+7-step training runs', deepseek-v3-671b's 3 mesh steps, the mesh phase's
 3-step runs and the co-located rounds'.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
@@ -358,9 +374,11 @@ DS_H, DS_NOPE, DS_DQK, DS_DV, DS_D_MODEL, DS_KV_LORA, DS_DKV = 16, 128, 192, 128
 
 # The training cells: batch 4 x 2048 tokens, bf16, AdamW's defaults, a
 # constant rate at the reference's peak (its default schedule warms up over
-# 100 steps, under which 20 steps would barely move the loss); 20 steps with
-# the kernels and 20 with the plain versions.
-TR_B, TR_SEQ, TR_STEPS, TR_LR = 4, 2048, 20, 3e-4
+# 100 steps, under which so few steps would barely move the loss); 7 steps
+# with the kernels and 7 with the plain versions (20 each until the script
+# neared its time limit on a slower host: the loss falls in every cell by
+# step 7, internvl2-2b's only from step 7).
+TR_B, TR_SEQ, TR_STEPS, TR_LR = 4, 2048, 7, 3e-4
 TR_H, TR_HKV = 16, 8  # internvl2-2b's attention heads (head_dim 128, as minitron-8b's)
 FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL, DS_ARCH: 1e-4, "seamless-m4t-large-v2": 1e-4,
                   "deepseek-v3-671b": 1e-4}
@@ -378,6 +396,14 @@ DS_TRAIN_LAYERS = 5
 # (~21 GB each), so they take V3_GATE_ROWS of the batch's 4 rows, the kernel
 # path's fp32 gradient parked on the host while the reference's is computed.
 V3_ARCH, V3_LAYERS, V3_EXPERTS, V3_GATE_ROWS = "deepseek-v3-671b", 4, 16, 2
+# remat "dots" (keep the weight products' outputs) on internvl2-2b's cell: one
+# gradient bitwise against full remat's, then DOTS_STEPS trainer steps
+DOTS_ARCH, DOTS_STEPS = "internvl2-2b", 5
+# the dry-run twin's predicted peak of a step against the card's (relative)
+TWIN_RTOL = 0.10
+# each twin cell's card peak of its step: max_memory_allocated less what was
+# allocated before the step's state was made (bytes)
+CARD_STEP_PEAKS = {}
 V3_H, V3_D_MODEL, V3_Q_LORA = 128, 7168, 1536
 # The training cells that also run on the 1 x 1 mesh, its Trainer steps and
 # gradient floor; the no-mesh main path's median step time of each training
@@ -901,6 +927,15 @@ def check_ssd(gen) -> float:
               f"{ssd_distance(y, yc):.3f} {ssd_distance(h, hc):.3f}; not gated: kernel~ssd_chunked({SSD_CHUNK}) "
               f"{ssd_distance(y, y256):.3f} {ssd_distance(h, h256):.3f}")
         del args, y, h, yr, hr, yc, hc, y256, h256
+
+    # The dry run's fake branch takes the tensor-core kernel's shared memory
+    # from ssd_scan.tc_smem, where the card asks the library: the two agree.
+    lib = _build.library()
+    sizes = {(n, p): (lib.repro_ssd_scan_tc_smem(n, p), ssd_mod.tc_smem(n, p))
+             for n, p in ((SSD_N, SSD_P), (JB_SSD_N, JB_SSD_P), (16, 16), (32, 64), (48, 40), (128, 128))}
+    print(f"check ssd_scan tensor-core shared memory, library vs ssd_scan.tc_smem: "
+          + ", ".join(f"N{n} P{p} {a} {b}" for (n, p), (a, b) in sizes.items()))
+    require(all(a == b for a, b in sizes.values()), f"ssd_scan.tc_smem differs from the library's: {sizes}")
     return worst
 
 
@@ -957,6 +992,10 @@ def time_kernels(gen) -> dict:
             q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True), cache),
     }
     dec["bound_ms"], dec["bound_by"] = bound(kv_bytes + 2 * B * H * D * 2, 4 * B * H * MAX_LEN * D, bf)
+    # the host's time a call: decode is host-bound on the serve paths (PERF.md §5)
+    dec["host_us"], dec["library_host_us"], dec["host_ratio"] = host_us(
+        lambda q, k, v: ops.decode_attention(q, k, v, MAX_LEN), lambda q, k, v: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True), cache)
 
     # The mamba2-370m prefill's scan: x and y fp32, bf16 B/C views, fp32 state.
     # The least work of the function is the recurrence's: the state update
@@ -2763,7 +2802,7 @@ def gradient_gate(arch, cfg, bundle, plain, params, pipe, keep: bool = False, ro
 
 def train_phase(arch: str, seed: int, layers: int = 0, mesh=None) -> tuple:
     """One training cell (its depth cut to ``layers`` if given): the
-    gradient gate, 20 counted steps with the kernels (the main path), 20 with
+    gradient gate, ``TR_STEPS`` counted steps with the kernels (the main path), as many with
     the plain versions, their times, memory, energy and a profile; for an MoE
     cell the routes of every step's forward pass and recompute held equal
     and the dropped choices per layer. With ``mesh`` (the 1 x 1 mesh) the
@@ -2792,14 +2831,16 @@ def train_phase(arch: str, seed: int, layers: int = 0, mesh=None) -> tuple:
     print(f"train {arch}: {depth} layers{cut}{moe}, d_model {cfg.d_model}, {n_params / 1e9:.4f} B "
           f"parameters (param_count), {sum(t.numel() for t in leaves(params)) / 1e9:.4f} B in the tree, init "
           f"{time.perf_counter() - t0:.1f} s; batch {TR_B} x {TR_SEQ}, remat {cfg.remat}, optimizer {cfg.optimizer}")
-    kept = gradient_gate(arch, cfg, bundle, plain, params, pipe, keep=mesh is not None)
+    kept = gradient_gate(arch, cfg, bundle, plain, params, pipe, keep=mesh is not None or arch == DOTS_ARCH)
     if mesh is not None:
         meshed = make_train_bundle(cfg, mesh, lr_schedule=constant(TR_LR))
         mesh_gate(arch, cfg, bundle, meshed, params, train_batch(cfg, pipe, 0), *kept)
+    if arch == DOTS_ARCH:
+        dots_gate(arch, cfg, params, train_batch(cfg, pipe, 0), *kept[:2])
     del params, kept
     free_memory()
 
-    # The main path: 20 steps through the trainer, each step's launches counted.
+    # The main path: TR_STEPS steps through the trainer, each step's launches counted.
     per_step = train_launches(cfg)
     deltas = []
     step_fn = bundle.step_fn
@@ -2813,6 +2854,8 @@ def train_phase(arch: str, seed: int, layers: int = 0, mesh=None) -> tuple:
     bundle.step_fn = counted_step
     quiet = TrainerConfig(total_steps=TR_STEPS, steps_per_epoch=10**9, ckpt_every_steps=10**9, log_every=10**9)
     trainer = Trainer(bundle, pipe, quiet)
+    free_memory()
+    base = torch.cuda.memory_allocated()  # what the step's state finds allocated
     trainer.init_or_restore(seed, "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2822,6 +2865,7 @@ def train_phase(arch: str, seed: int, layers: int = 0, mesh=None) -> tuple:
     require(len(power.samples) >= 2, f"{arch}: {len(power.samples)} power samples")
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    CARD_STEP_PEAKS[arch] = torch.cuda.max_memory_allocated() - base
     print(f"card during run: {nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
     expected = {k: TR_STEPS * v for k, v in per_step.items()}
     print(f"train {arch} main path launches ({TR_STEPS} steps): {counts} (expected {expected}; per step "
@@ -2858,11 +2902,14 @@ def train_phase(arch: str, seed: int, layers: int = 0, mesh=None) -> tuple:
           f"bound 8 N T (N {n_active / 1e9:.4f} B active{'; the encoder at T = the frames' if cfg.enc_dec else ''}) "
           f"= {flops:.4e} FLOP at 989 TFLOP/s = {bound_s * 1e3:.3f} ms "
           f"({bound_s / np.median(steady):.3f} of the median); {TR_B * TR_SEQ / np.median(steady):.1f} tokens/s; "
-          f"peak memory {peak_gb:.2f} GB; {energy}; rollbacks {report['rollbacks']}")
+          f"peak memory {peak_gb:.2f} GB ({base / 1e9:.2f} GB of it allocated before the trainer); {energy}; "
+          f"rollbacks {report['rollbacks']}")
     profiled(f"train step {arch}", lambda: bundle.step_fn(trainer.params, trainer.opt_state,
                                                           train_batch(cfg, pipe, trainer.step)))
     del trainer
     free_memory()
+    if arch == DOTS_ARCH:
+        dots_trainer(arch, cfg, pipe, seed)
     mesh_counts = None if mesh is None else mesh_trainer(arch, cfg, meshed, pipe, seed, first_routes)
 
     ops.reset_launch_counts()
@@ -2884,6 +2931,65 @@ def train_phase(arch: str, seed: int, layers: int = 0, mesh=None) -> tuple:
     require(losses[-1] < losses[0], f"{arch}: the loss did not fall: {losses[0]} -> {losses[-1]}")
     print(f"train {arch} phase: {time.perf_counter() - t_phase:.1f} s")
     return counts, mesh_counts
+
+
+def dots_gate(arch, cfg, params, batch, loss0: float, grads0) -> None:
+    """Remat ``"dots"`` (``models/transformer.py::remat``: the weight
+    products' outputs kept through the backward pass, the rest and the kernel
+    Functions recomputed) on the gradient gate's weights and batch: the loss
+    and every gradient leaf bitwise equal to the full-remat kernel path's
+    (``loss0``, ``grads0``, from ``gradient_gate``), the launches full
+    remat's; the gradient's peak memory, less what was allocated before."""
+    t0 = time.perf_counter()
+    dots = make_train_bundle(dataclasses.replace(cfg, remat="dots"), lr_schedule=constant(TR_LR))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    loss, _, grads = loss_and_grads(dots.model, params, batch)
+    torch.cuda.synchronize()
+    peak, launches = torch.cuda.max_memory_allocated() - base, ops.launch_counts()
+    differ = [p for (p, a), b in zip(leaves_with_paths(grads), leaves(grads0)) if not torch.equal(a, b)]
+    n_leaves = len(leaves(grads0))
+    del grads
+    free_memory()
+    print(f"train {arch} remat dots: the loss {float(loss)!r} against full remat's {loss0!r} "
+          f"({'bitwise equal' if float(loss) == loss0 else 'NOT bitwise equal'}); gradient leaves bitwise equal to "
+          f"full remat's: {n_leaves - len(differ)} of {n_leaves}{' (differ: ' + ', '.join(differ[:5]) + ')' if differ else ''}; "
+          f"launches {launches}; peak memory of the loss and gradient {peak / 1e9:.2f} GB "
+          f"({time.perf_counter() - t0:.1f} s)")
+    require(float(loss) == loss0 and not differ, f"{arch}: remat dots computed another gradient than full remat")
+    require(launches == train_launches(cfg), f"{arch}: remat dots launches {launches}")
+
+
+def dots_trainer(arch, cfg, pipe, seed: int) -> None:
+    """``DOTS_STEPS`` trainer steps with remat ``"dots"`` from the main path's
+    seed: each step's launches full remat's, finite losses, equal to the main
+    path's first losses; the median step time and the peak memory of the
+    steps beside the main path's (``TRAIN_MEDIAN_S``, ``CARD_STEP_PEAKS``)."""
+    t0 = time.perf_counter()
+    dots = make_train_bundle(dataclasses.replace(cfg, remat="dots"), lr_schedule=constant(TR_LR))
+    quiet = TrainerConfig(total_steps=DOTS_STEPS, steps_per_epoch=10**9, ckpt_every_steps=10**9, log_every=10**9)
+    trainer = Trainer(dots, pipe, quiet)
+    free_memory()
+    base = torch.cuda.memory_allocated()
+    trainer.init_or_restore(seed, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    trainer.train()
+    counts, peak = ops.launch_counts(), torch.cuda.max_memory_allocated() - base
+    losses = [h["loss"] for h in trainer.history]
+    times = [h["step_s"] for h in trainer.history]
+    del trainer
+    free_memory()
+    per_step = train_launches(cfg)
+    print(f"train {arch} remat dots: {DOTS_STEPS} steps, losses " + " ".join(f"{x:.5f}" for x in losses)
+          + f"; launches {counts} (expected {DOTS_STEPS} x {per_step}); step time steps 2-{DOTS_STEPS} median "
+          f"{np.median(times[1:]) * 1e3:.3f} ms, full remat's main path {TRAIN_MEDIAN_S[arch] * 1e3:.3f} ms; peak "
+          f"memory of the steps {peak / 1e9:.2f} GB, full remat's {CARD_STEP_PEAKS[arch] / 1e9:.2f} GB (each less "
+          f"what was allocated before its trainer) ({time.perf_counter() - t0:.1f} s) [{nvidia_smi('name,power.limit')}]")
+    require(counts == {k: DOTS_STEPS * v for k, v in per_step.items()}, f"{arch}: remat dots step launches {counts}")
+    require(all(math.isfinite(x) for x in losses), f"{arch}: non-finite remat dots loss {losses}")
 
 
 def mesh_gate(arch, cfg, flat, meshed, params, batch, loss0: float, grads0, routes0) -> None:
@@ -3054,7 +3160,7 @@ def v3_phase(seed: int, mesh) -> dict:
     moe_layers = moe_layer_count(cfg)
     same_routes = all(torch.equal(a, b) for a, b in zip(routes_mesh[:moe_layers], routes0))
     n_leaves = len(leaves(grads0))
-    del grads0, grads1, shards, params
+    del grads1
     free_memory()
     MESH_SECONDS.append(time.perf_counter() - t0)
     print(f"mesh {V3_ARCH}: FSDP over the data axis of the (1, 1) NCCL mesh, Adafactor; step 1's loss mesh "
@@ -3067,20 +3173,131 @@ def v3_phase(seed: int, mesh) -> dict:
     require(float(loss1) == loss0 and not differ, f"{V3_ARCH}: the 1 x 1 mesh step is not the no-mesh step")
     require(launches == train_launches(cfg), f"{V3_ARCH}: mesh loss and gradient launches {launches}")
     require(same_routes, f"{V3_ARCH}: the mesh forward routed otherwise than the no-mesh forward")
+    b2_gate(cfg, mesh, params, batch, loss0, grads0, routes0)
+    del grads0, shards, params
+    free_memory()
+    base = torch.cuda.memory_allocated()  # what the trainer's state finds allocated
     torch.cuda.reset_peak_memory_stats()
     counts = mesh_trainer(V3_ARCH, cfg, meshed, pipe, seed)
+    CARD_STEP_PEAKS[V3_ARCH] = torch.cuda.max_memory_allocated() - base
     print(f"train {V3_ARCH} phase: {time.perf_counter() - t_phase:.1f} s; the mesh trainer's peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{nvidia_smi('name,power.limit')}]")
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({base / 1e9:.2f} GB of it allocated before the "
+          f"trainer) [{nvidia_smi('name,power.limit')}]")
     return counts
+
+
+def b2_gate(cfg, mesh, params, batch, loss0: float, grads0, routes0) -> None:
+    """``launch/perf.py``'s ``B2`` (``ep_wide`` and remat ``"dots"``) as a
+    mesh bundle on the (1, 1) mesh, from the gradient gate's weights and rows:
+    the loss and every gradient leaf bitwise equal to the no-mesh kernel
+    path's (full remat, the experts whole), the routes equal, the launches
+    full remat's; the collectives by kind, the data axis's all-to-all (a copy
+    at one rank) twice a MoE layer in the forward pass, twice in the
+    recompute and twice in the backward pass."""
+    t0 = time.perf_counter()
+    b2 = dataclasses.replace(cfg, remat="dots", moe=dataclasses.replace(cfg.moe, ep_wide=True))
+    wide = make_train_bundle(b2, mesh, lr_schedule=constant(TR_LR))
+    shards = pu.shard(params, wide.param_specs, mesh)
+    require(all(a is b for a, b in zip(leaves(params), leaves(shards))), f"{V3_ARCH}: a 1 x 1 shard is a copy")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    parallel.reset_collectives()
+    with routed() as routes:
+        loss, _, grads = wide.grads_fn(shards, batch)
+    torch.cuda.synchronize()
+    launches, kinds = ops.launch_counts(), dict(parallel.collective_counts)
+    differ = [p for (p, a), b in zip(leaves_with_paths(grads), leaves(grads0)) if not torch.equal(a, b)]
+    moe_layers = moe_layer_count(cfg)
+    same_routes = all(torch.equal(a, b) for a, b in zip(routes[:moe_layers], routes0))
+    n_leaves = len(leaves(grads0))
+    del grads, shards
+    free_memory()
+    MESH_SECONDS.append(time.perf_counter() - t0)
+    print(f"mesh {V3_ARCH} B2 (ep_wide + remat dots) on the (1, 1) NCCL mesh: the loss {float(loss)!r} against the "
+          f"no-mesh kernel path's {loss0!r} ({'bitwise equal' if float(loss) == loss0 else 'NOT bitwise equal'}); "
+          f"gradient leaves bitwise equal: {n_leaves - len(differ)} of {n_leaves}"
+          f"{' (differ: ' + ', '.join(differ[:5]) + ')' if differ else ''}; routes "
+          f"{'equal' if same_routes else 'NOT equal'}; launches {launches}; NCCL collectives by kind {kinds} "
+          f"({MESH_SECONDS[-1]:.1f} s)")
+    require(float(loss) == loss0 and not differ, f"{V3_ARCH}: B2 on the 1 x 1 mesh is not the no-mesh step")
+    require(same_routes, f"{V3_ARCH}: B2 routed otherwise than the no-mesh forward")
+    require(launches == train_launches(cfg), f"{V3_ARCH}: B2 loss and gradient launches {launches}")
+    require(kinds.get("all_to_all") == 6 * moe_layers, f"{V3_ARCH}: B2's all-to-alls {kinds}")
+
+
+# The dry-run twin (launch/dryrun.py) on the card's host, in a process of its
+# own (a fake process group owns its process): fake tensors, no CUDA.
+TWIN_CODE = r"""
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+b, s, layers, experts = map(int, sys.argv[1:])
+v3 = get_config("deepseek-v3-671b")
+v3 = dataclasses.replace(v3, num_layers=layers, moe=dataclasses.replace(v3.moe, num_experts=experts))
+cells = {"internvl2-2b": (get_config("internvl2-2b"), None), "deepseek-v3-671b": (v3, (1, 1))}
+print(json.dumps({arch: dryrun.reckon_card_step(cfg, mesh, b, s) for arch, (cfg, mesh) in cells.items()}))
+"""
+
+
+def twin_start() -> subprocess.Popen:
+    """The dry-run twin's reckoning of two train steps that the training
+    phases run on the card: internvl2-2b's main path without a mesh and
+    deepseek-v3-671b's mesh trainer on the (1, 1) mesh (``v3_config``), both
+    at ``TR_B`` x ``TR_SEQ``; started in a process of its own on the host
+    (``CUDA_VISIBLE_DEVICES`` empty: it never touches the card)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, "-c", TWIN_CODE, str(TR_B), str(TR_SEQ), str(V3_LAYERS), str(V3_EXPERTS)],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def twin_gate(proc: subprocess.Popen) -> None:
+    """Each twin cell's predicted ``per_device_bytes`` (a reckoning for an
+    H100 on fake tensors, not a measurement) within ``TWIN_RTOL`` of the
+    card's ``max_memory_allocated`` for the same step (``CARD_STEP_PEAKS``:
+    less what was allocated before the step's state was made)."""
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure("the dry-run twin's reckoning did not end within 300 s")
+    require(proc.returncode == 0, f"the dry-run twin's reckoning failed: {err[-2000:]}")
+    records = json.loads(out.strip().splitlines()[-1])
+    name_power = nvidia_smi("name,power.limit")
+    for arch, record in records.items():
+        m, card = record["memory"], CARD_STEP_PEAKS[arch]
+        ratio = m["per_device_bytes"] / card
+        where = "on the (1, 1) mesh" if arch == V3_ARCH else "without a mesh"
+        print(f"twin {arch}: one train step at {TR_B} x {TR_SEQ} {where}, reckoned on fake tensors on the host for "
+              f"an H100 (not measured): per_device_bytes {m['per_device_bytes'] / 1e9:.3f} GB (arguments "
+              f"{m['argument_bytes'] / 1e9:.3f}, temporaries at the peak {m['temp_bytes'] / 1e9:.3f}); the card's "
+              f"max_memory_allocated for the step {card / 1e9:.3f} GB; ratio {ratio:.4f} (within {TWIN_RTOL:g}: "
+              f"{abs(ratio - 1) <= TWIN_RTOL}); reckoned in {record['reckon_s']} s, FLOPs "
+              f"{record['flops']:.4e}, kernel calls {record['kernel_calls']} [{name_power}]")
+        require(abs(ratio - 1) <= TWIN_RTOL, f"{arch}: the twin's peak is {ratio:.4f} of the card's")
 
 
 def training_phases(seed: int) -> tuple:
     """The training cells (``train_phase``), those of ``MESH_ARCHS`` also on
     the (1, 1) mesh of a single-rank NCCL group, then deepseek-v3-671b on
     that mesh (``v3_phase``) and the spatial splits of the mesh; the group is
-    destroyed at the end. Returns each cell's main path launches
+    destroyed at the end; the dry-run twin's reckoning of two of those
+    steps, started in a process of its own at the outset, then held to the
+    card's peaks (``twin_gate``). Returns each cell's main path launches
     (deepseek-v3-671b's: its mesh trainer run) and the other mesh trainer
     runs' launches, summed."""
+    twin = twin_start()
+    try:
+        out = _training_phases(seed)
+        twin_gate(twin)
+        return out
+    finally:
+        if twin.poll() is None:
+            twin.kill()
+            twin.communicate()
+
+
+def _training_phases(seed: int) -> tuple:
     mesh = make_smoke_mesh("cuda")
     try:
         require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
@@ -3632,6 +3849,9 @@ def main() -> int:
               f"{t['bound_ms'] / t['ms']:.2f} of the bound, {t['library_ms'] / t['ms']:.2f}x F.rms_norm's "
               f"speed); host {t['host_us']:.2f} us a call (F.rms_norm {t['library_host_us']:.2f} us, "
               f"ratio {t['host_ratio']:.3f}) [{name_power}]")
+    t = times["decode_attention"]
+    print(f"kernel decode_attention host, minitron-8b's decode shape: {t['host_us']:.2f} us a call "
+          f"(scaled_dot_product_attention {t['library_host_us']:.2f} us, ratio {t['host_ratio']:.3f}) [{name_power}]")
     for label, t in split_times.items():
         print(f"kernel decode_attention {label} bf16 with lse: {t['lse_ms']:.4f} ms, without {t['ms']:.4f} ms (plain "
               f"{t['plain_ms']:.4f} ms, library none, bound {t['bound_ms']:.4f} ms by {t['bound_by']}) [{name_power}]")

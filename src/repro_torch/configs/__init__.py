@@ -16,12 +16,14 @@ reads only their geometry.
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     ArchConfig,
+    InputSpec,
     MLAConfig,
     MoEConfig,
     SSMConfig,
     ShapeSpec,
     all_configs,
     get_config,
+    input_specs,
     smoke_config,
 )
 

@@ -6,13 +6,16 @@ config reads the same in both packages. The port runs the dense, SSM,
 MoE and hybrid layouts (GQA or MLA attention, multi-token prediction) in
 ``models.transformer.Model`` and encoder-decoder stacks in
 ``models.encdec.EncDecModel``. ``train_state_bytes_per_chip`` feeds the calibration bridge's
-memory figures. The dry-run's ``input_specs`` is not ported.
+memory figures. ``input_specs`` gives the dry run's abstract inputs of one
+cell as ``InputSpec`` records (a shape and a torch dtype, no tensor).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,3 +291,40 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
     if cfg.sliding_window is not None:
         kw["sliding_window"] = 32
     return dataclasses.replace(cfg, **kw)  # type: ignore[arg-type]
+
+
+# ---------------------------------------------------------------------------
+# input_specs: shape-and-dtype stand-ins for the dry run
+# ---------------------------------------------------------------------------
+
+
+class InputSpec(NamedTuple):
+    """One abstract input: the counterpart of the reference's ``jax.ShapeDtypeStruct``."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, InputSpec]:
+    """Abstract inputs for one assignment cell (the reference's ``input_specs``).
+
+    ``train``:   tokens + labels ``(B, S)`` (+ frontend embeddings stub).
+    ``prefill``: tokens ``(B, S)``.
+    ``decode``:  one new token ``(B, 1)`` + ``cache_len``; the cache itself
+                 is the serve bundle's (``cache_shapes``).
+    """
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    specs: Dict[str, InputSpec] = {}
+    if shape.kind == "train":
+        specs["tokens"] = InputSpec((B, S), i32)
+        specs["labels"] = InputSpec((B, S), i32)
+    elif shape.kind == "prefill":
+        specs["tokens"] = InputSpec((B, S), i32)
+    else:  # decode
+        specs["tokens"] = InputSpec((B, 1), i32)
+        specs["cache_len"] = InputSpec((), i32)
+    if cfg.frontend is not None and shape.kind != "decode":
+        # precomputed patch/frame embeddings (the modality frontend is a stub)
+        specs["frontend_embeds"] = InputSpec((B, cfg.frontend_positions, cfg.d_model), torch.bfloat16)
+    return specs

@@ -21,6 +21,8 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import reckon
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("rmsnorm.cu", "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu", "errors.cu")
@@ -166,9 +168,11 @@ def strides_array(values) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def check_operands(kernel: str, *tensors: torch.Tensor) -> None:
+def check_operands(kernel: str, *tensors: torch.Tensor, fake: bool = False) -> None:
     """Shared checks before a launch: one CUDA device, one kernel dtype, a
-    contiguous last dim, 16-byte aligned rows (the kernels use vector loads)."""
+    contiguous last dim, 16-byte aligned rows (the kernels use vector loads);
+    ``fake``: the tensors are a dry run's, their starts read from
+    ``reckon.offset``."""
     t0 = tensors[0]
     if t0.dtype not in DTYPE_CODES:
         raise TypeError(f"{kernel}: dtype {t0.dtype} not supported (float32 or bfloat16)")
@@ -180,5 +184,5 @@ def check_operands(kernel: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{kernel}: operands of dtype {t.dtype} and {t0.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{kernel}: the last dim must be contiguous")
-        if t.data_ptr() % 16 or any(s % align for s in t.stride()[:-1]):
+        if (reckon.offset(t) if fake else t.data_ptr()) % 16 or any(s % align for s in t.stride()[:-1]):
             raise ValueError(f"{kernel}: rows must be 16-byte aligned")

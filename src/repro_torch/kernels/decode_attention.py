@@ -14,7 +14,8 @@ the device for it. A key row is read by D/8 lanes of 8 elements, rounded up to
 a power of two: at D = 80, 16 lanes of which 6 idle. With ``return_lse`` the
 kernel also writes each head's log-sum-exp, from which the slices of a cache
 split over a mesh's ranks are merged exactly (``ref.merge_decode_partials``);
-the launch is the same, counted the same.
+the launch is the same, counted the same. A dry run's fake CUDA tensor is
+checked and counted, not launched (``kernels/reckon.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, reckon, ref
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
@@ -58,7 +59,8 @@ def decode_attention(
     global launches
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, valid_len, return_lse)
-    if q.device.type != "cuda":
+    fake = reckon.is_fake(q)  # a dry run's tensor: checked and counted, not launched
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -68,15 +70,19 @@ def decode_attention(
         raise ValueError(f"decode_attention: head dim {D} / group {H // Hkv} not supported")
     if not q.is_contiguous():
         raise ValueError("decode_attention: q must be contiguous")
-    _build.check_operands("decode_attention", q, k, v)
+    _build.check_operands("decode_attention", q, k, v, fake=fake)
     valid = max(0, min(int(valid_len), S))
     out = torch.empty_like(q)
     lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None  # the kernel writes all
     if out.numel() == 0:
         return (out, lse.fill_(-math.inf)) if return_lse else out
-    split = plan_split(B * Hkv, valid, _build.sm_count(q.device))
+    split = plan_split(B * Hkv, valid, reckon.H100_SMS if fake else _build.sm_count(q.device))
     if B * Hkv * split >= 2**31:
         raise ValueError(f"decode_attention: {B * Hkv} groups exceed the grid limit")
+    if fake:  # the valid keys and values read once, q read and out (and lse) written once
+        kv = 2 * B * valid * Hkv * D * k.element_size()
+        reckon.count("decode_attention", 4 * B * H * valid * D, kv + reckon.nbytes(q, out, lse))
+        return (out, lse) if return_lse else out
     strides = _build.strides_array([*k.stride()[:3], *v.stride()[:3]])
     lib = _build.library()
     code = lib.repro_decode_attention(

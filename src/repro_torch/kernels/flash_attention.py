@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, reckon, ref
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
@@ -52,7 +52,8 @@ def flash_attention(
     global launches
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    fake = reckon.is_fake(q)  # a dry run's tensor: checked and counted, not launched
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise _build.grad_error("flash_attention")
@@ -66,9 +67,13 @@ def flash_attention(
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if B * H > 65535:
         raise ValueError(f"flash_attention: B*H = {B * H} exceeds the grid limit")
-    _build.check_operands("flash_attention", q, k, v)
+    _build.check_operands("flash_attention", q, k, v, fake=fake)
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
+        return out
+    if fake:
+        pairs = B * H * reckon.visible_pairs(Sq, Sk, causal, window)
+        reckon.count("flash_attention", 2 * pairs * (D + Dv), reckon.nbytes(q, k, v, out))
         return out
     strides = _build.strides_array(
         [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]]

@@ -12,7 +12,8 @@ threads per row. Any other row goes to the generic kernel (one block per row).
 Both read x's rows through a row stride, so a slice of wider rows (MLA's
 ``kv_norm`` on the first 512 columns of each 576-wide ``dkv`` row) is read in
 place, with no copy; the output is contiguous. A CPU tensor goes to the plain
-version in ``kernels/ref.py``; a CUDA tensor launches a kernel or raises.
+version in ``kernels/ref.py``; a CUDA tensor launches a kernel or raises
+(a dry run's fake CUDA tensor is checked and counted, ``kernels/reckon.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, reckon, ref
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
@@ -80,12 +81,16 @@ def plan(rows: int, d: int, elem_size: int, aligned: bool, sms: int) -> Plan:
     return Plan(vectors // tpr, tpr, threads, min(-(-rows // rpb), sms * (THREADS_PER_SM // threads)))
 
 
-@functools.lru_cache(maxsize=256)  # a decode step asks for the same few launches every step
-def _launch(rows: int, d: int, elem_size: int, aligned: bool, device: int) -> Plan:
-    p = plan(rows, d, elem_size, aligned, _build.sm_count(torch.device("cuda", device)))
+def _checked(rows: int, d: int, elem_size: int, aligned: bool, sms: int) -> Plan:
+    p = plan(rows, d, elem_size, aligned, sms)
     if p.grid >= 2**31:
         raise ValueError(f"rmsnorm: {rows} rows exceed the grid limit")
     return p
+
+
+@functools.lru_cache(maxsize=256)  # a decode step asks for the same few launches every step
+def _launch(rows: int, d: int, elem_size: int, aligned: bool, device: int) -> Plan:
+    return _checked(rows, d, elem_size, aligned, _build.sm_count(torch.device("cuda", device)))
 
 
 def rows_and_stride(x: torch.Tensor) -> tuple:
@@ -96,7 +101,7 @@ def rows_and_stride(x: torch.Tensor) -> tuple:
     d = x.shape[-1]
     try:
         flat = x.view(-1, d)
-    except RuntimeError:
+    except (RuntimeError, ValueError):  # a fake tensor's view raises ValueError
         flat = None
     if flat is None or (d > 1 and x.stride(-1) != 1):
         raise ValueError("rmsnorm: x must be rows of a contiguous last dim at one stride")
@@ -111,7 +116,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch
     device = x.device
     if device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps)
-    if device.type != "cuda":
+    fake = reckon.is_fake(x)  # a dry run's tensor: checked and counted, not launched
+    if device.type != "cuda" and not fake:
         raise ValueError(f"rmsnorm: no kernel for device {device}")
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         raise _build.grad_error("rmsnorm")
@@ -127,8 +133,15 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch
     if x.numel() == 0:
         return y
     rows, ld = rows_and_stride(x)
-    xp, yp, sp = x.data_ptr(), y.data_ptr(), scale.data_ptr()
+    if fake:
+        xp, yp, sp = reckon.offset(x), reckon.offset(y), reckon.offset(scale)
+    else:
+        xp, yp, sp = x.data_ptr(), y.data_ptr(), scale.data_ptr()
     aligned = (xp | yp | sp | ld * x.element_size()) % VECTOR_BYTES == 0
+    if fake:
+        _checked(rows, d, x.element_size(), aligned, reckon.H100_SMS)
+        reckon.count("rmsnorm", 4 * rows * d, 2 * rows * d * x.element_size() + d * 4)
+        return y
     p = _launch(rows, d, x.element_size(), aligned, device.index)
     code = _build.library().repro_rmsnorm(xp, sp, yp, rows, d, ld, eps, dtype, *p,
                                           _build.stream_handle(device))

@@ -15,7 +15,9 @@ N128) it is bound by bytes, ~140 MB (0.042 ms at 3.35 TB/s). Every other
 shape (fp32 B/C, odd N and P, unaligned views) goes to the generic
 kernel, fp32 on the CUDA cores (PERF.md). A CPU tensor goes to the plain
 version, ``kernels.ref.ssd_chunked``; a CUDA tensor launches a kernel or
-raises.
+raises. A dry run's fake CUDA tensor is checked and counted, not launched
+(``kernels/reckon.py``; ``tc_smem`` and ``generic_smem`` stand in for the
+library's shared-memory sizes there).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, reckon, ref
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
@@ -34,6 +36,26 @@ _VARIANT_CODES = {GENERIC: 0, TENSOR_CORE: 1}  # the launcher's `variant`
 
 ROWS = 64  # rows per chunk inside the kernels (csrc/ssd_scan.cu kT)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt in to on the H100
+
+
+TC_WARPS = 8  # warps of the tensor-core kernel (kTcWarps)
+G_STRIDE = ROWS + 8  # words a row of its G tiles (kGStride)
+
+
+def tc_smem(N: int, P: int) -> int:
+    """Bytes of shared memory the tensor-core kernel takes at an N x P state:
+    ``csrc/ssd_scan.cu::tc_layout``'s total, which the library reports as
+    ``repro_ssd_scan_tc_smem`` (a dry run has no library to ask)."""
+    stage = ROWS * (P + 4) * 4 + 2 * ROWS * (N + 8) * 2 + ROWS * 4  # x, B, C, a
+    state = N * (P + 4) * 4
+    g = 2 * ROWS * G_STRIDE * 4  # the TF32 parts of G, big and small
+    return 2 * stage + state + g + ROWS * (P + 4) * 4 + TC_WARPS * ROWS * 8 + 2 * ROWS * 4
+
+
+def generic_smem(N: int, P: int) -> int:
+    """Bytes of shared memory the generic kernel takes (``smem_floats``):
+    past ``SMEM_LIMIT`` its launcher returns an error."""
+    return 4 * (N * P + 3 * N * ROWS + ROWS * P + ROWS * ROWS + 4 * ROWS)
 
 
 def plan(bc_dtype: torch.dtype, N: int, P: int, aligned: bool, tc_smem: int) -> str:
@@ -48,10 +70,12 @@ def plan(bc_dtype: torch.dtype, N: int, P: int, aligned: bool, tc_smem: int) -> 
     return GENERIC
 
 
-def rows_aligned(t: torch.Tensor) -> bool:
-    """A contiguous last dim, and the start and every other stride on 16 bytes."""
+def rows_aligned(t: torch.Tensor, fake: bool = False) -> bool:
+    """A contiguous last dim, and the start and every other stride on 16 bytes
+    (``fake``: a dry run's tensor, its start read from ``reckon.offset``)."""
     elems = 16 // t.element_size()
-    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(s % elems == 0 for s in t.stride()[:-1])
+    start = reckon.offset(t) if fake else t.data_ptr()
+    return t.stride(-1) == 1 and start % 16 == 0 and all(s % elems == 0 for s in t.stride()[:-1])
 
 
 def ssd_scan(
@@ -73,7 +97,8 @@ def ssd_scan(
     global launches
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, log_dA, Bm, Cm, chunk)
-    if x.device.type != "cuda":
+    fake = reckon.is_fake(x)  # a dry run's tensor: checked and counted, not launched
+    if x.device.type != "cuda" and not fake:
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, log_dA, Bm, Cm)):
         raise _build.grad_error("ssd_scan")
@@ -99,6 +124,15 @@ def ssd_scan(
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     if B * H == 0:
         h.zero_()
+        return y, h
+    if fake:
+        variant = plan(Bm.dtype, N, P, all(rows_aligned(t, True) for t in (x, Bm, Cm)), tc_smem(N, P))
+        if variant == GENERIC and generic_smem(N, P) > SMEM_LIMIT:
+            raise RuntimeError(f"ssd_scan: the generic kernel's {generic_smem(N, P)} bytes of shared memory at "
+                               f"N {N} P {P} exceed the {SMEM_LIMIT} a block may take")
+        # x, log_dA, B and C read once, y and the final state written once;
+        # the recurrence's N P multiply-adds for the state and for the readout
+        reckon.count("ssd_scan", 4 * B * S * H * N * P, reckon.nbytes(x, log_dA, Bm, Cm, y, h))
         return y, h
     strides = _build.strides_array([*x.stride(), *log_dA.stride(), *Bm.stride(), *Cm.stride()])
     lib = _build.library()

@@ -78,7 +78,7 @@ from repro_torch.models.common import (
     swiglu_def,
     token_cross_entropy,
 )
-from repro_torch.models.transformer import Layout, _layer, remat, serve_cache_specs
+from repro_torch.models.transformer import Layout, _layer, full_remat, serve_cache_specs
 
 Tree = Dict[str, Any]
 
@@ -156,6 +156,12 @@ class EncDecModel(Layout, nn.Module):
         x = x + attn._gqa_attend(p["mixer"], q, k, v, ops, par=par, causal=False)
         return x + swiglu(p["channel"], rmsnorm(p["norm2"], x, ops=ops), par)
 
+    def _remat(self, body):
+        """``body`` under ``full_remat`` unless the config's remat is
+        ``"none"``: ``"dots"`` too, as the reference's ``EncDecModel`` tests
+        only ``remat != "none"`` (``encdec.py:138, 171``)."""
+        return body if self.cfg.remat == "none" else full_remat(body)
+
     def encode(self, params: Tree, frames: torch.Tensor, training: bool = False) -> torch.Tensor:
         """frames (B, F, d_model) -> the encoder's normed output, the memory
         the decoder attends to. In ``training`` each layer runs under the
@@ -164,7 +170,7 @@ class EncDecModel(Layout, nn.Module):
         positions = self._positions(x)
         n = self.cfg.encoder_layers
         if training:
-            block, (layers, dims) = remat(self.cfg, self._enc_block), self._layers(params, "encoder", n)
+            block, (layers, dims) = self._remat(self._enc_block), self._layers(params, "encoder", n)
         else:
             block, layers, dims = self._enc_block, (_layer(params["encoder"], i) for i in range(n)), None
         for p in layers:
@@ -191,7 +197,7 @@ class EncDecModel(Layout, nn.Module):
         memory = self.encode(params, frontend_embeds, training=True)
         x = embed(params["embed"], tokens.long(), self.par)
         positions = self._positions(x)
-        block = remat(self.cfg, self._dec_block)
+        block = self._remat(self._dec_block)
         layers, dims = self._layers(params, "decoder", self.cfg.num_layers)
         for p in layers:
             x = block(p, x, positions, memory, dims)

@@ -34,8 +34,22 @@ Serving a batch that does not split over ``"data"`` (batch 1 on a data
 axis of 2) takes the reference's one-hot fallback (:166-169),
 ``moe_forward_onehot`` with ``par``: every rank holds all the tokens, and
 only the experts are split.
-``ep_wide`` (experts over both axes, used by no config; its only users are
-the reference's ``launch/perf.py`` variants) is ROADMAP A8's.
+
+``ep_wide`` (used by no config; its users are the ``B1``/``B2`` variants of
+``launch/perf.py``) splits the experts over both mesh axes,
+``("model", "data")``, model outer and data inner: rank (d, m) holds block
+``m * n_data + d``. Each data shard still sorts its own tokens into an
+(E, C, D) buffer, C from the shard's tokens, as above. The rows for the
+experts of each member of the data group (the rank's model coordinate
+fixed) go to that member in one all-to-all (``parallel.exchange``, whose
+backward is the reverse all-to-all); the rank runs its experts over the
+rows of every shard, the reverse all-to-all brings its tokens' rows back,
+and the combine and its sum over ``"model"`` are the ones above (the
+reference's grid sharded ``P(("model", "data"), ...)``, :192-200). Under
+ZeRO-3 the exchange group is the model x data plane. The expert weights'
+gradients are whole on the rank that holds them (``train/steps.py``). The
+one-hot fallback takes the rank's block and sums the combine over the
+model x data plane.
 """
 
 from __future__ import annotations
@@ -49,8 +63,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.models.common import swiglu, swiglu_def
 from repro_torch.models.parallel import (
-    NOT_PORTED,
+    EXPERT_AXES,
+    all_reduce,
     copy_to_model,
+    exchange,
     reduce_from_data,
     reduce_from_model,
     sum_over_data,
@@ -140,14 +156,21 @@ def moe_forward_onehot(p: Params, cfg: ArchConfig, x: torch.Tensor, par=None) ->
             * F.one_hot(torch.where(keep, slot, C), C + 1).to(x.dtype)[:, :, None, :])  # (T, k, E, C+1)
     disp = disp[..., :C]
     E_local = p["gate"].shape[0]  # the rank's experts, [e0, e0 + E_local)
-    e0 = par.model_rank * E_local if tensor_parallel(par) else 0
+    wide = par is not None and m.ep_wide
+    e0 = (par.ep_wide().block if wide else par.model_rank if tensor_parallel(par) else 0) * E_local
     disp = disp[:, :, e0 : e0 + E_local]
     buf = torch.einsum("td,tkec->ecd", copy_to_model(xt, par), disp)  # (E_local, C, D)
     h = torch.einsum("ecd,edf->ecf", buf, p["gate"])
     u = torch.einsum("ecd,edf->ecf", buf, p["up"])
     out_e = torch.einsum("ecf,efd->ecd", F.silu(h) * u, p["down"])
     combine = disp * copy_to_model(w, par).to(x.dtype)[..., None, None]
-    out = reduce_from_model(torch.einsum("ecd,tkec->td", out_e, combine), par).reshape(B, S, D)
+    out = torch.einsum("ecd,tkec->td", out_e, combine)
+    if wide:  # serving: the experts' sums over the model x data plane, no gradient
+        group = par.group_of(EXPERT_AXES)
+        out = out if group is None else all_reduce(out.contiguous(), group[1])
+    else:
+        out = reduce_from_model(out, par)
+    out = out.reshape(B, S, D)
     aux = aux_load_balance_loss(probs, idx, E)
     if m.num_shared_experts:
         out = out + swiglu(p["shared"], x, par)
@@ -171,6 +194,38 @@ def _local_dispatch(xt: torch.Tensor, idx: torch.Tensor, C: int, E: int) -> Tupl
     return buf, dest
 
 
+def _experts(p: Params, grid: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts on an (E_local, rows, D) grid, each expert its rows."""
+    with torch.profiler.record_function(EXPERTS_RANGE):
+        h = torch.bmm(grid, p["gate"])
+        u = torch.bmm(grid, p["up"])
+        return torch.bmm(F.silu(h) * u, p["down"])
+
+
+def _wide_experts(p: Params, buf: torch.Tensor, C: int, par) -> Tuple[torch.Tensor, int]:
+    """``ep_wide``'s expert products: the dispatch buffer's rows for each
+    member of the exchange group's experts sent to it in one all-to-all
+    (``parallel.exchange``), the rank's experts run over the rows of every
+    member's tokens, the outputs returned by the reverse all-to-all. Returns
+    (the outputs for this rank's tokens of the experts of the group, in
+    expert order, (E_group * C, D); the first of those experts)."""
+    wide = par.ep_wide()
+    E_local, D = p["gate"].shape[0], buf.shape[1]
+    chunk = E_local * C
+    rows = torch.cat([buf[b * chunk : (b + 1) * chunk] for b in wide.blocks])
+    if wide.group is not None:
+        rows = exchange(rows, wide.group)  # chunk j: member j's tokens' rows for this rank's experts
+    n = wide.size
+    grid = rows.view(n, E_local, C, D).transpose(0, 1).reshape(E_local, n * C, D)
+    y = _experts(p, grid).view(E_local, n, C, D).transpose(0, 1).reshape(n * chunk, D)
+    if wide.group is not None:
+        y = exchange(y, wide.group)  # chunk j: this rank's tokens' rows from member j's experts
+    order = sorted(range(n), key=lambda j: wide.blocks[j])
+    if order != list(range(n)):
+        y = y.view(n, chunk, D)[order].reshape(n * chunk, D)
+    return y, min(wide.blocks) * E_local
+
+
 def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, par=None,
                 with_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, S, D) -> (B, S, D), aux loss: the sort dispatch on one shard, C
@@ -180,8 +235,6 @@ def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, par=None,
     discards, is not computed (on a mesh it would cost two all-reduces over
     ``"data"`` a layer), and aux is None."""
     m = cfg.moe
-    if par is not None and m.ep_wide:
-        raise NotImplementedError(f"{cfg.name}: ep_wide (experts over both mesh axes) is {NOT_PORTED}")
     B, S, D = x.shape
     T, E, k = B * S, m.num_experts, m.top_k
     C = _capacity(T, m)
@@ -191,17 +244,17 @@ def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, par=None,
     w = w.to(x.dtype)
     aux = aux_load_balance_loss(probs, idx, E, par) if with_aux else None
     buf, dest = _local_dispatch(copy_to_model(xt, par), idx, C, E)
-    E_local = p["gate"].shape[0]  # the rank's experts, [e0, e0 + E_local)
-    e0 = par.model_rank * E_local if tensor_parallel(par) else 0
-    grid = buf[e0 * C : (e0 + E_local) * C].view(E_local, C, D)
-    with torch.profiler.record_function(EXPERTS_RANGE):
-        h = torch.bmm(grid, p["gate"])
-        u = torch.bmm(grid, p["up"])
-        y = torch.bmm(F.silu(h) * u, p["down"]).view(E_local * C, D)
+    if par is not None and m.ep_wide:
+        y, e0 = _wide_experts(p, buf, C, par)
+    else:
+        E_local = p["gate"].shape[0]  # the rank's experts, [e0, e0 + E_local)
+        e0 = par.model_rank * E_local if tensor_parallel(par) else 0
+        y = _experts(p, buf[e0 * C : (e0 + E_local) * C].view(E_local, C, D)).view(E_local * C, D)
+    rows_here = y.shape[0]  # the experts' rows this rank combines, from expert e0 on
     y_pad = torch.cat([y, y.new_zeros((1, D))])
-    if tensor_parallel(par):  # another rank's expert, or past the capacity: the zero row
+    if rows_here < E * C:  # another rank's expert, or past the capacity: the zero row
         local = dest - e0 * C
-        dest = torch.where((local >= 0) & (local < E_local * C), local, E_local * C)
+        dest = torch.where((local >= 0) & (local < rows_here), local, rows_here)
     rows = y_pad[dest].view(T, k, D)
     out = torch.einsum("tkd,tk->td", rows, copy_to_model(w, par))
     out = reduce_from_model(out, par).view(B, S, D)

@@ -68,15 +68,24 @@ where its gradient sums several uses (two gathers of the head, one for the
 trunk's cross-entropy and one for MTP's, would split its chunks' sum in
 two).
 
+``ep_wide`` splits the experts over ``EXPERT_AXES``: ``Parallel.ep_wide``
+names the group whose token shards exchange rows with each other's experts
+(``exchange``, an all-to-all whose backward is the reverse all-to-all),
+each member's block of experts and the group of the other batch axes;
+``group_of(EXPERT_AXES)`` is the model x data plane.
+
 ``collectives`` counts the collectives issued, ``fsdp_gathers`` and
-``fsdp_scatters`` the FSDP gathers and gradient reduce-scatters among them
-(``reset_collectives`` sets all three to 0).
+``fsdp_scatters`` the FSDP gathers and gradient reduce-scatters among them;
+``collective_counts`` and ``collective_bytes`` split them by kind
+(``"all_reduce"``, ``"all_gather"``, ``"reduce_scatter"``, ``"all_to_all"``),
+the bytes those of the rank's operand (``reset_collectives`` sets them all
+to 0).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -85,54 +94,66 @@ from repro_torch.kernels.ref import merge_decode_partials
 from repro_torch.tree import leaves, unflatten
 
 MESH_AXES = ("pod", "data", "model")
-NOT_PORTED = "not ported yet (ROADMAP A8)"
+EXPERT_AXES = ("model", "data")  # ep_wide's experts: model outer, data inner (moe_def's spec entry)
 
 collectives = fsdp_gathers = fsdp_scatters = 0
-# the flattened batch groups made so far, by the default group and the ranks
+collective_counts: Dict[str, int] = {}
+collective_bytes: Dict[str, int] = {}
+# the flattened groups of several axes made so far, by the default group and the ranks
 _GROUPS: Dict[tuple, object] = {}
 
 
 def reset_collectives() -> None:
     global collectives, fsdp_gathers, fsdp_scatters
     collectives = fsdp_gathers = fsdp_scatters = 0
+    collective_counts.clear()
+    collective_bytes.clear()
+
+
+def _counted(kind: str, t: torch.Tensor) -> None:
+    global collectives
+    collectives += 1
+    collective_counts[kind] = collective_counts.get(kind, 0) + 1
+    collective_bytes[kind] = collective_bytes.get(kind, 0) + t.numel() * t.element_size()
 
 
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``t`` all-reduced over ``group`` in place (counted)."""
-    global collectives
-    collectives += 1
+    _counted("all_reduce", t)
     dist.all_reduce(t, op=op, group=group)
     return t
 
 
 def all_gather(parts, t: torch.Tensor, group) -> None:
     """``t`` of every rank of ``group`` into the list ``parts`` (counted)."""
-    global collectives
-    collectives += 1
+    _counted("all_gather", t)
     dist.all_gather(parts, t, group=group)
 
 
 def all_to_all(out: torch.Tensor, t: torch.Tensor, group) -> None:
     """Chunk ``j`` of ``t``'s first dimension to rank ``j`` of ``group``,
     chunk ``j`` of ``out`` from rank ``j`` (counted)."""
-    global collectives
-    collectives += 1
+    _counted("all_to_all", t)
     dist.all_to_all_single(out, t, group=group)
 
 
 def gather_dim(t: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
-    """The ``n`` ranks' ``t`` of ``group`` joined along ``dim`` in rank order (counted)."""
-    parts = [torch.empty_like(t, memory_format=torch.contiguous_format) for _ in range(n)]
-    all_gather(parts, t.contiguous(), group)
-    return torch.cat(parts, dim=dim)
+    """The ``n`` ranks' ``t`` of ``group`` joined along ``dim`` in rank order
+    (counted), contiguous: one all-gather into one buffer, ``dim`` moved
+    first (NCCL's all-gather into a list of outputs allocates a flat buffer
+    as large beside them)."""
+    _counted("all_gather", t)
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out if dim in (0, -t.dim()) else out.movedim(0, dim).contiguous()
 
 
 def reduce_scatter(t: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
     """The sum over the ``n`` ranks of ``group`` of ``t``, cut into ``n``
     equal chunks along ``dim``: this rank's chunk (counted)."""
-    global collectives
-    collectives += 1
     x = t.movedim(dim, 0).contiguous()
+    _counted("reduce_scatter", x)
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
     dist.reduce_scatter_tensor(out, x, group=group)
     return out.movedim(0, dim).contiguous()
@@ -183,6 +204,18 @@ def batch_group(mesh, batch_axes: Tuple[str, ...]) -> Tuple[int, int, object]:
     return math.prod(sizes), index, mine
 
 
+class EpWide(NamedTuple):
+    """How a rank exchanges tokens with the experts where they are split over
+    ``EXPERT_AXES`` (``MoEConfig.ep_wide``)."""
+
+    size: int  # ranks of the exchange group: the batch axes among EXPERT_AXES
+    group: object  # None where no batch axis is among them (nothing to exchange)
+    blocks: Tuple[int, ...]  # each member's block of experts, in the group's rank order
+    block: int  # this rank's block
+    rest: object  # the group of the other batch axes (``"pod"``), over which the experts' gradients sum; None at one rank
+    plane: Optional[Tuple[int, object]]  # (ranks, group) of the model x data plane; None at one rank
+
+
 class Parallel:
     """One rank's place on a mesh of axes among ``("pod", "data", "model")``
     (any may be absent: size 1), the batch split over ``batch_axes``: the
@@ -200,6 +233,7 @@ class Parallel:
         self.model_size, self.model_rank, self.model_group = (
             (1, 0, None) if "model" in batch_axes else self._axis("model"))
         self.data_size, self.data_rank, self.data_group = batch_group(mesh, batch_axes)
+        self._ep_wide: Optional[EpWide] = None
 
     def _axis(self, name: str):
         names = self.mesh.mesh_dim_names
@@ -217,7 +251,38 @@ class Parallel:
             return (self.model_size, self.model_group) if self.model_size > 1 else None
         if axes == self.batch_axes:
             return (self.data_size, self.data_group) if self.data_size > 1 else None
+        if axes == EXPERT_AXES:  # ep_wide's experts: every rank of a model x data plane
+            return self.ep_wide().plane
         raise ValueError(f"a dimension sharded over {axes} with the batch over {self.batch_axes}")
+
+    def ep_wide(self) -> EpWide:
+        """The exchange of ``ep_wide`` (the experts split over ``EXPERT_AXES``,
+        block ``model_coord * n_data + data_coord`` of the mesh's coordinates):
+        the batch axes among ``EXPERT_AXES`` (``"data"`` under the megatron
+        layout, ``"data"`` and ``"model"`` under ZeRO-3) hold the token shards
+        whose rows go to each other's experts, the other batch axes
+        (``"pod"``) replicas of those experts; ``plane``, every rank of its
+        model x data plane. Made once per ``Parallel``, when the model is
+        built (every rank of the mesh makes the same groups, in the same
+        order, before any step)."""
+        if self._ep_wide is None:
+            names = tuple(self.mesh.mesh_dim_names)
+            sizes = {a: self.mesh.size(names.index(a)) if a in names else 1 for a in EXPERT_AXES}
+            mine = {a: self.mesh.get_local_rank(a) if a in names else 0 for a in EXPERT_AXES}
+            axes = tuple(a for a in names if a in EXPERT_AXES and a in self.batch_axes)
+            size, _, group = batch_group(self.mesh, axes)
+            blocks = []
+            for j in range(size):  # member j's coordinates, row-major over ``axes``, the rest this rank's
+                coord, rest = dict(mine), j
+                for a in reversed(axes):
+                    coord[a], rest = rest % sizes[a], rest // sizes[a]
+                blocks.append(coord["model"] * sizes["data"] + coord["data"])
+            n, _, others = batch_group(self.mesh, tuple(a for a in self.batch_axes if a not in EXPERT_AXES))
+            block = mine["model"] * sizes["data"] + mine["data"]
+            n_plane, _, plane = batch_group(self.mesh, tuple(a for a in names if a in EXPERT_AXES))
+            self._ep_wide = EpWide(size, group, tuple(blocks), block, others if n > 1 else None,
+                                   (n_plane, plane) if n_plane > 1 else None)
+        return self._ep_wide
 
     def barrier(self) -> None:
         """Every rank of the mesh waits for every other: a zero all-reduced
@@ -286,6 +351,32 @@ class _SumBothWays(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return all_reduce(grad.contiguous().clone(), ctx.group), None
+
+
+class _Exchange(torch.autograd.Function):
+    """All-to-all of equal row chunks over ``group``: chunk ``j`` to rank ``j``.
+    Its backward sends each chunk's gradient back the same way."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        all_to_all(out, x.contiguous(), group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = torch.empty_like(grad, memory_format=torch.contiguous_format)
+        all_to_all(out, grad.contiguous(), ctx.group)
+        return out, None
+
+
+def exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``'s first dimension cut into one chunk per rank of ``group``,
+    chunk ``j`` sent to rank ``j`` and chunk ``j`` of the result received
+    from it (one all-to-all, counted; at one rank a copy); the gradient
+    goes back by the reverse all-to-all."""
+    return _Exchange.apply(x, group)
 
 
 class _GatherShards(torch.autograd.Function):

@@ -19,7 +19,8 @@ leading axis, and its scan is a Python loop over the groups in order, the
 repeats and the layers of a repeat. Training wraps each layer in
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``,
 ``remat="full"``, around the whole repeat; the numbers are the same), so a
-layer's forward runs again in the backward pass. A modality frontend's
+layer's forward runs again in the backward pass; ``remat="dots"`` keeps the
+weight products' outputs through it (``remat``). A modality frontend's
 embeddings replace the first ``frontend_positions`` rows of the token
 embeddings. The loss adds the MoE layers' load-balancing loss
 (``router_aux_weight``) and, with ``mtp_depth``, DeepSeek-V3's multi-token
@@ -146,14 +147,9 @@ def _layer_groups(cfg: ArchConfig) -> List[Tuple[str, int, Tuple[LayerSpec, ...]
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what ``Model`` does not run: an
-    encoder-decoder stack (that is ``EncDecModel``'s, as in the reference)
-    and remat ``"dots"``; ``ValueError`` for an SSM layer without an
-    ``SSMConfig``."""
-    unsupported = {
-        "an encoder-decoder stack": cfg.enc_dec,
-        # no registered config uses the selective policy (keep matmul outputs)
-        "remat 'dots'": cfg.remat == "dots",
-    }
+    encoder-decoder stack (that is ``EncDecModel``'s, as in the reference);
+    ``ValueError`` for an SSM layer without an ``SSMConfig``."""
+    unsupported = {"an encoder-decoder stack": cfg.enc_dec}
     if cfg.family != "ssm":
         unsupported[f"{cfg.attention!r} attention"] = cfg.attention not in ("gqa", "mla")
     for feature, present in unsupported.items():
@@ -167,16 +163,38 @@ def _uses_mla(cfg: ArchConfig) -> bool:
     return cfg.family != "ssm" and cfg.attention == "mla"
 
 
-def remat(cfg: ArchConfig, body):
-    """``body`` under the config's remat policy: ``"full"`` recomputes the
-    layer in the backward pass and keeps only its inputs (the reference's
-    ``jax.checkpoint``); ``"none"`` keeps its activations."""
-    if cfg.remat == "none":
-        return body
+# The selective policy's saved products: a weight product of a (.., d)
+# activation lowers to ``aten.mm`` (``torch.matmul`` folds the leading
+# dims), and those are the reference's dot_generals with no batch dimension.
+# ``aten.bmm`` and ``baddbmm`` are recomputed: the expert products (the
+# expert axis a batch dimension, as in the reference's ``escd,edf``, even
+# where a rank holds one expert), the MoE combine ``tkd,tk->td`` (batch t)
+# and attention's einsums; so are the kernel Functions, as the reference's
+# attention is.
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def full_remat(body):
+    """``body`` recomputed in the backward pass, its inputs alone kept (the
+    reference's ``jax.checkpoint``)."""
     # a layer draws no random numbers, so there is no RNG state to restore
     return functools.partial(
         torch.utils.checkpoint.checkpoint, body, use_reentrant=False, preserve_rng_state=False
     )
+
+
+def remat(cfg: ArchConfig, body):
+    """``body`` under the config's remat policy: ``"full"`` (``full_remat``);
+    ``"dots"`` keeps the outputs of the weight products (``DOTS_SAVED``) and
+    recomputes the rest, the reference's ``dots_with_no_batch_dims_saveable``
+    (``transformer.py:209-215``); ``"none"`` keeps every activation."""
+    if cfg.remat == "none":
+        return body
+    if cfg.remat == "dots":
+        policy = functools.partial(torch.utils.checkpoint.create_selective_checkpoint_contexts, list(DOTS_SAVED))
+        return functools.partial(torch.utils.checkpoint.checkpoint, body, use_reentrant=False,
+                                 preserve_rng_state=False, context_fn=policy)
+    return full_remat(body)
 
 
 def _layer(tree: Tree, i: int) -> Tree:
@@ -266,6 +284,8 @@ class Model(Layout, nn.Module):
         self.mesh = mesh
         self.batch_axes = tuple(batch_axes)
         self.par = None if mesh is None else Parallel(mesh, batch_axes)
+        if self.par is not None and cfg.moe is not None and cfg.moe.ep_wide:
+            self.par.ep_wide()  # its groups, made by every rank before any step
         self.ops = ops
         self.groups = _layer_groups(cfg)
         self.stacks = tuple(name for name, _, _ in self.groups)

@@ -41,7 +41,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.parallel import all_gather, all_reduce, gather_dim
+from repro_torch.models.parallel import all_reduce, gather_dim
 from repro_torch.tree import leaves, tree_map
 
 
@@ -129,9 +129,7 @@ class AdamW:
                 delta = delta + c.weight_decay * pf
             mine.copy_(pf - lr * delta)  # rounded to the parameter's dtype
             if dim is not None:
-                parts = [torch.empty_like(mine, memory_format=torch.contiguous_format) for _ in range(par.data_size)]
-                all_gather(parts, mine.contiguous(), par.data_group)
-                p.copy_(torch.cat(parts, dim=dim))
+                p.copy_(gather_dim(mine, dim, par.data_size, par.data_group))
         return params, AdamWState(step=step, m=state.m, v=state.v)
 
 

@@ -13,6 +13,10 @@ The ``H100_*`` table is what runs on the card: the SXM part's data-sheet
 rates (dense, without sparsity) at its full power limit. ``chip_smoke.py``
 hands ``H100_PEAK_FLOPS_BF16`` to ``EarlyStageProfiler`` as ``peak_flops``,
 so the duty cycle it reports on the card is a share of the H100's peak.
+``H100_NVLINK_BW`` is NVLink's rate each way between the eight cards of one
+host; ``launch/dryrun.py`` divides a step's collective bytes by it. A
+16-rank model axis spans two 8-card hosts, whose link is slower, so that
+term is a lower bound.
 """
 
 PEAK_FLOPS_BF16 = 197e12  # FLOP/s per chip
@@ -42,4 +46,5 @@ H100_PEAK_FLOPS_TF32 = 495e12  # FLOP/s, TF32 on the tensor cores
 H100_PEAK_FLOPS_FP32 = 67e12  # FLOP/s, fp32 outside the tensor cores
 H100_HBM_BW = 3.35e12  # bytes/s
 H100_HBM_BYTES = 80e9  # HBM capacity, bytes
+H100_NVLINK_BW = 450e9  # bytes/s each way, NVLink between the cards of one host
 H100_POWER_LIMIT_W = 700.0  # the SXM part's board limit; nvidia-smi's power.limit may read lower

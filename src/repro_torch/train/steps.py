@@ -48,7 +48,11 @@ that shards it (``mesh_global_norm``). Adafactor's ``vr`` and ``vc`` take
 the reference's ``state_specs`` of the parameter specs; its means and its
 update clip sum over the axes that shard what they reduce. A checkpoint
 (``gather_state``, ``restore``) is written and read in the no-mesh format.
-``ep_wide`` on a mesh raises ``NotImplementedError`` naming ROADMAP A8.
+With ``ep_wide`` (the experts split over ``"model"`` and ``"data"``,
+``models/moe.py``) an expert leaf's gradient is whole on the rank that
+holds it: it skips the batch axes' all-reduce and sums only over the batch
+axes outside the model x data plane (``"pod"``); the global norm and
+Adafactor's sums over its expert dimension run over that plane.
 
 The serve bundle on a mesh is the reference's ``make_serve_bundle(cfg,
 mesh)``: the megatron weights, the batch over ``"data"``, the attention
@@ -69,7 +73,7 @@ from repro_torch.models import params as pu
 from repro_torch.models.factory import build_model
 from repro_torch.models.transformer import serve_cache_specs
 from repro_torch.checkpoint.checkpoint import restore_checkpoint
-from repro_torch.models.parallel import NOT_PORTED, all_reduce, gather_dim, reduce_scatter
+from repro_torch.models.parallel import EXPERT_AXES, all_reduce, gather_dim, reduce_scatter
 from repro_torch.optim.adamw import AdamW, OptimizerConfig, clip_by_global_norm, make_optimizer
 from repro_torch.optim.schedules import cosine_with_warmup
 from repro_torch.tree import leaves, tree_map, unflatten
@@ -196,8 +200,6 @@ def make_train_bundle(
         raise ValueError(f"layout {layout!r}: one of {LAYOUTS}")
     if mesh is not None and layout == "zero3":
         batch_axes = tuple(mesh.mesh_dim_names)  # pure data parallelism over every axis
-    if mesh is not None and cfg.moe is not None and cfg.moe.ep_wide:
-        raise NotImplementedError(f"{cfg.name}: ep_wide on a mesh is {NOT_PORTED}")
     model = build_model(cfg, mesh, batch_axes, ops=ops)
     opt_cfg = opt_cfg or OptimizerConfig(name=cfg.optimizer)
     optimizer = make_optimizer(opt_cfg)
@@ -211,6 +213,9 @@ def make_train_bundle(
         specs = [spec for _, spec in pu.spec_leaves(param_specs)]
         # FSDP leaves: their gradient comes reduce-scattered out of the model
         fsdp = [d is not None for d in leaves(pu.batch_dims(param_specs, model.batch_axes))]
+        # ep_wide's experts (split over "data" too, not FSDP's): their gradient is
+        # whole on the rank, to be summed only over the other batch axes ("pod")
+        wide = [not f and any(EXPERT_AXES == e for e in spec) for f, spec in zip(fsdp, specs)]
         # the dimension each ZeRO spec adds over the batch axes (None: the
         # parameter is its own slice already, or stays replicated)
         zero_dims = [next((i for i, (z, p) in enumerate(zip(zs, ps)) if z != p), None)
@@ -250,8 +255,11 @@ def make_train_bundle(
         else:
             loss, metrics, grads = loss_and_grads(model, params, batch)
         if par is not None and par.data_group is not None:
-            for g, reduced, cut in zip(leaves(grads), fsdp, sliced):
-                if not (reduced or cut):
+            for g, reduced, cut, experts in zip(leaves(grads), fsdp, sliced, wide):
+                if experts:
+                    if par.ep_wide().rest is not None:
+                        all_reduce(g, par.ep_wide().rest)
+                elif not (reduced or cut):
                     all_reduce(g, par.data_group)
         return loss, metrics, grads
 
@@ -289,21 +297,26 @@ def zero2_slice(g: torch.Tensor, dim: int, par) -> torch.Tensor:
 
 
 def shard_axes(spec: pu.Spec, batch_axes: Tuple[str, ...]) -> Tuple[str, ...]:
-    """Which of ``Parallel``'s groups, ``"model"`` and ``"data"`` (the batch
-    axes), shard a leaf of ``spec``."""
+    """Which of ``Parallel``'s groups shard a leaf of ``spec``: ``"model"``,
+    ``"data"`` (the batch axes), ``"experts"`` (``ep_wide``'s model x data
+    plane, ``EXPERT_AXES``)."""
     entries = [e if isinstance(e, tuple) else (e,) for e in spec]
     model = ("model",) in entries and "model" not in batch_axes
-    return ("model",) * model + ("data",) * (tuple(batch_axes) in entries)
+    data = tuple(batch_axes) in entries
+    return ("model",) * model + ("data",) * data + ("experts",) * (EXPERT_AXES in entries and not data)
 
 
 def mesh_global_norm(grads, sharded, par) -> torch.Tensor:
     """The global norm of the full gradient from a rank's shards: the squares
     of a leaf summed over each group that ``sharded`` names for it
-    (``shard_axes``: ``"model"``, ``"data"``), a replicated leaf's counted
-    once; summed over the leaves in order, as ``global_norm`` sums them. A
-    group of one rank sums nothing."""
+    (``shard_axes``: ``"model"``, ``"data"``, ``"experts"``), a replicated
+    leaf's counted once; summed over the leaves in order, as ``global_norm``
+    sums them. A group of one rank sums nothing."""
     squares = [g.float().square().sum() for g in leaves(grads)]
-    for axis, size, group in (("model", par.model_size, par.model_group), ("data", par.data_size, par.data_group)):
+    groups = [("model", par.model_size, par.model_group), ("data", par.data_size, par.data_group)]
+    if any("experts" in s for s in sharded) and par.group_of(EXPERT_AXES) is not None:
+        groups.append(("experts", *par.group_of(EXPERT_AXES)))
+    for axis, size, group in groups:
         picked = [i for i, s in enumerate(sharded) if axis in s]
         if size > 1 and picked:
             summed = all_reduce(torch.stack([squares[i] for i in picked]), group)
@@ -357,9 +370,7 @@ def make_serve_bundle(
     (jamba-1.5-large-398b, deepseek-v3-671b) serves with the megatron
     weights: the reference's bundle shards them over the data axes too and
     gathers them in the step, which changes no number (ROADMAP C4).
-    ``ep_wide`` raises ``NotImplementedError`` naming A8."""
-    if mesh is not None and cfg.moe is not None and cfg.moe.ep_wide:
-        raise NotImplementedError(f"{cfg.name}: serving ep_wide on a mesh is {NOT_PORTED}")
+    ``ep_wide`` serves its experts split over both axes, as it trains them."""
     model = build_model(cfg, mesh, batch_axes, ops=ops)
     flat = model if mesh is None else build_model(cfg, ops=ops)
     size = (batch, max_len, cfg.frontend_positions) if cfg.enc_dec else (batch, max_len)

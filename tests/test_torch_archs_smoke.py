@@ -14,8 +14,7 @@ reference marks ``slow`` run here too.
 init gives a finite loss, a grad norm above 0, and parameters that changed,
 as the reference asserts. ``tests/test_torch_train.py::test_train_steps_track_jax``
 holds the steps to the JAX bundle's. The reference's
-``test_shape_grid_support`` needs the dry-run's ``input_specs``, which is
-not ported (ROADMAP A8).
+``test_shape_grid_support`` has its twin in ``tests/test_torch_dryrun.py``.
 """
 
 import numpy as np

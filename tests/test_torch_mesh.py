@@ -31,8 +31,8 @@ of ``train/steps.py``, ``colocation/spatial.py``) against the JAX package.
 * Twins of ``tests/test_system.py::test_spatial_mesh_split`` at 1 x 1 and at
   4 ranks; ``make_production_mesh`` on a 1-rank group; what raised naming
   A9b before it was ported (Adafactor on a model axis, checkpoints of 4
-  ranks, a batch over several axes) runs; serving ``ep_wide`` raises naming
-  A8; serving on the 1-rank mesh is the no-mesh path bit for bit (serving
+  ranks, a batch over several axes) runs; serving ``ep_wide`` runs;
+  serving on the 1-rank mesh is the no-mesh path bit for bit (serving
   on a mesh is held to the JAX package in ``tests/test_torch_mesh_serve.py``,
   the training layouts of A9b in ``tests/test_torch_mesh_layouts.py``).
 The card's test of the mesh step is ``tests/test_torch_mesh_card.py`` (a
@@ -622,15 +622,22 @@ def test_one_rank_mesh_bundles_co_locate_through_the_stepper(smoke_mesh):
 
 @pytest.mark.parametrize("what", ["serve ep_wide", "multi-axis batch"])
 def test_unported_on_a_one_rank_mesh_raises_naming_a9b(what, smoke_mesh):
-    """Serving an ``ep_wide`` config on a mesh still raises, naming ROADMAP
-    A8, where ``ep_wide`` now stands; a batch over ``("pod", "data")`` on a
-    1-rank mesh of axes ``("pod", "data", "model")`` steps as the no-mesh
-    path, bit for bit (the layout cases are
-    ``test_torch_train.py::test_bundle_refuses_what_is_not_ported``)."""
+    """What raised here before it was ported: serving an ``ep_wide`` config
+    on the 1-rank mesh gives the no-mesh serve's logits, bit for bit
+    (``tests/test_torch_mesh_serve.py`` holds 2 x 2 to the JAX package); a
+    batch over ``("pod", "data")`` on a 1-rank mesh of axes ``("pod",
+    "data", "model")`` steps as the no-mesh path, bit for bit (the layout
+    cases are ``test_torch_train.py::test_bundle_refuses_what_is_not_ported``)."""
     cfg = smoke_config(get_config("deepseek-v2-lite-16b"))
     if what == "serve ep_wide":
-        with pytest.raises(NotImplementedError, match="A8"):
-            make_serve_bundle(dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_wide=True)), smoke_mesh)
+        wide = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_wide=True))
+        tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 6)))
+        params = build_model(cfg).init(2, "cpu")
+        out = []
+        for bundle in (make_serve_bundle(cfg, batch=2, max_len=8), make_serve_bundle(wide, smoke_mesh, batch=2, max_len=8)):
+            logits, cache = bundle.prefill_fn(params, tokens)
+            out.append((logits, bundle.decode_fn(params, cache, logits.argmax(-1, keepdim=True), 6)[0]))
+        assert all(torch.equal(a, b) for a, b in zip(out[0], out[1]))
         return
     pod = init_device_mesh("cpu", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
     rng = np.random.default_rng(5)

@@ -15,7 +15,12 @@ against the JAX package.
   megatron layout (qwen3-32b); Adafactor on a model axis of 2 (internvl2-2b,
   not FSDP); the batch over ``("pod", "data")`` on a (2, 1, 2) mesh of axes
   ``("pod", "data", "model")`` for internvl2-2b and deepseek-v2-lite-16b
-  (MoE capacity per shard). The reference's ``zero2_grads`` under ZeRO-3
+  (MoE capacity per shard); ``ep_wide`` for deepseek-v3-671b at (2, 2), two
+  steps (its experts split over ``("model", "data")``, the tokens' rows
+  exchanged by an all-to-all over ``"data"``, the expert gradients whole on
+  their rank, FSDP and Adafactor on the rest), and under ZeRO-3 (the
+  exchange over the whole model x data plane, whose group order is not the
+  experts' order). The reference's ``zero2_grads`` under ZeRO-3
   only constrains its accumulator to the parameters' own sharding, so its
   ZeRO-3 run is held against both of the port's. XLA's compiles dominate
   the file's time, so the subprocesses compile with
@@ -30,10 +35,11 @@ against the JAX package.
   expert routes equal, and the bundle's spec trees equal to the reference's
   shardings. Every rank's gathered results must equal the others' bit for
   bit.
-* Four planted faults (the FSDP backward keeps the rank's own share,
+* Five planted faults (the FSDP backward keeps the rank's own share,
   Adafactor's row mean skips its all-reduce, the update clip's RMS from the
-  shard alone, ZeRO-2 reduce-scatters along the wrong dimension) each fail
-  their case's comparison on every rank.
+  shard alone, ZeRO-2 reduce-scatters along the wrong dimension, the
+  ``ep_wide`` all-to-all's backward left out) each fail their case's
+  comparison on every rank.
 * The (1, 2) and (2, 1) halves that ``split_mesh`` cuts from the 2 x 2
   mesh run the FSDP configs against the port's own no-mesh step (at a data
   axis of 2 with an MoE capacity that drops no choice).
@@ -99,7 +105,11 @@ CASES = {
     "adafactor on model 2": ("internvl2-2b", (2, 2), DM, ("data",), {}, "adafactor", 2),
     "pod internvl2": ("internvl2-2b", (2, 1, 2), PDM, ("pod", "data"), {}, None, 1),
     "pod deepseek-v2-lite": ("deepseek-v2-lite-16b", (2, 1, 2), PDM, ("pod", "data"), {}, None, 1),
+    "ep_wide deepseek-v3": ("deepseek-v3-671b", (2, 2), DM, ("data",), {}, None, 2),
+    "ep_wide zero3 deepseek-v3": ("deepseek-v3-671b", (2, 2), DM, ("data",), ZERO3, None, 1),
 }
+# the cases whose config splits its experts over both axes (MoEConfig.ep_wide), by their names' prefix
+EP_WIDE = "ep_wide"
 ARCHS = sorted({case[0] for case in CASES.values()})
 # each planted fault and the case it is planted in
 FAULTS = {
@@ -107,12 +117,14 @@ FAULTS = {
     "Adafactor's row mean skips its all-reduce": "adafactor on model 2",
     "the update clip's RMS from the shard alone": "fsdp deepseek-v3",
     "ZeRO-2 reduce-scatters along the wrong dimension": "zero2 qwen3",
+    "the all-to-all's backward left out": "ep_wide deepseek-v3",
 }
-# the JAX package's cases in three subprocesses that run at once (its compiles dominate); the reference's
+# the JAX package's cases in four subprocesses that run at once (its compiles dominate); the reference's
 # zero2_grads on the ZeRO-3 layout changes only a sharding constraint (its ZeRO slice is the shard), so one
 # reference run serves both of the port's
 REFERENCE_SPLIT = (("fsdp jamba",), ("fsdp deepseek-v3", "zero3 internvl2", "zero3 qwen3"),
-                   ("zero2 qwen3", "adafactor on model 2", "pod internvl2", "pod deepseek-v2-lite"))
+                   ("zero2 qwen3", "adafactor on model 2", "pod internvl2", "pod deepseek-v2-lite"),
+                   ("ep_wide deepseek-v3", "ep_wide zero3 deepseek-v3"))
 REFERENCE_OF = {"zero3 zero2 internvl2": "zero3 internvl2", "zero3 zero2 qwen3": "zero3 qwen3"}
 # the sub-meshes' cases, against the port's no-mesh step: each half of the 2 x 2 mesh runs one
 HALVES = {"1x2": ("fsdp jamba", "fsdp deepseek-v3"), "2x1": ("fsdp jamba", "fsdp deepseek-v3")}
@@ -169,7 +181,7 @@ def _torch_batch(batch) -> dict:
 # the routes from the router's probabilities (a debug callback), the spec
 # trees of its shardings.
 _JAX_REFERENCE = r"""
-import pickle, sys
+import dataclasses, pickle, sys
 import numpy as np, jax, jax.numpy as jnp
 from repro.configs import get_config, smoke_config
 from repro.launch.mesh import _make_mesh
@@ -197,6 +209,8 @@ out = {}
 for name, (arch, shape, axes, batch_axes, kw, opt, n_steps) in cases.items():
     mesh = _make_mesh(shape, axes)
     cfg = smoke_config(get_config(arch))
+    if name.startswith("ep_wide"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_wide=True))
     extra = {"opt_cfg": OptimizerConfig(name=opt)} if opt else {}
     bundle = steps.make_train_bundle(cfg, mesh, batch_axes, lr_schedule=constant(lr), **kw, **extra)
     params = jax.tree.map(lambda a, s: jax.device_put(jnp.asarray(a), s), inputs[arch]["params"],
@@ -291,6 +305,8 @@ def _planted(fault: str):
         "Adafactor's row mean skips its all-reduce": (adamw, "_mean", _row_mean_unreduced(adamw._mean)),
         "the update clip's RMS from the shard alone": (adamw, "_mean_all", lambda t, cuts: t.mean()),
         "ZeRO-2 reduce-scatters along the wrong dimension": (steps, "zero2_slice", _zero2_flat),
+        "the all-to-all's backward left out": (parallel._Exchange, "backward",
+                                               staticmethod(lambda ctx, grad: (grad, None))),
     }
     owner, name, fn = patches[fault]
     orig = owner.__dict__[name]
@@ -301,20 +317,24 @@ def _planted(fault: str):
         setattr(owner, name, orig)
 
 
-def _config(arch: str, spare: bool = False):
+def _config(arch: str, spare: bool = False, wide: bool = False):
     """The smoke config; ``spare``: an MoE capacity that drops no choice
-    (``capacity_factor`` E / k: an expert's capacity is every token)."""
+    (``capacity_factor`` E / k: an expert's capacity is every token);
+    ``wide``: the experts split over both mesh axes (``ep_wide``)."""
     cfg = smoke_config(get_config(arch))
     if spare and cfg.moe is not None:
         m = cfg.moe
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, capacity_factor=m.num_experts / m.top_k))
+    if wide:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_wide=True))
     return cfg
 
 
 def _bundle(name: str, mesh, spare: bool = False):
     arch, _, _, batch_axes, kw, opt, _ = CASES[name]
     extra = {"opt_cfg": OptimizerConfig(name=opt)} if opt else {}
-    return make_train_bundle(_config(arch, spare), mesh, batch_axes, lr_schedule=constant(LR), **kw, **extra)
+    cfg = _config(arch, spare, name.startswith(EP_WIDE))
+    return make_train_bundle(cfg, mesh, batch_axes, lr_schedule=constant(LR), **kw, **extra)
 
 
 def _port_run(name: str, case: dict, mesh=None, spare: bool = False) -> dict:
@@ -664,7 +684,8 @@ def smoke_mesh():
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("name", ["fsdp deepseek-v3", "zero3 zero2 internvl2", "zero2 qwen3", "adafactor on model 2"])
+@pytest.mark.parametrize("name", ["fsdp deepseek-v3", "zero3 zero2 internvl2", "zero2 qwen3", "adafactor on model 2",
+                                  "ep_wide deepseek-v3"])
 def test_one_rank_layout_is_the_no_mesh_step(name, smoke_mesh, background):
     """At 1 x 1 every layout computes the no-mesh path's bits (its gathers and
     reduce-scatters copies), as the card's single-rank NCCL mesh runs it."""

@@ -13,13 +13,17 @@ across the ranks through each slice's log-sum-exp) against the JAX package.
 * Four gloo ranks spawned from the test (one torch thread each, joined
   within 60 s) serve at mesh (2, 2) against the reference's
   ``make_serve_bundle(cfg, mesh, ("data",), batch=B, max_len=...)`` on a
-  2 x 2 mesh of four host devices in one subprocess: minitron-8b (GQA, also
-  a 4-token prompt, whose second slice stays empty), h2o-danube-1.8b past
+  2 x 2 mesh of four host devices in two subprocesses (the ``ep_wide``
+  cases apart): minitron-8b (GQA, also a 4-token prompt, whose second slice
+  stays empty), h2o-danube-1.8b past
   its window of 32 (the ring's slots cross the ranks' boundary) with the
   bf16 and the int8 cache, mamba2-370m, deepseek-v2-lite-16b (MLA + MoE, also
   at batch 1: the one-hot fallback, a cache not split over ``"data"``),
-  seamless-m4t-large-v2 (seeded frames) and one smoke period of
-  jamba-1.5-large-398b, in fp32: batch 4, a prompt of 13 tokens and 6
+  seamless-m4t-large-v2 (seeded frames), one smoke period of
+  jamba-1.5-large-398b and deepseek-v3-671b with ``ep_wide`` (its experts
+  split over ``("model", "data")``: at batch 4 the rows exchanged by an
+  all-to-all over ``"data"``, at batch 1 the one-hot fallback summed over the
+  model x data plane), in fp32: batch 4, a prompt of 13 tokens and 6
   greedy steps, ``max_len`` 19, which splits unevenly over ``"model"``.
   The reference's bundle cannot return a cache whose sequence does not split
   evenly (JAX's output shardings need even shards): there the subprocess
@@ -104,7 +108,13 @@ CASES = {
     "deepseek-v2-lite-16b, batch 1": ("deepseek-v2-lite-16b", 13, 19, 1, None),
     "seamless-m4t-large-v2": ("seamless-m4t-large-v2", 13, 19, 4, None),
     "jamba-1.5-large-398b": ("jamba-1.5-large-398b", 13, 19, 4, None),
+    "deepseek-v3-671b, ep_wide": ("deepseek-v3-671b", 13, 19, 4, None),
+    "deepseek-v3-671b, ep_wide, batch 1": ("deepseek-v3-671b", 13, 19, 1, None),
 }
+# the cases whose config splits its experts over both axes (MoEConfig.ep_wide), by name
+EP_WIDE = "ep_wide"
+# the JAX package's runs in two subprocesses started together (their compiles dominate): the ep_wide cases apart
+REFERENCE_SPLIT = ([name for name in CASES if EP_WIDE not in name], [name for name in CASES if EP_WIDE in name])
 # each planted fault and the case it is planted in
 FAULTS = {
     "the merge keeps only the local slice": "minitron-8b",
@@ -131,6 +141,8 @@ def _rel_l2(a, b) -> float:
 def _config(name: str, jax_side: bool = False):
     arch, _, _, _, kv = CASES[name]
     cfg = jax_smoke_config(jax_get_config(arch)) if jax_side else smoke_config(get_config(arch))
+    if EP_WIDE in name:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_wide=True))
     return dataclasses.replace(cfg, kv_cache_dtype=kv) if kv else cfg
 
 
@@ -252,6 +264,8 @@ for name, case in inputs.items():
     cfg = smoke_config(get_config(arch))
     if kv:
         cfg = dataclasses.replace(cfg, kv_cache_dtype=kv)
+    if "ep_wide" in name:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_wide=True))
     bundle = steps.make_serve_bundle(cfg, mesh, ("data",), batch=batch, max_len=max_len)
     params = jax.tree.map(lambda a, s: jax.device_put(jnp.asarray(a), s), case["params"], bundle.param_shardings)
     model = bundle.model
@@ -451,8 +465,9 @@ def _env(**extra) -> dict:
 
 
 class _Background:
-    """The JAX package's 2 x 2 run and the port's four ranks, started
-    together; ``results()`` waits for both (each within its limit)."""
+    """The JAX package's 2 x 2 runs (``REFERENCE_SPLIT``) and the port's four
+    ranks, started together; ``results()`` waits for them (each within its
+    limit)."""
 
     def __init__(self):
         self.dir = tempfile.TemporaryDirectory()
@@ -460,13 +475,15 @@ class _Background:
         self.inputs = _inputs()
         with open(f"{tmp}/inputs.pkl", "wb") as f:
             pickle.dump(self.inputs, f)
-        with open(f"{tmp}/reference.pkl", "wb") as f:
-            pickle.dump((self.inputs, CASES, STEPS), f)
         flags = "--xla_force_host_platform_device_count=4 --xla_cpu_multi_thread_eigen=false"
-        self.reference = subprocess.Popen(
-            [sys.executable, "-c", _JAX_REFERENCE, f"{tmp}/reference.pkl", f"{tmp}/jax.pkl"],
-            cwd=ROOT, env=_env(XLA_FLAGS=flags, JAX_PLATFORMS="cpu"), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)
+        self.references = []
+        for i, names in enumerate(REFERENCE_SPLIT):
+            with open(f"{tmp}/reference{i}.pkl", "wb") as f:
+                pickle.dump(({name: self.inputs[name] for name in names}, CASES, STEPS), f)
+            self.references.append(subprocess.Popen(
+                [sys.executable, "-c", _JAX_REFERENCE, f"{tmp}/reference{i}.pkl", f"{tmp}/jax{i}.pkl"],
+                cwd=ROOT, env=_env(XLA_FLAGS=flags, JAX_PLATFORMS="cpu"), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
         code = f"import test_torch_mesh_serve as t; t._rank_main(int(__import__('sys').argv[1]), 4, {tmp!r})"
         self.ranks = [subprocess.Popen([sys.executable, "-c", code, str(r)], cwd=ROOT, env=_env(JAX_PLATFORMS="cpu"),
                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(4)]
@@ -477,7 +494,8 @@ class _Background:
             failures = []
             for r, proc in enumerate(self.ranks):
                 failures += self._join(f"rank {r}", proc, RANK_TIMEOUT_S)
-            failures += self._join("the JAX package's 2 x 2 run", self.reference, REFERENCE_TIMEOUT_S)
+            for names, proc in zip(REFERENCE_SPLIT, self.references):
+                failures += self._join(f"the JAX package's 2 x 2 runs of {names}", proc, REFERENCE_TIMEOUT_S)
             assert not failures, "\n".join(failures)
             tmp = self.dir.name
             port = {}  # key -> {rank: that rank's result}
@@ -485,8 +503,11 @@ class _Background:
                 with open(f"{tmp}/rank{r}.pkl", "rb") as f:
                     for key, value in pickle.load(f).items():
                         port.setdefault(key, {})[r] = value
-            with open(f"{tmp}/jax.pkl", "rb") as f:
-                self._results = {"port": port, "jax": pickle.load(f)}
+            theirs = {}
+            for i in range(len(REFERENCE_SPLIT)):
+                with open(f"{tmp}/jax{i}.pkl", "rb") as f:
+                    theirs.update(pickle.load(f))
+            self._results = {"port": port, "jax": theirs}
         return self._results
 
     @staticmethod
@@ -500,7 +521,7 @@ class _Background:
         return [] if proc.returncode == 0 else [f"{name}: exit {proc.returncode}\n{err[-3000:]}"]
 
     def close(self):
-        for proc in self.ranks + [self.reference]:
+        for proc in self.ranks + self.references:
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()

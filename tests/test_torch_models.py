@@ -213,9 +213,16 @@ def test_unported_features_raise(change):
     hybrid layout is ported (tests/test_torch_hybrid.py): on minitron-8b's
     smoke config a hybrid pattern names SSM layers the config has no
     ``SSMConfig`` for, and that raises ``ValueError``, as does a period that
-    does not divide ``num_layers``."""
+    does not divide ``num_layers``. Remat ``"dots"`` is ported
+    (tests/test_torch_remat_dots.py): it builds, and its loss is full
+    remat's."""
     cfg = dataclasses.replace(smoke_config(get_config("minitron-8b")), **change)
     tokens = torch.zeros(2, 8, dtype=torch.long)
+    if change.get("remat") == "dots":
+        full = Model(dataclasses.replace(cfg, remat="full"))
+        params = full.init(0, "cpu")
+        assert float(Model(cfg).loss(params, tokens, tokens)[0]) == float(full.loss(params, tokens, tokens)[0])
+        return
     if "hybrid_pattern" in change:
         with pytest.raises(ValueError, match="SSMConfig"):
             Model(cfg)

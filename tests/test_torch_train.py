@@ -655,8 +655,8 @@ def test_bundle_refuses_what_is_not_ported(case, request):
     1 x 1 mesh the ZeRO-3 layout, the ZeRO-2 accumulator (2 microbatches) and
     an FSDP config (deepseek-v3-671b, Adafactor) build and step as the
     no-mesh path, bit for bit (``tests/test_torch_mesh_layouts.py`` holds
-    them to the JAX package on 4 ranks); ``ep_wide`` on a mesh raises
-    ``NotImplementedError`` naming ROADMAP A8."""
+    them to the JAX package on 4 ranks); so does ``ep_wide`` (its
+    experts over both axes, the data axis's all-to-all a copy at one rank)."""
     cfg = smoke_config(get_config("deepseek-v2-lite-16b"))
     kw = {"layout": "zero3"} if "zero3" in case else {"zero2_grads": True} if "zero2" in case else {}
     mesh = None
@@ -666,9 +666,6 @@ def test_bundle_refuses_what_is_not_ported(case, request):
             cfg = smoke_config(get_config("deepseek-v3-671b"))
         elif case == "mesh: ep_wide":
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_wide=True))
-            with pytest.raises(NotImplementedError, match="A8"):
-                make_train_bundle(cfg, mesh, **kw)
-            return
         elif case == "mesh: zero2_grads":
             kw["microbatches"] = 2
     batch = _to_torch(_batch("deepseek-v2-lite-16b"))
