@@ -13,11 +13,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    edges (the SSD scan's two kernels also
    under steep decay at the slice, against the recurrence in fp32 and in
    fp64, and ``ssd_scan.tc_smem``, the dry run's shared-memory size of the
-   tensor-core kernel, held to the library's); then timed at the slices' shapes
+   tensor-core kernel, held to the library's); then each kernel timed at its
+   main path's first shape (``KERNEL_ROWS``, one row each of
+   ``python -m repro_torch.kernels.timing``, which times every other shape)
    with CUDA events beside its plain version, one PyTorch library call where
-   one computes the same function, and its bound (the SSD scan's generic
-   kernel also on fp32 B/C, its launches checked to be all generic; the
-   decode wrapper's host time a call beside the library's); then
+   one computes the same function, and its bound, for the ``kernels`` line
+   (and the SSD scan's plan at the mamba prefill's shape with fp32 B/C: the
+   generic kernel); then
    the decode kernel's log-sum-exp (``split_decode_phase``): at minitron-8b's,
    h2o-danube-1.8b's ring, seamless-m4t-large-v2's self cache and
    jamba-1.5-large-398b's decode shapes, bf16 and fp32, the cache cut into 2,
@@ -26,9 +28,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    a mesh merges its ranks' slices, against the unsplit kernel and the plain
    version (2e-2 / 2e-5), ``lse`` against the plain ``lse`` at the same
    tolerance, absolute; a planted kernel whose ``lse`` forgets ``ln lsum``
-   must fail; the kernel timed with and without ``lse`` at minitron-8b's and
-   h2o-danube-1.8b's shapes, beside the library's memory-efficient attention
-   with its log-sum-exp on K/V expanded to the query heads;
+   must fail;
 3. minitron-8b at full width and depth (seeded random weights) served
    through ``make_serve_bundle`` and the launcher's ``greedy_generate``: batch 4,
    a 500-token prompt, 32 greedy decode steps. The launch counters must show
@@ -56,9 +56,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    only in the order of sums); in bf16 the kernel path may be at most 1.25
    times as far from the fp32 plain run as the plain bf16 path;
 5. h2o-danube-1.8b (head_dim 80, a 4096-token sliding window) at full width
-   and depth, batch 4, 32 decode steps, past its window: its kernels timed at
-   its shapes (flash with the window beside SDPA with a band mask, decode on
-   the full 4096-slot ring, rmsnorm at 2560 wide); run A with the bf16 cache
+   and depth, batch 4, 32 decode steps, past its window: run A with the bf16 cache
    and a 6144-token prompt (the prefill keeps the last 4096 positions in the
    ring, decode wraps at once), run B with the int8 cache and a 4080-token
    prompt (the ring wraps at step 16). Each run: 49 rmsnorm + 24 flash
@@ -69,10 +67,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (``DANUBE_PLANTED``) that the gates must catch;
 6. deepseek-v2-lite-16b (MLA + MoE: one dense layer and 26 of 64 routed
    experts top-6 beside 2 shared, 15.7 B parameters) at full width and
-   depth, batch 4, a 2000-token prompt, 32 decode steps: its kernels timed at
-   its shapes (flash at q/k head dim 192 and v 128 on the MLA prefill's views
-   beside SDPA, rmsnorm at d_model and on the kv_norm slice, 512 of each
-   576-wide row, read in place); 82 rmsnorm + 27 flash launches per prefill,
+   depth, batch 4, a 2000-token prompt, 32 decode steps (its kernels checked
+   at its shapes in phase 2: flash at q/k head dim 192 and v 128 on the MLA
+   prefill's views, rmsnorm on the kv_norm slice, 512 of each 576-wide row,
+   read in place); 82 rmsnorm + 27 flash launches per prefill,
    82 rmsnorm per decode step (MLA decodes in the latent space, with no
    kernel); a profile with the MoE expert products apart; the dropped
    choices per layer at prefill and the share of choices routed elsewhere
@@ -85,11 +83,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    d_model 1024, MHA 16/16 at head_dim 64, cross-attention, 2.03 B
    parameters) at full width and depth, its encoder fed 1024 seeded frames
    a sequence (the launcher's stand-ins), batch 4, a 200-token decoder
-   prompt, 32 decode steps: its kernels timed at its shapes (flash
-   non-causal on the encoder and the cross-attention, Sq != Sk, at D 64 on
-   the model's views, and the training shapes with each Function's plain
-   backward; decode over the 1024 frames' cross cache, group 1; rmsnorm at
-   its rows); 122 rmsnorm + 72 flash launches per prefill, 73 rmsnorm + 48
+   prompt, 32 decode steps; 122 rmsnorm + 72 flash launches per prefill, 73 rmsnorm + 48
    decode per step (self and cross); the cache's layout; a profile; the
    logits gates of phase 5 at every step with the fp32 kernel path within
    1e-4 of fp32 plain, and the planted faults of ``SEAMLESS_PLANTED``;
@@ -97,7 +91,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    layers (ssm x4, attn, ssm x3; MoE at positions 1, 3, 5 and 7) and 4 of its
    16 experts, every width as published (d_model 8192, GQA 64/8 at head_dim
    128, SSM heads of P 128, N 64; 16.1 B parameters), batch 4, a 2000-token
-   prompt, 32 decode steps: its kernels checked and timed at its shapes (the
+   prompt, 32 decode steps (its kernels checked at its shapes in phase 2: the
    SSD scan at H 128, P 128, N 64 in both kernels, flash at GQA 64/8,
    decode at group 8 over 2032 keys, rmsnorm at 8192 and at the gated norm's
    16,384); 24 rmsnorm + 1 flash + 7 ssd_scan launches per prefill (all 7 of
@@ -106,18 +100,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    expert products apart; the dropped choices per MoE layer; the logits
    gates of phase 6 (the fp32 gate on held routes, the plain attention one
    sequence at a time, the weights widened to fp32 in place) and a fault
-   planted in flash and one in the SSD scan. Its launcher does not run on
+   planted in flash and one in the SSD scan; then ``mesh_serve`` of its FSDP
+   serve bundle (the reference's ``fsdp_param_specs``, the weights gathered
+   layer by layer) on the (1, 1) mesh, bit for bit the main path's first
+   steps. Its launcher does not run on
    the card (the full config does not fit, the smoke config's head dim 16
    has no flash kernel);
 9. launcher: ``launch/serve.py``'s command line at each model phase's sizes
    but jamba's;
-10. training kernels: the three kernels of the training forward pass timed at
-   its shapes (internvl2-2b's rmsnorm and flash_attention, mamba2-370m's
-   rmsnorm and ssd_scan, deepseek-v2-lite-16b's flash at q/k 192 and v 128 on
-   the MLA views and rmsnorm on the kv_norm slice; seamless-m4t-large-v2's
-   are timed in phase 7) beside the plain version,
-   the library call and the bound, and each autograd Function's plain
-   backward pass timed at the same shapes;
+10. (no phase: the training kernels and their Functions' plain backward
+   passes are timed by ``python -m repro_torch.kernels.timing``; the later
+   phases keep their numbers);
 11. internvl2-2b (its 256 frontend positions fed the trainer's seeded stand-in
    embeddings) and mamba2-370m
    trained at full width and depth, bf16, batch 4 x 2048 tokens from
@@ -266,7 +259,6 @@ import json
 import math
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import threading
@@ -308,8 +300,8 @@ from repro_torch.core.predictor import JCTPredictor  # noqa: E402
 from repro_torch.data.frontend import frontend_embeds  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels import decode_attention as decode_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
+from repro_torch.kernels import timing  # noqa: E402
 from repro_torch.kernels.ssd_scan import ROWS as SSD_ROWS  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
@@ -325,16 +317,6 @@ from repro_torch.serve.models import serve_models_from_profiles  # noqa: E402
 from repro_torch.train.steps import loss_and_grads, make_serve_bundle, make_train_bundle  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.tree import leaves, leaves_with_paths, tree_map  # noqa: E402
-
-# NVIDIA H100 SXM data sheet (dense): the bound of every kernel is the larger of
-# bytes / HBM rate and operations / peak rate for their type, at 700 W.
-HBM_BYTES_PER_S = hw.H100_HBM_BW
-PEAK_FLOPS = {torch.bfloat16: hw.H100_PEAK_FLOPS_BF16, torch.float32: hw.H100_PEAK_FLOPS_FP32}
-TF32_FLOPS = hw.H100_PEAK_FLOPS_TF32  # the tensor cores on TF32 operands
-
-# ~0.1 s at the H100's 1.98 GHz: longer than the host takes to queue the 40
-# timed calls of the slowest plain version.
-SPIN_CYCLES = 200_000_000
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 DTYPES = (torch.bfloat16, torch.float32)
@@ -404,7 +386,6 @@ TWIN_RTOL = 0.10
 # each twin cell's card peak of its step: max_memory_allocated less what was
 # allocated before the step's state was made (bytes)
 CARD_STEP_PEAKS = {}
-V3_H, V3_D_MODEL, V3_Q_LORA = 128, 7168, 1536
 # The training cells that also run on the 1 x 1 mesh, its Trainer steps and
 # gradient floor; the no-mesh main path's median step time of each training
 # cell (train_phase) and the seconds the mesh runs take (mesh_gate,
@@ -539,62 +520,6 @@ def max_abs_err(out: torch.Tensor, exp: torch.Tensor, dtype, tol=None) -> float:
     return float((a - b).abs().max())
 
 
-def time_ms(fn, inputs, iters: int = 40) -> float:
-    """Mean ms per call with CUDA events, cycling through ``inputs`` (``copies``:
-    at the prefill shapes they exceed the 50 MB L2, so each call reads device
-    memory).
-
-    A spin kernel first keeps the card busy while the host queues all the
-    calls, so they run back to back and the host's cost per launch (tens of
-    microseconds for a wrapper) is not counted as the kernel's time."""
-    for i in range(3):
-        fn(*inputs[i % len(inputs)])
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for i in range(iters):
-        fn(*inputs[i % len(inputs)])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def host_us(fn, ref_fn, inputs, iters: int = 200, repeats: int = 15) -> tuple:
-    """Host microseconds per call of ``fn`` and of ``ref_fn``, and their ratio:
-    the medians over ``repeats`` runs of ``iters`` calls each, the two
-    functions' runs taken in turns so that the host's drift reaches both. Each
-    run's calls are queued behind a spin kernel, so the host never waits for
-    the card."""
-    for i in range(3):
-        fn(*inputs[i % len(inputs)])
-        ref_fn(*inputs[i % len(inputs)])
-    runs = []
-    for _ in range(repeats):
-        pair = []
-        for f in (fn, ref_fn):
-            torch.cuda.synchronize()
-            torch.cuda._sleep(SPIN_CYCLES)
-            t0 = time.perf_counter()
-            for i in range(iters):
-                f(*inputs[i % len(inputs)])
-            pair.append((time.perf_counter() - t0) / iters * 1e6)
-        runs.append((*pair, pair[0] / pair[1]))
-    torch.cuda.synchronize()
-    return tuple(statistics.median(r[k] for r in runs) for k in range(3))
-
-
-def copies(make, nbytes: int, iters: int = 40):
-    """Enough copies that together exceed the L2, at most one per timed call: a
-    decode step's few rows stay in L2, as its activations do in the model."""
-    return [make() for _ in range(min(iters, max(2, math.ceil(120e6 / nbytes))))]
-
-
-def bound(nbytes: float, flops: float, dtype) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
 # ---------------------------------------------------------------------------- kernels
 
 
@@ -602,9 +527,6 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 # step (d_model), mamba2-370m's (d_model, and d_inner for the gated norm).
 RMS_SLICES = [(B * PROMPT, D_MODEL), (B, D_MODEL)] + [
     (rows, d) for rows in (MB_B * MB_PROMPT, MB_B) for d in (1024, 2048)]
-# Off the serve paths: a prefill at qwen3-32b's d_model, 640 vectors a row (5 a
-# thread), timed beside the path's shapes.
-RMS_OFF_PATH = [(B * PROMPT, 5120)]
 # Rows narrower than a warp at row counts that round a block up to whole warps,
 # widths of 5, 6 and 7 vectors a thread, and generic rows of 9 vectors and of
 # scalars.
@@ -939,319 +861,6 @@ def check_ssd(gen) -> float:
     return worst
 
 
-def time_rmsnorm(gen, rows: int, d: int, width: int = 0) -> dict:
-    """rmsnorm at one shape, bf16: kernel, plain version, ``F.rms_norm``, bound;
-    and the host's time per call of the wrapper and of ``F.rms_norm``, and the
-    wrapper's over ``F.rms_norm``'s (which compares runs of two trees). With
-    ``width``, x is the first ``d`` columns of rows ``width`` wide."""
-    bf = torch.bfloat16
-    x_bytes = rows * d * 2
-    xs = copies(lambda: (randn(gen, rows, width or d)[:, :d], randn(gen, d, dtype=torch.float32)), x_bytes)
-    xs = [(x, s, s.to(bf)) for x, s in xs]  # F.rms_norm takes its weight in the input dtype
-    rms = {
-        "ms": time_ms(lambda x, s, _: ops.rmsnorm(x, s), xs),
-        "plain_ms": time_ms(lambda x, s, _: ref.rmsnorm_ref(x, s), xs),
-        "library_ms": time_ms(lambda x, _, s16: F.rms_norm(x, (d,), s16, 1e-6), xs),
-    }
-    rms["bound_ms"], rms["bound_by"] = bound(2 * x_bytes + d * 4, 4 * rows * d, bf)
-    rms["host_us"], rms["library_host_us"], rms["host_ratio"] = host_us(
-        lambda x, s, _: ops.rmsnorm(x, s), lambda x, _, s16: F.rms_norm(x, (d,), s16, 1e-6), xs)
-    return rms
-
-
-def time_kernels(gen) -> dict:
-    """Times at the serve slices' shapes, bf16: kernel, plain version, library
-    call; rmsnorm at each of its shapes (under ``shapes``), the minitron-8b
-    prefill's in the kernel's row."""
-    bf = torch.bfloat16
-    rms_shapes = {shape: time_rmsnorm(gen, *shape) for shape in RMS_SLICES + RMS_OFF_PATH}
-    rms = dict(rms_shapes[(B * PROMPT, D_MODEL)], shapes=rms_shapes)
-
-    qkv_bytes = (B * H * PROMPT * D + 2 * B * HKV * PROMPT * D) * 2
-    qkv = copies(lambda: (randn(gen, B, H, PROMPT, D), randn(gen, B, HKV, PROMPT, D),
-                          randn(gen, B, HKV, PROMPT, D)), qkv_bytes)
-    views = copies(lambda: tuple(randn(gen, B, PROMPT, h, D).transpose(1, 2) for h in (H, HKV, HKV)), qkv_bytes)
-    flash = {
-        "ms": time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True), qkv),
-        "ms_model_layout": time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True), views),
-        "plain_ms": time_ms(lambda q, k, v: ref.attention_ref(q, k, v, causal=True), qkv),
-        "library_ms": time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), qkv),
-    }
-    pairs = PROMPT * (PROMPT + 1) // 2  # visible (query, key) pairs, causal
-    flash["bound_ms"], flash["bound_by"] = bound(
-        qkv_bytes + B * H * PROMPT * D * 2, 4 * B * H * pairs * D, bf)
-
-    kv_bytes = 2 * B * MAX_LEN * HKV * D * 2
-    cache = copies(lambda: (randn(gen, B, H, D), randn(gen, B, MAX_LEN, HKV, D),
-                            randn(gen, B, MAX_LEN, HKV, D)), kv_bytes)
-    dec = {
-        "ms": time_ms(lambda q, k, v: ops.decode_attention(q, k, v, MAX_LEN), cache),
-        "plain_ms": time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, MAX_LEN), cache),
-        "library_ms": time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True), cache),
-    }
-    dec["bound_ms"], dec["bound_by"] = bound(kv_bytes + 2 * B * H * D * 2, 4 * B * H * MAX_LEN * D, bf)
-    # the host's time a call: decode is host-bound on the serve paths (PERF.md §5)
-    dec["host_us"], dec["library_host_us"], dec["host_ratio"] = host_us(
-        lambda q, k, v: ops.decode_attention(q, k, v, MAX_LEN), lambda q, k, v: F.scaled_dot_product_attention(
-            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True), cache)
-
-    # The mamba2-370m prefill's scan: x and y fp32, bf16 B/C views, fp32 state.
-    # The least work of the function is the recurrence's: the state update
-    # B_t x_t^T and the readout C_t h_t, N P multiply-adds each per head and
-    # row. Every chunked form adds its Q x Q terms to these. On the tensor
-    # cores, as the kernel runs them, that work is TF32 products counted twice
-    # (each fp32 operand split into two TF32 parts); below the bytes. The
-    # earlier bound, the same work on the fp32 CUDA cores, is printed beside.
-    rows = MB_B * MB_PROMPT
-    x_bytes, a_bytes, bc_bytes = rows * SSD_H * SSD_P * 4, rows * SSD_H * 4, rows * 2 * SSD_G * SSD_N * 2
-    scan = copies(lambda: ssd_inputs(gen, MB_B, MB_PROMPT, SSD_H, SSD_P, SSD_G, SSD_N, torch.bfloat16),
-                  x_bytes + a_bytes + bc_bytes)
-    ssd = {
-        "ms": time_ms(lambda x, a, b, c: ops.ssd_scan(x, a, b, c, chunk=SSD_CHUNK), scan),
-        "plain_ms": time_ms(lambda x, a, b, c: ref.ssd_chunked(x, a, b, c, SSD_CHUNK), scan),
-        "library_ms": None,  # no one PyTorch call computes an SSD scan
-    }
-    flops = 4 * rows * SSD_H * SSD_N * SSD_P
-    state_bytes = MB_B * SSD_H * SSD_N * SSD_P * 4
-    nbytes = 2 * x_bytes + a_bytes + bc_bytes + state_bytes
-    ssd["bound_ms"], ssd["bound_by"] = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                                           (2 * flops / TF32_FLOPS * 1e3, "operations"))
-    ssd["bound_tf32_ops_ms"] = 2 * flops / TF32_FLOPS * 1e3
-    ssd["bound_fp32_cores_ms"], _ = bound(nbytes, flops, torch.float32)
-
-    # The generic kernel, which ``ssd_scan.plan`` gives fp32 B/C (the mamba
-    # prefill with fp32 weights): the same scan with B/C read in fp32, bound
-    # by the recurrence's work on the fp32 CUDA cores, where it runs it.
-    scan32 = copies(lambda: ssd_inputs(gen, MB_B, MB_PROMPT, SSD_H, SSD_P, SSD_G, SSD_N, torch.float32),
-                    x_bytes + a_bytes + 2 * bc_bytes)
-    before = dict(ssd_mod.variant_launches)
-    generic = {"ms": time_ms(lambda x, a, b, c: ops.ssd_scan(x, a, b, c, chunk=SSD_CHUNK), scan32)}
-    launched = {k: ssd_mod.variant_launches[k] - before[k] for k in before}
-    require(launched == {ssd_mod.TENSOR_CORE: 0, ssd_mod.GENERIC: 43}, f"fp32 B/C ssd_scan launches {launched}")
-    generic["plain_ms"] = time_ms(lambda x, a, b, c: ref.ssd_chunked(x, a, b, c, SSD_CHUNK), scan32)
-    generic["bound_ms"], generic["bound_by"] = bound(nbytes + bc_bytes, flops, torch.float32)
-    ssd["generic_fp32"] = generic
-    return {"rmsnorm": rms, "flash_attention": flash, "decode_attention": dec, "ssd_scan": ssd}
-
-
-def sdpa_kernels(fn, *args) -> str:
-    """The CUDA kernels one SDPA call ran, by device time (torch.profiler):
-    which backend it took."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(*args)
-        torch.cuda.synchronize()
-    found = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0), reverse=True)
-    return "; ".join(f"{key[:70]} {us / 1e3:.3f} ms" for us, key in found[:3]) or "not measured"
-
-
-def time_danube_kernels(gen) -> dict:
-    """h2o-danube-1.8b's kernels at its serve shapes, bf16, as ``time_kernels``
-    times minitron-8b's: flash on the prefill's (B, S, H, D) projections with
-    the 4096-token window (the plain version one sequence at a time, SDPA with
-    ``enable_gqa`` and a boolean band mask), decode on the full 4096-slot ring,
-    rmsnorm at the prefill's rows and a decode step's."""
-    bf, S, W = torch.bfloat16, DN_PROMPT, DN_WINDOW
-    out = {("rmsnorm", shape): time_rmsnorm(gen, *shape) for shape in RMS_DANUBE}
-
-    q_bytes, kv_bytes = DN_B * S * DN_H * DN_D * 2, DN_B * S * DN_HKV * DN_D * 2
-    qkv = copies(lambda: tuple(randn(gen, DN_B, S, n, DN_D).transpose(1, 2) for n in (DN_H, DN_HKV, DN_HKV)),
-                 q_bytes + 2 * kv_bytes)
-    pos = torch.arange(S, device=qkv[0][0].device)
-    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)  # True: the key is visible
-    library = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=band, enable_gqa=True)  # noqa: E731
-    flash = {
-        "ms": time_ms(lambda q, k, v: ops.flash_attention(q, k, v, window=W), qkv),
-        "plain_ms": time_ms(lambda q, k, v: attention_by_sequence(q, k, v, W), qkv, 3),
-        "library_ms": time_ms(library, qkv, 10),
-        "library_kernels": sdpa_kernels(library, *qkv[0]),
-    }
-    pairs = sum(min(i + 1, W) for i in range(S))  # visible (query, key) pairs of a row of heads
-    flash["pairs"] = pairs
-    flash["bound_ms"], flash["bound_by"] = bound(2 * q_bytes + 2 * kv_bytes, 4 * DN_B * DN_H * pairs * DN_D, bf)
-    free_memory()
-    out[("flash_attention", (DN_B, DN_H, DN_HKV, S, DN_D, W))] = flash
-
-    cache_bytes = 2 * DN_B * W * DN_HKV * DN_D * 2
-    cache = copies(lambda: (randn(gen, DN_B, DN_H, DN_D), randn(gen, DN_B, W, DN_HKV, DN_D),
-                            randn(gen, DN_B, W, DN_HKV, DN_D)), cache_bytes)
-    dec = {
-        "ms": time_ms(lambda q, k, v: ops.decode_attention(q, k, v, W), cache),
-        "plain_ms": time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, W), cache),
-        "library_ms": time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True), cache),
-    }
-    dec["bound_ms"], dec["bound_by"] = bound(cache_bytes + 2 * DN_B * DN_H * DN_D * 2, 4 * DN_B * DN_H * W * DN_D, bf)
-    out[("decode_attention", (DN_B, DN_H, DN_HKV, W, DN_D))] = dec
-    return out
-
-
-def time_deepseek_kernels(gen) -> dict:
-    """deepseek-v2-lite-16b's kernels at its serve shapes, bf16, as
-    ``time_kernels`` times minitron-8b's: flash on the MLA prefill's views at
-    (Dqk, Dv) = (192, 128) beside the plain version, SDPA (its backend named)
-    and the bound; rmsnorm at the prefill's rows and a decode step's, of
-    d_model and of the kv_norm slice (512 of 576 columns)."""
-    S = DS_PROMPT
-    out = {}
-    for rows in (DS_B * S, DS_B):
-        out[("rmsnorm", (rows, DS_D_MODEL))] = time_rmsnorm(gen, rows, DS_D_MODEL)
-        out[("rmsnorm", (rows, DS_KV_LORA))] = time_rmsnorm(gen, rows, DS_KV_LORA, DS_DKV)
-    out[("flash_attention", (DS_B, DS_H, DS_H, S, DS_DQK, DS_DV))] = time_flash(
-        gen, DS_B, DS_H, S, S, DS_DQK, DS_DV, True, v_row=DS_NOPE + DS_DV)
-    return out
-
-
-def time_flash(gen, b: int, h: int, sq: int, sk: int, dqk: int, dv: int, causal: bool,
-               backward: bool = False, v_row: int = 0) -> dict:
-    """flash over MHA (B, S, H, D) projections viewed (B, H, S, D), bf16:
-    kernel, plain version, SDPA (its backend named) and the bound; with
-    ``backward``, the Function's plain backward too. q is (B, sq, H, dqk), k
-    (B, sk, H, dqk); v the last ``dv`` columns of rows ``v_row`` wide (MLA's
-    kv rows; ``dv`` alone by default). Causal calls have sq == sk."""
-    require(not causal or sq == sk, f"causal flash at sq {sq} != sk {sk}")
-    bf = torch.bfloat16
-    v_row = v_row or dv
-    q_bytes, k_bytes, v_bytes = (b * n * h * d * 2 for n, d in ((sq, dqk), (sk, dqk), (sk, dv)))
-
-    def views():
-        return (randn(gen, b, sq, h, dqk).transpose(1, 2), randn(gen, b, sk, h, dqk).transpose(1, 2),
-                randn(gen, b, sk, h, v_row)[..., v_row - dv:].transpose(1, 2))
-
-    qkv = copies(views, q_bytes + k_bytes + v_bytes)
-    library = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
-    flash = {
-        "ms": time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=causal), qkv),
-        "plain_ms": time_ms(lambda q, k, v: ref.attention_ref(q, k, v, causal=causal), qkv, 10),
-        "library_ms": time_ms(library, qkv),
-        "library_kernels": sdpa_kernels(library, *qkv[0]),
-    }
-    pairs = sq * (sq + 1) // 2 if causal else sq * sk  # visible (query, key) pairs of a (b, h)
-    flash["pairs"] = pairs
-    # q, k and v read once, o (sq rows of dv) written once; Q K^T over dqk columns and P V over dv
-    flash["bound_ms"], flash["bound_by"] = bound(q_bytes + k_bytes + v_bytes + b * sq * h * dv * 2,
-                                                 2 * b * h * pairs * (dqk + dv), bf)
-    if backward:
-        q, k, v = (t.detach().requires_grad_() for t in qkv[0])
-        flash["bwd_ms"] = time_backward(gen, lambda q, k, v: ops.flash_attention(q, k, v, causal=causal), (q, k, v))
-    free_memory()
-    return flash
-
-
-def time_seamless_kernels(gen) -> dict:
-    """seamless-m4t-large-v2's kernels at its shapes, bf16, as ``time_kernels``
-    times minitron-8b's: flash on the encoder (non-causal, S 1024), the
-    prefill's cross-attention (200 x 1024) and self-attention (causal, 200),
-    and the training cross-attention (2048 x 1024) and decoder self-attention
-    (causal, 2048), the training shapes with their Function's plain backward
-    (the encoder's shape is a training shape too); decode over the 1024
-    frames' cross cache (group 1) and the full 232-slot self cache; rmsnorm
-    at the encoder's, the prefill's and a decode step's rows."""
-    bf = torch.bfloat16
-    out = {("rmsnorm", shape): time_rmsnorm(gen, *shape) for shape in RMS_SEAMLESS}
-    for b, sq, sk, causal, backward in ((SM_B, SM_FRAMES, SM_FRAMES, False, True),
-                                        (SM_B, SM_PROMPT, SM_FRAMES, False, False),
-                                        (SM_B, SM_PROMPT, SM_PROMPT, True, False),
-                                        (TR_B, TR_SEQ, SM_FRAMES, False, True),
-                                        (TR_B, TR_SEQ, TR_SEQ, True, True)):
-        out[("flash_attention", (b, SM_H, SM_H, sq, sk, SM_D, causal))] = time_flash(
-            gen, b, SM_H, sq, sk, SM_D, SM_D, causal, backward)
-    # decode over the cross cache (all 1024 frames) and the self cache full (232 slots)
-    for S in (SM_FRAMES, SM_MAX_LEN):
-        cache_bytes = 2 * SM_B * S * SM_H * SM_D * 2
-        cache = copies(lambda: (randn(gen, SM_B, SM_H, SM_D), randn(gen, SM_B, S, SM_H, SM_D),
-                                randn(gen, SM_B, S, SM_H, SM_D)), cache_bytes)
-        dec = {
-            "ms": time_ms(lambda q, k, v: ops.decode_attention(q, k, v, S), cache),
-            "plain_ms": time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, S), cache),
-            "library_ms": time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)), cache),
-            "split": decode_mod.plan_split(SM_B * SM_H, S, _build.sm_count(torch.device("cuda"))),
-        }
-        dec["bound_ms"], dec["bound_by"] = bound(cache_bytes + 2 * SM_B * SM_H * SM_D * 2,
-                                                 4 * SM_B * SM_H * S * SM_D, bf)
-        out[("decode_attention", (SM_B, SM_H, SM_H, S, SM_D))] = dec
-    return out
-
-
-def time_jamba_kernels(gen) -> dict:
-    """jamba-1.5-large-398b's kernels at its serve shapes, as ``time_kernels``
-    times minitron-8b's: rmsnorm at the prefill's and a decode step's rows of
-    d_model 8192 and of the gated norm's d_inner 16,384 (bf16, the dtype
-    ``models/mamba.py::_mixer`` passes it); flash on the prefill's (B, S, H,
-    D) projections at GQA 64/8, D 128, beside SDPA (its backend named);
-    decode over the full 2032-slot cache, group 8; the SSD scan at B4 S2000
-    H128 P128 G1 N64, the tensor-core kernel on bf16 B/C views and the
-    generic one on fp32 B/C, with the bounds ``time_kernels`` gives the
-    mamba scan."""
-    bf, S = torch.bfloat16, JB_PROMPT
-    out = {("rmsnorm", shape): time_rmsnorm(gen, *shape) for shape in RMS_JAMBA}
-
-    q_bytes, kv_bytes = JB_B * S * JB_H * JB_D * 2, JB_B * S * JB_HKV * JB_D * 2
-    qkv = copies(lambda: tuple(randn(gen, JB_B, S, n, JB_D).transpose(1, 2) for n in (JB_H, JB_HKV, JB_HKV)),
-                 q_bytes + 2 * kv_bytes)
-    library = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
-    flash = {
-        "ms": time_ms(lambda q, k, v: ops.flash_attention(q, k, v), qkv),
-        "plain_ms": time_ms(lambda q, k, v: ref.attention_ref(q, k, v), qkv, 5),
-        "library_ms": time_ms(library, qkv),
-        "library_kernels": sdpa_kernels(library, *qkv[0]),
-    }
-    pairs = S * (S + 1) // 2  # visible (query, key) pairs of a (b, h), causal
-    flash["pairs"] = pairs
-    flash["bound_ms"], flash["bound_by"] = bound(2 * q_bytes + 2 * kv_bytes, 4 * JB_B * JB_H * pairs * JB_D, bf)
-    out[("flash_attention", (JB_B, JB_H, JB_HKV, S, JB_D))] = flash
-    del qkv
-    free_memory()
-
-    cache_bytes = 2 * JB_B * JB_MAX_LEN * JB_HKV * JB_D * 2
-    cache = copies(lambda: (randn(gen, JB_B, JB_H, JB_D), randn(gen, JB_B, JB_MAX_LEN, JB_HKV, JB_D),
-                            randn(gen, JB_B, JB_MAX_LEN, JB_HKV, JB_D)), cache_bytes)
-    dec = {
-        "ms": time_ms(lambda q, k, v: ops.decode_attention(q, k, v, JB_MAX_LEN), cache),
-        "plain_ms": time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, JB_MAX_LEN), cache),
-        "library_ms": time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True), cache),
-        "split": decode_mod.plan_split(JB_B * JB_HKV, JB_MAX_LEN, _build.sm_count(torch.device("cuda"))),
-    }
-    dec["bound_ms"], dec["bound_by"] = bound(cache_bytes + 2 * JB_B * JB_H * JB_D * 2,
-                                             4 * JB_B * JB_H * JB_MAX_LEN * JB_D, bf)
-    out[("decode_attention", (JB_B, JB_H, JB_HKV, JB_MAX_LEN, JB_D))] = dec
-
-    shape = (JB_B, S, JB_SSD_H, JB_SSD_P, JB_SSD_G, JB_SSD_N)
-    rows = JB_B * S
-    x_bytes, a_bytes = rows * JB_SSD_H * JB_SSD_P * 4, rows * JB_SSD_H * 4
-    bc_bytes = rows * 2 * JB_SSD_G * JB_SSD_N * 2
-    state_bytes = JB_B * JB_SSD_H * JB_SSD_N * JB_SSD_P * 4
-    flops = 4 * rows * JB_SSD_H * JB_SSD_N * JB_SSD_P  # the recurrence's multiply-adds, counted twice
-    for dt, variant in ((bf, ssd_mod.TENSOR_CORE), (torch.float32, ssd_mod.GENERIC)):
-        width = 1 if dt == bf else 2
-        scan = copies(lambda: ssd_inputs(gen, *shape, dt), x_bytes + a_bytes + width * bc_bytes)
-        before = dict(ssd_mod.variant_launches)
-        ssd = {"ms": time_ms(lambda x, a, b, c: ops.ssd_scan(x, a, b, c, chunk=SSD_CHUNK), scan)}
-        launched = {k: ssd_mod.variant_launches[k] - before[k] for k in before}
-        require(launched == {k: 43 * (k == variant) for k in before}, f"jamba {dt} ssd_scan launches {launched}")
-        ssd["plain_ms"] = time_ms(lambda x, a, b, c: ref.ssd_chunked(x, a, b, c, SSD_CHUNK), scan, 10)
-        ssd["library_ms"] = None  # no one PyTorch call computes an SSD scan
-        nbytes = 2 * x_bytes + a_bytes + width * bc_bytes + state_bytes
-        if dt == bf:  # the tensor cores on TF32 operands, each fp32 operand split in two parts
-            ssd["bound_ms"], ssd["bound_by"] = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                                                   (2 * flops / TF32_FLOPS * 1e3, "operations"))
-        else:  # the fp32 CUDA cores, where the generic kernel runs it
-            ssd["bound_ms"], ssd["bound_by"] = bound(nbytes, flops, torch.float32)
-        out[("ssd_scan", shape + (variant,))] = ssd
-        del scan
-        free_memory()
-    return out
-
-
 # ---------------------------------------------------------------------------- model
 
 
@@ -1325,14 +934,18 @@ def mesh_serve(arch: str, cfg, params, tokens, gen_out, per_prefill: dict, per_s
     Its tokens must equal the phase's kernel run's (``gen_out``) and its
     logits equal them bit for bit (at one model rank the mesh path is the
     no-mesh path); its launches per prefill and per step those of the phase;
-    the NCCL collectives of the prefill and of each step printed. The group
-    is destroyed at the end. The run's launches go to MESH_SERVE_COUNTS."""
+    the NCCL collectives of the prefill and of each step printed by kind (at
+    one rank each is a copy). An FSDP config's bundle carries its FSDP
+    weights, which the model gathers layer by layer. The group is destroyed
+    at the end. The run's launches go to MESH_SERVE_COUNTS."""
     t0 = time.perf_counter()
     mesh = make_smoke_mesh("cuda")
     try:
         require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
                 f"the smoke mesh's group: {dist.get_backend()} of {dist.get_world_size()}")
         bundle = make_serve_bundle(cfg, mesh, batch=tokens.shape[0], max_len=max_len)
+        fsdp = bundle.model.fsdp is not None
+        require(fsdp == cfg.fsdp, f"{arch}: FSDP weights {fsdp}, the config's fsdp {cfg.fsdp}")
         shards = pu.shard(params, bundle.param_specs, mesh)
         require(all(a is b for a, b in zip(leaves(params), leaves(shards))), f"{arch}: a 1 x 1 shard is a copy")
         prompt = tokens.shape[1]
@@ -1341,7 +954,7 @@ def mesh_serve(arch: str, cfg, params, tokens, gen_out, per_prefill: dict, per_s
         parallel.reset_collectives()
         logits, cache = bundle.prefill_fn(shards, tokens, frames)
         require(ops.launch_counts() == per_prefill, f"{arch}: mesh prefill launches {ops.launch_counts()}")
-        collectives = [parallel.collectives]
+        collectives = [tuple(sorted(parallel.collective_counts.items()))]
         all_logits, generated = [logits], []
         nxt = logits.argmax(-1, keepdim=True)
         for i in range(MESH_SERVE_STEPS):
@@ -1351,7 +964,7 @@ def mesh_serve(arch: str, cfg, params, tokens, gen_out, per_prefill: dict, per_s
             logits, cache = bundle.decode_fn(shards, cache, nxt, prompt + i)
             delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
             require(delta == per_step, f"{arch}: mesh decode step {i} launches {delta}")
-            collectives.append(parallel.collectives)
+            collectives.append(tuple(sorted(parallel.collective_counts.items())))
             all_logits.append(logits)
             nxt = logits.argmax(-1, keepdim=True)
         torch.cuda.synchronize()
@@ -1362,12 +975,14 @@ def mesh_serve(arch: str, cfg, params, tokens, gen_out, per_prefill: dict, per_s
     same_tokens = torch.equal(torch.stack(generated, 1), gen_out.tokens[:, :MESH_SERVE_STEPS])
     same_logits = [torch.equal(a, b) for a, b in zip(all_logits, gen_out.logits)]
     MESH_SERVE_SECONDS[arch] = time.perf_counter() - t0
-    print(f"mesh serve {arch}: make_serve_bundle(cfg, mesh) on the (1, 1) NCCL mesh, prefill {prompt} x"
+    weights = "FSDP weights gathered layer by layer" if fsdp else "megatron weights"
+    print(f"mesh serve {arch}: make_serve_bundle(cfg, mesh) on the (1, 1) NCCL mesh, {weights}, prefill {prompt} x"
           f"{tokens.shape[0]} and {MESH_SERVE_STEPS} greedy steps from the phase's weights and prompt: tokens "
           f"{'equal' if same_tokens else 'NOT equal'} to the phase's kernel run, logits bit for bit equal at "
           f"{sum(same_logits)} of {len(same_logits)} steps; launches {per_prefill} a prefill and {per_step} a step, "
-          f"as the phase's; NCCL collectives: prefill {collectives[0]}, a step {sorted(set(collectives[1:]))} "
-          f"({MESH_SERVE_SECONDS[arch]:.1f} s) [{nvidia_smi('name,power.limit')}]")
+          f"as the phase's; NCCL collectives by kind (at one rank each is a copy): prefill {dict(collectives[0])}, "
+          f"a step {[dict(c) for c in sorted(set(collectives[1:]))]} ({MESH_SERVE_SECONDS[arch]:.1f} s) "
+          f"[{nvidia_smi('name,power.limit')}]")
     require(same_tokens and all(same_logits), f"{arch}: the mesh serve is not the no-mesh serve")
 
 
@@ -1384,6 +999,31 @@ def lse_of_max_score(q, k, v, valid_len, return_lse=False):
     return out, s.amax(dim=-1) if S else torch.full(q.shape[:2], -math.inf, device=q.device)
 
 
+# The kernels line's row of each kernel: its first shape on the main path, one
+# of the rows ``python -m repro_torch.kernels.timing`` times (every other row
+# of PERF.md's table is that tool's).
+KERNEL_ROWS = {"rmsnorm": "minitron-8b prefill", "flash_attention": "minitron-8b prefill",
+               "decode_attention": "minitron-8b decode", "ssd_scan": "mamba2-370m prefill (tensor-core kernel)"}
+
+
+def time_kernels(gen, name_power: str) -> dict:
+    """Each kernel at its ``KERNEL_ROWS`` shape, by ``timing.measure``: its
+    ms, its plain version's, the library's call's and its bound, CUDA events
+    (the SSD scan's plan checked there: bf16 B/C take the tensor-core
+    kernel); then the plan of the mamba prefill's scan with fp32 B/C, the
+    generic kernel."""
+    out = {}
+    for name, label in KERNEL_ROWS.items():
+        row = next(r for r in timing.ROWS if r.kernel == name and r.label == label)
+        out[name] = timing.measure(row, gen, name_power)
+        print(timing.describe(out[name]), flush=True)
+    args = ssd_inputs(gen, MB_B, MB_PROMPT, SSD_H, SSD_P, SSD_G, SSD_N, torch.float32)
+    _, variant = ssd_variant(lambda: ops.ssd_scan(*args, chunk=SSD_CHUNK))
+    require(variant == ssd_mod.GENERIC, f"the mamba prefill's scan on fp32 B/C took the {variant} kernel")
+    free_memory()
+    return out
+
+
 def split_merge(fn, q, k, v, valid: int, n: int):
     """``fn`` (a decode with ``return_lse``) on each of ``n`` slices of the
     cache in JAX's padded blocks, merged as a mesh merges its ranks' slices;
@@ -1396,7 +1036,7 @@ def split_merge(fn, q, k, v, valid: int, n: int):
     return ref.merge_decode_partials(outs, lses), lses
 
 
-def split_decode_phase(gen, name_power: str) -> dict:
+def split_decode_phase(gen) -> None:
     """The decode kernel's log-sum-exp, which the mesh path merges across
     ranks, at the serve phases' decode shapes (``SPLIT_SHAPES``), bf16 and
     fp32: the output with ``return_lse`` equal to the output without it; the
@@ -1405,11 +1045,9 @@ def split_decode_phase(gen, name_power: str) -> dict:
     slice past the valid keys, its ``lse`` ``-inf``) and merged by
     ``ref.merge_decode_partials``, within the tolerance of the unsplit kernel
     and of the plain version; a planted kernel whose ``lse`` forgets ``ln
-    lsum`` must fail the fp32 gates at every shape. Then the kernel timed with
-    and without ``lse`` at minitron-8b's and h2o-danube-1.8b's shapes beside
-    its bound. Returns the timings."""
+    lsum`` must fail the fp32 gates at every shape (``kernels/timing.py``
+    times the kernel with and without ``lse``)."""
     t0 = time.perf_counter()
-    timings = {}
     for label, (b, h, hkv, s, d) in SPLIT_SHAPES.items():
         worst = {}
         for dtype in DTYPES:
@@ -1439,36 +1077,8 @@ def split_decode_phase(gen, name_power: str) -> dict:
             f"{dt} {n} slices lse {e[0]:.2e}, merged vs unsplit {e[1]:.2e} vs plain {e[2]:.2e}, planted lse fault "
             f"{e[3]:.2e} / lse {e[4]:.2e} ({'caught' if e[5] else 'passes'})" for (dt, n), e in worst.items())
             + f" (tolerance bf16 {TOL[torch.bfloat16]}, fp32 {TOL[torch.float32]}): ok")
-    bf = torch.bfloat16
-    for label in ("minitron-8b", "h2o-danube-1.8b ring"):
-        b, h, hkv, s, d = SPLIT_SHAPES[label]
-        kv_bytes = 2 * b * s * hkv * d * 2
-        cache = copies(lambda: (randn(gen, b, h, d), randn(gen, b, s, hkv, d), randn(gen, b, s, hkv, d)), kv_bytes)
-        t = {"ms": time_ms(lambda q, k, v: ops.decode_attention(q, k, v, s), cache),
-             "lse_ms": time_ms(lambda q, k, v: ops.decode_attention(q, k, v, s, return_lse=True), cache),
-             "plain_ms": time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, s, return_lse=True), cache)}
-        # the library: memory-efficient SDPA with its log-sum-exp, K/V expanded to the query heads beforehand
-        expanded = [(q[:, :, None], *(x.repeat_interleave(h // hkv, dim=2).transpose(1, 2) for x in (k, v)))
-                    for q, k, v in cache]
-        library = lambda q, k, v: torch.ops.aten._scaled_dot_product_efficient_attention(  # noqa: E731
-            q, k, v, None, True)
-        t["library_ms"] = time_ms(library, expanded)
-        out, lse = ops.decode_attention(*cache[0], s, return_lse=True)
-        lib_out, lib_lse = library(*expanded[0])[:2]
-        t["library_err"] = (float((lib_out[:, :, 0].float() - out.float()).abs().max()),
-                            float((lib_lse[:, :, 0] - lse).abs().max()))
-        del expanded
-        t["bound_ms"], t["bound_by"] = bound(kv_bytes + 2 * b * h * d * 2 + b * h * 4, 4 * b * h * s * d, bf)
-        timings[label] = t
-        print(f"kernel decode_attention {label} shape {(b, h, hkv, s, d)} bf16, all {s} keys valid: without lse "
-              f"{t['ms']:.4f} ms, with lse {t['lse_ms']:.4f} ms (plain with lse {t['plain_ms']:.4f} ms, library "
-              f"{t['library_ms']:.4f} ms: aten._scaled_dot_product_efficient_attention with compute_log_sumexp on K/V "
-              f"expanded to the {h} query heads, its output {t['library_err'][0]:.2e} and its lse "
-              f"{t['library_err'][1]:.2e} from the kernel's; bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
-              f"{t['bound_ms'] / t['lse_ms']:.2f} of it) [{name_power}]")
     free_memory()
     print(f"split decode phase: {time.perf_counter() - t0:.1f} s")
-    return timings
 
 
 def model_phase(seed: int) -> dict:
@@ -2094,8 +1704,9 @@ def jamba_phase(seed: int) -> dict:
     plain, the 2e-2 rule where the plain bf16 path allows it, the fp32
     kernel path, whose scans run the generic kernel, within 1e-4 of fp32
     plain on its expert choices: ROADMAP C8) and two planted faults, one in
-    flash (named for the fp32 gate) and one in the SSD scan (for both). The
-    plain paths run attention one
+    flash (named for the fp32 gate) and one in the SSD scan (for both); and
+    ``mesh_serve`` of the FSDP serve bundle on the 1 x 1 mesh, bit for bit
+    the main path's first steps. The plain paths run attention one
     sequence at a time; the fp32 weights (64.6 GB) replace the bf16 ones in
     place after the bf16 runs. Returns the main path's launches."""
     t_phase = time.perf_counter()
@@ -2136,6 +1747,8 @@ def jamba_phase(seed: int) -> dict:
     require(counts == expected, f"launch counts {counts} != {expected}")
     require(variants == {ssd_mod.TENSOR_CORE: n_ssm, ssd_mod.GENERIC: 0},
             f"the bf16 prefill's ssd_scan launches by kernel {variants}")
+    # the FSDP serve bundle on the 1 x 1 mesh (the reference's make_serve_bundle for an FSDP config)
+    mesh_serve(JB_ARCH, cfg, params, tokens, gen_out, per_prefill, per_step, JB_MAX_LEN)
     print(f"jamba: prefill {JB_PROMPT} tokens x{JB_B}: {gen_out.prefill_s * 1e3:.3f} ms; decode: "
           f"{gen_out.decode_s_per_token * 1e3:.3f} ms/token ({JB_B / gen_out.decode_s_per_token:.1f} tokens/s); "
           f"peak memory {peak_gb:.2f} GB [{nvidia_smi('name,power.limit')}]")
@@ -2345,86 +1958,6 @@ def _tensors(tree):
 
 
 # ---------------------------------------------------------------------------- training
-
-
-def time_backward(gen, fn, inputs, iters: int = 10) -> float:
-    """Mean ms of the backward pass of ``fn`` (an autograd Function's output
-    from inputs that require grad), CUDA events over ``iters`` passes of one
-    retained graph."""
-    out = fn(*inputs)
-    dout = randn(gen, *out.shape, dtype=out.dtype)
-    return time_ms(lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True), [()], iters)
-
-
-def time_train_kernels(gen) -> dict:
-    """The training forward's kernels at the training shapes, bf16, as
-    ``time_kernels`` times the serve shapes; and each Function's plain
-    backward pass at the same shapes (``bwd_ms``)."""
-    bf, rows = torch.bfloat16, TR_B * TR_SEQ
-    out = {}
-    for d in (2048, 1024):  # internvl2-2b's d_model (and mamba2-370m's d_inner), mamba2-370m's d_model
-        t = time_rmsnorm(gen, rows, d)
-        x, scale = randn(gen, rows, d).requires_grad_(), randn(gen, d, dtype=torch.float32).requires_grad_()
-        t["bwd_ms"] = time_backward(gen, lambda a, s: ops.rmsnorm(a, s), (x, scale))
-        out[("rmsnorm", (rows, d))] = t
-
-    h, hkv, dh = TR_H, TR_HKV, D  # internvl2-2b
-    qkv_bytes = (TR_B * h * TR_SEQ * dh + 2 * TR_B * hkv * TR_SEQ * dh) * 2
-    qkv = copies(lambda: tuple(randn(gen, TR_B, TR_SEQ, n, dh).transpose(1, 2) for n in (h, hkv, hkv)), qkv_bytes)
-    flash = {
-        "ms": time_ms(lambda q, k, v: ops.flash_attention(q, k, v), qkv),
-        "plain_ms": time_ms(lambda q, k, v: ref.attention_ref(q, k, v), qkv, 10),
-        "library_ms": time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), qkv),
-    }
-    pairs = TR_SEQ * (TR_SEQ + 1) // 2
-    flash["bound_ms"], flash["bound_by"] = bound(
-        qkv_bytes + TR_B * h * TR_SEQ * dh * 2, 4 * TR_B * h * pairs * dh, bf)
-    q, k, v = (t.detach().requires_grad_() for t in qkv[0])
-    flash["bwd_ms"] = time_backward(gen, lambda q, k, v: ops.flash_attention(q, k, v), (q, k, v))
-    out[("flash_attention", (TR_B, h, hkv, TR_SEQ, dh))] = flash
-
-    x_bytes, a_bytes = rows * SSD_H * SSD_P * 4, rows * SSD_H * 4
-    bc_bytes = rows * 2 * SSD_G * SSD_N * 2
-    scan = copies(lambda: ssd_inputs(gen, TR_B, TR_SEQ, SSD_H, SSD_P, SSD_G, SSD_N, bf), x_bytes + a_bytes + bc_bytes)
-    ssd = {
-        "ms": time_ms(lambda x, a, b, c: ops.ssd_scan(x, a, b, c, chunk=SSD_CHUNK), scan),
-        "plain_ms": time_ms(lambda x, a, b, c: ref.ssd_chunked(x, a, b, c, SSD_CHUNK), scan, 10),
-        "library_ms": None,
-    }
-    nbytes = 2 * x_bytes + a_bytes + bc_bytes + TR_B * SSD_H * SSD_N * SSD_P * 4
-    flops = 4 * rows * SSD_H * SSD_N * SSD_P
-    ssd["bound_ms"], ssd["bound_by"] = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                                           (2 * flops / TF32_FLOPS * 1e3, "operations"))
-    x, a = (t.detach().requires_grad_() for t in scan[0][:2])
-    bc = randn(gen, TR_B, TR_SEQ, 2 * SSD_G * SSD_N).requires_grad_()
-    gn = SSD_G * SSD_N
-    ssd["bwd_ms"] = time_backward(gen, lambda x, a, bc: ops.ssd_scan(
-        x, a, bc[..., :gn].reshape(TR_B, TR_SEQ, SSD_G, SSD_N), bc[..., gn:].reshape(TR_B, TR_SEQ, SSD_G, SSD_N),
-        chunk=SSD_CHUNK)[0], (x, a, bc))
-    out[("ssd_scan", (TR_B, TR_SEQ, SSD_H, SSD_P, SSD_G, SSD_N))] = ssd
-
-    # deepseek-v2-lite-16b's training cell: kv_norm on its slice of 8192 dkv rows, flash on the MLA views at S 2048
-    t = time_rmsnorm(gen, rows, DS_KV_LORA, DS_DKV)
-    dkv, scale = randn(gen, rows, DS_DKV).requires_grad_(), randn(gen, DS_KV_LORA, dtype=torch.float32).requires_grad_()
-    t["bwd_ms"] = time_backward(gen, lambda a, s: ops.rmsnorm(a[:, :DS_KV_LORA], s), (dkv, scale))
-    out[("rmsnorm", (rows, DS_KV_LORA))] = t
-    # deepseek-v3-671b's cell (MLA at 128 heads, d_model 7168, q_lora 1536)
-    for d in (V3_D_MODEL, V3_Q_LORA):
-        t = time_rmsnorm(gen, rows, d)
-        x, scale = randn(gen, rows, d).requires_grad_(), randn(gen, d, dtype=torch.float32).requires_grad_()
-        t["bwd_ms"] = time_backward(gen, lambda a, s: ops.rmsnorm(a, s), (x, scale))
-        out[("rmsnorm", (rows, d))] = t
-    for h in (DS_H, V3_H):  # deepseek-v2-lite-16b's heads and deepseek-v3-671b's
-        mla = time_flash(gen, TR_B, h, TR_SEQ, TR_SEQ, DS_DQK, DS_DV, True, v_row=DS_NOPE + DS_DV)
-        q, k = (randn(gen, TR_B, TR_SEQ, h, DS_DQK).requires_grad_() for _ in range(2))
-        kv = randn(gen, TR_B, TR_SEQ, h, DS_NOPE + DS_DV).requires_grad_()
-        mla["bwd_ms"] = time_backward(gen, lambda q, k, kv: ops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), kv[..., DS_NOPE:].transpose(1, 2)), (q, k, kv))
-        out[("flash_attention", (TR_B, h, h, TR_SEQ, DS_DQK, DS_DV))] = mla
-        del q, k, kv
-        free_memory()
-    return out
 
 
 class PowerSampler:
@@ -2892,7 +2425,7 @@ def train_phase(arch: str, seed: int, layers: int = 0, mesh=None) -> tuple:
     if cfg.enc_dec:  # the encoder's parameters meet the frames, the rest the decoder's tokens
         n_enc = sum(t.numel() for t in leaves(trainer.params["encoder"]))
         flops = 8 * (n_enc * TR_B * SM_FRAMES + (n_active - n_enc) * TR_B * TR_SEQ)
-    bound_s = flops / PEAK_FLOPS[torch.bfloat16]
+    bound_s = flops / timing.PEAK_FLOPS[torch.bfloat16]
     energy = (f"energy {power.joules / TR_STEPS:.2f} J/step ({power.watts:.1f} W mean draw over "
               f"{len(power.samples)} samples x {power.seconds:.3f} s, {TR_STEPS} steps)")
     steady = times[1:]
@@ -3758,9 +3291,9 @@ def main() -> int:
     errs = {"rmsnorm": check_rmsnorm(gen), "flash_attention": check_flash(gen),
             "decode_attention": check_decode(gen), "ssd_scan": check_ssd(gen)}
     torch.cuda.synchronize()
-    times = time_kernels(gen)
+    times = time_kernels(gen, name_power)
     torch.cuda.synchronize()
-    split_times = split_decode_phase(gen, name_power)
+    split_decode_phase(gen)
 
     # Each serve path's main run, counted from 0; a kernel's launches are their sum.
     dense_counts = model_phase(args.seed)
@@ -3769,42 +3302,28 @@ def main() -> int:
     launcher_phase(MB_ARCH, MB_B, MB_PROMPT, MB_STEPS, args.seed)
     free_memory()
     t_dn = time.perf_counter()
-    danube_times = time_danube_kernels(gen)
-    free_memory()
     danube_counts = danube_phase(args.seed)
     launcher_phase(DN_ARCH, DN_B, DN_PROMPT, DN_STEPS, args.seed)
     free_memory()
-    print(f"h2o-danube-1.8b, kernel timings, runs A and B and the launcher: {time.perf_counter() - t_dn:.1f} s")
+    print(f"h2o-danube-1.8b, runs A and B and the launcher: {time.perf_counter() - t_dn:.1f} s")
     t_ds = time.perf_counter()
-    deepseek_times = time_deepseek_kernels(gen)
-    free_memory()
     deepseek_counts = deepseek_phase(args.seed)
     launcher_phase(DS_ARCH, DS_B, DS_PROMPT, DS_STEPS, args.seed)
     free_memory()
-    print(f"deepseek-v2-lite-16b, kernel timings, the served run and the launcher: {time.perf_counter() - t_ds:.1f} s")
+    print(f"deepseek-v2-lite-16b, the served run and the launcher: {time.perf_counter() - t_ds:.1f} s")
     t_sm = time.perf_counter()
-    seamless_times = time_seamless_kernels(gen)
-    free_memory()
-    print(f"seamless kernel timings: {time.perf_counter() - t_sm:.1f} s")
     seamless_counts = seamless_phase(args.seed)
-    t_launch = time.perf_counter()
     launcher_phase(SM_ARCH, SM_B, SM_PROMPT, SM_STEPS, args.seed)
     free_memory()
-    print(f"seamless launcher: {time.perf_counter() - t_launch:.1f} s; seamless-m4t-large-v2, kernel timings, the "
-          f"served run and the launcher: {time.perf_counter() - t_sm:.1f} s")
+    print(f"seamless-m4t-large-v2, the served run and the launcher: {time.perf_counter() - t_sm:.1f} s")
     # jamba-1.5-large-398b: no launcher run on the card (the full config does
     # not fit, and the smoke config's head dim 16 has no flash kernel); the
     # CPU tests drive its command line.
     t_jb = time.perf_counter()
-    jamba_times = time_jamba_kernels(gen)
-    free_memory()
-    print(f"jamba kernel timings: {time.perf_counter() - t_jb:.1f} s")
     jamba_counts = jamba_phase(args.seed)
     free_memory()
-    print(f"jamba-1.5-large-398b, kernel timings and the served period: {time.perf_counter() - t_jb:.1f} s")
+    print(f"jamba-1.5-large-398b, the served period and its FSDP mesh serve: {time.perf_counter() - t_jb:.1f} s")
 
-    train_times = time_train_kernels(gen)
-    free_memory()
     train_counts, mesh_counts = training_phases(args.seed)
     train_launcher_phase(args.seed)
     colo_counts, colo_measured = colocation_phase(args.seed, name_power)
@@ -3828,109 +3347,11 @@ def main() -> int:
                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
-        layout = f", {t['ms_model_layout']:.4f} ms on the model's (B, S, H, D) views" if "ms_model_layout" in t else ""
-        bounds = (f"; TF32 operations {t['bound_tf32_ops_ms']:.4f} ms, on the fp32 CUDA cores "
-                  f"{t['bound_fp32_cores_ms']:.4f} ms, {t['bound_fp32_cores_ms'] / row['ms']:.2f} of it"
-                  if "bound_fp32_cores_ms" in t else "")
-        print(f"kernel {name}: max_abs_err {row['max_abs_err']:.3e}, {row['ms']:.4f} ms{layout} "
+        print(f"kernel {name}: max_abs_err {row['max_abs_err']:.3e}, {row['ms']:.4f} ms at {t['label']} "
               f"(plain {row['plain_ms']:.4f} ms, library {library}, "
-              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, {row['bound_ms'] / row['ms']:.2f} of it"
-              f"{bounds}), {row['launches']} launches "
-              f"({', '.join(f'{c[name]} {p}' for p, c in paths)}) [{name_power}]")
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, {row['bound_ms'] / row['ms']:.2f} of it), "
+              f"{row['launches']} launches ({', '.join(f'{c[name]} {p}' for p, c in paths)}) [{name_power}]")
         kernels.append(row)
-    t = times["ssd_scan"]["generic_fp32"]
-    print(f"kernel ssd_scan generic variant, mamba prefill shape with fp32 B/C: {t['ms']:.4f} ms (plain "
-          f"{t['plain_ms']:.4f} ms, library none, bound {t['bound_ms']:.4f} ms by {t['bound_by']} on the fp32 "
-          f"CUDA cores, {t['bound_ms'] / t['ms']:.2f} of it) [{name_power}]")
-    for (rows, d), t in times["rmsnorm"]["shapes"].items():
-        where = " (off the serve paths)" if (rows, d) in RMS_OFF_PATH else ""
-        print(f"kernel rmsnorm shape {rows}x{d} bf16{where}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
-              f"F.rms_norm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4g} ms by {t['bound_by']}; "
-              f"{t['bound_ms'] / t['ms']:.2f} of the bound, {t['library_ms'] / t['ms']:.2f}x F.rms_norm's "
-              f"speed); host {t['host_us']:.2f} us a call (F.rms_norm {t['library_host_us']:.2f} us, "
-              f"ratio {t['host_ratio']:.3f}) [{name_power}]")
-    t = times["decode_attention"]
-    print(f"kernel decode_attention host, minitron-8b's decode shape: {t['host_us']:.2f} us a call "
-          f"(scaled_dot_product_attention {t['library_host_us']:.2f} us, ratio {t['host_ratio']:.3f}) [{name_power}]")
-    for label, t in split_times.items():
-        print(f"kernel decode_attention {label} bf16 with lse: {t['lse_ms']:.4f} ms, without {t['ms']:.4f} ms (plain "
-              f"{t['plain_ms']:.4f} ms, library none, bound {t['bound_ms']:.4f} ms by {t['bound_by']}) [{name_power}]")
-    for (name, shape), t in danube_times.items():
-        extra = ""
-        if name == "flash_attention":
-            extra = (f"; {t['pairs']} visible (query, key) pairs per (b, h); SDPA ran {t['library_kernels']}; "
-                     f"P V on 128 padded columns, Q K^T on 80: 1.3x the bound's products")
-        print(f"kernel {name} h2o shape {shape} bf16: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, library "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
-              f"{t['bound_ms'] / t['ms']:.2f} of it; {t['library_ms'] / t['ms']:.2f}x the library's speed){extra} "
-              f"[{name_power}]")
-    for (name, shape), t in deepseek_times.items():
-        if name == "rmsnorm":
-            rows, d = shape
-            where = f" of rows {DS_DKV} wide (kv_norm, read in place)" if d == DS_KV_LORA else ""
-            print(f"kernel rmsnorm deepseek shape {rows}x{d}{where} bf16: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} "
-                  f"ms, F.rms_norm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4g} ms by {t['bound_by']}; "
-                  f"{t['bound_ms'] / t['ms']:.2f} of the bound, {t['library_ms'] / t['ms']:.2f}x F.rms_norm's speed); "
-                  f"host {t['host_us']:.2f} us a call [{name_power}]")
-            continue
-        print(f"kernel flash_attention deepseek shape (B, H, Hkv, S, Dqk, Dv) {shape} bf16, the MLA prefill's views: "
-              f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms by {t['bound_by']}, {t['bound_ms'] / t['ms']:.2f} of it; "
-              f"{t['library_ms'] / t['ms']:.2f}x the library's speed); {t['pairs']} visible (query, key) pairs per "
-              f"(b, h); SDPA ran {t['library_kernels']} [{name_power}]")
-    for (name, shape), t in seamless_times.items():
-        if name == "rmsnorm":
-            print(f"kernel rmsnorm seamless shape {shape[0]}x{shape[1]} bf16: {t['ms']:.4f} ms (plain "
-                  f"{t['plain_ms']:.4f} ms, F.rms_norm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4g} ms by "
-                  f"{t['bound_by']}; {t['bound_ms'] / t['ms']:.2f} of the bound, {t['library_ms'] / t['ms']:.2f}x "
-                  f"F.rms_norm's speed); host {t['host_us']:.2f} us a call [{name_power}]")
-            continue
-        if name == "decode_attention":
-            where = "the cross cache, every frame" if shape[3] == SM_FRAMES else "the self cache, full"
-            print(f"kernel decode_attention seamless shape (B, H, Hkv, S, D) {shape} bf16, {where} valid, "
-                  f"{t['split']} blocks a (b, kv head): {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} "
-                  f"ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
-                  f"{t['bound_ms'] / t['ms']:.2f} of it; {t['library_ms'] / t['ms']:.2f}x the library's speed) "
-                  f"[{name_power}]")
-            continue
-        bwd = f"; its Function's plain backward {t['bwd_ms']:.4f} ms" if "bwd_ms" in t else ""
-        print(f"kernel flash_attention seamless shape (B, H, Hkv, Sq, Sk, D, causal) {shape} bf16, (B, S, H, D) "
-              f"views: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms by {t['bound_by']}, {t['bound_ms'] / t['ms']:.2f} of it; "
-              f"{t['library_ms'] / t['ms']:.2f}x the library's speed){bwd}; {t['pairs']} visible (query, key) pairs "
-              f"per (b, h); SDPA ran {t['library_kernels']} [{name_power}]")
-    for (name, shape), t in jamba_times.items():
-        if name == "rmsnorm":
-            what = "d_model" if shape[1] == JB_D_MODEL else "d_inner, the gated norm"
-            print(f"kernel rmsnorm jamba shape {shape[0]}x{shape[1]} ({what}) bf16: {t['ms']:.4f} ms (plain "
-                  f"{t['plain_ms']:.4f} ms, F.rms_norm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4g} ms by "
-                  f"{t['bound_by']}; {t['bound_ms'] / t['ms']:.2f} of the bound, {t['library_ms'] / t['ms']:.2f}x "
-                  f"F.rms_norm's speed); host {t['host_us']:.2f} us a call [{name_power}]")
-            continue
-        if name == "ssd_scan":
-            variant = shape[-1]
-            bc = "bf16 B/C views" if variant == ssd_mod.TENSOR_CORE else "fp32 B/C"
-            print(f"kernel ssd_scan jamba shape (B, S, H, P, G, N) {shape[:-1]} {bc} ({variant} kernel): "
-                  f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, library none, bound {t['bound_ms']:.4f} ms by "
-                  f"{t['bound_by']}, {t['bound_ms'] / t['ms']:.2f} of it) [{name_power}]")
-            continue
-        extra = (f"; {t['pairs']} visible (query, key) pairs per (b, h); SDPA ran {t['library_kernels']}"
-                 if name == "flash_attention" else f"; {t['split']} blocks a (b, kv head)")
-        print(f"kernel {name} jamba shape {shape} bf16: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, library "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
-              f"{t['bound_ms'] / t['ms']:.2f} of it; {t['library_ms'] / t['ms']:.2f}x the library's speed){extra} "
-              f"[{name_power}]")
-    for (name, shape), t in train_times.items():
-        library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        if (name, shape[-1:]) == ("rmsnorm", (DS_KV_LORA,)):
-            shape = f"{shape} of rows {DS_DKV} wide (deepseek kv_norm, read in place)"
-        elif name == "flash_attention" and len(shape) == 6:
-            cell = "deepseek-v3-671b" if shape[1] == V3_H else DS_ARCH
-            shape = f"(B, H, Hkv, S, Dqk, Dv) {shape} causal ({cell}, the MLA views); SDPA ran {t['library_kernels']}"
-        print(f"kernel {name} train shape {shape} bf16: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
-              f"library {library}, bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
-              f"{t['bound_ms'] / t['ms']:.2f} of it); its Function's plain backward {t['bwd_ms']:.4f} ms "
-              f"[{name_power}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

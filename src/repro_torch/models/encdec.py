@@ -137,9 +137,9 @@ class EncDecModel(Layout, nn.Module):
         cross = (None, baxes, None, attn.kv_spec(self.cfg), None)
         return {"self": {s: kv for s in ("k", "v")}, "cross_k": cross, "cross_v": cross}
 
-    def _constrain(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-        """This rank's rows of a global batch tensor (all of it without a mesh)."""
-        return x if self.par is None else self.par.rows(x)
+    def _rows(self, tokens, labels, frames):
+        """This rank's rows of the tokens, labels (padding -100) and frames."""
+        return self._constrain(tokens), self._constrain(labels, -100), self._constrain(frames)
 
     @staticmethod
     def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -171,9 +171,10 @@ class EncDecModel(Layout, nn.Module):
         n = self.cfg.encoder_layers
         if training:
             block, (layers, dims) = self._remat(self._enc_block), self._layers(params, "encoder", n)
+            layers = ((p, dims) for p in layers)
         else:
-            block, layers, dims = self._enc_block, (_layer(params["encoder"], i) for i in range(n)), None
-        for p in layers:
+            block, layers = self._enc_block, self._serve_layers(params, "encoder", n)
+        for p, dims in layers:
             x = block(p, x, positions, dims)
         return rmsnorm(params["enc_norm"], x, ops=self.ops)
 
@@ -208,7 +209,7 @@ class EncDecModel(Layout, nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(the cross-entropy of every token, (B, S) in fp32 and 0 where the
         label is -100; the labels; the auxiliary loss, 0)."""
-        tokens, labels, frontend_embeds = map(self._constrain, (tokens, labels, frontend_embeds))
+        tokens, labels, frontend_embeds = self._rows(tokens, labels, frontend_embeds)
         params = self._gather_top(params)
         h = self._hidden(params, tokens, frontend_embeds)
         losses = token_cross_entropy(params["head"]["w"], h, labels, self.cfg.vocab_size, par=self.par)
@@ -223,7 +224,7 @@ class EncDecModel(Layout, nn.Module):
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(the mean next-token cross-entropy, {"ce", "aux"}), as the
         reference's ``loss`` (:155-178)."""
-        tokens, labels, frontend_embeds = map(self._constrain, (tokens, labels, frontend_embeds))
+        tokens, labels, frontend_embeds = self._rows(tokens, labels, frontend_embeds)
         params = self._gather_top(params)
         h = self._hidden(params, tokens, frontend_embeds)
         ce = chunked_cross_entropy(params["head"]["w"], h, labels, self.cfg.vocab_size, par=self.par)
@@ -281,13 +282,14 @@ class EncDecModel(Layout, nn.Module):
         if max_len < S:
             raise ValueError(f"max_len {max_len} is shorter than the prompt ({S})")
         tokens, frontend_embeds = serve_rows(tokens, par, B), serve_rows(frontend_embeds, par, B)
+        params = self._gather_top(params)
         memory = self.encode(params, frontend_embeds)
         x = embed(params["embed"], tokens.long(), par)
         positions = self._positions(x)
         cache = self.make_cache(B, max_len, memory.shape[1], x.dtype, x.device)
         W = attn.cache_slots(cfg, max_len)
-        for i in range(cfg.num_layers):
-            p, c = _layer(params["decoder"], i), _layer(cache["self"], i)
+        for i, (p, dims) in enumerate(self._serve_layers(params, "decoder", cfg.num_layers)):
+            p, c = gather_shards(p, dims, par), _layer(cache["self"], i)
             h = rmsnorm(p["norm1"], x, ops=ops)
             q, k, v = attn._gqa_qkv(p["mixer"], cfg, h, positions, ops, par)
             attn.gqa_write_prompt(cfg, c, k, v, par, W)
@@ -320,9 +322,10 @@ class EncDecModel(Layout, nn.Module):
             raise ValueError("decode_step on a model axis of more than one rank needs the cache's max_len")
         B = tokens.shape[0]
         tokens = serve_rows(tokens, par, B)
+        params = self._gather_top(params)
         x = embed(params["embed"], tokens.long(), par)
-        for i in range(cfg.num_layers):
-            p, c = _layer(params["decoder"], i), _layer(cache["self"], i)
+        for i, (p, dims) in enumerate(self._serve_layers(params, "decoder", cfg.num_layers)):
+            p, c = gather_shards(p, dims, par), _layer(cache["self"], i)
             o, _ = attn.gqa_decode(p["mixer"], cfg, rmsnorm(p["norm1"], x, ops=ops), c, cache_len, ops, par, max_len)
             x = x + o
             h = rmsnorm(p["norm_x"], x, ops=ops)

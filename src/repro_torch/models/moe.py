@@ -28,12 +28,14 @@ The experts are sharded over ``"model"``; with the tokens replicated over
 dispatch buffer (the rank's experts' rows), and its return all-to-all is a
 sum over ``"model"`` of each rank's combine of its own experts' rows. The
 load-balancing loss is the product of two global means: the expert counts
-and the mean probabilities are summed over ``"data"`` first. The training
-step splits the batch over ``"data"`` (``B % n_data`` raises there).
+and the probabilities' sums over the real tokens are summed over
+``"data"`` first.
 Serving a batch that does not split over ``"data"`` (batch 1 on a data
 axis of 2) takes the reference's one-hot fallback (:166-169),
 ``moe_forward_onehot`` with ``par``: every rank holds all the tokens, and
-only the experts are split.
+only the experts are split. A training batch that does not split over the
+batch group (the ranks hold JAX's padded blocks of it) takes the same
+fallback over the real rows of every block (``moe_forward_padded``).
 
 ``ep_wide`` (used by no config; its users are the ``B1``/``B2`` variants of
 ``launch/perf.py``) splits the experts over both mesh axes,
@@ -49,7 +51,11 @@ reference's grid sharded ``P(("model", "data"), ...)``, :192-200). Under
 ZeRO-3 the exchange group is the model x data plane. The expert weights'
 gradients are whole on the rank that holds them (``train/steps.py``). The
 one-hot fallback takes the rank's block and sums the combine over the
-model x data plane.
+model x data plane; in training (a batch the batch group does not divide)
+that sum's gradient is summed over the exchange group, so that each rank's
+experts see the gradient of every row of their tokens, and the gradients
+of the tokens and of their combine weights are summed over the plane and
+kept on the rank's own rows.
 """
 
 from __future__ import annotations
@@ -67,9 +73,13 @@ from repro_torch.models.parallel import (
     all_reduce,
     copy_to_model,
     exchange,
+    gather_rows,
+    keep_rows,
     reduce_from_data,
     reduce_from_model,
+    seq_slice,
     sum_over_data,
+    sum_then_sum,
     tensor_parallel,
 )
 from repro_torch.models.params import ParamDef, fan_in_init, normal_init
@@ -115,16 +125,19 @@ def _counts(ids: torch.Tensor, E: int) -> torch.Tensor:
     return torch.zeros(E, dtype=ids.dtype, device=ids.device).scatter_add_(0, ids, torch.ones_like(ids))
 
 
-def aux_load_balance_loss(probs: torch.Tensor, idx: torch.Tensor, E: int, par=None) -> torch.Tensor:
-    """Switch-style load-balancing loss: E * sum_e f_e * p_e, over the tokens
-    of every data shard (``par``: the counts and the shards' mean
-    probabilities summed over ``"data"``)."""
-    flat_idx = idx.reshape(-1)
-    shards = 1 if par is None else par.data_size
-    f = sum_over_data(_counts(flat_idx, E).float(), par) / max(flat_idx.numel() * shards, 1)
-    pbar = probs.reshape(-1, E).mean(dim=0)
-    if par is not None:
-        pbar = reduce_from_data(pbar, par) / shards
+def aux_load_balance_loss(probs: torch.Tensor, idx: torch.Tensor, E: int, par=None,
+                          total=None) -> torch.Tensor:
+    """Switch-style load-balancing loss: E * sum_e f_e * p_e over the real
+    tokens of every data shard. ``probs`` (T, E) and ``idx`` (T, k) are the
+    rank's real tokens'; f_e, the share of their choices that name e, and
+    p_e, their mean probability of e, are each a sum over those tokens
+    summed over ``"data"`` (``par``) over ``total``, the real tokens of all
+    shards (T times the data ranks by default: an even split)."""
+    probs, flat_idx = probs.reshape(-1, E), idx.reshape(-1)
+    if total is None:
+        total = probs.shape[0] * (1 if par is None else par.data_size)
+    f = sum_over_data(_counts(flat_idx, E).float(), par) / max(total * idx.shape[-1], 1)
+    pbar = reduce_from_data(probs.sum(dim=0), par) / max(total, 1)
     return E * (f * pbar).sum()
 
 
@@ -140,6 +153,40 @@ def moe_forward_onehot(p: Params, cfg: ArchConfig, x: torch.Tensor, par=None) ->
     for a batch that does not split over the data axes (every rank holds
     all its tokens, C from all of them): the rank's experts' rows computed
     and combined on the rank, the combine summed over ``"model"``."""
+    out, probs, idx = _onehot(p, cfg, x, par)
+    return out, aux_load_balance_loss(probs, idx, cfg.moe.num_experts)
+
+
+def moe_forward_padded(p: Params, cfg: ArchConfig, x: torch.Tensor, par, batch: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A training batch of ``batch`` rows that does not split over the batch
+    group: the reference's one-hot fallback (``moe.py:166-169``) over all of
+    it. The ranks' padded blocks ``x`` (``Parallel.rows``) are gathered and
+    their padding dropped (``parallel.gather_rows``), the one-hot dispatch
+    runs over the ``batch`` rows (C from all their tokens), and the rank's
+    rows of its output come back in its block, the padding 0. The rank's
+    share of the gradient comes from its own rows: the gather's backward
+    keeps the rank's block, and the load-balancing loss sums the
+    probabilities of the rank's real tokens over ``"data"``. With
+    ``ep_wide`` the rank's experts run over all the rows (``_onehot``'s
+    ``mine``)."""
+    m = cfg.moe
+    block, S = x.shape[0], x.shape[1]
+    lo, hi = seq_slice(batch, par.data_size, par.data_rank)  # the real rows of the rank's block
+    out, probs, idx = _onehot(p, cfg, gather_rows(x, batch, par), par, (lo * S, hi * S))
+    aux = aux_load_balance_loss(probs[lo * S : hi * S], idx[lo * S : hi * S], m.num_experts, par, batch * S)
+    mine = out[lo:hi]
+    return torch.cat([mine, mine.new_zeros((block - (hi - lo),) + tuple(mine.shape[1:]))]), aux
+
+
+def _onehot(p: Params, cfg: ArchConfig, x: torch.Tensor, par=None, mine=None):
+    """``moe_forward_onehot``'s output, and the router's probabilities and
+    expert ids of all the tokens, (T, E) and (T, k). ``mine``: in training,
+    the rank's own tokens [lo, hi) of ``x``; with ``ep_wide`` the experts'
+    sum over the model x data plane then passes the gradient of every
+    exchange group member's tokens to each rank's experts, and the tokens'
+    and combine weights' gradients are summed over the plane and kept on
+    ``mine`` (serving passes None: no gradient)."""
     m = cfg.moe
     B, S, D = x.shape
     T, E, k = B * S, m.num_experts, m.top_k
@@ -159,22 +206,26 @@ def moe_forward_onehot(p: Params, cfg: ArchConfig, x: torch.Tensor, par=None) ->
     wide = par is not None and m.ep_wide
     e0 = (par.ep_wide().block if wide else par.model_rank if tensor_parallel(par) else 0) * E_local
     disp = disp[:, :, e0 : e0 + E_local]
-    buf = torch.einsum("td,tkec->ecd", copy_to_model(xt, par), disp)  # (E_local, C, D)
+    plane = par.group_of(EXPERT_AXES) if wide else None
+    if plane is not None and mine is not None:
+        xt_e, w_e = (keep_rows(t, plane[1], *mine) for t in (xt, w))
+    else:
+        xt_e, w_e = copy_to_model(xt, par), copy_to_model(w, par)
+    buf = torch.einsum("td,tkec->ecd", xt_e, disp)  # (E_local, C, D)
     h = torch.einsum("ecd,edf->ecf", buf, p["gate"])
     u = torch.einsum("ecd,edf->ecf", buf, p["up"])
     out_e = torch.einsum("ecf,efd->ecd", F.silu(h) * u, p["down"])
-    combine = disp * copy_to_model(w, par).to(x.dtype)[..., None, None]
+    combine = disp * w_e.to(x.dtype)[..., None, None]
     out = torch.einsum("ecd,tkec->td", out_e, combine)
-    if wide:  # serving: the experts' sums over the model x data plane, no gradient
-        group = par.group_of(EXPERT_AXES)
-        out = out if group is None else all_reduce(out.contiguous(), group[1])
-    else:
+    if plane is not None:  # ep_wide: the experts' sums over the model x data plane
+        out = (all_reduce(out.contiguous(), plane[1]) if mine is None
+               else sum_then_sum(out, plane[1], par.ep_wide().group))
+    elif not wide:
         out = reduce_from_model(out, par)
     out = out.reshape(B, S, D)
-    aux = aux_load_balance_loss(probs, idx, E)
     if m.num_shared_experts:
         out = out + swiglu(p["shared"], x, par)
-    return out, aux
+    return out, probs, idx
 
 
 def _local_dispatch(xt: torch.Tensor, idx: torch.Tensor, C: int, E: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -45,6 +45,16 @@ each slice's log-sum-exp. ``global_logits`` gives every rank the global
 logits. A serving batch that does not split over
 ``"data"`` is computed whole on every data rank (``splits_rows``).
 
+A training batch that does not split over the batch group is cut as XLA
+cuts the reference's batch sharding: into JAX's padded blocks of
+``ceil(B / n)`` rows (``Parallel.rows``, through ``seq_slice``), the rows
+past the batch padding with no label (tokens 0, labels -100, frontend
+embeddings 0). A rank whose block holds padding only still runs every
+collective of the step, in the same order as the others. The reductions
+that count rows count labelled tokens only (the cross-entropy's count, the
+MoE load-balancing loss's sums); an MoE layer gathers the real rows of every
+block (``gather_rows``) for the reference's one-hot fallback.
+
 A batch over several axes (``("pod", "data")`` on the multi-pod mesh, every
 axis under the ZeRO-3 layout) is split over the flattened group of those
 axes in JAX's major order: ``Parallel``'s ``"data"`` group is that group (a
@@ -291,15 +301,19 @@ class Parallel:
         for name in self.mesh.mesh_dim_names:
             dist.all_reduce(token, group=self.mesh.get_group(name))
 
-    def rows(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-        """This rank's rows of a global batch tensor (the reference's batch
-        sharding over ``"data"``); ``ValueError`` where they do not split."""
+    def rows(self, t: Optional[torch.Tensor], fill=0) -> Optional[torch.Tensor]:
+        """This rank's rows of a global batch tensor, as XLA cuts the
+        reference's batch sharding over ``"data"``: rows ``seq_slice(B, n,
+        rank)`` of the batch group's ``n`` ranks, padded with ``fill`` to
+        ``ceil(B / n)`` rows where ``n`` does not divide ``B`` (the ranks past
+        the batch then hold padding only). An even split is a plain slice."""
         if t is None:
             return None
-        if t.shape[0] % self.data_size:
-            raise ValueError(f"a batch of {t.shape[0]} rows does not split over {self.data_size} data ranks")
-        n = t.shape[0] // self.data_size
-        return t[self.data_rank * n : (self.data_rank + 1) * n]
+        lo, hi = seq_slice(t.shape[0], self.data_size, self.data_rank)
+        pad = -(-t.shape[0] // self.data_size) - (hi - lo)
+        if not pad:
+            return t[lo:hi]
+        return torch.cat([t[lo:hi], t.new_full((pad,) + tuple(t.shape[1:]), fill)])
 
     def model_slice(self, n: int, rank: Optional[int] = None) -> Tuple[int, int]:
         """(start, stop) of this rank's (or model rank ``rank``'s) chunk of
@@ -351,6 +365,43 @@ class _SumBothWays(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return all_reduce(grad.contiguous().clone(), ctx.group), None
+
+
+class _SumThenSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, back):
+        ctx.back = back
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.back is None else all_reduce(grad.contiguous().clone(), ctx.back)), None, None
+
+
+class _KeepRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, lo, hi):
+        ctx.group, ctx.lo, ctx.hi = group, lo, hi
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = all_reduce(grad.contiguous().clone(), ctx.group)
+        grad[: ctx.lo] = 0
+        grad[ctx.hi :] = 0
+        return grad, None, None, None
+
+
+def sum_then_sum(x: torch.Tensor, group, back) -> torch.Tensor:
+    """The sum over ``group`` of each rank's ``x``; the gradient summed over
+    ``back`` (passed as it is where ``back`` is None)."""
+    return _SumThenSum.apply(x, group, back)
+
+
+def keep_rows(x: torch.Tensor, group, lo: int, hi: int) -> torch.Tensor:
+    """Identity forward; the gradient summed over ``group`` and kept on rows
+    [lo, hi) of ``x``'s first dimension (0 elsewhere)."""
+    return _KeepRows.apply(x, group, lo, hi)
 
 
 class _Exchange(torch.autograd.Function):
@@ -431,6 +482,31 @@ def gather_shards(tree, dims, par: Optional[Parallel]):
         for (i, _), t in zip(bucket, full):
             flat[i] = t
     return unflatten(tree, flat)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's block of rows over the batch group, in rank order, in one
+    all-gather; the backward keeps this rank's block of the gradient (each
+    rank's share of the gradient comes from its own rows)."""
+
+    @staticmethod
+    def forward(ctx, x, par):
+        ctx.rank, ctx.block = par.data_rank, x.shape[0]
+        return gather_dim(x, 0, par.data_size, par.data_group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.rank * ctx.block : (ctx.rank + 1) * ctx.block], None
+
+
+def gather_rows(x: torch.Tensor, batch: int, par: Parallel) -> torch.Tensor:
+    """The global batch of ``batch`` rows from every rank's padded block
+    (``Parallel.rows``) of it, the padding dropped (one all-gather over the
+    batch group, counted); the gradient of the rank's own rows goes back to
+    its block."""
+    every, block = _GatherRows.apply(x, par), x.shape[0]
+    spans = [seq_slice(batch, par.data_size, r) for r in range(par.data_size)]
+    return torch.cat([every[r * block : r * block + hi - lo] for r, (lo, hi) in enumerate(spans)])
 
 
 def tensor_parallel(par: Optional[Parallel]) -> bool:

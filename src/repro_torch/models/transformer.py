@@ -48,7 +48,10 @@ of axes ``("data", "model")`` (or ``("pod", "data", "model")``) trains in
 explicit SPMD (``models/parallel.py``):
 ``init`` gives the rank's shards of the seeded tree (``param_specs``), and
 ``loss`` takes the global batch and keeps the rank's rows (``_constrain``, the
-reference's batch sharding over ``"data"``). Attention and Mamba-2 run on the
+reference's batch sharding over ``"data"``; where the batch ranks do not
+divide the batch, JAX's padded block of them, the padding unlabelled, and the
+MoE layers take the reference's one-hot fallback over every block's real
+rows, ``moe.moe_forward_padded``). Attention and Mamba-2 run on the
 rank's heads, the MLPs on its columns of d_ff, the MoE layers on its experts,
 the embedding and the head on its vocab rows; the kernels see the plain local
 tensors. The MoE layers take ``moe_forward`` with the mesh, dispatching per
@@ -74,7 +77,11 @@ runs on the rank's heads in prefill and keeps the rank's slots of the
 sequence, every head, in the cache; decode merges the ranks' slices
 (``models/attention.py``). Mamba-2 keeps the rank's heads of its state and
 channels of ``conv_x``. At one model rank the mesh path is the no-mesh path,
-bit for bit.
+bit for bit. An FSDP config serves with its FSDP weights, as it trains
+(the reference's ``make_serve_bundle`` gives it ``fsdp_param_specs``):
+``prefill`` and ``decode_step`` gather the leaves outside the stacks once a
+call and each layer's leaves as the loop reaches the layer
+(``_serve_layers``).
 """
 
 from __future__ import annotations
@@ -147,14 +154,15 @@ def _layer_groups(cfg: ArchConfig) -> List[Tuple[str, int, Tuple[LayerSpec, ...]
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what ``Model`` does not run: an
-    encoder-decoder stack (that is ``EncDecModel``'s, as in the reference);
-    ``ValueError`` for an SSM layer without an ``SSMConfig``."""
-    unsupported = {"an encoder-decoder stack": cfg.enc_dec}
-    if cfg.family != "ssm":
-        unsupported[f"{cfg.attention!r} attention"] = cfg.attention not in ("gqa", "mla")
-    for feature, present in unsupported.items():
-        if present:
-            raise NotImplementedError(f"{cfg.name}: {feature} is not ported yet")
+    encoder-decoder stack (``EncDecModel``'s, as in the reference:
+    ``models/factory.py::build_model`` gives such a config one) and an
+    attention other than GQA and MLA; ``ValueError`` for an SSM layer
+    without an ``SSMConfig``."""
+    if cfg.enc_dec:
+        raise NotImplementedError(f"{cfg.name}: an encoder-decoder stack is EncDecModel's (models/encdec.py), "
+                                  "not Model's; models.factory.build_model gives it one")
+    if cfg.family != "ssm" and cfg.attention not in ("gqa", "mla"):
+        raise NotImplementedError(f"{cfg.name}: {cfg.attention!r} attention is not ported yet")
     if cfg.family == "ssm" or "ssm" in (cfg.hybrid_pattern or ()):
         mb._dims(cfg)  # raises without an SSMConfig
 
@@ -265,6 +273,29 @@ class Layout:
         return _unstack(gather_shards(params[name], whole, self.par), n), tree_map(
             lambda d: None if d in (None, 0) else d - 1, dims)
 
+    def _constrain(self, x: Optional[torch.Tensor], fill=0) -> Optional[torch.Tensor]:
+        """This rank's rows of a global batch tensor (all of it without a
+        mesh), in JAX's padded block where the batch does not split over the
+        batch group, the padding ``fill`` (``Parallel.rows``)."""
+        return x if self.par is None else self.par.rows(x, fill)
+
+    def _serve_layers(self, params: Tree, name: str, n: int):
+        """The ``n`` repeats of group ``name`` for serving, one at a time: (the
+        repeat's tree, views of the stack as ``_layer`` takes them; its FSDP
+        dimensions, None without FSDP). A leaf sharded along its layer axis is
+        gathered whole first (as ``_layers`` does); the caller gathers each
+        layer's other leaves as it reaches the layer (``gather_shards``), so
+        that between layers a rank holds its FSDP shards only."""
+        if self.fsdp is None:
+            for i in range(n):
+                yield _layer(params[name], i), None
+            return
+        dims = self.fsdp[name]
+        stack = gather_shards(params[name], tree_map(lambda d: d if d == 0 else None, dims), self.par)
+        inner = tree_map(lambda d: None if d in (None, 0) else d - 1, dims)
+        for i in range(n):
+            yield _layer(stack, i), inner
+
     def param_specs(self) -> Tree:
         return pu.partition_specs(self.param_defs()) if self.specs is None else self.specs
 
@@ -343,10 +374,6 @@ class Model(Layout, nn.Module):
             out[name] = per_layer
         return out
 
-    def _constrain(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-        """This rank's rows of a global batch tensor (all of it without a mesh)."""
-        return x if self.par is None else self.par.rows(x)
-
     def _head_weight(self, params: Tree) -> torch.Tensor:
         if self.cfg.tie_embeddings:
             return params["embed"]["table"].T
@@ -355,11 +382,13 @@ class Model(Layout, nn.Module):
     # -- training -----------------------------------------------------------
 
     def _block_forward(
-        self, spec: LayerSpec, p: Tree, x: torch.Tensor, positions: torch.Tensor, fsdp: Optional[Tree] = None
+        self, spec: LayerSpec, p: Tree, x: torch.Tensor, positions: torch.Tensor, fsdp: Optional[Tree] = None,
+        batch: Optional[int] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One layer over the full sequence, without a cache: (x, the layer's
         aux loss, 0 but for an MoE layer); ``fsdp``, the layer's FSDP
-        dimensions, gathers its weights first."""
+        dimensions, gathers its weights first; ``batch``, the global batch's
+        rows on a mesh (``_channel``)."""
         p = gather_shards(p, fsdp, self.par)
         h = rmsnorm(p["norm1"], x, ops=self.ops)
         if spec.mixer == "ssm":
@@ -371,13 +400,18 @@ class Model(Layout, nn.Module):
         x = x + h
         if spec.channel == "none":
             return x, x.new_zeros((), dtype=torch.float32)
-        h, aux = self._channel(spec, p, x)
+        h, aux = self._channel(spec, p, x, batch)
         return x + h, aux
 
-    def _channel(self, spec: LayerSpec, p: Tree, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _channel(self, spec: LayerSpec, p: Tree, x: torch.Tensor,
+                 batch: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """The channel mixer's residual branch and its aux loss: SwiGLU (aux
-        0), or the MoE layer through the sort dispatch."""
+        0), or the MoE layer through the sort dispatch (a training batch of
+        ``batch`` rows that does not split over the batch group through the
+        one-hot fallback, ``moe_forward_padded``)."""
         h = rmsnorm(p["norm2"], x, ops=self.ops)
+        if spec.channel == "moe" and self.par is not None and batch is not None and not self.par.splits_rows(batch):
+            return moe_mod.moe_forward_padded(p["channel"], self.cfg, h, self.par, batch)
         if spec.channel == "moe":
             return moe_mod.moe_forward(p["channel"], self.cfg, h, self.par)
         return swiglu(p["channel"], h, self.par), h.new_zeros((), dtype=torch.float32)
@@ -393,8 +427,9 @@ class Model(Layout, nn.Module):
             return moe_mod.moe_forward_onehot(p["channel"], self.cfg, h, self.par)[0]
         return moe_mod.moe_forward(p["channel"], self.cfg, h, self.par, with_aux=False)[0]
 
-    def _scan_groups(self, params: Tree, x: torch.Tensor, positions: torch.Tensor):
-        """Run the layers; returns (hidden, the layers' aux losses summed in
+    def _scan_groups(self, params: Tree, x: torch.Tensor, positions: torch.Tensor, batch: int):
+        """Run the layers over this rank's rows of a global batch of
+        ``batch`` rows; returns (hidden, the layers' aux losses summed in
         fp32, 0 without MoE layers, as the reference's)."""
         block = remat(self.cfg, self._block_forward)
         total = x.new_zeros((), dtype=torch.float32)
@@ -402,7 +437,7 @@ class Model(Layout, nn.Module):
             stacked, dims = self._layers(params, name, n)
             for p in stacked:
                 for j, spec in enumerate(layers):
-                    x, aux = block(spec, p[f"l{j}"], x, positions, None if dims is None else dims[f"l{j}"])
+                    x, aux = block(spec, p[f"l{j}"], x, positions, None if dims is None else dims[f"l{j}"], batch)
                     total = total + aux
         return x, total
 
@@ -418,15 +453,18 @@ class Model(Layout, nn.Module):
     def _trunk(self, params: Tree, tokens, labels, frontend_embeds):
         """(the final norm's output (B, S, d); the labels with the frontend's
         positions set to -100; the aux loss; the positions), of this rank's
-        rows on a mesh."""
-        tokens, labels, frontend_embeds = map(self._constrain, (tokens, labels, frontend_embeds))
+        rows on a mesh (its padded block's, the padding unlabelled, where the
+        batch does not split over the batch group)."""
+        batch = tokens.shape[0]
+        tokens, labels = self._constrain(tokens), self._constrain(labels, -100)
+        frontend_embeds = self._constrain(frontend_embeds)
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
         x = self._embed_inputs(params, tokens, frontend_embeds)
         if frontend_embeds is not None:
             npos = frontend_embeds.shape[1]
             labels = torch.where(torch.arange(S, device=labels.device) < npos, -100, labels)
-        x, aux = self._scan_groups(params, x, positions)
+        x, aux = self._scan_groups(params, x, positions, batch)
         return rmsnorm(params["final_norm"], x, ops=self.ops), labels, aux, positions
 
     def token_losses(
@@ -532,14 +570,16 @@ class Model(Layout, nn.Module):
         tokens, frontend_embeds = serve_rows(tokens, self.par, B), serve_rows(frontend_embeds, self.par, B)
         rows = tokens.shape[0]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(rows, S)
+        params = self._gather_top(params)
         x = self._embed_inputs(params, tokens, frontend_embeds)
         cache = self.make_cache(B, max_len, dtype=x.dtype, device=x.device)
         onehot = self.par is not None and not self.par.splits_rows(B)
         for name, n, layers in self.groups:
-            for i in range(n):
-                p, c = _layer(params[name], i), _layer(cache[name], i)
+            for i, (p, dims) in enumerate(self._serve_layers(params, name, n)):
+                c = _layer(cache[name], i)
                 for j, spec in enumerate(layers):
-                    x = self._prefill_block(spec, p[f"l{j}"], x, positions, c[f"l{j}"], max_len, onehot)
+                    pj = gather_shards(p[f"l{j}"], None if dims is None else dims[f"l{j}"], self.par)
+                    x = self._prefill_block(spec, pj, x, positions, c[f"l{j}"], max_len, onehot)
         h = rmsnorm(params["final_norm"], x, ops=self.ops)
         return global_logits(torch.matmul(h[:, -1], self._head_weight(params)), self.par, B), cache
 
@@ -589,12 +629,14 @@ class Model(Layout, nn.Module):
         B = tokens.shape[0]
         tokens = serve_rows(tokens, self.par, B)
         onehot = self.par is not None and not self.par.splits_rows(B)
+        params = self._gather_top(params)
         x = embed(params["embed"], tokens.long(), self.par)
         for name, n, layers in self.groups:
-            for i in range(n):
-                p, c = _layer(params[name], i), _layer(cache[name], i)
+            for i, (p, dims) in enumerate(self._serve_layers(params, name, n)):
+                c = _layer(cache[name], i)
                 for j, spec in enumerate(layers):
-                    x = self._block_decode(spec, p[f"l{j}"], x, c[f"l{j}"], cache_len, max_len, onehot)
+                    pj = gather_shards(p[f"l{j}"], None if dims is None else dims[f"l{j}"], self.par)
+                    x = self._block_decode(spec, pj, x, c[f"l{j}"], cache_len, max_len, onehot)
         h = rmsnorm(params["final_norm"], x, ops=self.ops)
         return global_logits(torch.matmul(h[:, 0], self._head_weight(params)), self.par, B), cache
 

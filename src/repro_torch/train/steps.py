@@ -22,7 +22,11 @@ holds its shards of the parameters (``param_specs``; ``init_state`` draws
 the full tree from the seed and cuts it, so the values are the no-mesh
 path's) and takes the *global* batch, of which the model keeps the rank's
 rows (the batch split over the flattened group of ``batch_axes``,
-``models/parallel.py``).
+``models/parallel.py``; a batch or microbatch that the group does not
+divide in JAX's padded blocks, as XLA cuts it, so that a rank may hold
+padding only: its share of the gradient is then 0 but for what the
+padding's collectives carry, and the step's sums, the ZeRO-2 slices and the
+clip's global norm stay as they are).
 
 * ``"megatron"``: tensor parallelism over ``"model"``; the ranks' shares of
   the gradient summed over the batch axes. AdamW's ``m`` and ``v`` are the
@@ -55,9 +59,10 @@ axes outside the model x data plane (``"pod"``); the global norm and
 Adafactor's sums over its expert dimension run over that plane.
 
 The serve bundle on a mesh is the reference's ``make_serve_bundle(cfg,
-mesh)``: the megatron weights, the batch over ``"data"``, the attention
-caches split by their sequence over ``"model"``, the Mamba-2 state by its
-heads (``models/transformer.py``, ``models/encdec.py``).
+mesh)``: the megatron weights (an FSDP config's FSDP weights, gathered layer
+by layer), the batch over ``"data"``, the attention caches split by their
+sequence over ``"model"``, the Mamba-2 state by its heads
+(``models/transformer.py``, ``models/encdec.py``).
 """
 
 from __future__ import annotations
@@ -367,11 +372,16 @@ def make_serve_bundle(
     reference's ``out_shardings=None``) with its own shard of the cache
     (``cache_specs``; ``params.gather(cache, cache_specs, mesh,
     cache_shapes)`` puts the whole cache together). An FSDP config
-    (jamba-1.5-large-398b, deepseek-v3-671b) serves with the megatron
-    weights: the reference's bundle shards them over the data axes too and
-    gathers them in the step, which changes no number (ROADMAP C4).
-    ``ep_wide`` serves its experts split over both axes, as it trains them."""
+    (jamba-1.5-large-398b, deepseek-v3-671b) serves with its FSDP weights,
+    as the reference's bundle does (``fsdp_param_specs`` over the batch
+    axes, ``train/steps.py:277-280``): ``param_specs`` is that tree, and the
+    model gathers the leaves outside the layer stacks once a call and each
+    layer's as it reaches the layer, so that between layers a rank holds its
+    shards only. ``ep_wide`` serves its experts split over both axes, as it
+    trains them."""
     model = build_model(cfg, mesh, batch_axes, ops=ops)
+    if mesh is not None and cfg.fsdp:
+        model.use_specs(pu.fsdp_param_specs(model.param_defs(), model.batch_axes, model.par.data_size))
     flat = model if mesh is None else build_model(cfg, ops=ops)
     size = (batch, max_len, cfg.frontend_positions) if cfg.enc_dec else (batch, max_len)
     shapes = tree_map(lambda a: tuple(a.shape), flat.make_cache(*size, device="meta"))

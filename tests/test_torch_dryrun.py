@@ -10,6 +10,9 @@ against the JAX package's dry run, on the CPU.
   ``long_500k`` at ``single`` and ``multi``, each in a subprocess of its own
   (a fake process group owns its process), exits 0 with ``OK`` and
   ``fits=True``.
+* deepseek-v3-671b's ``prefill_32k`` and ``decode_32k`` on the single-pod
+  mesh, each in a subprocess of its own: its FSDP weights fit them within
+  80 GB a device.
 * internvl2-2b's ``train_4k`` on the single-pod mesh: the FLOPs counted on a
   device lie at or above ``model_flops_for_cell / chips`` and below the
   ceiling that full remat and the attention's products give (derived in
@@ -50,6 +53,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 CELL_TIMEOUT_S = 80
 DTYPES = {jnp.dtype(jnp.int32): torch.int32, jnp.dtype(jnp.bfloat16): torch.bfloat16}
 FLOPS_ARCH = "internvl2-2b"
+# an FSDP config's serving cells, which its FSDP weights bring within 80 GB a device (112.7 and 87.6 GB with
+# the megatron weights)
+FSDP_SERVE_ARCH, FSDP_SERVE_SHAPES = "deepseek-v3-671b", ("prefill_32k", "decode_32k")
 # the reckoning of one cell, printed as JSON (the record less its traceback)
 _CELL = ("import json, sys; from repro_torch.launch import dryrun; "
          "r = dryrun.run_cell(sys.argv[1], sys.argv[2], sys.argv[3], microbatches=int(sys.argv[4]), save=False); "
@@ -74,6 +80,10 @@ class _Cells:
         self.procs["flops"] = subprocess.Popen(
             [sys.executable, "-c", _CELL, FLOPS_ARCH, "train_4k", "single", "1"], cwd=ROOT, env=_env(),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for shape in FSDP_SERVE_SHAPES:
+            self.procs[shape] = subprocess.Popen(
+                [sys.executable, "-c", _CELL, FSDP_SERVE_ARCH, shape, "single", "1"], cwd=ROOT, env=_env(),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         self.done = {}
 
     def result(self, name: str):
@@ -140,6 +150,19 @@ def test_dryrun_cell_reckons(mesh, cells):
     assert code == 0, (out + err)[-2000:]
     assert "OK" in out, (out + err)[-2000:]
     assert "fits=True" in out, (out + err)[-2000:]
+
+
+@pytest.mark.parametrize("shape", FSDP_SERVE_SHAPES)
+def test_fsdp_serving_cell_fits_an_h100(shape, cells):
+    """deepseek-v3-671b's serving cells on the single-pod mesh of 256 fake
+    ranks serve with the FSDP weights, the reference's
+    ``fsdp_param_specs``, gathered layer by layer: the reckoned peak a
+    device within the H100's 80 GB."""
+    code, out, err = cells.result(shape)
+    assert code == 0, (out + err)[-2000:]
+    record = json.loads(out.strip().splitlines()[-1])
+    assert record["status"] == "ok", record.get("error")
+    assert record["memory"]["fits_hbm"] and record["memory"]["per_device_bytes"] <= 80e9
 
 
 def test_train_cell_flops_lie_between_the_model_and_the_remat_ceiling(cells):

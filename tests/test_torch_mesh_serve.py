@@ -42,6 +42,10 @@ across the ranks through each slice's log-sum-exp) against the JAX package.
   (two codes against JAX without a mesh), and the logits move by 7.74e-4 at
   that step; so the int8 case is also held to the port's no-mesh serve,
   whose codes the 2 x 2 serve keeps with ``==``.
+* The FSDP configs' bundles (jamba-1.5-large-398b, deepseek-v3-671b): their
+  ``param_specs`` equal the specs of the reference's ``param_shardings``
+  (``fsdp_param_specs``), and every rank's leaves have the shard shapes of
+  those specs; their serves above gather the weights layer by layer.
 * The sub-meshes (1, 2) and (2, 1) that ``split_mesh`` cuts from the 2 x 2
   mesh, run at once on its halves, against the port's no-mesh serve.
 * Four planted faults each fail the 2 x 2 comparison on every rank: the
@@ -56,6 +60,7 @@ kernel's log-sum-exp is ``tests/test_torch_mesh_card.py``.
 
 import dataclasses
 import datetime
+import functools
 import math
 import os
 import pathlib
@@ -113,6 +118,8 @@ CASES = {
 }
 # the cases whose config splits its experts over both axes (MoEConfig.ep_wide), by name
 EP_WIDE = "ep_wide"
+# the cases of an FSDP config (cfg.fsdp), which serve with the reference's FSDP weights
+FSDP = [name for name, case in CASES.items() if get_config(case[0]).fsdp]
 # the JAX package's runs in two subprocesses started together (their compiles dominate): the ep_wide cases apart
 REFERENCE_SPLIT = ([name for name in CASES if EP_WIDE not in name], [name for name in CASES if EP_WIDE in name])
 # each planted fault and the case it is planted in
@@ -302,8 +309,10 @@ for name, case in inputs.items():
         nxt = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
     flat, _ = jax.tree_util.tree_flatten_with_path(cache)
     cache = {"/".join(str(k.key) for k in path): np.asarray(leaf) for path, leaf in flat}
+    flat, _ = jax.tree_util.tree_flatten_with_path(bundle.param_shardings)
+    specs = {"/".join(str(k.key) for k in keys): tuple(leaf.spec) for keys, leaf in flat}
     out[name] = {"logits": all_logits, "tokens": np.stack(generated, 1), "cache": cache,
-                 "routes": routes, "path": path}
+                 "routes": routes, "path": path, "specs": specs}
 pickle.dump(out, open(sys.argv[2], "wb"))
 """
 
@@ -363,7 +372,8 @@ def _serve(name: str, case: dict, mesh=None) -> dict:
     arch, prompt, max_len, batch, _ = CASES[name]
     cfg = _config(name)
     bundle = make_serve_bundle(cfg, mesh, batch=batch, max_len=max_len)
-    params = pu.from_jax_params(case["params"], "cpu", defs=bundle.model.param_defs(), mesh=mesh)
+    params = pu.from_jax_params(case["params"], "cpu", defs=bundle.model.param_defs(), mesh=mesh,
+                                specs=bundle.param_specs)
     tokens = torch.from_numpy(case["tokens"]).long()
     frames = torch.from_numpy(case["frames"]) if "frames" in case else None
     par = bundle.model.par
@@ -396,6 +406,17 @@ def _serve(name: str, case: dict, mesh=None) -> dict:
         cache = pu.gather(cache, bundle.cache_specs, mesh, bundle.cache_shapes)
     return {"logits": [lg.numpy() for lg in all_logits], "tokens": torch.stack(generated, 1).numpy(),
             "cache": {path: leaf.numpy() for path, leaf in leaves_with_paths(cache)}, "routes": routes}
+
+
+def _layout(name: str, mesh) -> dict:
+    """The mesh serve bundle's ``param_specs`` by path, and the shapes of
+    this rank's leaves (``init``) beside the shard shapes of their specs."""
+    arch, _, max_len, batch, _ = CASES[name]
+    bundle = make_serve_bundle(_config(name), mesh, batch=batch, max_len=max_len)
+    specs, defs = dict(pu.spec_leaves(bundle.param_specs)), bundle.model.param_defs()
+    full = {k: functools.reduce(lambda tree, key: tree[key], k.split("/"), defs).shape for k in specs}
+    return {"specs": specs, "shapes": {k: tuple(v.shape) for k, v in leaves_with_paths(bundle.model.init(0, "cpu"))},
+            "shard shapes": {k: tuple(pu.local_shape(full[k], spec, mesh)) for k, spec in specs.items()}}
 
 
 def _gather_data(t: torch.Tensor, par) -> list:
@@ -438,6 +459,7 @@ def _rank_main(rank: int, world: int, tmp: str) -> None:
     inputs = pickle.load(open(f"{tmp}/inputs.pkl", "rb"))
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
     out = {("2x2", name, None): _serve(name, inputs[name], mesh) for name in CASES}
+    out.update({("2x2 layout", name, None): _layout(name, mesh) for name in FSDP})
     out[("2x2", "refusals", None)] = _refusals(mesh)
     for fault, name in FAULTS.items():
         module, attr, fn = _PATCHES[fault]
@@ -656,6 +678,27 @@ def test_planted_fault_fails_the_2x2_comparison(fault, results):
         assert _failed(_excess(name, ours, theirs)), f"{fault}: the comparison passed on rank {rank}"
 
 
+def _spec(spec) -> tuple:
+    """A spec as a tuple without trailing ``None`` entries (JAX's and the port's alike)."""
+    spec = tuple(spec)
+    while spec and spec[-1] is None:
+        spec = spec[:-1]
+    return spec
+
+
+@pytest.mark.parametrize("name", FSDP)
+def test_fsdp_serve_bundle_takes_the_reference_fsdp_specs(name, results):
+    """An FSDP config's mesh serve bundle carries the reference's
+    ``param_shardings`` (its ``fsdp_param_specs``: leaves cut over
+    ``"data"`` as well as ``"model"``), and each rank's leaves have the
+    shard shapes of those specs."""
+    theirs = results["jax"][name]["specs"]
+    assert any("data" in (e if isinstance(e, tuple) else (e,)) for v in theirs.values() for e in v)
+    for rank, ours in sorted(results["port"][("2x2 layout", name, None)].items()):
+        assert {k: _spec(v) for k, v in ours["specs"].items()} == {k: _spec(v) for k, v in theirs.items()}, rank
+        assert ours["shapes"] == ours["shard shapes"], rank
+
+
 def _sub_mesh_cases():
     return [(shape, name) for shape, halves in HALVES.items() for names in halves for name in names]
 
@@ -696,11 +739,14 @@ def smoke_mesh():
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("name", ["minitron-8b", "deepseek-v2-lite-16b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("name", ["minitron-8b", "deepseek-v2-lite-16b", "seamless-m4t-large-v2",
+                                  "jamba-1.5-large-398b"])
 def test_one_rank_mesh_serve_matches_the_reference_smoke_mesh(name, smoke_mesh, background, monkeypatch):
     """The port on its 1-rank gloo mesh against the reference's serve
     bundle on its ``make_smoke_mesh()``, in this process; and bit for bit
-    against the port's no-mesh serve."""
+    against the port's no-mesh serve (jamba-1.5-large-398b with its FSDP
+    weights, gathered layer by layer, as ``chip_smoke.py`` serves it on the
+    card's 1 x 1 mesh)."""
     case = background.inputs[name]
     arch, prompt, max_len, batch, _ = CASES[name]
     jcfg = _config(name, jax_side=True)
