@@ -28,7 +28,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    a mesh merges its ranks' slices, against the unsplit kernel and the plain
    version (2e-2 / 2e-5), ``lse`` against the plain ``lse`` at the same
    tolerance, absolute; a planted kernel whose ``lse`` forgets ``ln lsum``
-   must fail;
+   must fail; the smoke configs' head dims: flash at (16, 16) and (24, 16)
+   (``SMOKE_FLASH``: causal, window 32, non-causal at Sq 40 / Sk 8 and 129 /
+   64, GQA group 2 and MHA, S 1, 127, 129; contiguous and as the models'
+   views) and decode at D 16 (groups 2 and 1, valid 1, 15, 17, 41 and 48,
+   with and without ``lse``), each with a planted fault the check must
+   catch;
+2b. the smoke zoo (``smoke_zoo_phase``): each of the ten configs of
+   ``configs.ASSIGNED`` at its smoke size through ``launch/serve.py --smoke``
+   (batch 2, a 40-token prompt, 8 decode steps) and ``launch/train.py
+   --smoke`` (3 steps), their launches exact; its smoke weights widened to
+   fp32 and served through the kernels and through the plain versions: the
+   logits within 1e-4 relative L2 at every step, the same greedy tokens
+   (the MoE configs on the kernel run's routes); then the two model demos'
+   twins in fast mode (``demos_phase``: ``python -m
+   repro_torch.examples.train_lm``'s restart and falling loss,
+   ``colocation_demo``'s inflation, printed);
 3. minitron-8b at full width and depth (seeded random weights) served
    through ``make_serve_bundle`` and the launcher's ``greedy_generate``: batch 4,
    a 500-token prompt, 32 greedy decode steps. The launch counters must show
@@ -103,11 +118,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    planted in flash and one in the SSD scan; then ``mesh_serve`` of its FSDP
    serve bundle (the reference's ``fsdp_param_specs``, the weights gathered
    layer by layer) on the (1, 1) mesh, bit for bit the main path's first
-   steps. Its launcher does not run on
-   the card (the full config does not fit, the smoke config's head dim 16
-   has no flash kernel);
+   steps. Its launcher does not run at full size on the card (398 B
+   parameters do not fit); its smoke config runs in phase 2b;
 9. launcher: ``launch/serve.py``'s command line at each model phase's sizes
-   but jamba's;
+   but jamba's (at full size it does not fit the card);
 10. (no phase: the training kernels and their Functions' plain backward
    passes are timed by ``python -m repro_torch.kernels.timing``; the later
    phases keep their numbers);
@@ -236,7 +250,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 ``--seed`` (default 0) draws other weights and prompts for the model phases.
 
-A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the six serve
+A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the smoke
+zoo's launcher runs and the two model demos', the six serve
 paths' (h2o-danube-1.8b's runs A and B), the four mesh serve runs', the four
 7-step training runs', deepseek-v3-671b's 3 mesh steps, the mesh phase's
 3-step runs and the co-located rounds'.
@@ -258,6 +273,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -291,7 +307,7 @@ from repro_torch.cluster.trace import (  # noqa: E402
 from repro_torch.colocation.profiler import EarlyStageProfiler  # noqa: E402
 from repro_torch.colocation.spatial import split_mesh, submesh_for_job  # noqa: E402
 from repro_torch.colocation.stepper import ColocatedJob, TemporalStepper  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ASSIGNED, get_config, smoke_config  # noqa: E402
 from repro_torch.core.baselines import FIFO, FIFOPacked, Gandiva  # noqa: E402
 from repro_torch.core.eaco import EaCO  # noqa: E402
 from repro_torch.core.eaco_elastic import EaCOElastic  # noqa: E402
@@ -299,6 +315,8 @@ from repro_torch.core.history import History  # noqa: E402
 from repro_torch.core.predictor import JCTPredictor  # noqa: E402
 from repro_torch.data.frontend import frontend_embeds  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline  # noqa: E402
+from repro_torch.examples import colocation_demo  # noqa: E402
+from repro_torch.examples import train_lm as train_lm_demo  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels import timing  # noqa: E402
@@ -436,6 +454,14 @@ SPLIT_SHAPES = {
     "jamba": (JB_B, JB_H, JB_HKV, JB_MAX_LEN, JB_D),
 }
 SPLITS = (2, 4, 8)
+# The smoke zoo: every config of configs.ASSIGNED at the reference's smoke
+# size (smoke_config: d_model 64, 4 heads over 2 kv heads at head_dim 16,
+# DeepSeek's MLA at q/k 16 + 8 rope and v 16, vocab 503), on the card through
+# both launchers: served at batch 2, a 40-token prompt and 8 greedy decode
+# steps (past h2o-danube-1.8b smoke's window of 32), trained 3 steps at the
+# train launcher's smoke batch (4 x 128); each config's seconds.
+ZOO_B, ZOO_PROMPT, ZOO_STEPS, ZOO_TRAIN_STEPS = 2, 40, 8, 3
+ZOO_SECONDS = {}
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 TRAIN_CKPT_DIR = os.path.join(BUILD_DIR, "chip_smoke_train_ckpt")
 
@@ -659,6 +685,83 @@ def check_flash(gen) -> float:
                   f"strided (B, S, H, D) views (seamless): max_abs_err={err:.3e}")
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
+        worst = max(worst, check_smoke_flash(gen, dtype))
+    return worst
+
+
+# The smoke configs' attention, (B, H, Hkv, Sq, Sk, causal, window) by (Dqk, Dv):
+# every smoke config's head dim 16 (GQA 4/2) and DeepSeek's smoke MLA pair
+# (24, 16) (q/k 16 + 8 rope columns, v 16; MHA 4/4): the smoke zoo's prefill
+# (batch 2, 40 tokens), h2o-danube-1.8b smoke's window 32, seamless smoke's
+# cross-attention (40 decoder rows over 8 frames) and encoder, non-causal 129
+# over 64, MHA, and the ragged S 1, 127 and 129 against 128-row and 64-key tiles.
+SMOKE_FLASH = [((16, 16), c) for c in [
+    (ZOO_B, 4, 2, ZOO_PROMPT, ZOO_PROMPT, True, None), (ZOO_B, 4, 2, ZOO_PROMPT, ZOO_PROMPT, True, 32),
+    (1, 4, 2, 129, 129, True, 32), (ZOO_B, 4, 2, ZOO_PROMPT, 8, False, None), (ZOO_B, 4, 2, 8, 8, False, None),
+    (1, 4, 2, 129, 64, False, None), (ZOO_B, 4, 4, ZOO_PROMPT, ZOO_PROMPT, True, None)]
+    + [(1, 4, 2, s, s, True, None) for s in (1, 127, 129)]] + [((24, 16), c) for c in [
+    (ZOO_B, 4, 4, ZOO_PROMPT, ZOO_PROMPT, True, None), (1, 4, 4, 129, 64, False, None)]
+    + [(1, 4, 4, s, s, True, None) for s in (1, 127, 129)]]
+
+
+def smoke_attention(gen, b, h, hkv, sq, sk, dqk, dv, views: bool, dtype):
+    """q, k, v at a smoke shape: contiguous (B, H, S, D), or as the models
+    pass them, (B, S, H, D) projections viewed (B, H, S, D); at Dv < Dqk
+    (MLA) v the last Dv columns of the up-projection's rows, k_nope's 16
+    columns and then v's."""
+    if not views:
+        return randn(gen, b, h, sq, dqk, dtype=dtype), randn(gen, b, hkv, sk, dqk, dtype=dtype), randn(
+            gen, b, hkv, sk, dv, dtype=dtype)
+    v_row = dv if dv == dqk else 16 + dv
+    v = randn(gen, b, sk, hkv, v_row, dtype=dtype)[..., v_row - dv:].transpose(1, 2)
+    return (randn(gen, b, sq, h, dqk, dtype=dtype).transpose(1, 2),
+            randn(gen, b, sk, hkv, dqk, dtype=dtype).transpose(1, 2), v)
+
+
+def flash_drops_columns_16_23(q, k, v, *, causal=True, window=None):
+    """Q K^T over the first 16 columns only: a (24, 16) kernel that runs
+    Dqk / 16 k-steps rounded down, so that the rope columns 16-23 of
+    DeepSeek's smoke MLA never meet."""
+    q = torch.cat([q[..., :16], torch.zeros_like(q[..., 16:])], dim=-1)
+    return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_reads_half_a_row(q, k, v, valid_len, return_lse=False):
+    """Scores over the first 8 of 16 columns: a D = 16 kernel that reads a
+    key row with one lane of 8 elements where it needs two."""
+    k = torch.cat([k[..., :8], torch.zeros_like(k[..., 8:])], dim=-1)
+    return ops.decode_attention(q, k, v, valid_len, return_lse)
+
+
+def caught(out: torch.Tensor, exp: torch.Tensor, dtype) -> tuple:
+    """Whether ``max_abs_err``'s elementwise rule fails on a planted
+    fault's output, and its largest error."""
+    a, b = out.float(), exp.float()
+    tol = TOL[dtype]
+    return bool(((a - b).abs() > tol + tol * b.abs()).any()), float((a - b).abs().max())
+
+
+def check_smoke_flash(gen, dtype) -> float:
+    """Flash at the smoke configs' head dims (``SMOKE_FLASH``), contiguous
+    and as the models' views, against the plain version; then the planted
+    fault ``flash_drops_columns_16_23`` at the deepseek smoke prefill's
+    shape, which the check must catch. Returns the largest error at the
+    smoke zoo's shapes."""
+    worst = 0.0
+    for (dqk, dv), (b, h, hkv, sq, sk, causal, window) in SMOKE_FLASH:
+        for views in (False, True):
+            q, k, v = smoke_attention(gen, b, h, hkv, sq, sk, dqk, dv, views, dtype)
+            err = max_abs_err(ops.flash_attention(q, k, v, causal=causal, window=window),
+                              ref.attention_ref(q, k, v, causal=causal, window=window), dtype)
+            print(f"check flash_attention {str(dtype)[6:]} {(b, h, hkv, sq, sk)} (Dqk, Dv) {(dqk, dv)} causal={causal} "
+                  f"window={window}{', (B, S, H, D) views' if views else ''} (smoke): max_abs_err={err:.3e}")
+            if (b, sq) == (ZOO_B, ZOO_PROMPT):
+                worst = max(worst, err)
+    q, k, v = smoke_attention(gen, ZOO_B, 4, 4, ZOO_PROMPT, ZOO_PROMPT, 24, 16, True, dtype)
+    hit, err = caught(flash_drops_columns_16_23(q, k, v), ref.attention_ref(q, k, v), dtype)
+    print(f"check flash_attention {str(dtype)[6:]} (Dqk, Dv) (24, 16), planted fault (Q K^T over columns 0-15 "
+          f"only): max_abs_err={err:.3e}, {'caught' if hit else 'PASSES'}")
+    require(hit, f"the (24, 16) check passes a kernel that drops columns 16-23 ({dtype})")
     return worst
 
 
@@ -705,6 +808,39 @@ def check_decode(gen) -> float:
                     (DN_WINDOW, DN_D, DN_WINDOW), (SM_FRAMES, SM_D, SM_FRAMES), (SM_MAX_LEN, SM_D, SM_MAX_LEN),
                     (JB_MAX_LEN, JB_D, JB_MAX_LEN))):
                 worst = max(worst, err)
+        worst = max(worst, check_smoke_decode(gen, dtype))
+    return worst
+
+
+def check_smoke_decode(gen, dtype) -> float:
+    """Decode at the smoke configs' head dim 16 (a row two lanes): groups
+    2 (the GQA smoke configs) and 1, over 1, 15, 17 and all of the smoke
+    zoo's 48 slots, with and without the log-sum-exp (the output the same
+    both ways, ``lse`` within the tolerance, absolute, of the plain one); then
+    the planted fault ``decode_reads_half_a_row``, which the check must
+    catch. Returns the largest error at the smoke zoo's decode steps."""
+    worst, s = 0.0, ZOO_PROMPT + ZOO_STEPS
+    for hkv in (2, 4):
+        for valid in (1, 15, 17, ZOO_PROMPT + 1, s):
+            q = randn(gen, ZOO_B, 4, 16, dtype=dtype)
+            k, v = randn(gen, ZOO_B, s, hkv, 16, dtype=dtype), randn(gen, ZOO_B, s, hkv, 16, dtype=dtype)
+            out, lse = ops.decode_attention(q, k, v, valid, return_lse=True)
+            plain, plain_lse = ref.decode_attention_ref(q, k, v, valid, return_lse=True)
+            err = max_abs_err(out, plain, dtype)
+            require(torch.equal(out, ops.decode_attention(q, k, v, valid)), "D 16: return_lse moved the output")
+            lse_err = float((lse - plain_lse).abs().max())
+            require(lse_err <= TOL[dtype], f"D 16 decode: lse {lse_err:.3e} from the plain lse")
+            print(f"check decode_attention {str(dtype)[6:]} {(ZOO_B, 4, hkv, s, 16)} valid={valid} (smoke), with and "
+                  f"without lse: max_abs_err={err:.3e}, lse {lse_err:.3e}")
+            if valid > ZOO_PROMPT:
+                worst = max(worst, err)
+    q = randn(gen, ZOO_B, 4, 16, dtype=dtype)
+    k, v = randn(gen, ZOO_B, s, 2, 16, dtype=dtype), randn(gen, ZOO_B, s, 2, 16, dtype=dtype)
+    hit, err = caught(decode_reads_half_a_row(q, k, v, ZOO_PROMPT + 1), ref.decode_attention_ref(q, k, v, ZOO_PROMPT + 1),
+                      dtype)
+    print(f"check decode_attention {str(dtype)[6:]} D 16, planted fault (scores over columns 0-7 only): "
+          f"max_abs_err={err:.3e}, {'caught' if hit else 'PASSES'}")
+    require(hit, f"the D 16 decode check passes a kernel that reads half of each key row ({dtype})")
     return worst
 
 
@@ -1219,13 +1355,18 @@ def mamba_phase(seed: int) -> dict:
     return counts
 
 
-def launcher_phase(arch: str, batch: int, prompt: int, steps: int, seed: int) -> None:
-    """The command-line launcher on the card, at a model phase's sizes."""
+def launcher_lines(main, args) -> list:
+    """A launcher's (or demo's) ``main`` on ``args``, its printed lines."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        serve.main(["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
-                    "--decode-steps", str(steps), "--seed", str(seed)])
-    lines = out.getvalue().strip().splitlines()
+        main(args)
+    return out.getvalue().strip().splitlines()
+
+
+def launcher_phase(arch: str, batch: int, prompt: int, steps: int, seed: int) -> None:
+    """The command-line launcher on the card, at a model phase's sizes."""
+    lines = launcher_lines(serve.main, ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
+                                        "--decode-steps", str(steps), "--seed", str(seed)])
     require(len(lines) == 3 and "ms/token" in lines[1] and lines[2].startswith("generated:"),
             f"launcher output: {lines}")
     print(f"launcher (python -m repro_torch.launch.serve --arch {arch}): " + "; ".join(lines[:2]))
@@ -2001,18 +2142,36 @@ def pass_launches(cfg) -> dict:
     """Kernel launches of one forward pass over a decoder-only config's
     layers (``Model``'s groups, each layer times its group's repeats) and
     the final norm: per layer ``norm1``, an SSM mixer's gated norm, an MLA
-    mixer's ``kv_norm`` (and q-LoRA's ``q_norm``), ``norm2`` before a
-    channel mixer; one flash_attention per attention layer, one ssd_scan per
-    SSM layer."""
+    mixer's ``kv_norm`` (and q-LoRA's ``q_norm``), qk-norm's two (q and k,
+    qwen3-32b), ``norm2`` before a channel mixer; one flash_attention per
+    attention layer, one ssd_scan per SSM layer."""
     norms = flash = scans = 0
     for _, n, specs in build_model(cfg).groups:
         for spec in specs:
             mla = spec.mixer == "attn" and cfg.attention == "mla"
             norms += n * (1 + (spec.mixer == "ssm") + (1 + bool(cfg.mla.q_lora_rank) if mla else 0)
-                          + (spec.channel != "none"))
+                          + 2 * (spec.mixer == "attn" and bool(cfg.qk_norm)) + (spec.channel != "none"))
             flash += n * (spec.mixer == "attn")
             scans += n * (spec.mixer == "ssm")
     return {"rmsnorm": norms + 1, "flash_attention": flash, "decode_attention": 0, "ssd_scan": scans}
+
+
+def serve_launches(cfg) -> tuple:
+    """Kernel launches of one prefill and of one decode step: the prefill
+    a forward pass (``pass_launches``; an encoder-decoder's encoder layers
+    two rmsnorms and one flash, ``enc_norm``, its decoder layers three
+    rmsnorms, causal and cross flash, the final norm); a decode step the
+    decoder's norms and one decode_attention per attention layer (two, self
+    and cross, in an encoder-decoder; none under MLA, which decodes in the
+    latent space)."""
+    if cfg.enc_dec:
+        enc, dec = cfg.encoder_layers, cfg.num_layers
+        return ({"rmsnorm": 2 * enc + 1 + 3 * dec + 1, "flash_attention": enc + 2 * dec, "decode_attention": 0,
+                 "ssd_scan": 0},
+                {"rmsnorm": 3 * dec + 1, "flash_attention": 0, "decode_attention": 2 * dec, "ssd_scan": 0})
+    once = pass_launches(cfg)
+    decodes = 0 if cfg.attention == "mla" else once["flash_attention"]
+    return once, {"rmsnorm": once["rmsnorm"], "flash_attention": 0, "decode_attention": decodes, "ssd_scan": 0}
 
 
 def train_launches(cfg) -> dict:
@@ -2869,11 +3028,9 @@ def train_launcher_phase(seed: int) -> None:
     checkpoint; mamba2-370m checkpointing under build/, then restarting."""
 
     def run(args):
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            train_launcher.main(args + ["--seed", str(seed)])
+        lines = launcher_lines(train_launcher.main, args + ["--seed", str(seed)])
         free_memory()
-        return out.getvalue().strip().splitlines()
+        return lines
 
     t0 = time.perf_counter()
     lines = run(["--arch", "internvl2-2b", "--batch", str(TR_B), "--seq", str(TR_SEQ), "--steps", "3"])
@@ -2895,6 +3052,170 @@ def train_launcher_phase(seed: int) -> None:
               f"({time.perf_counter() - t0:.1f} s)")
     finally:
         shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------- the smoke zoo and the demos
+
+
+def counted_generate(bundle, params, tokens, steps: int, frames, per_prefill: dict, per_step: dict,
+                     label: str) -> tuple:
+    """Greedy generation as ``serve.greedy_generate`` runs it (the token
+    chosen after the prefill decoded first), each prefill's and decode
+    step's launches held to ``per_prefill`` and ``per_step``. Returns the
+    tokens (B, steps) and the logits of the prefill and of each step."""
+    ops.reset_launch_counts()
+    logits, cache = bundle.prefill_fn(params, tokens, frames)
+    require(ops.launch_counts() == per_prefill, f"{label}: prefill launches {ops.launch_counts()} != {per_prefill}")
+    out, generated = [logits], []
+    nxt = logits.argmax(-1, keepdim=True)
+    for i in range(steps):
+        generated.append(nxt[:, 0])
+        before = ops.launch_counts()
+        logits, cache = bundle.decode_fn(params, cache, nxt, tokens.shape[1] + i)
+        delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        require(delta == per_step, f"{label}: decode step {i} launches {delta} != {per_step}")
+        out.append(logits)
+        nxt = logits.argmax(-1, keepdim=True)
+    return torch.stack(generated, 1), out
+
+
+def smoke_zoo_phase(seed: int, name_power: str) -> dict:
+    """Every config of ``configs.ASSIGNED`` at its smoke size on the card
+    (ROADMAP A11; qwen3-32b, with its qk-norm, and internlm2-20b run on the
+    card here for the first time):
+
+    - ``launch/serve.py --smoke`` at batch 2, a 40-token prompt and 8
+      decode steps (bf16, the main path): its launches those of a prefill
+      and 8 decode steps (``serve_launches``);
+    - ``launch/train.py --smoke`` for 3 steps: its launches 3 steps'
+      (``train_launches``), its losses finite;
+    - the same seeded smoke weights widened to fp32, served through the
+      kernels (each prefill's and step's launches held) and teacher-forced
+      through ``ops.PLAIN`` on the kernel path's tokens: the logits within
+      1e-4 relative L2 at every step and the plain path's greedy tokens the
+      kernel path's. The plain runs of the MoE configs take the kernel run's
+      expert choices (``routed``, ROADMAP C8).
+
+    Returns the launchers' launches (the fp32 gate's runs are not counted)."""
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in KERNELS}
+    for arch in ASSIGNED:
+        t0 = time.perf_counter()
+        cfg = smoke_config(get_config(arch))
+        per_prefill, per_step = serve_launches(cfg)
+        want_serve = {k: per_prefill[k] + ZOO_STEPS * per_step[k] for k in KERNELS}
+        ops.reset_launch_counts()
+        lines = launcher_lines(serve.main, ["--arch", arch, "--smoke", "--batch", str(ZOO_B), "--prompt-len",
+                                            str(ZOO_PROMPT), "--decode-steps", str(ZOO_STEPS), "--seed", str(seed)])
+        served = ops.launch_counts()
+        require(len(lines) == 3 and "ms/token" in lines[1] and lines[2].startswith("generated:"),
+                f"{arch} smoke serve launcher output: {lines}")
+        require(served == want_serve, f"{arch} smoke serve launcher launches {served} != {want_serve}")
+        free_memory()
+
+        want_train = {k: ZOO_TRAIN_STEPS * v for k, v in train_launches(cfg).items()}
+        ops.reset_launch_counts()
+        train_lines = launcher_lines(train_launcher.main, ["--arch", arch, "--smoke", "--steps", str(ZOO_TRAIN_STEPS),
+                                                           "--seed", str(seed)])
+        trained = ops.launch_counts()
+        report = train_lines[-1]
+        losses = [float(x) for x in re.findall(r"'(?:first|final)_loss': ([^,}]+)", report)]
+        require(train_lines[0] == "fresh init" and report.startswith("report:")
+                and f"'steps': {ZOO_TRAIN_STEPS}" in report and len(losses) == 2
+                and all(math.isfinite(x) for x in losses), f"{arch} smoke train launcher output: {train_lines}")
+        require(trained == want_train, f"{arch} smoke train launcher launches {trained} != {want_train}")
+        free_memory()
+
+        max_len = ZOO_PROMPT + ZOO_STEPS
+        bundle = make_serve_bundle(cfg, batch=ZOO_B, max_len=max_len)
+        plain = make_serve_bundle(cfg, batch=ZOO_B, max_len=max_len, ops=ops.PLAIN)
+        params = bundle.model.init(seed, "cuda")
+        _to_float32(params)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        tokens = torch.randint(0, cfg.vocab_size, (ZOO_B, ZOO_PROMPT), generator=gen, device="cuda")
+        frames = frontend_embeds(cfg, ZOO_B, seed, 0, "cuda") if cfg.frontend is not None else None
+        with routed() as routes:
+            generated, kernel_fp32 = counted_generate(bundle, params, tokens, ZOO_STEPS, frames, per_prefill,
+                                                      per_step, f"{arch} smoke fp32")
+        ops.reset_launch_counts()
+        with routed(routes):
+            exact = teacher_forced(plain, params, tokens, generated, frames)
+        require(sum(ops.launch_counts().values()) == 0, f"{arch}: the plain path launched a kernel")
+        dists = [rel_l2(a, b) for a, b in zip(kernel_fp32, exact, strict=True)]
+        plain_tokens = torch.stack([lg.argmax(-1) for lg in exact[:-1]], 1)
+        same = torch.equal(plain_tokens, generated)
+        ZOO_SECONDS[arch] = time.perf_counter() - t0
+        shown = lambda c: ", ".join(f"{k} {v}" for k, v in c.items() if v)  # noqa: E731
+        print(f"smoke zoo {arch}: launch/serve.py --smoke (batch {ZOO_B}, prompt {ZOO_PROMPT}, {ZOO_STEPS} steps) "
+              f"{lines[0]}; {lines[1]}; launches a prefill [{shown(per_prefill)}], a decode step "
+              f"[{shown(per_step)}], the run [{shown(served)}]; launch/train.py --smoke {ZOO_TRAIN_STEPS} steps "
+              f"[{shown(trained)}], losses {losses[0]:.4f} -> {losses[1]:.4f}; fp32 kernels vs plain"
+              f"{' (the plain run on the kernel run' + chr(39) + 's routes)' if routes else ''}: logits relative L2 "
+              f"prefill {dists[0]:.3e}, decode max {max(dists[1:]):.3e} (gate {FP32_LOGIT_RTOL}), greedy tokens "
+              f"{'equal' if same else 'NOT equal'} ({ZOO_SECONDS[arch]:.1f} s) [{name_power}]")
+        require(max(dists) <= FP32_LOGIT_RTOL, f"{arch} smoke: fp32 logits differ beyond {FP32_LOGIT_RTOL}: {dists}")
+        require(same, f"{arch} smoke: the plain path's greedy tokens differ from the kernel path's")
+        total = {k: total[k] + served[k] + trained[k] for k in KERNELS}
+        del bundle, plain, params
+        free_memory()
+    print(f"smoke zoo phase: {len(ASSIGNED)} configs in {time.perf_counter() - t_phase:.1f} s; launches of its "
+          f"launcher runs {total}")
+    return total
+
+
+def demos_phase(name_power: str) -> dict:
+    """The two model demos' twins (``repro_torch.examples``) through their
+    ``main`` on the card, in ``REPRO_EXAMPLES_FAST`` mode: ``train_lm`` (60
+    steps of mamba2-370m smoke at batch 8 x 128, a simulated preemption and
+    a restart from the step-30 checkpoint, its assert that the loss falls)
+    and ``colocation_demo`` (minitron-8b and mamba2-370m smoke through
+    ``TemporalStepper`` and ``EarlyStageProfiler``: a solo step each, one
+    co-located round, to their epoch's end; its inflation printed, not
+    gated). Returns their launches: colocation_demo's exact (2 steps a job),
+    train_lm's a whole number of mamba2-370m smoke steps, at least 60."""
+    t_phase = time.perf_counter()
+    before = os.environ.get("REPRO_EXAMPLES_FAST")
+    os.environ["REPRO_EXAMPLES_FAST"] = "1"
+    try:
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        lines = launcher_lines(train_lm_demo.main, [])
+        trained = ops.launch_counts()
+        step = train_launches(smoke_config(get_config("mamba2-370m")))
+        steps = trained["ssd_scan"] // step["ssd_scan"]
+        require(lines[-1] == "loss decreased: OK" and any(x.startswith("restored step 30") for x in lines),
+                f"train_lm demo output: {lines}")
+        require(steps >= 60 and trained == {k: steps * v for k, v in step.items()},
+                f"train_lm demo launches {trained}, not a whole number of steps of {step}")
+        report = next(x for x in lines if x.startswith("final report:"))
+        print(f"demo python -m repro_torch.examples.train_lm (fast): {lines[0]}; "
+              f"{next(x for x in lines if x.startswith('restored')).split(' from ')[0]}; {report}; {lines[-1]}; "
+              f"launches {trained} ({steps} steps) ({time.perf_counter() - t0:.1f} s) [{name_power}]")
+        free_memory()
+
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        lines = launcher_lines(colocation_demo.main, ["--device", "cuda"])
+        colo = ops.launch_counts()
+        jobs = [train_launches(smoke_config(get_config(a))) for a in ("minitron-8b", "mamba2-370m")]
+        want = {k: 2 * sum(j[k] for j in jobs) for k in KERNELS}
+        inflation = [x.strip() for x in lines if "inflation" in x]
+        require(len(inflation) == 2 and all("steps=  2" in x for x in lines[-2:]),
+                f"colocation_demo output: {lines}")
+        require(colo == want, f"colocation_demo launches {colo} != {want}")
+        print(f"demo python -m repro_torch.examples.colocation_demo (fast): solo "
+              + "; ".join(x.strip() for x in lines[1:3]) + "; co-located " + "; ".join(inflation)
+              + f"; {'; '.join(x.strip() for x in lines[-2:])}; launches {colo} ({time.perf_counter() - t0:.1f} s) "
+              f"[{name_power}]")
+    finally:
+        if before is None:
+            os.environ.pop("REPRO_EXAMPLES_FAST", None)
+        else:
+            os.environ["REPRO_EXAMPLES_FAST"] = before
+    free_memory()
+    print(f"demos phase: {time.perf_counter() - t_phase:.1f} s")
+    return {k: trained[k] + colo[k] for k in KERNELS}
 
 
 # ---------------------------------------------------------------------------- co-location
@@ -3294,6 +3615,8 @@ def main() -> int:
     times = time_kernels(gen, name_power)
     torch.cuda.synchronize()
     split_decode_phase(gen)
+    zoo_counts = smoke_zoo_phase(args.seed, name_power)
+    demo_counts = demos_phase(name_power)
 
     # Each serve path's main run, counted from 0; a kernel's launches are their sum.
     dense_counts = model_phase(args.seed)
@@ -3316,9 +3639,9 @@ def main() -> int:
     launcher_phase(SM_ARCH, SM_B, SM_PROMPT, SM_STEPS, args.seed)
     free_memory()
     print(f"seamless-m4t-large-v2, the served run and the launcher: {time.perf_counter() - t_sm:.1f} s")
-    # jamba-1.5-large-398b: no launcher run on the card (the full config does
-    # not fit, and the smoke config's head dim 16 has no flash kernel); the
-    # CPU tests drive its command line.
+    # jamba-1.5-large-398b: no launcher run at full size (398 B parameters do
+    # not fit one card); its smoke config runs through both launchers in the
+    # smoke zoo phase.
     t_jb = time.perf_counter()
     jamba_counts = jamba_phase(args.seed)
     free_memory()
@@ -3328,9 +3651,10 @@ def main() -> int:
     train_launcher_phase(args.seed)
     colo_counts, colo_measured = colocation_phase(args.seed, name_power)
     scheduling_phase(colo_measured, name_power)
-    # a kernel's launches: the six serve paths' (h2o-danube-1.8b's two runs), the
-    # four training runs', the mesh runs' and the co-located rounds'
-    paths = [(ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [
+    # a kernel's launches: the smoke zoo's launcher runs and the demos', the six
+    # serve paths' (h2o-danube-1.8b's two runs), the four training runs', the
+    # mesh runs' and the co-located rounds'
+    paths = [("smoke zoo", zoo_counts), ("demos", demo_counts), (ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [
         (f"{DN_ARCH} run {r}", c) for r, c in danube_counts.items()] + [
         (DS_ARCH, deepseek_counts), (SM_ARCH, seamless_counts), (JB_ARCH, jamba_counts)] + [
         (f"mesh serve {a}", c) for a, c in MESH_SERVE_COUNTS.items()] + [

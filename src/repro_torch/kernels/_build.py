@@ -170,9 +170,12 @@ def strides_array(values) -> ctypes.Array:
 
 def check_operands(kernel: str, *tensors: torch.Tensor, fake: bool = False) -> None:
     """Shared checks before a launch: one CUDA device, one kernel dtype, a
-    contiguous last dim, 16-byte aligned rows (the kernels use vector loads);
-    ``fake``: the tensors are a dry run's, their starts read from
-    ``reckon.offset``."""
+    contiguous last dim, 16-byte aligned rows: every operand's start and
+    every stride but the last a multiple of 16 bytes (the kernels' vector
+    loads and bulk copies, and TMA's tensor maps, which take no other: a
+    (B, S, H, 24) bf16 view's 48-byte head stride passes, a view that starts
+    8 bytes into a row does not); ``fake``: the tensors are a dry run's,
+    their starts read from ``reckon.offset``."""
     t0 = tensors[0]
     if t0.dtype not in DTYPE_CODES:
         raise TypeError(f"{kernel}: dtype {t0.dtype} not supported (float32 or bfloat16)")
@@ -184,5 +187,8 @@ def check_operands(kernel: str, *tensors: torch.Tensor, fake: bool = False) -> N
             raise TypeError(f"{kernel}: operands of dtype {t.dtype} and {t0.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{kernel}: the last dim must be contiguous")
-        if (reckon.offset(t) if fake else t.data_ptr()) % 16 or any(s % align for s in t.stride()[:-1]):
-            raise ValueError(f"{kernel}: rows must be 16-byte aligned")
+        start = reckon.offset(t) if fake else t.data_ptr()
+        if start % 16 or any(s % align for s in t.stride()[:-1]):
+            raise ValueError(f"{kernel}: rows must be 16-byte aligned (an operand's start and strides in "
+                             f"multiples of 16 bytes, as TMA and the vector loads take them): start {start % 16} "
+                             f"bytes past 16, strides {tuple(t.stride())} of {t.element_size()}-byte elements")

@@ -29,11 +29,18 @@
 // seq, dim) strides, 128-byte swizzle, two 64-column boxes per 128-wide row),
 // with a full and an empty mbarrier per stage and per Q buffer, so the next
 // tiles, and the next item's Q, land while the current tile is multiplied.
-// TMA zero-fills rows past Sq / Sk and columns past D: D = 32 is padded to 64
-// columns in shared memory and D = 80 to 128 (two boxes, the second 16 wide
-// in the tensor; the TMA store clips the output to D). Q K^T runs over the
-// true D; P V at D = 80 multiplies 128 columns, 1.6x the products of the true
-// D there (1.3x of the kernel's products). Q and K may have another head dim
+// TMA zero-fills rows past Sq / Sk and columns past D: D = 16, 24 and 32 are
+// padded to 64 columns in shared memory and D = 80 to 128 (two boxes, the
+// second 16 wide in the tensor; the TMA store clips the output to Dv). Q K^T
+// runs over the true D rounded up to a k-step of 16 (one step at 16, two at 24,
+// whose second reads 8 zero columns); P V multiplies the padded width: at
+// D = 80 128 columns, 1.6x the true D's products there (1.3x of the kernel's
+// products), at Dv = 16 64 columns, 4x (2.5x of the kernel's at (16, 16),
+// 2.4x at (24, 16)). The smoke configs' pairs (16, 16) and (24, 16) (every
+// smoke config's head dim, and DeepSeek's smoke MLA: q/k 16 + 8 rope, v 16)
+// are bound by launch latency, not by the card: at minitron-8b smoke's
+// prefill (B=2, H=4, Hkv=2, S=40, (16, 16), causal) q, k, v and o are 30.7
+// KB, 9.2 ns at 3.35 TB/s, against 0.42 MFLOP of visible products. Q and K may have another head dim
 // than V and O (DeepSeek's MLA: Dqk 192 = 128 + 64 rope columns, Dv 128): Q
 // and K tiles then hold three boxes, V and O two, and the ring is 3 stages
 // deep (2 x 48 KB of Q, 40 KB a stage: 216 KB). S = Q K^T is wgmma m64n64k16 with both operands
@@ -44,7 +51,8 @@
 // branch and barriers are arrived on by predicated instructions, since ptxas
 // serializes wgmma across divergent code. Only tiles that cross the causal
 // diagonal, the window's first key or Sk are masked. Rounding points: fp32
-// scores, the scale folded into exp2 as log2(e)/sqrt(Dqk) (one FMA before the
+// scores, the scale folded into exp2 as log2(e)/sqrt(Dqk) with the true Dqk
+// (24 at the smoke MLA, not its 64 padded columns; one FMA before the
 // exponential), fp32 m, l and acc, one division by l at the end; a row that
 // sees no key gives 0. The output goes out through the item's Q buffer by a
 // TMA store, so a warpgroup starts its next item without waiting for it.
@@ -52,7 +60,9 @@
 // fp32: multiplied in fp32 on the CUDA cores (no TF32), one warp per query
 // row, 8 rows per block, key tiles of 32 staged in static shared memory, so
 // that the fp32 tests hold the reference's 2e-5; V's tile follows Dv, which
-// keeps Dqk 192 / Dv 128 at 47.2 KB, under the 48 KB static limit.
+// keeps Dqk 192 / Dv 128 at 47.2 KB, under the 48 KB static limit. A lane
+// holds Dv / 32 output dims rounded up; where 32 does not divide Dv (80, 16)
+// the lanes past Dv hold none.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -241,8 +251,9 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
       }
 
       // S = Q K^T (64 rows x 64 keys), both operands K-major in shared memory,
-      // over the true Dqk only (at D = 80 the fifth k-step reads the second
-      // box's first 16 columns; at 192, 12 k-steps over three boxes); then the
+      // over the true Dqk rounded up to 16 (at D = 80 the fifth k-step reads
+      // the second box's first 16 columns; at 192, 12 k-steps over three
+      // boxes; at 24, two, the second over 8 columns and 8 of TMA's zeros); then the
       // last tile's P V, which runs while this tile's softmax does.
       // The issue sequence has no branch (ptxas serializes wgmma otherwise):
       // an item's first tile adds P = 0 times its own V.
@@ -251,7 +262,7 @@ __global__ void __launch_bounds__(kFlashThreads, 1)
       wgmma_fence();
       const unsigned char* k_t = k_s + st * C::kKTile;
 #pragma unroll
-      for (int kk = 0; kk < DQ / 16; ++kk) {
+      for (int kk = 0; kk < (DQ + 15) / 16; ++kk) {
         const int off = (kk / 4) * kBox + (kk % 4) * 32;  // 16 columns = 32 bytes into a 128-byte row
         wgmma_m64n64k16_ss(s, desc_sw128(q_w + off, 16, 1024), desc_sw128(k_t + off, 16, 1024), kk);
       }
@@ -439,7 +450,7 @@ int launch_bf16(const FlashArgs& a, int Hkv, cudaStream_t stream) {
 
 template <int DQ, int DV>
 __global__ void __launch_bounds__(256) flash_f32_kernel(FlashArgs a) {
-  // DL output dims per lane; where 32 does not divide DV (80) the last slot is guarded.
+  // DL output dims per lane; where 32 does not divide DV (80, 16) the last slot is guarded.
   constexpr int ROWS = 8, BK = 32, DL = (DV + 31) / 32;
   __shared__ float q_s[ROWS][DQ];
   __shared__ float k_s[BK][DQ + 1];  // +1: lane j reads row j without bank conflicts
@@ -513,7 +524,8 @@ int launch(const FlashArgs& a, int Hkv, int dtype, cudaStream_t stream) {
 
 // q: (B, H, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv, Sk, Dv); o: (B, H, Sq, Dv),
 // all addressed through strides[12] = (q, k, v, o) x (batch, head, seq) in
-// elements. (D, Dv): (32, 32), (64, 64), (80, 80), (128, 128), (192, 128).
+// elements. (D, Dv): (16, 16), (24, 16), (32, 32), (64, 64), (80, 80), (128, 128),
+// (192, 128).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      const long long* strides, int B, int H, int Hkv, int Sq,
                                      int Sk, int D, int Dv, int causal, int window, int dtype,
@@ -538,8 +550,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_PAIR(DQ, DV) \
   if (D == DQ && Dv == DV) return kern::launch<DQ, DV>(a, Hkv, dtype, st);
-  REPRO_FLASH_PAIR(32, 32) REPRO_FLASH_PAIR(64, 64) REPRO_FLASH_PAIR(80, 80) REPRO_FLASH_PAIR(128, 128)
-  REPRO_FLASH_PAIR(192, 128)
+  REPRO_FLASH_PAIR(16, 16) REPRO_FLASH_PAIR(24, 16) REPRO_FLASH_PAIR(32, 32) REPRO_FLASH_PAIR(64, 64)
+  REPRO_FLASH_PAIR(80, 80) REPRO_FLASH_PAIR(128, 128) REPRO_FLASH_PAIR(192, 128)
 #undef REPRO_FLASH_PAIR
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,7 +15,10 @@ a power of two: at D = 80, 16 lanes of which 6 idle. With ``return_lse`` the
 kernel also writes each head's log-sum-exp, from which the slices of a cache
 split over a mesh's ranks are merged exactly (``ref.merge_decode_partials``);
 the launch is the same, counted the same. A dry run's fake CUDA tensor is
-checked and counted, not launched (``kernels/reckon.py``).
+checked and counted, not launched (``kernels/reckon.py``). At the smoke
+configs' D = 16 a row is two lanes and a call is bound by launch latency (at
+minitron-8b smoke's step, B=2, H=4, Hkv=2, 41 valid keys: 10.5 KB, 3.1 ns at
+3.35 TB/s).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from repro_torch.kernels import _build, reckon, ref
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 MAX_GROUP = 8  # query heads per kv head (csrc/decode_attention.cu kMaxRep)
 MAX_SPLIT = 8  # blocks per cluster, the portable cluster size (kMaxSplit)
 MIN_KEYS = 16  # keys per block at least, where the valid length allows

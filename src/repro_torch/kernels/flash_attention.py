@@ -4,15 +4,20 @@ Replaces the JAX package's Pallas TPU kernel ``kernels/flash_attention.py``
 (``flash_attention``, ``pallas_call`` at :126). At the serve slice's prefill
 shape (B=4, H=32, Hkv=8, S=500, D=128, bf16, causal) it is bound by bytes:
 q, k, v and o once are 41 MB (12.2 us at 3.35 TB/s) against 8.2 GFLOP
-(8.3 us at 989 TFLOP/s). bf16, at every head dim the wrapper takes (32, 64,
-80, 128), runs one design: blocks of 128 query rows, a producer warp that keeps
+(8.3 us at 989 TFLOP/s). bf16, at every head dim the wrapper takes (16, 32,
+64, 80, 128), runs one design: blocks of 128 query rows, a producer warp that keeps
 TMA copies of the next K/V tiles in flight in a shared-memory ring, and two
 consumer warpgroups that multiply on the tensor cores with ``wgmma`` (fp32
 accumulate); masks only on tiles that cross the causal diagonal, the window's
 first key or the ragged edge; the query tiles with the most keys start first.
 fp32 is multiplied in fp32 on the CUDA cores. Shared memory holds whole
-64-column boxes, so D = 32 runs in 64 columns and D = 80 in 128 (TMA fills the
-padding with zeros; ``P V`` then multiplies 1.6x the true D's products).
+64-column boxes, so D = 16 and 32 run in 64 columns and D = 80 in 128 (TMA
+fills the padding with zeros; ``P V`` then multiplies 4x the true D's products
+at 16 and 1.6x at 80; ``Q K^T`` runs over the true D rounded up to 16). The
+smoke configs' head dim 16, and DeepSeek's smoke MLA pair ``(24, 16)`` (q/k
+16 + 8 rope columns, v 16), are bound by launch latency: at minitron-8b
+smoke's prefill (B=2, H=4, Hkv=2, S=40, causal) q, k, v and o are 30.7 KB,
+9.2 ns at 3.35 TB/s.
 V may have its own head dim: DeepSeek's MLA passes q and k at 192 (128 + 64
 rope columns) and v at 128, the pair ``(192, 128)``. At its prefill (B=4,
 H=16, S=2000, causal) the work bounds it: 82.0 GFLOP of visible products,
@@ -38,7 +43,7 @@ from repro_torch.kernels import _build, reckon, ref
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
 # (q and k head dim, v head dim) pairs the kernel is built for
-HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (128, 128), (192, 128))
+HEAD_DIMS = ((16, 16), (24, 16), (32, 32), (64, 64), (80, 80), (128, 128), (192, 128))
 
 
 def flash_attention(

@@ -10,8 +10,11 @@ Each row (``ROWS``) is one kernel at one shape, from one place: the
 reference's four rows (``group`` "reference", the shapes of
 ``benchmarks/kernels_bench.py``), the serve and training paths' shapes
 (``chip_smoke.py``'s cells, by config), the decode kernel's ``lse`` output,
-and shapes that no path runs yet ("a7": flash and decode at D 32, rmsnorm on
-qwen3-32b's qk-norm rows, decode at D 128 over 4096 keys). On the card each
+the smoke configs' attention ("smoke": flash at head dims (16, 16) and
+(24, 16), decode at 16, at ``chip_smoke.py``'s smoke zoo's batch 2, 40-token
+prompt and 8 decode steps), and shapes that no path runs yet ("a7": flash
+and decode at D 32, rmsnorm on qwen3-32b's qk-norm rows, decode at D 128
+over 4096 keys). On the card each
 row reports, by CUDA events (``time_ms``):
 
 * ``ms``: the kernel, its wrapper called as the model calls it;
@@ -196,6 +199,16 @@ ROWS: List[Row] = [
     # the decode kernel's log-sum-exp, what a mesh merges
     decode("lse", "minitron-8b decode with lse", 4, 32, 8, 532, 128, lse=True),
     decode("lse", "h2o-danube-1.8b ring with lse", 4, 32, 8, 4096, 80, lse=True),
+    # the smoke configs served (batch 2, prompt 40, 8 decode steps): head dim 16 (GQA 4/2), DeepSeek's smoke
+    # MLA at (24, 16), seamless's 8 frames
+    flash("smoke", "minitron-8b smoke prefill, (16, 16)", 2, 4, 2, 40, 40, 16, views=True),
+    flash("smoke", "h2o-danube-1.8b smoke prefill, window 32", 2, 4, 2, 40, 40, 16, views=True, window=32),
+    flash("smoke", "seamless smoke prefill cross-attention over 8 frames", 2, 4, 2, 40, 8, 16, causal=False,
+          views=True),
+    flash("smoke", "deepseek smoke prefill, the MLA views at (24, 16)", 2, 4, 4, 40, 40, 24, 16, views=True,
+          v_row=32),
+    decode("smoke", "minitron-8b smoke decode, group 2, 41 of 48 slots", 2, 4, 2, 48, 16, valid=41),
+    decode("smoke", "D 16 at group 1, 41 of 48 slots", 2, 4, 4, 48, 16, valid=41),
     # shapes no path runs yet
     flash("a7", "D 32", 4, 32, 8, 2048, 2048, 32, views=True),
     decode("a7", "D 32", 4, 32, 8, 2048, 32),

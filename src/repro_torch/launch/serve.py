@@ -18,10 +18,12 @@ trainer's seeded stand-in embeddings (``data/frontend.py::frontend_embeds``)
 where the reference's launcher feeds zeros: zero frames make every encoder
 output row equal, so cross-attention would be uniform over them (ROADMAP C4).
 
-jamba-1.5-large-398b (the hybrid layout) serves with ``--smoke --device
-cpu``. On one card the launcher cannot take it: the full config (398 B
-parameters) does not fit, and the smoke config's head dim (16) has no flash
-kernel. ``chip_smoke.py`` serves one period of it at full width.
+``--smoke`` serves every config of ``configs.ASSIGNED`` on the card (the
+smoke configs' head dim 16, and DeepSeek's smoke MLA pair q/k 24, v 16, have
+flash and decode kernels), as on the CPU with ``--device cpu``. Without
+``--smoke``, jamba-1.5-large-398b (the hybrid layout, 398 B parameters) and
+deepseek-v3-671b (671 B) do not fit one card; ``chip_smoke.py`` serves one
+period of jamba at full width.
 
 The launcher serves on one card. The reference's launcher serves every full
 config on its production mesh of 256 ranks (``make_production_mesh`` says

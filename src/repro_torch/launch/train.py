@@ -14,17 +14,17 @@ seeded random weights, at the ``train_4k`` cell's batch and sequence unless
 a card the launcher exits with an error unless ``--device cpu`` is given; it
 never moves to the CPU by itself.
 
-deepseek-v2-lite-16b and deepseek-v3-671b (MLA + MoE; v3 with multi-token
-prediction and Adafactor) train with ``--smoke --device cpu``. On one card
-the launcher cannot take either: the full configs do not fit (15.7 B and
-671 B parameters; deepseek-v2-lite-16b needs ~188 GB with fp32 AdamW state),
-and their smoke configs' attention head dims (q/k 24, v 16) have no flash
-kernel, whose wrapper raises. ``chip_smoke.py`` trains deepseek-v2-lite-16b
-at full width with its depth cut to 5 layers; the launcher has no depth
-flag, as the reference's has none. jamba-1.5-large-398b (the hybrid
-layout: Mamba-2, attention and MoE layers, Adafactor) trains with ``--smoke
---device cpu`` for the same two reasons: 398 B parameters, and a smoke head
-dim of 16.
+``--smoke`` runs every config of ``configs.ASSIGNED`` on the card (the
+smoke configs' attention head dim 16, and DeepSeek's smoke MLA pair q/k 24,
+v 16, have flash and decode kernels), as on the CPU with ``--device cpu``.
+Without ``--smoke``, deepseek-v2-lite-16b, deepseek-v3-671b (MLA + MoE; v3
+with multi-token prediction and Adafactor) and jamba-1.5-large-398b (the
+hybrid layout: Mamba-2, attention and MoE layers, Adafactor) do not fit one
+card: 15.7 B, 671 B and 398 B parameters (deepseek-v2-lite-16b needs
+~188 GB with fp32 AdamW state). ``chip_smoke.py`` trains
+deepseek-v2-lite-16b at full width with its depth cut to 5 layers, and
+deepseek-v3-671b at 4 layers and 16 experts on a 1 x 1 mesh; the launcher
+has no depth flag, as the reference's has none.
 """
 
 from __future__ import annotations
@@ -41,9 +41,9 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(epilog="deepseek-v2-lite-16b, deepseek-v3-671b and jamba-1.5-large-398b train "
-                                 "only with --smoke --device cpu: their full configs do not fit one card, and "
-                                 "their smoke head dims (q/k 24, v 16; 16) have no flash kernel.")
+    ap = argparse.ArgumentParser(epilog="Every config trains with --smoke, on the card or with --device cpu. "
+                                 "Without --smoke deepseek-v2-lite-16b, deepseek-v3-671b and "
+                                 "jamba-1.5-large-398b do not fit one card.")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--steps", type=int, default=100)

@@ -31,6 +31,9 @@ sys.meta_path.insert(0, Block())
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 assert "repro_torch.models.encdec" in names, names
+twins = {f"repro_torch.examples.{m}" for m in ("colocation_demo", "train_lm", "bridge_demo", "quickstart",
+                                              "elastic_demo", "failure_recovery", "telemetry_demo")}
+assert twins | {"repro_torch.tools.chaos_replay", "repro_torch.tools.replay_report"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -53,6 +56,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[0]) >= 30
+    assert out.stdout.splitlines() == [out.stdout.split()[0] + " modules"]  # importing a demo or tool runs nothing
 
 
 def test_no_source_names_jax_or_the_jax_package():

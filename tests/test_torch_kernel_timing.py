@@ -3,8 +3,9 @@ package's ``benchmarks/kernels_bench.py``) on the CPU.
 
 * Its rows cover the reference's four and every shape of ``PERF.md``'s
   table of kernels (``PATH_SHAPES``: the serve and training paths, the
-  training rows' Functions, the decode kernel's ``lse``), and the shapes
-  that no path runs yet.
+  training rows' Functions, the decode kernel's ``lse``), the smoke
+  configs' attention (head dims (16, 16) and (24, 16), decode at 16), and
+  the shapes that no path runs yet.
 * At the reference's four shapes the plain versions, on the row's own
   inputs, match the JAX package's ``kernels/ref.py`` (bf16 2e-2, the SSD
   scan in fp32 2e-4).
@@ -74,12 +75,22 @@ NEW_SHAPES = [
     ("rmsnorm", dict(d=128, rows=64000)),
 ]
 
+# the smoke configs' attention on the card: flash at (16, 16) causal, with the window, non-causal over 8
+# frames, and at DeepSeek's (24, 16); decode at D 16, groups 2 and 1
+SMOKE_SHAPES = [
+    ("flash_attention", dict(b=2, h=4, hkv=2, sq=40, sk=40, dqk=16, dv=16, causal=True, views=True)),
+    ("flash_attention", dict(dqk=16, dv=16, causal=True, window=32)),
+    ("flash_attention", dict(sq=40, sk=8, dqk=16, dv=16, causal=False)),
+    ("flash_attention", dict(h=4, hkv=4, dqk=24, dv=16, causal=True, v_row=32)),
+    ("decode_attention", dict(h=4, hkv=2, d=16)), ("decode_attention", dict(h=4, hkv=4, d=16)),
+]
+
 
 def _has(kernel: str, shape: dict) -> bool:
     return any(r.kernel == kernel and all(r.dims.get(k) == v for k, v in shape.items()) for r in timing.ROWS)
 
 
-@pytest.mark.parametrize("kernel,shape", REFERENCE_SHAPES + PATH_SHAPES + NEW_SHAPES)
+@pytest.mark.parametrize("kernel,shape", REFERENCE_SHAPES + PATH_SHAPES + NEW_SHAPES + SMOKE_SHAPES)
 def test_rows_cover_the_reference_and_every_path_shape(kernel, shape):
     assert _has(kernel, shape)
 

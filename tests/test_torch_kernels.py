@@ -8,7 +8,9 @@ which is fp32 only). On a card (marker ``gpu``; ``python -m pytest -m gpu
 tests/test_torch_kernels.py``): each CUDA kernel against its plain version on
 the same CUDA tensors, over the same sweeps plus the serve slices' shapes and
 ragged edges. The launchers' C signatures, the decode kernel's cluster
-planner and its split-merge arithmetic are checked on the CPU too.
+planner and its split-merge arithmetic are checked on the CPU too, and the
+wrappers' fake branches at the smoke configs' head dims ((16, 16) and
+(24, 16) for flash, 16 for decode; (8, 8) refused).
 """
 
 import re
@@ -74,6 +76,14 @@ EDGE_DECODE = [(4, 32, 8, 4096, 128, v) for v in (1, 15, 17, 533)] + [(1, 32, 8,
 D80_ATTN = [(1, 4, 2, s, s, 80) for s in (1, 127, 129, 500)] + [(2, 4, 1, 128, 256, 80)]
 D80_WINDOWS = [None, 70, 100, 4096]
 D80_DECODE = [(4, 32, 8, 4096, 80, v) for v in (1, 15, 17, 533, 4096)] + [(2, 4, 2, 300, 80, 123)]
+# The smoke configs' head dims (every smoke config's 16, GQA 4/2; DeepSeek's
+# smoke MLA at q/k 24 = 16 + 8 rope, v 16, MHA 4/4), at the smoke zoo's
+# batch 2, 40-token prompt and 48-slot cache: flash causal, non-causal 40 over
+# 8 frames (seamless smoke's cross-attention), MHA, a 128-row tile; decode at
+# groups 2 and 1 over ragged and full valid lengths and a 256-slot cache.
+SMOKE_ATTN = [(2, 4, 2, 40, 40, 16), (2, 4, 2, 128, 128, 16), (2, 4, 2, 40, 8, 16), (2, 4, 4, 40, 40, 16)]
+SMOKE_DECODE = [(2, 4, 2, 48, 16, v) for v in (1, 15, 17, 41, 48)] + [(2, 4, 4, 48, 16, 41), (2, 4, 2, 256, 16, 100)]
+MLA_SMOKE_ATTN = [(2, 4, 4, 40, 40), (1, 4, 4, 129, 129), (2, 4, 4, 40, 8), (1, 4, 2, 127, 127)]
 # (groups, valid, SMs) for the cluster planner: the serve slice, small and
 # large batches, short caches, and a card of fewer SMs.
 SPLIT_PLANS = [(32, 532, 132), (32, 0, 132), (32, 1, 132), (32, 15, 132), (32, 16, 132), (32, 17, 132),
@@ -568,6 +578,114 @@ def test_non_cuda_devices_raise(rng):
     y = torch.zeros(1, 8, 2, 16, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ops.ssd_scan(y, y[..., 0], y[:, :, :1, :8], y[:, :, :1, :8])
+
+
+@pytest.mark.parametrize("shape", SMOKE_ATTN)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_plain_matches_jax_at_head_dim_16(shape, dtype, rng):
+    """The plain flash at (16, 16) against the JAX package's Pallas kernel
+    in interpret mode and its ``attention_ref``."""
+    jnp, jops, jref = _jax()
+    B, H, Hkv, Sq, Sk, D = shape
+    q, k, v = _np(rng, B, H, Sq, D), _np(rng, B, Hkv, Sk, D), _np(rng, B, Hkv, Sk, D)
+    causal = Sq == Sk
+    out = ops.flash_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype), causal=causal)
+    assert out.dtype == TORCH_DTYPES[dtype] and out.shape == (B, H, Sq, D)
+    jq, jk, jv = (_j(jnp, a, dtype) for a in (q, k, v))
+    _close(out, jref.attention_ref(jq, jk, jv, causal=causal), dtype)
+    _close(out, jops.flash_attention(jq, jk, jv, causal=causal, backend="interpret"), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_window_plain_matches_jax_at_head_dim_16(dtype, rng):
+    """h2o-danube-1.8b smoke's window of 32 over its 40-token prompt."""
+    jnp, jops, _ = _jax()
+    q, k, v = _np(rng, 2, 4, 40, 16), _np(rng, 2, 2, 40, 16), _np(rng, 2, 2, 40, 16)
+    out = ops.flash_attention(*(_t(a, dtype) for a in (q, k, v)), causal=True, window=32)
+    jq, jk, jv = (_j(jnp, a, dtype) for a in (q, k, v))
+    _close(out, jops.flash_attention(jq, jk, jv, causal=True, window=32, backend="interpret"), dtype)
+
+
+@pytest.mark.parametrize("case", SMOKE_DECODE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_plain_matches_jax_at_head_dim_16(case, dtype, rng):
+    jnp, jops, jref = _jax()
+    B, H, Hkv, S, D, valid = case
+    q, k, v = _np(rng, B, H, D), _np(rng, B, S, Hkv, D), _np(rng, B, S, Hkv, D)
+    out = ops.decode_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype), valid)
+    assert out.dtype == TORCH_DTYPES[dtype] and out.shape == (B, H, D)
+    jq, jk, jv = (_j(jnp, a, dtype) for a in (q, k, v))
+    vl = jnp.asarray(valid, jnp.int32)
+    _close(out, jref.decode_attention_ref(jq, jk, jv, vl), dtype)
+    _close(out, jops.decode_attention(jq, jk, jv, vl, backend="interpret"), dtype)
+
+
+@pytest.mark.parametrize("shape", MLA_SMOKE_ATTN)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_plain_matches_jax_at_the_smoke_mla_head_dims(shape, dtype, rng):
+    """(Dqk, Dv) = (24, 16) against the JAX package's ``attention_ref`` (its
+    Pallas kernel takes one head dim for q, k and v)."""
+    jnp, _, jref = _jax()
+    B, H, Hkv, Sq, Sk = shape
+    q, k, v = _np(rng, B, H, Sq, 24), _np(rng, B, Hkv, Sk, 24), _np(rng, B, Hkv, Sk, 16)
+    causal = Sq == Sk
+    out = ops.flash_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype), causal=causal)
+    assert out.dtype == TORCH_DTYPES[dtype] and out.shape == (B, H, Sq, 16)
+    _close(out, jref.attention_ref(*(_j(jnp, a, dtype) for a in (q, k, v)), causal=causal), dtype)
+
+
+@pytest.fixture
+def fake():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import reckon
+
+    with FakeTensorMode(allow_non_fake_inputs=True), reckon.reckoning() as r:
+        yield r
+
+
+@pytest.mark.parametrize("dqk,dv", [(16, 16), (24, 16)])
+def test_flash_fake_branch_takes_the_smoke_head_dims(dqk, dv, fake):
+    """The dry run's fake branch checks and counts the new pairs at the
+    true head dims (the kernel's padding to 64 columns is not work)."""
+    B, H, S = 2, 4, 40
+    q, k = torch.empty(B, H, S, dqk, device="meta", dtype=torch.bfloat16), torch.empty(
+        B, H, S, dqk, device="meta", dtype=torch.bfloat16)
+    v = torch.empty(B, H, S, dv, device="meta", dtype=torch.bfloat16)
+    out = flash_mod.flash_attention(q, k, v)
+    assert out.shape == (B, H, S, dv)
+    assert fake.flops == 2 * B * H * (S * (S + 1) // 2) * (dqk + dv) and fake.calls == {"flash_attention": 1}
+
+
+def test_decode_fake_branch_takes_head_dim_16(fake):
+    q = torch.empty(2, 4, 16, device="meta", dtype=torch.bfloat16)
+    cache = torch.empty(2, 48, 2, 16, device="meta", dtype=torch.bfloat16)
+    out, lse = decode_mod.decode_attention(q, cache, cache, 41, return_lse=True)
+    assert out.shape == (2, 4, 16) and lse.shape == (2, 4)
+    assert fake.flops == 4 * 2 * 4 * 41 * 16 and fake.calls == {"decode_attention": 1}
+
+
+def test_fake_branches_refuse_head_dim_8(fake):
+    """A head dim outside ``HEAD_DIMS`` still raises ``ValueError``, before anything is counted."""
+    x = torch.empty(2, 4, 40, 8, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_mod.flash_attention(x, x, x)
+    cache = torch.empty(2, 48, 4, 8, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 8"):
+        decode_mod.decode_attention(torch.empty(2, 4, 8, device="meta", dtype=torch.bfloat16), cache, cache, 4)
+    assert fake.calls == {}
+    assert (8, 8) not in flash_mod.HEAD_DIMS and 8 not in decode_mod.HEAD_DIMS
+
+
+def test_fake_branch_refuses_a_view_tma_cannot_take(fake):
+    """(B, S, H, 24) projections read in place (48-byte head rows) pass; a
+    view that starts 8 bytes into a row is refused with the rule."""
+    qk = torch.empty(2, 40, 4, 24, device="meta", dtype=torch.bfloat16).transpose(1, 2)
+    v = torch.empty(2, 40, 4, 32, device="meta", dtype=torch.bfloat16)[..., 16:].transpose(1, 2)
+    assert flash_mod.flash_attention(qk, qk, v).shape == (2, 4, 40, 16)
+    off = torch.empty(2, 40, 4, 28, device="meta", dtype=torch.bfloat16)[..., 4:].transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte aligned.*as TMA"):
+        flash_mod.flash_attention(off, qk, v)
 
 
 # ---------------------------------------------------------------- card: kernel vs plain
@@ -1086,3 +1204,84 @@ def test_ssd_scan_bf16_state_past_shared_memory_raises(rng, cuda):
     with pytest.raises(RuntimeError, match="ssd_scan kernel launch failed"):
         ops.ssd_scan(*big)
     _on_card_ssd(TC_SSD[0], "bfloat16", rng, cuda, ssd_mod.TENSOR_CORE)  # no error left behind
+
+
+# ---------------------------------------------------------------- card: the smoke configs' head dims
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 32])
+@pytest.mark.parametrize("shape", SMOKE_ATTN + [(1, 4, 2, s, s, 16) for s in (1, 127, 129)] + [(1, 4, 2, 129, 64, 16)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_at_head_dim_16(shape, window, dtype, rng, cuda):
+    """(16, 16) in one 64-column box: the smoke zoo's shapes, ragged S 1, 127,
+    129 against 128-row and 64-key tiles, non-causal 129 over 64."""
+    if window is not None and shape[3] != shape[4]:
+        pytest.skip("a window is causal")
+    _on_card_attn(shape, dtype, rng, cuda, window=window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 32])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_reads_strided_views_at_head_dim_16(window, dtype, rng, cuda):
+    """(B, S, H, 16) projections viewed (B, H, S, 16): 32-byte head rows."""
+    q, k, v = (_t(_np(rng, 2, 40, h, 16), dtype, cuda).transpose(1, 2) for h in (4, 2, 2))
+    out = ops.flash_attention(q, k, v, window=window)
+    _close(out, ref.attention_ref(q, k, v, window=window), dtype)
+    assert out.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", MLA_SMOKE_ATTN)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_at_the_smoke_mla_head_dims(shape, dtype, rng, cuda):
+    """(24, 16): two k-steps of Q K^T, the second over 8 columns and 8 of TMA's zeros."""
+    B, H, Hkv, Sq, Sk = shape
+    q, k, v = (_t(a, dtype, cuda) for a in (
+        _np(rng, B, H, Sq, 24), _np(rng, B, Hkv, Sk, 24), _np(rng, B, Hkv, Sk, 16)))
+    n = flash_mod.launches
+    out = ops.flash_attention(q, k, v, causal=Sq == Sk)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == n + 1 and out.shape == (B, H, Sq, 16)
+    _close(out, ref.attention_ref(q, k, v, causal=Sq == Sk), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_reads_the_smoke_mla_views(dtype, rng, cuda):
+    """As deepseek's smoke prefill passes them: q and k (B, S, H, 24), v the
+    last 16 columns of the (B, S, H, 32) up-projection, each viewed (B, H, S, D)."""
+    q, k = (_t(_np(rng, 2, 40, 4, 24), dtype, cuda).transpose(1, 2) for _ in range(2))
+    v = _t(_np(rng, 2, 40, 4, 32), dtype, cuda)[..., 16:].transpose(1, 2)
+    out = ops.flash_attention(q, k, v)
+    _close(out, ref.attention_ref(q, k, v), dtype)
+    assert out.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SMOKE_DECODE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_at_head_dim_16(case, dtype, rng, cuda):
+    """Two lanes a key row; the output and the log-sum-exp against the plain version."""
+    B, H, Hkv, S, D, valid = case
+    q, k, v = (_t(a, dtype, cuda) for a in (
+        _np(rng, B, H, D), _np(rng, B, S, Hkv, D), _np(rng, B, S, Hkv, D)))
+    n = decode_mod.launches
+    out, lse = ops.decode_attention(q, k, v, valid, return_lse=True)
+    torch.cuda.synchronize()
+    assert decode_mod.launches == n + 1
+    plain, plain_lse = ref.decode_attention_ref(q, k, v, valid, return_lse=True)
+    _close(out, plain, dtype)
+    assert float((lse - plain_lse).abs().max()) <= _tol(dtype)
+    assert torch.equal(out, ops.decode_attention(q, k, v, valid))
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_head_dim_8(cuda):
+    x = torch.ones(1, 2, 64, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(x, x, x)
+    cache = torch.ones(1, 64, 2, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 8"):
+        ops.decode_attention(torch.ones(1, 2, 8, device=cuda, dtype=torch.bfloat16), cache, cache, 4)
