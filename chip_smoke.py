@@ -120,8 +120,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    layer by layer) on the (1, 1) mesh, bit for bit the main path's first
    steps. Its launcher does not run at full size on the card (398 B
    parameters do not fit); its smoke config runs in phase 2b;
+8b. qwen3-32b (64 layers, GQA 64/8 at head_dim 128 with qk-norm, 32.76 B
+   parameters) and internlm2-20b (48 layers, GQA 48/8: group 6, 19.86 B) at
+   their published widths (``published_phase``), at phase 3's batch 4,
+   500-token prompt and 32 greedy steps (their kernels checked at these
+   shapes in phase 2: flash at groups 8 and 6, decode at both over 532 slots
+   with and without ``lse``, a planted fault whose group's heads 4-5 copy
+   head 3 caught at group 6, rmsnorm at d_model 5120 and 6144 and on
+   qwen3-32b's qk-norm rows of 128). Run A at the published depth in bf16:
+   257 rmsnorm + 64 flash a prefill and 257 + 64 decode a step (qwen3-32b;
+   qk-norm adds two rmsnorms a layer), 97 + 48 and 97 + 48 (internlm2-20b),
+   for the run and for every step; the times, peak memory, a profile with
+   the decode step's device busy against its host enqueue, and the plain
+   bf16 path's distance, printed. Run B at 16 layers of the published widths:
+   the logits gates of phase 5 with the weights widened to fp32 in place, and
+   the group fault planted in the decode kernel, named for both gates;
 9. launcher: ``launch/serve.py``'s command line at each model phase's sizes
-   but jamba's (at full size it does not fit the card);
+   but jamba's (at full size it does not fit the card) and qwen3-32b's (a
+   second 65.5 GB init; internlm2-20b's runs 8 decode steps);
 10. (no phase: the training kernels and their Functions' plain backward
    passes are timed by ``python -m repro_torch.kernels.timing``; the later
    phases keep their numbers);
@@ -251,8 +267,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 ``--seed`` (default 0) draws other weights and prompts for the model phases.
 
 A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the smoke
-zoo's launcher runs and the two model demos', the six serve
-paths' (h2o-danube-1.8b's runs A and B), the four mesh serve runs', the four
+zoo's launcher runs and the two model demos', the eight serve
+paths' (h2o-danube-1.8b's runs A and B; qwen3-32b's and internlm2-20b's runs
+A and B), the four mesh serve runs', the four
 7-step training runs', deepseek-v3-671b's 3 mesh steps, the mesh phase's
 3-step runs and the co-located rounds'.
 
@@ -437,6 +454,20 @@ JB_LAYERS, JB_EXPERTS = 8, 4
 JB_H, JB_HKV, JB_D, JB_D_MODEL, JB_D_INNER = 64, 8, 128, 8192, 16384
 JB_SSD_H, JB_SSD_P, JB_SSD_G, JB_SSD_N = 128, 128, 1, 64
 JB_MAX_LEN = JB_PROMPT + JB_STEPS
+# The published-width serve phases (published_phase), at minitron-8b's
+# traffic (batch 4, prompt 500, 32 greedy decode steps, 532 cache slots):
+# qwen3-32b (64 layers, d_model 5120, GQA 64/8 at head_dim 128 with qk-norm,
+# d_ff 25,600, vocab 151,936, untied: 32.76 B parameters, 65.5 GB in bf16) and
+# internlm2-20b (48 layers, d_model 6144, GQA 48/8, group 6, at head_dim 128,
+# d_ff 16,384, vocab 92,544, untied: 19.86 B, 39.7 GB). Run A: the published
+# depth in bf16. Run B: the published widths at PUB_B_LAYERS layers, so that
+# the weights widened to fp32 fit (qwen3-32b 9.36 B parameters, 37.4 GB in
+# fp32; internlm2-20b 7.38 B, 29.5 GB).
+PUB_ARCHS = ("qwen3-32b", "internlm2-20b")
+PUB_B_LAYERS = 16
+PUB_LAUNCHER_STEPS = 8
+QW_H, IL_H = 64, 48  # query heads over HKV (8) kv heads at D 128: groups 8 and 6
+QW_D_MODEL, IL_D_MODEL = 5120, 6144
 # Serving on the single-rank NCCL mesh inside the serve phases of minitron-8b,
 # mamba2-370m, deepseek-v2-lite-16b and seamless-m4t-large-v2: one prefill and
 # MESH_SERVE_STEPS greedy steps from each phase's weights and prompt; each
@@ -575,6 +606,12 @@ RMS_SEAMLESS = [(SM_B * SM_FRAMES, SM_D_MODEL), (SM_B * SM_PROMPT, SM_D_MODEL), 
 # 8192, the SSM mixers' gated norm at d_inner 16,384 (in the model's dtype),
 # the prefill's and a decode step's.
 RMS_JAMBA = [(rows, d) for rows in (JB_B * JB_PROMPT, JB_B) for d in (JB_D_MODEL, JB_D_INNER)]
+# qwen3-32b's and internlm2-20b's rows at published width (d_model 5120 and
+# 6144), the prefill's and a decode step's; qwen3-32b's qk-norm
+# (``head_rmsnorm``) on the (B, S, H, 128) q and k projections, fp32 scale:
+# the prefill's 128,000 and 16,000 rows, a decode step's 256 and 32.
+RMS_PUBLISHED = [(rows, d) for d in (QW_D_MODEL, IL_D_MODEL) for rows in (B * PROMPT, B)]
+QK_NORM = [(B, s, h) for s in (PROMPT, 1) for h in (QW_H, HKV)]
 
 
 def check_rmsnorm(gen) -> float:
@@ -584,12 +621,19 @@ def check_rmsnorm(gen) -> float:
     ragged = [(rows, d) for d in (1024, 2048, D_MODEL) for rows in (1, B * PROMPT + 1, MB_B * MB_PROMPT + 1)]
     for dtype in DTYPES:
         for rows, d in ([(4, 64), (100, 128), (257, 256), (33, 100)] + RMS_SLICES + RMS_TRAIN + RMS_DANUBE
-                        + RMS_DEEPSEEK + RMS_SEAMLESS + RMS_JAMBA + ragged + RMS_ODD):
+                        + RMS_DEEPSEEK + RMS_SEAMLESS + RMS_JAMBA + RMS_PUBLISHED + ragged + RMS_ODD):
             x, scale = randn(gen, rows, d, dtype=dtype), randn(gen, d, dtype=torch.float32)
             err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
             print(f"check rmsnorm {str(dtype)[6:]} rows={rows} d={d}: max_abs_err={err:.3e}")
             if dtype == torch.bfloat16 and (rows, d) in (RMS_SLICES + RMS_TRAIN + RMS_DANUBE + RMS_DEEPSEEK
-                                                         + RMS_SEAMLESS + RMS_JAMBA):
+                                                         + RMS_SEAMLESS + RMS_JAMBA + RMS_PUBLISHED):
+                worst = max(worst, err)
+        for b, s, h in QK_NORM:
+            x, scale = randn(gen, b, s, h, D, dtype=dtype), randn(gen, D, dtype=torch.float32)
+            err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
+            print(f"check rmsnorm {str(dtype)[6:]} rows={b * s * h} d={D} (qwen3-32b qk-norm on (B, S, H, D) "
+                  f"{(b, s, h, D)}): max_abs_err={err:.3e}")
+            if dtype == torch.bfloat16:
                 worst = max(worst, err)
         # the kv_norm slice, rows 1152 bytes apart (and 1154, off 16 bytes: the generic kernel)
         for rows in RMS_KV_NORM:
@@ -624,6 +668,8 @@ def check_flash(gen) -> float:
         (B, H, HKV, PROMPT, PROMPT, D, True, 128),
         (B, H, HKV, 100, MAX_LEN, D, False, None),
         (TR_B, TR_H, TR_HKV, TR_SEQ, TR_SEQ, D, True, None),  # internvl2-2b's training forward
+        (B, QW_H, HKV, PROMPT, PROMPT, D, True, None),  # qwen3-32b's prefill (group 8)
+        (B, IL_H, HKV, PROMPT, PROMPT, D, True, None),  # internlm2-20b's prefill (group 6)
     ] + [  # the edges of the 128-row tiles and 64-key tiles, every head dim
         (1, 4, 2, s, s, d, True, None) for s in (1, 127, 129, PROMPT) for d in (32, 64, 80, 128)
     ] + [  # windows that start inside a 128-row tile
@@ -638,13 +684,15 @@ def check_flash(gen) -> float:
             print(f"check flash_attention {str(dtype)[6:]} {(b, h, hkv, sq, sk, d)} "
                   f"causal={causal} window={window}: max_abs_err={err:.3e}")
             if dtype == torch.bfloat16 and (b, h, sq, sk, causal, window) in (
-                    (B, H, PROMPT, PROMPT, True, None), (TR_B, TR_H, TR_SEQ, TR_SEQ, True, None)):
+                    (B, H, PROMPT, PROMPT, True, None), (TR_B, TR_H, TR_SEQ, TR_SEQ, True, None),
+                    (B, QW_H, PROMPT, PROMPT, True, None), (B, IL_H, PROMPT, PROMPT, True, None)):
                 worst = max(worst, err)
         # the prefills and the training forward as the model passes them: (B, S, H, D)
         # projections viewed (B, H, S, D); h2o-danube-1.8b's with its window, D 80,
         # held to the plain version one sequence at a time (its fp32 scores for the
-        # whole batch would be 19.3 GB)
+        # whole batch would be 19.3 GB); qwen3-32b's and internlm2-20b's prefills
         for b, h, hkv, s, d, window in ((B, H, HKV, PROMPT, D, None), (TR_B, TR_H, TR_HKV, TR_SEQ, D, None),
+                                        (B, QW_H, HKV, PROMPT, D, None), (B, IL_H, HKV, PROMPT, D, None),
                                         (1, DN_H, DN_HKV, 300, DN_D, 100),
                                         (DN_B, DN_H, DN_HKV, DN_PROMPT, DN_D, DN_WINDOW),
                                         (JB_B, JB_H, JB_HKV, JB_PROMPT, JB_D, None)):
@@ -809,6 +857,51 @@ def check_decode(gen) -> float:
                     (JB_MAX_LEN, JB_D, JB_MAX_LEN))):
                 worst = max(worst, err)
         worst = max(worst, check_smoke_decode(gen, dtype))
+        worst = max(worst, check_published_decode(gen, dtype))
+    return worst
+
+
+def decode_group_tail_copies_head_3(q, k, v, valid_len):
+    """The last two query heads of each kv head's group take the group's
+    head 3's output: the fault of a group-6 decode in the 8-slot kernel
+    instance that serves slots 4-5 from the wrong query."""
+    out = ops.decode_attention(q, k, v, valid_len)
+    b, h, d = out.shape
+    g = out.view(b, k.shape[2], h // k.shape[2], d).clone()
+    g[:, :, -2:] = g[:, :, 3:4]
+    return g.view(b, h, d)
+
+
+def check_published_decode(gen, dtype) -> float:
+    """Decode at qwen3-32b's group 8 and internlm2-20b's group 6 (6 of the
+    8-slot instance's query slots), B 4, D 128 over the 532-slot cache at
+    valid lengths 1, 300 and 532, with and without the log-sum-exp (the
+    output the same both ways, ``lse`` within the tolerance, absolute, of the
+    plain one); then the planted fault ``decode_group_tail_copies_head_3`` at
+    group 6, which the check must catch. Returns the largest error over the
+    full cache."""
+    worst = 0.0
+    for h in (QW_H, IL_H):
+        for valid in (1, 300, MAX_LEN):
+            q = randn(gen, B, h, D, dtype=dtype)
+            k, v = randn(gen, B, MAX_LEN, HKV, D, dtype=dtype), randn(gen, B, MAX_LEN, HKV, D, dtype=dtype)
+            out, lse = ops.decode_attention(q, k, v, valid, return_lse=True)
+            plain, plain_lse = ref.decode_attention_ref(q, k, v, valid, return_lse=True)
+            err = max_abs_err(out, plain, dtype)
+            require(torch.equal(out, ops.decode_attention(q, k, v, valid)), f"group {h // HKV}: return_lse moved the output")
+            lse_err = float((lse - plain_lse).abs().max())
+            require(lse_err <= TOL[dtype], f"group {h // HKV} decode: lse {lse_err:.3e} from the plain lse")
+            print(f"check decode_attention {str(dtype)[6:]} {(B, h, HKV, MAX_LEN, D)} valid={valid} (group "
+                  f"{h // HKV}), with and without lse: max_abs_err={err:.3e}, lse {lse_err:.3e}")
+            if valid == MAX_LEN:
+                worst = max(worst, err)
+    q = randn(gen, B, IL_H, D, dtype=dtype)
+    k, v = randn(gen, B, MAX_LEN, HKV, D, dtype=dtype), randn(gen, B, MAX_LEN, HKV, D, dtype=dtype)
+    hit, err = caught(decode_group_tail_copies_head_3(q, k, v, PROMPT + 1), ref.decode_attention_ref(q, k, v, PROMPT + 1),
+                      dtype)
+    print(f"check decode_attention {str(dtype)[6:]} group 6, planted fault (each group's heads 4-5 take head 3's "
+          f"output): max_abs_err={err:.3e}, {'caught' if hit else 'PASSES'}")
+    require(hit, f"the group-6 decode check passes a kernel whose heads 4-5 copy head 3 ({dtype})")
     return worst
 
 
@@ -2002,6 +2095,159 @@ def jamba_phase(seed: int) -> dict:
     return counts
 
 
+def published_run_a(arch: str, seed: int, name_power: str) -> dict:
+    """``arch`` served at its published width and depth in bf16 (batch 4,
+    prompt 500, 32 greedy steps): the main path's launches exact for the run
+    and (on a second run, ``counted_generate``) for the prefill and every step
+    (``serve_launches``), every logit finite, prefill and decode times, peak
+    memory, a profile of a prefill and of a step with the decode step's
+    device busy against its host enqueue; then the plain bf16 path
+    (``ops.PLAIN``, the same weights: no fp32 copy fits beside them)
+    teacher-forced on the kernel path's tokens, its distance printed (run B
+    holds the gates). Returns the main path's launches."""
+    t_run = time.perf_counter()
+    cfg = get_config(arch)
+    per_prefill, per_step = serve_launches(cfg)
+    expected = {k: per_prefill[k] + STEPS * per_step[k] for k in KERNELS}
+    bundle = make_serve_bundle(cfg, max_len=MAX_LEN)
+    t0 = time.perf_counter()
+    params = bundle.model.init(seed, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _tensors(params))
+    weight_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    print(f"{arch} run A (published width and depth, bf16): {cfg.num_layers} layers, d_model {cfg.d_model}, GQA "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} (group {cfg.num_heads // cfg.num_kv_heads}) at head_dim "
+          f"{cfg.resolved_head_dim}{', qk-norm' if cfg.qk_norm else ''}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+          f"{n_params} parameters ({weight_bytes / 1e9:.2f} GB), init {init_s:.1f} s; prompt {PROMPT} x{B}, "
+          f"{STEPS} decode steps")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda")
+
+    serve.greedy_generate(bundle, params, tokens, 2)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    gen_out = serve.greedy_generate(bundle, params, tokens, STEPS)  # the main path
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{arch} run A main path launches: {counts} (expected {expected})")
+    require(counts == expected, f"{arch} run A launch counts {counts} != {expected}")
+    print(f"{arch} run A: prefill {PROMPT} tokens x{B}: {gen_out.prefill_s * 1e3:.3f} ms; decode: "
+          f"{gen_out.decode_s_per_token * 1e3:.3f} ms/token ({B / gen_out.decode_s_per_token:.1f} tokens/s); peak "
+          f"memory {peak_gb:.2f} GB [{name_power}]")
+    print(f"card during run: {nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+    for lg in gen_out.logits:
+        require(lg.shape == (B, cfg.padded_vocab) and bool(torch.isfinite(lg).all()), f"{arch} run A: bad logits")
+    require(gen_out.tokens.shape == (B, STEPS), f"{arch} run A: bad token shape")
+    counted_generate(bundle, params, tokens, STEPS, None, per_prefill, per_step, f"{arch} run A")
+    print(f"{arch} run A per-step launches: prefill {per_prefill['rmsnorm']} rmsnorm + {per_prefill['flash_attention']} "
+          f"flash, each of {STEPS} decode steps {per_step['rmsnorm']} rmsnorm + {per_step['decode_attention']} "
+          f"decode: ok")
+    print_breakdown(bundle, params, tokens, gen_out.tokens[:, :1])
+    step = PROFILES["decode step"]
+    read_ms = weight_bytes / hw.H100_HBM_BW * 1e3
+    verdict = "device time not measured" if not step["busy_ms"] else (
+        f"{'device-bound' if step['busy_ms'] >= step['enqueue_ms'] else 'host-bound'} (busy over enqueue "
+        f"{step['busy_ms'] / step['enqueue_ms']:.3f}); one read of the weights at 3.35 TB/s is {read_ms:.3f} ms, "
+        f"{read_ms / step['busy_ms']:.3f} of the busy time")
+    print(f"{arch} run A decode step: device busy {step['busy_ms']:.3f} ms, host enqueue {step['enqueue_ms']:.3f} ms, "
+          f"wall {step['wall_ms']:.3f} ms: {verdict} [{name_power}]")
+
+    plain = make_serve_bundle(cfg, max_len=MAX_LEN, ops=ops.PLAIN)
+    ops.reset_launch_counts()
+    plain_bf16 = teacher_forced(plain, params, tokens, gen_out.tokens)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    require(all(bool(torch.isfinite(lg).all()) for lg in plain_bf16), f"{arch} run A: non-finite plain logits")
+    dist = [rel_l2(a, b) for a, b in zip(gen_out.logits, plain_bf16, strict=True)]
+    same = int((torch.stack([lg.argmax(-1) for lg in plain_bf16[:-1]], 1) == gen_out.tokens).sum())
+    print(f"{arch} run A logits, relative L2, kernels vs plain, bf16 (the plain path teacher-forced on the kernel "
+          f"path's tokens, the same weights; printed, not gated: run B holds the gates): prefill {dist[0]:.4e}, "
+          f"decode max {max(dist[1:]):.4e} mean {np.mean(dist[1:]):.4e}; the plain path's greedy choice the kernel "
+          f"path's at {same} of {B * STEPS} steps")
+    del params, bundle, plain
+    free_memory()
+    print(f"{arch} run A: {time.perf_counter() - t_run:.1f} s")
+    return counts
+
+
+def published_run_b(arch: str, seed: int, name_power: str) -> dict:
+    """``arch`` at its published widths, its depth cut to PUB_B_LAYERS so that
+    its weights widened to fp32 fit: the main path (bf16, launches exact),
+    then ``logits_gates`` as every serve phase runs them (the plain bf16 path,
+    fp32 plain and the fp32 kernel path teacher-forced on the kernel path's
+    tokens, the weights widened in place) with the planted fault
+    ``decode_group_tail_copies_head_3`` named for both gates. Returns the
+    main path's launches."""
+    t_run = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=PUB_B_LAYERS)
+    per_prefill, per_step = serve_launches(cfg)
+    expected = {k: per_prefill[k] + STEPS * per_step[k] for k in KERNELS}
+    bundle = make_serve_bundle(cfg, max_len=MAX_LEN)
+    params = bundle.model.init(seed, "cuda")
+    n_params = sum(t.numel() for t in _tensors(params))
+    print(f"{arch} run B (published widths, cut depth): {cfg.num_layers} layers, {n_params} parameters "
+          f"({n_params * 2 / 1e9:.2f} GB in bf16, {n_params * 4 / 1e9:.2f} GB in fp32)")
+    print(f"{arch} reduced: num_layers {full.num_layers} → {cfg.num_layers}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda")
+    ops.reset_launch_counts()
+    gen_out = serve.greedy_generate(bundle, params, tokens, STEPS)  # the main path
+    counts = ops.launch_counts()
+    require(counts == expected, f"{arch} run B launch counts {counts} != {expected}")
+    for lg in gen_out.logits:
+        require(lg.shape == (B, cfg.padded_vocab) and bool(torch.isfinite(lg).all()), f"{arch} run B: bad logits")
+    print(f"{arch} run B main path launches: {counts} (expected {expected}); prefill {gen_out.prefill_s * 1e3:.3f} "
+          f"ms, decode {gen_out.decode_s_per_token * 1e3:.3f} ms/token")
+
+    plain = make_serve_bundle(cfg, max_len=MAX_LEN, ops=ops.PLAIN)
+    fault = ("decode_attention: each group's heads 4-5 (the last two) take head 3's output",
+             make_serve_bundle(cfg, max_len=MAX_LEN, ops=planted("decode_attention", decode_group_tail_copies_head_3)))
+    ops.reset_launch_counts()
+    plain_bf16 = teacher_forced(plain, params, tokens, gen_out.tokens)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    fault_bf16 = teacher_forced(fault[1], params, tokens, gen_out.tokens)
+    free_memory()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _to_float32(params)
+    print(f"{arch} run B weights widened to fp32 in place: "
+          f"{sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9:.2f} GB, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, {time.perf_counter() - t0:.1f} s")
+    ops.reset_launch_counts()
+    exact = teacher_forced(plain, params, tokens, gen_out.tokens)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    kernel_fp32 = teacher_forced(bundle, params, tokens, gen_out.tokens)
+    require(ops.launch_counts() == expected, f"{arch} run B fp32 kernel-path launches {ops.launch_counts()}")
+    fault_fp32 = teacher_forced(fault[1], params, tokens, gen_out.tokens)
+    print(f"{arch} run B fp32 runs: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params
+    free_memory()
+    logits_gates(f"{arch} run B ", gen_out.logits, plain_bf16, exact,
+                 fp32=("kernels vs plain, fp32", kernel_fp32, exact),
+                 faults=[(fault[0], fault_bf16, fault_fp32, ("bf16", "fp32"))])
+    del bundle, plain, fault
+    free_memory()
+    print(f"{arch} run B: {time.perf_counter() - t_run:.1f} s")
+    return counts
+
+
+def published_phase(seed: int, name_power: str) -> dict:
+    """qwen3-32b and internlm2-20b served at published width on the card:
+    each one's run A (published depth, bf16), then its run B (16 layers,
+    the logits gates in bf16 and fp32). Returns each run's main-path
+    launches by run."""
+    t_phase = time.perf_counter()
+    counts = {}
+    for arch in PUB_ARCHS:
+        counts[f"{arch} run A"] = published_run_a(arch, seed, name_power)
+        counts[f"{arch} run B"] = published_run_b(arch, seed, name_power)
+    print(f"published phase (qwen3-32b and internlm2-20b, runs A and B): {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def teacher_forced_by_sequence(bundle, params, prompt, generated) -> list:
     """``teacher_forced`` one sequence at a time, the logits stacked back into
     the batch: the plain attention's fp32 scores for the whole batch at
@@ -2048,8 +2294,13 @@ def print_breakdown(bundle, params, tokens, first, prompt_len: int = PROMPT, fra
     profiled("decode step", lambda: bundle.decode_fn(params, cache, first, prompt_len))
 
 
+# The last profile of each label (``profiled``): host enqueue, wall and device busy ms.
+PROFILES = {}
+
+
 def profiled(label: str, fn):
-    """Run ``fn`` once under torch.profiler; print its host and device times."""
+    """Run ``fn`` once under torch.profiler; print its host and device times
+    (and keep them in ``PROFILES``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2077,6 +2328,7 @@ def profiled(label: str, fn):
     shown = f"device busy {busy:.3f} ms in {kernels} kernels ({parts})" if busy else "device time not measured"
     if experts is not None:
         shown += f"; of which the MoE expert products (3 bmm + SwiGLU a layer) {experts:.3f} ms"
+    PROFILES[label] = {"enqueue_ms": enqueue * 1e3, "wall_ms": wall * 1e3, "busy_ms": busy}
     print(f"profile {label}: host enqueue {enqueue * 1e3:.3f} ms, wall {wall * 1e3:.3f} ms, {shown}")
     for ms, count, key in sorted(other, reverse=True)[:4]:  # what "other" is made of
         print(f"  other: {ms:.3f} ms in {count} x {key[:90]}")
@@ -3646,17 +3898,26 @@ def main() -> int:
     jamba_counts = jamba_phase(args.seed)
     free_memory()
     print(f"jamba-1.5-large-398b, the served period and its FSDP mesh serve: {time.perf_counter() - t_jb:.1f} s")
+    # qwen3-32b and internlm2-20b at published width; only internlm2-20b's
+    # launcher runs (a second init of qwen3-32b's 65.5 GB would cost its time)
+    t_pub = time.perf_counter()
+    published_counts = published_phase(args.seed, name_power)
+    launcher_phase("internlm2-20b", B, PROMPT, PUB_LAUNCHER_STEPS, args.seed)
+    free_memory()
+    print(f"qwen3-32b and internlm2-20b, runs A and B and the internlm2-20b launcher: "
+          f"{time.perf_counter() - t_pub:.1f} s")
 
     train_counts, mesh_counts = training_phases(args.seed)
     train_launcher_phase(args.seed)
     colo_counts, colo_measured = colocation_phase(args.seed, name_power)
     scheduling_phase(colo_measured, name_power)
-    # a kernel's launches: the smoke zoo's launcher runs and the demos', the six
-    # serve paths' (h2o-danube-1.8b's two runs), the four training runs', the
-    # mesh runs' and the co-located rounds'
+    # a kernel's launches: the smoke zoo's launcher runs and the demos', the eight
+    # serve paths' (h2o-danube-1.8b's two runs, qwen3-32b's and internlm2-20b's
+    # runs A and B), the four training runs', the mesh runs' and the co-located rounds'
     paths = [("smoke zoo", zoo_counts), ("demos", demo_counts), (ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [
         (f"{DN_ARCH} run {r}", c) for r, c in danube_counts.items()] + [
-        (DS_ARCH, deepseek_counts), (SM_ARCH, seamless_counts), (JB_ARCH, jamba_counts)] + [
+        (DS_ARCH, deepseek_counts), (SM_ARCH, seamless_counts), (JB_ARCH, jamba_counts)] + list(
+        published_counts.items()) + [
         (f"mesh serve {a}", c) for a, c in MESH_SERVE_COUNTS.items()] + [
         (f"train {a}", c) for a, c in train_counts.items()] + [("mesh", mesh_counts),
                                                                 ("co-located rounds", colo_counts)]

@@ -9,7 +9,9 @@ same function and the card's bound.
 Each row (``ROWS``) is one kernel at one shape, from one place: the
 reference's four rows (``group`` "reference", the shapes of
 ``benchmarks/kernels_bench.py``), the serve and training paths' shapes
-(``chip_smoke.py``'s cells, by config), the decode kernel's ``lse`` output,
+(``chip_smoke.py``'s cells, by config; "published": qwen3-32b and
+internlm2-20b at published width, GQA groups 8 and 6, qwen3-32b's qk-norm
+rows), the decode kernel's ``lse`` output,
 the smoke configs' attention ("smoke": flash at head dims (16, 16) and
 (24, 16), decode at 16, at ``chip_smoke.py``'s smoke zoo's batch 2, 40-token
 prompt and 8 decode steps), and shapes that no path runs yet ("a7": flash
@@ -139,7 +141,6 @@ ROWS: List[Row] = [
     # minitron-8b served (batch 4, prompt 500, 32 steps)
     rms("minitron", "minitron-8b prefill", 2000, 4096, host=True),
     rms("minitron", "minitron-8b decode step", 4, 4096),
-    rms("minitron", "qwen3-32b's d_model at minitron's prefill rows", 2000, 5120),
     flash("minitron", "minitron-8b prefill", 4, 32, 8, 500, 500, 128),
     flash("minitron", "minitron-8b prefill, the model's views", 4, 32, 8, 500, 500, 128, views=True),
     decode("minitron", "minitron-8b decode", 4, 32, 8, 532, 128, host=True),
@@ -196,6 +197,20 @@ ROWS: List[Row] = [
     decode("jamba", "jamba decode, the 2032-slot cache full", 4, 64, 8, 2032, 128),
     ssd("jamba", "jamba prefill (tensor-core kernel)", 4, 2000, 128, 128, 1, 64),
     ssd("jamba", "jamba prefill, fp32 B/C (generic kernel)", 4, 2000, 128, 128, 1, 64, bc="fp32"),
+    # qwen3-32b (GQA 64/8, qk-norm) and internlm2-20b (GQA 48/8, group 6) served at published width
+    # (batch 4, prompt 500, 32 steps)
+    rms("published", "qwen3-32b prefill", 2000, 5120),
+    rms("published", "qwen3-32b decode step", 4, 5120),
+    rms("published", "qwen3-32b prefill q qk-norm (4 x 500 tokens, 64 heads)", 128000, 128),
+    rms("published", "qwen3-32b prefill k qk-norm (8 heads)", 16000, 128),
+    rms("published", "qwen3-32b decode step q qk-norm", 256, 128),
+    rms("published", "qwen3-32b decode step k qk-norm", 32, 128),
+    rms("published", "internlm2-20b prefill", 2000, 6144),
+    rms("published", "internlm2-20b decode step", 4, 6144),
+    flash("published", "qwen3-32b prefill, the model's views", 4, 64, 8, 500, 500, 128, views=True),
+    flash("published", "internlm2-20b prefill (group 6), the model's views", 4, 48, 8, 500, 500, 128, views=True),
+    decode("published", "qwen3-32b decode, the 532-slot cache full", 4, 64, 8, 532, 128),
+    decode("published", "internlm2-20b decode (group 6), the 532-slot cache full", 4, 48, 8, 532, 128),
     # the decode kernel's log-sum-exp, what a mesh merges
     decode("lse", "minitron-8b decode with lse", 4, 32, 8, 532, 128, lse=True),
     decode("lse", "h2o-danube-1.8b ring with lse", 4, 32, 8, 4096, 80, lse=True),

@@ -19,7 +19,7 @@ PORT = ROOT / "src" / "repro_torch"
 
 # Runs in a fresh interpreter whose imports of jax and repro (not repro_torch) fail.
 _BLOCKED_IMPORTS = r"""
-import importlib, importlib.abc, pkgutil, sys
+import importlib, importlib.abc, pathlib, pkgutil, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -34,6 +34,9 @@ assert "repro_torch.models.encdec" in names, names
 twins = {f"repro_torch.examples.{m}" for m in ("colocation_demo", "train_lm", "bridge_demo", "quickstart",
                                               "elastic_demo", "failure_recovery", "telemetry_demo")}
 assert twins | {"repro_torch.tools.chaos_replay", "repro_torch.tools.replay_report"} <= set(names), names
+root = pathlib.Path(repro_torch.__path__[0])  # every source file of the package is among the modules imported
+files = {".".join(("repro_torch",) + p.relative_to(root).with_suffix("").parts) for p in root.rglob("*.py")}
+assert {f.removesuffix(".__init__") for f in files} <= set(names) | {"repro_torch"}, sorted(files - set(names))
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -4,8 +4,9 @@ package's ``benchmarks/kernels_bench.py``) on the CPU.
 * Its rows cover the reference's four and every shape of ``PERF.md``'s
   table of kernels (``PATH_SHAPES``: the serve and training paths, the
   training rows' Functions, the decode kernel's ``lse``), the smoke
-  configs' attention (head dims (16, 16) and (24, 16), decode at 16), and
-  the shapes that no path runs yet.
+  configs' attention (head dims (16, 16) and (24, 16), decode at 16),
+  qwen3-32b's and internlm2-20b's at published width, and the shapes that
+  no path runs yet.
 * At the reference's four shapes the plain versions, on the row's own
   inputs, match the JAX package's ``kernels/ref.py`` (bf16 2e-2, the SSD
   scan in fp32 2e-4).
@@ -68,6 +69,18 @@ PATH_SHAPES = [
     ("ssd_scan", dict(b=4, s=2000, h=128, p=128, g=1, n=64, bc="bf16")),
     ("ssd_scan", dict(b=4, s=2000, h=128, p=128, g=1, n=64, bc="fp32")),
 ]
+# qwen3-32b and internlm2-20b served at published width: rmsnorm at d_model 5120 and 6144 and on qwen3-32b's
+# qk-norm rows, flash and decode at GQA groups 8 and 6
+PUBLISHED_SHAPES = [
+    ("rmsnorm", dict(rows=2000, d=5120)), ("rmsnorm", dict(rows=4, d=5120)),
+    ("rmsnorm", dict(rows=128000, d=128)), ("rmsnorm", dict(rows=16000, d=128)),
+    ("rmsnorm", dict(rows=256, d=128)), ("rmsnorm", dict(rows=32, d=128)),
+    ("rmsnorm", dict(rows=2000, d=6144)), ("rmsnorm", dict(rows=4, d=6144)),
+    ("flash_attention", dict(b=4, h=64, hkv=8, sq=500, sk=500, dqk=128, dv=128, causal=True, views=True)),
+    ("flash_attention", dict(b=4, h=48, hkv=8, sq=500, sk=500, dqk=128, dv=128, causal=True, views=True)),
+    ("decode_attention", dict(b=4, h=64, hkv=8, s=532, d=128, valid=532)),
+    ("decode_attention", dict(b=4, h=48, hkv=8, s=532, d=128, valid=532)),
+]
 # ROADMAP A7's shapes that no path runs yet
 NEW_SHAPES = [
     ("flash_attention", dict(dqk=32, dv=32)), ("decode_attention", dict(d=32)),
@@ -90,7 +103,7 @@ def _has(kernel: str, shape: dict) -> bool:
     return any(r.kernel == kernel and all(r.dims.get(k) == v for k, v in shape.items()) for r in timing.ROWS)
 
 
-@pytest.mark.parametrize("kernel,shape", REFERENCE_SHAPES + PATH_SHAPES + NEW_SHAPES + SMOKE_SHAPES)
+@pytest.mark.parametrize("kernel,shape", REFERENCE_SHAPES + PATH_SHAPES + PUBLISHED_SHAPES + NEW_SHAPES + SMOKE_SHAPES)
 def test_rows_cover_the_reference_and_every_path_shape(kernel, shape):
     assert _has(kernel, shape)
 

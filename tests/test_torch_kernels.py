@@ -1285,3 +1285,81 @@ def test_kernels_refuse_head_dim_8(cuda):
     cache = torch.ones(1, 64, 2, 8, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 8"):
         ops.decode_attention(torch.ones(1, 2, 8, device=cuda, dtype=torch.bfloat16), cache, cache, 4)
+
+
+# qwen3-32b (GQA 64/8, qk-norm) and internlm2-20b (GQA 48/8) served at
+# published width: batch 4, prompt 500, decode over the 532-slot cache. Decode
+# at every group below its kernel instance's query slots (3 in the 4-slot
+# instance; 5, 6 and 7 in the 8-slot one, internlm2-20b's 6 among them) and at
+# qwen3-32b's 8; flash at groups 6 and 8 (and a ragged group-6 shape); rmsnorm
+# at d_model 5120 and 6144 and on qk-norm's 128-wide rows of the (B, S, H, D)
+# projections, with an fp32 scale.
+GROUP_DECODE = [(4, 8 * g, 8, 532, 128, v) for g in (3, 5, 6, 7, 8) for v in (1, 300, 532)]
+PUBLISHED_ATTN = [(4, 500, 48, 8), (4, 500, 64, 8), (2, 129, 12, 2)]
+PUBLISHED_RMSNORM = [(2000, 5120), (4, 5120), (2000, 6144), (4, 6144)]
+QK_NORM_ROWS = [(4, 500, 64), (4, 500, 8), (4, 1, 64), (4, 1, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("case", GROUP_DECODE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_below_the_instance_group(case, lse, dtype, rng, cuda):
+    """The query heads a group leaves unused in its instance are neither
+    written nor merged: the output (and ``lse``) against the plain version,
+    and the output the same with and without ``lse``."""
+    B, H, Hkv, S, D, valid = case
+    q, k, v = (_t(a, dtype, cuda) for a in (
+        _np(rng, B, H, D), _np(rng, B, S, Hkv, D), _np(rng, B, S, Hkv, D)))
+    n = decode_mod.launches
+    out = ops.decode_attention(q, k, v, valid, return_lse=lse)
+    torch.cuda.synchronize()
+    assert decode_mod.launches == n + 1
+    plain = ref.decode_attention_ref(q, k, v, valid, return_lse=lse)
+    if lse:
+        (out, got), (plain, want) = out, plain
+        assert got.shape == (B, H) and float((got - want).abs().max()) <= _tol(dtype)
+        assert torch.equal(out, ops.decode_attention(q, k, v, valid))
+    _close(out, plain, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", PUBLISHED_ATTN)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_at_the_published_groups(shape, dtype, rng, cuda):
+    """Groups 6 and 8 at D 128 on the (B, S, H, D) projections viewed (B, H,
+    S, D), causal: internlm2-20b's and qwen3-32b's prefills."""
+    B, S, H, Hkv = shape
+    q, k, v = (_t(_np(rng, B, S, h, 128), dtype, cuda).transpose(1, 2) for h in (H, Hkv, Hkv))
+    n = flash_mod.launches
+    out = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == n + 1
+    _close(out, ref.attention_ref(q, k, v), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d", PUBLISHED_RMSNORM)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_at_the_published_widths(rows, d, dtype, rng, cuda):
+    x = _t(_np(rng, rows, d), dtype, cuda)
+    scale = torch.from_numpy(_np(rng, d)).to(cuda)
+    n = rmsnorm_mod.launches
+    out = ops.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert rmsnorm_mod.launches == n + 1
+    _close(out, ref.rmsnorm_ref(x, scale), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", QK_NORM_ROWS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_on_qk_norm_rows(shape, dtype, rng, cuda):
+    """qwen3-32b's ``head_rmsnorm``: (B, S, H, 128) q or k, an fp32 scale of 128."""
+    x = _t(_np(rng, *shape, 128), dtype, cuda)
+    scale = torch.from_numpy(_np(rng, 128)).to(cuda)
+    n = rmsnorm_mod.launches
+    out = ops.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert rmsnorm_mod.launches == n + 1 and out.shape == x.shape
+    _close(out, ref.rmsnorm_ref(x, scale), dtype)
