@@ -33,7 +33,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    64, GQA group 2 and MHA, S 1, 127, 129; contiguous and as the models'
    views) and decode at D 16 (groups 2 and 1, valid 1, 15, 17, 41 and 48,
    with and without ``lse``), each with a planted fault the check must
-   catch;
+   catch; the published-width training shapes (``check_train_functions``):
+   the RMSNorm and FlashAttention Functions (the kernel forward, the plain
+   backward) against autograd through the plain versions, bf16 and fp32, at
+   minitron-8b's, qwen3-32b's, internlm2-20b's and h2o-danube-1.8b's
+   d_model over 8192 rows, qwen3-32b's qk-norm over 524,288 and 65,536
+   rows of 128 (an fp32 scale, dscale summed over every row), flash at
+   groups 4, 8 and 6 over 4 x 2048 and h2o-danube-1.8b's window at 1 x 8192
+   (its backward through ``banded_attention``'s band), the forward and dq,
+   dk, dv (dx, dscale) each within 2e-2 / 2e-5; internvl2-2b's serve shapes
+   (flash at group 2 over S 500, decode over 532 slots);
 2b. the smoke zoo (``smoke_zoo_phase``): each of the ten configs of
    ``configs.ASSIGNED`` at its smoke size through ``launch/serve.py --smoke``
    (batch 2, a 40-token prompt, 8 decode steps) and ``launch/train.py
@@ -135,9 +144,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    bf16 path's distance, printed. Run B at 16 layers of the published widths:
    the logits gates of phase 5 with the weights widened to fp32 in place, and
    the group fault planted in the decode kernel, named for both gates;
+8c. internvl2-2b (24 layers, d_model 2048, GQA 16/8 at head_dim 128, 1.89 B
+   parameters) served at its published width and depth with its frontend
+   (``internvl2_serve_phase``): the first 256 positions of every 500-token
+   prompt are ``data/frontend.py::frontend_embeds``, as the serve launcher
+   feeds them; batch 4, 32 greedy steps over 532 slots; 49 rmsnorm + 24
+   flash a prefill and 49 + 24 decode a step, for the run and every step;
+   times, peak memory, a profile; the logits gates of phase 5 with the
+   weights widened to fp32 in place, and a flash kernel that drops the
+   frontend's rows as keys, named for both gates;
 9. launcher: ``launch/serve.py``'s command line at each model phase's sizes
    but jamba's (at full size it does not fit the card) and qwen3-32b's (a
-   second 65.5 GB init; internlm2-20b's runs 8 decode steps);
+   second 65.5 GB init; internlm2-20b's and internvl2-2b's run 8 decode
+   steps);
 10. (no phase: the training kernels and their Functions' plain backward
    passes are timed by ``python -m repro_torch.kernels.timing``; the later
    phases keep their numbers);
@@ -157,9 +176,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      with the kernels (the main path: the launches of every step counted
      and asserted, per layer two rmsnorms and one flash_attention or
      ssd_scan in the forward pass and again in its recompute, and the final
-     norm), then the same steps through the plain versions from the same
-     weights and batches: the kernel run's losses finite and falling, each
-     step's gap to the plain run;
+     norm): the losses finite and falling (no plain-versions run of the
+     steps: its one gate, that the plain path launches no kernel, the
+     gradient gate's plain runs hold);
    - step time, peak memory and energy per step (``nvidia-smi``'s power
      draw, sampled through the run) against the 8 N T bound, and a profile
      of one step;
@@ -185,6 +204,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
      flash, per decoder layer three rmsnorms, causal and cross flash, twice;
      ``enc_norm`` and the final norm); the cross-entropy over all labels;
      the non-causal-as-causal fault must break both gates;
+   - then the dense configs the card had only served, at their published
+     widths (``TrainCell``: the rate warming up as the reference's default
+     schedule): minitron-8b at 8 of its 32
+     layers (33 rmsnorm + 16 flash a step, group 4), qwen3-32b at 6 of 64
+     (49 + 12, qk-norm's two more rmsnorms a layer, group 8), internlm2-20b
+     at 8 of 48 (33 + 16, group 6), each with its ``reduced:`` line and its
+     gradient gate on 2 of the batch's 4 rows; h2o-danube-1.8b uncut at 1 x
+     8192 tokens (97 + 48, head_dim 80), past its 4096-token window and past
+     window + q_chunk, so that every step's flash backward recomputes
+     through ``banded_attention``'s band (counted by path and asserted);
+     the planted faults of ``PLANTED`` (qwen3-32b's qk-norm scale ignored,
+     caught on the ``q_norm`` and ``k_norm`` leaves; internlm2-20b's query
+     heads mapped to kv head h // 8; h2o-danube-1.8b's window ignored, and
+     its Function's backward without the window);
 12. the multi-device layer on a single-rank NCCL group (``make_smoke_mesh``,
    the (1, 1) mesh with the production axis names; the multi-rank arithmetic
    is held to the JAX package's meshes by the CPU tests): internvl2-2b and
@@ -267,11 +300,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
 ``--seed`` (default 0) draws other weights and prompts for the model phases.
 
 A kernel's ``launches`` in the ``{"kernels": [...]}`` line sum the smoke
-zoo's launcher runs and the two model demos', the eight serve
+zoo's launcher runs and the two model demos', the nine serve
 paths' (h2o-danube-1.8b's runs A and B; qwen3-32b's and internlm2-20b's runs
-A and B), the four mesh serve runs', the four
-7-step training runs', deepseek-v3-671b's 3 mesh steps, the mesh phase's
-3-step runs and the co-located rounds'.
+A and B; internvl2-2b's with its frontend), the four mesh serve runs', the
+eight 7-step training runs', deepseek-v3-671b's 3 mesh steps, the mesh
+phase's 3-step runs and the co-located rounds'.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and prints
@@ -282,10 +315,12 @@ standard library.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import dataclasses
 import gc
 import hashlib
+import inspect
 import io
 import json
 import math
@@ -297,6 +332,7 @@ import sys
 import threading
 import time
 import types
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -335,17 +371,19 @@ from repro_torch.data.pipeline import DataConfig, SyntheticPipeline  # noqa: E40
 from repro_torch.examples import colocation_demo  # noqa: E402
 from repro_torch.examples import train_lm as train_lm_demo  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import autograd as kernel_autograd  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels import timing  # noqa: E402
 from repro_torch.kernels.ssd_scan import ROWS as SSD_ROWS  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
+from repro_torch.models import common  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import parallel  # noqa: E402
 from repro_torch.models import params as pu  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
-from repro_torch.optim.schedules import constant  # noqa: E402
+from repro_torch.optim.schedules import constant, cosine_with_warmup  # noqa: E402
 from repro_torch.roofline import hw  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeManager, load_request_stream  # noqa: E402
 from repro_torch.serve.models import serve_models_from_profiles  # noqa: E402
@@ -396,9 +434,11 @@ DS_H, DS_NOPE, DS_DQK, DS_DV, DS_D_MODEL, DS_KV_LORA, DS_DKV = 16, 128, 192, 128
 # neared its time limit on a slower host: the loss falls in every cell by
 # step 7, internvl2-2b's only from step 7).
 TR_B, TR_SEQ, TR_STEPS, TR_LR = 4, 2048, 7, 3e-4
+TR_WARMUP = cosine_with_warmup(TR_LR, 100, 10_000)  # make_train_bundle's default, the reference's
 TR_H, TR_HKV = 16, 8  # internvl2-2b's attention heads (head_dim 128, as minitron-8b's)
 FP32_GRAD_RTOL = {"internvl2-2b": 1e-4, "mamba2-370m": SSD_TOL, DS_ARCH: 1e-4, "seamless-m4t-large-v2": 1e-4,
-                  "deepseek-v3-671b": 1e-4}
+                  "deepseek-v3-671b": 1e-4, "minitron-8b": 1e-4, "qwen3-32b": 1e-4, "internlm2-20b": 1e-4,
+                  "h2o-danube-1.8b": 1e-4}
 # deepseek-v2-lite-16b trained at full width with its depth cut to 1 dense + 4
 # MoE layers (2.84 B parameters, ~34 GB with bf16 gradients and fp32 AdamW
 # state; the 27 layers would need ~188 GB): T = 8192 tokens a step, C = 960 an
@@ -440,8 +480,48 @@ MESH_SECONDS = []
 SM_ARCH, SM_B, SM_PROMPT, SM_STEPS = "seamless-m4t-large-v2", 4, 200, 32
 SM_H, SM_D, SM_FRAMES, SM_D_MODEL = 16, 64, 1024, 1024
 SM_MAX_LEN = SM_PROMPT + SM_STEPS
-# The training cells in order (config, depth cut or 0).
-TRAIN_CELLS = (("internvl2-2b", 0), ("mamba2-370m", 0), (DS_ARCH, DS_TRAIN_LAYERS), (SM_ARCH, 0))
+
+
+class TrainCell(NamedTuple):
+    """A training cell: its config, its depth cut (0: the published depth),
+    its batch and sequence; ``gate_rows``: the rows of the batch the
+    gradient gate takes (None: all); ``warmup``: the trainer's rate warms up
+    as the reference's default schedule does (``TR_WARMUP``), in place of
+    the constant ``TR_LR``."""
+
+    arch: str
+    layers: int = 0
+    batch: int = TR_B
+    seq: int = TR_SEQ
+    gate_rows: Optional[int] = None
+    warmup: bool = False
+
+
+# The dense configs the card had only served, trained at their published
+# widths. PUB_TRAIN_LAYERS: the depth the card holds with bf16 weights and
+# gradients, fp32 AdamW state (~12 bytes a parameter) and AdamW's fp32
+# temporaries of the largest leaf: minitron-8b 4.04 B parameters at 8 of 32
+# layers (at 10, 4.53 B, AdamW's update of its 256,000 x 4096 embedding ran
+# out of memory), qwen3-32b 4.48 B at 6 of 64, internlm2-20b 4.26 B at 8 of
+# 48; h2o-danube-1.8b uncut, 1.83 B, at 1 x 8192 tokens, past its 4096-token
+# window (its last 4096 queries lose their earliest keys) and past window +
+# q_chunk = 5120, where the flash Function's backward recomputes through
+# ``banded_attention``'s band. The gradient gates of the depth-cut cells take
+# PUB_GATE_ROWS of the batch's 4 rows, for the script's time: the fp32 passes
+# scale with the tokens, and at 2 rows the gates' three fp32 trees fit the
+# card beside the activations (57-69 GB), so the fp32 kernel-path gradient is
+# not parked on the host (a copy of 16-18 GB each way). These cells warm
+# their rate up: at the constant TR_LR their losses jump from step 2 (from
+# ~12 to 23-36) through the plain versions as through the kernels
+# (``python -m repro_torch.train.trajectories --layers``; PERF.md).
+PUB_GATE_ROWS = 2
+PUB_TRAIN_LAYERS = {"minitron-8b": 8, "qwen3-32b": 6, "internlm2-20b": 8}
+DN_TRAIN_B, DN_TRAIN_SEQ = 1, 8192
+# The training cells in order.
+TRAIN_CELLS = (TrainCell("internvl2-2b"), TrainCell(MB_ARCH), TrainCell(DS_ARCH, DS_TRAIN_LAYERS),
+               TrainCell(SM_ARCH)) + tuple(
+    TrainCell(arch, layers, gate_rows=PUB_GATE_ROWS, warmup=True) for arch, layers in PUB_TRAIN_LAYERS.items()) + (
+    TrainCell(DN_ARCH, 0, DN_TRAIN_B, DN_TRAIN_SEQ, warmup=True),)
 # The jamba-1.5-large-398b phase (the hybrid layout): one period of its 72
 # layers (ssm x4, attn, ssm x3; MoE at positions 1, 3, 5 and 7, SwiGLU at the
 # others) at the published widths (d_model 8192, GQA 64/8 at head_dim 128,
@@ -464,6 +544,11 @@ JB_MAX_LEN = JB_PROMPT + JB_STEPS
 # the weights widened to fp32 fit (qwen3-32b 9.36 B parameters, 37.4 GB in
 # fp32; internlm2-20b 7.38 B, 29.5 GB).
 PUB_ARCHS = ("qwen3-32b", "internlm2-20b")
+# internvl2-2b served with its frontend (internvl2_serve_phase) at the same
+# traffic: 24 layers, d_model 2048, GQA 16/8 (TR_H, TR_HKV) at head_dim 128,
+# 1.89 B parameters (7.6 GB in fp32, so the gates run at the published depth);
+# the first 256 positions of each 500-token prompt are the frontend's.
+IV_ARCH = "internvl2-2b"
 PUB_B_LAYERS = 16
 PUB_LAUNCHER_STEPS = 8
 QW_H, IL_H = 64, 48  # query heads over HKV (8) kv heads at D 128: groups 8 and 6
@@ -589,9 +674,13 @@ RMS_SLICES = [(B * PROMPT, D_MODEL), (B, D_MODEL)] + [
 # scalars.
 RMS_ODD = [(300, 128), (700, 64), (1200, 32), (33, 2560), (300, 5120), (257, 6144), (5, 7168),
            (2001, 72), (7, 36)]
-# The training cells' rows (batch 4 x 2048 tokens): internvl2-2b's d_model and
-# mamba2-370m's d_inner, mamba2-370m's d_model.
+# The training cells' rows (8192 tokens a step): internvl2-2b's d_model and
+# mamba2-370m's d_inner, mamba2-370m's d_model; the published-width cells'
+# d_model: minitron-8b 4096, qwen3-32b 5120, internlm2-20b 6144,
+# h2o-danube-1.8b 2560 (its 1 x 8192).
 RMS_TRAIN = [(TR_B * TR_SEQ, 2048), (TR_B * TR_SEQ, 1024)]
+RMS_PUB_TRAIN = [(TR_B * TR_SEQ, d) for d in (D_MODEL, QW_D_MODEL, IL_D_MODEL)] + [
+    (DN_TRAIN_B * DN_TRAIN_SEQ, DN_D_MODEL)]
 # h2o-danube-1.8b's prefill rows (run A) and decode step, d_model 2560.
 RMS_DANUBE = [(DN_B * DN_PROMPT, DN_D_MODEL), (DN_B, DN_D_MODEL)]
 # deepseek-v2-lite-16b's prefill rows and decode step, d_model 2048; its
@@ -609,9 +698,13 @@ RMS_JAMBA = [(rows, d) for rows in (JB_B * JB_PROMPT, JB_B) for d in (JB_D_MODEL
 # qwen3-32b's and internlm2-20b's rows at published width (d_model 5120 and
 # 6144), the prefill's and a decode step's; qwen3-32b's qk-norm
 # (``head_rmsnorm``) on the (B, S, H, 128) q and k projections, fp32 scale:
-# the prefill's 128,000 and 16,000 rows, a decode step's 256 and 32.
+# the prefill's 128,000 and 16,000 rows, a decode step's 256 and 32, a
+# training step's 524,288 and 65,536 (4 x 2048 tokens).
 RMS_PUBLISHED = [(rows, d) for d in (QW_D_MODEL, IL_D_MODEL) for rows in (B * PROMPT, B)]
-QK_NORM = [(B, s, h) for s in (PROMPT, 1) for h in (QW_H, HKV)]
+QK_NORM = [(B, s, h) for s in (PROMPT, 1) for h in (QW_H, HKV)] + [(TR_B, TR_SEQ, h) for h in (QW_H, HKV)]
+# internvl2-2b served (batch 4, prompt 500, 32 steps): d_model 2048 at the
+# prefill's rows and a decode step's.
+RMS_INTERNVL = [(B * PROMPT, 2048), (B, 2048)]
 
 
 def check_rmsnorm(gen) -> float:
@@ -621,12 +714,14 @@ def check_rmsnorm(gen) -> float:
     ragged = [(rows, d) for d in (1024, 2048, D_MODEL) for rows in (1, B * PROMPT + 1, MB_B * MB_PROMPT + 1)]
     for dtype in DTYPES:
         for rows, d in ([(4, 64), (100, 128), (257, 256), (33, 100)] + RMS_SLICES + RMS_TRAIN + RMS_DANUBE
-                        + RMS_DEEPSEEK + RMS_SEAMLESS + RMS_JAMBA + RMS_PUBLISHED + ragged + RMS_ODD):
+                        + RMS_DEEPSEEK + RMS_SEAMLESS + RMS_JAMBA + RMS_PUBLISHED + RMS_PUB_TRAIN + RMS_INTERNVL
+                        + ragged + RMS_ODD):
             x, scale = randn(gen, rows, d, dtype=dtype), randn(gen, d, dtype=torch.float32)
             err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
             print(f"check rmsnorm {str(dtype)[6:]} rows={rows} d={d}: max_abs_err={err:.3e}")
             if dtype == torch.bfloat16 and (rows, d) in (RMS_SLICES + RMS_TRAIN + RMS_DANUBE + RMS_DEEPSEEK
-                                                         + RMS_SEAMLESS + RMS_JAMBA + RMS_PUBLISHED):
+                                                         + RMS_SEAMLESS + RMS_JAMBA + RMS_PUBLISHED + RMS_PUB_TRAIN
+                                                         + RMS_INTERNVL):
                 worst = max(worst, err)
         for b, s, h in QK_NORM:
             x, scale = randn(gen, b, s, h, D, dtype=dtype), randn(gen, D, dtype=torch.float32)
@@ -645,7 +740,7 @@ def check_rmsnorm(gen) -> float:
                 if dtype == torch.bfloat16 and width == DS_DKV:
                     worst = max(worst, err)
         # contiguous rows that start one element past a 16-byte boundary
-        for rows, d in RMS_SLICES + RMS_TRAIN + RMS_DANUBE:
+        for rows, d in RMS_SLICES + RMS_TRAIN + RMS_DANUBE + RMS_PUB_TRAIN:
             flat = randn(gen, rows * d + 1, dtype=dtype)
             x, scale = flat[1:].view(rows, d), randn(gen, d, dtype=torch.float32)
             err = max_abs_err(ops.rmsnorm(x, scale), ref.rmsnorm_ref(x, scale), dtype)
@@ -670,6 +765,9 @@ def check_flash(gen) -> float:
         (TR_B, TR_H, TR_HKV, TR_SEQ, TR_SEQ, D, True, None),  # internvl2-2b's training forward
         (B, QW_H, HKV, PROMPT, PROMPT, D, True, None),  # qwen3-32b's prefill (group 8)
         (B, IL_H, HKV, PROMPT, PROMPT, D, True, None),  # internlm2-20b's prefill (group 6)
+        (B, TR_H, TR_HKV, PROMPT, PROMPT, D, True, None),  # internvl2-2b's prefill (group 2)
+    ] + [  # the published-width training forwards: minitron-8b, qwen3-32b, internlm2-20b (groups 4, 8, 6)
+        (TR_B, h, HKV, TR_SEQ, TR_SEQ, D, True, None) for h in (H, QW_H, IL_H)
     ] + [  # the edges of the 128-row tiles and 64-key tiles, every head dim
         (1, 4, 2, s, s, d, True, None) for s in (1, 127, 129, PROMPT) for d in (32, 64, 80, 128)
     ] + [  # windows that start inside a 128-row tile
@@ -685,17 +783,25 @@ def check_flash(gen) -> float:
                   f"causal={causal} window={window}: max_abs_err={err:.3e}")
             if dtype == torch.bfloat16 and (b, h, sq, sk, causal, window) in (
                     (B, H, PROMPT, PROMPT, True, None), (TR_B, TR_H, TR_SEQ, TR_SEQ, True, None),
-                    (B, QW_H, PROMPT, PROMPT, True, None), (B, IL_H, PROMPT, PROMPT, True, None)):
+                    (B, QW_H, PROMPT, PROMPT, True, None), (B, IL_H, PROMPT, PROMPT, True, None),
+                    (B, TR_H, PROMPT, PROMPT, True, None)) + tuple(
+                    (TR_B, h, TR_SEQ, TR_SEQ, True, None) for h in (H, QW_H, IL_H)):
                 worst = max(worst, err)
         # the prefills and the training forward as the model passes them: (B, S, H, D)
         # projections viewed (B, H, S, D); h2o-danube-1.8b's with its window, D 80,
         # held to the plain version one sequence at a time (its fp32 scores for the
-        # whole batch would be 19.3 GB); qwen3-32b's and internlm2-20b's prefills
+        # whole batch would be 19.3 GB); qwen3-32b's and internlm2-20b's prefills;
+        # internvl2-2b's prefill; the published-width training forwards (h2o-danube-1.8b's
+        # at 1 x 8192 with its window)
         for b, h, hkv, s, d, window in ((B, H, HKV, PROMPT, D, None), (TR_B, TR_H, TR_HKV, TR_SEQ, D, None),
                                         (B, QW_H, HKV, PROMPT, D, None), (B, IL_H, HKV, PROMPT, D, None),
                                         (1, DN_H, DN_HKV, 300, DN_D, 100),
                                         (DN_B, DN_H, DN_HKV, DN_PROMPT, DN_D, DN_WINDOW),
-                                        (JB_B, JB_H, JB_HKV, JB_PROMPT, JB_D, None)):
+                                        (JB_B, JB_H, JB_HKV, JB_PROMPT, JB_D, None),
+                                        (B, TR_H, TR_HKV, PROMPT, D, None),
+                                        (TR_B, H, HKV, TR_SEQ, D, None), (TR_B, QW_H, HKV, TR_SEQ, D, None),
+                                        (TR_B, IL_H, HKV, TR_SEQ, D, None),
+                                        (DN_TRAIN_B, DN_H, DN_HKV, DN_TRAIN_SEQ, DN_D, DN_WINDOW)):
             q, k, v = (randn(gen, b, s, n, d, dtype=dtype).transpose(1, 2) for n in (h, hkv, hkv))
             err = max_abs_err(ops.flash_attention(q, k, v, window=window), attention_by_sequence(q, k, v, window), dtype)
             print(f"check flash_attention {str(dtype)[6:]} {(b, h, hkv, s, s, d)} causal=True window={window}, "
@@ -734,6 +840,131 @@ def check_flash(gen) -> float:
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
         worst = max(worst, check_smoke_flash(gen, dtype))
+    return worst
+
+
+# The published-width training cells' shapes through the autograd Functions
+# (``kernels/autograd.py``: the kernel forward, the plain backward), as the
+# models pass them: rmsnorm at the cells' (rows, d_model) and on qwen3-32b's
+# qk-norm rows of 128 with an fp32 scale, (B, S, H, 128); flash on the
+# (B, S, H, D) projections viewed (B, H, S, D), (B, H, Hkv, S, D, window):
+# groups 4, 8 and 6 at 4 x 2048, h2o-danube-1.8b's window at 1 x 8192, whose
+# backward recomputes through ``banded_attention``'s band.
+FN_RMSNORM = [((rows, d), None) for rows, d in RMS_PUB_TRAIN] + [
+    ((TR_B, TR_SEQ, h, D), "qk-norm") for h in (QW_H, HKV)]
+FN_FLASH = [(TR_B, h, HKV, TR_SEQ, D, None) for h in (H, QW_H, IL_H)] + [
+    (DN_TRAIN_B, DN_H, DN_HKV, DN_TRAIN_SEQ, DN_D, DN_WINDOW)]
+
+
+@contextlib.contextmanager
+def band_paths():
+    """``models/common.py::banded_attention``'s calls while the block runs,
+    by the path each takes, read from its arguments by its own condition:
+    "fallback" (masked full attention over every key) where Sk <= window +
+    q_chunk or Sq != Sk, else "band" (only the keys of the band read)."""
+    counts = {"band": 0, "fallback": 0}
+    banded = common.banded_attention
+    q_chunk_default = inspect.signature(banded).parameters["q_chunk"].default
+
+    def banded_attention(q, k, v, *, window, q_chunk=q_chunk_default):
+        sq, sk = q.shape[1], k.shape[1]
+        counts["fallback" if sk <= window + q_chunk or sq != sk else "band"] += 1
+        return banded(q, k, v, window=window, q_chunk=q_chunk)
+
+    common.banded_attention = banded_attention
+    try:
+        yield counts
+    finally:
+        common.banded_attention = banded
+
+
+def function_against_plain(gen, fn, plain, inputs, dtype, shown=None) -> tuple:
+    """``fn`` through its autograd Function and autograd through ``plain``
+    on the same inputs and the same seeded output gradient: (the forward's
+    max error, the input gradients' largest, and where ``shown`` is given
+    the largest distance of autograd through ``shown`` from ``plain``'s,
+    not gated), the first two within the dtype's tolerance
+    (``max_abs_err``); the backward launches no kernel."""
+    out = fn(*inputs)
+    require(out.grad_fn is not None, "the kernel path did not go through its Function")
+    exp = plain(*inputs)
+    fwd = max_abs_err(out.detach(), exp.detach(), dtype)
+    dout = randn(gen, *out.shape, dtype=out.dtype)
+    before = ops.launch_counts()
+    got = torch.autograd.grad(out, inputs, dout)
+    require(ops.launch_counts() == before, "a Function's backward launched a kernel")
+    del out
+    want = torch.autograd.grad(exp, inputs, dout)
+    del exp
+    bwd = max(max_abs_err(g, w, dtype) for g, w in zip(got, want))
+    del got
+    other = None
+    if shown is not None:
+        other = max(float((g.float() - w.float()).abs().max())
+                    for g, w in zip(torch.autograd.grad(shown(*inputs), inputs, dout), want))
+    del want
+    free_memory()
+    return fwd, bwd, other
+
+
+def widened_attention(q, k, v, *, causal=True, window=None):
+    """The plain attention on q, k and v widened to fp32, cast back: its
+    autograd sums a GQA group's head gradients in fp32, as the flash
+    Function's backward does, where the plain version on bf16 inputs repeats
+    the kv heads before widening and so sums them in bf16; at groups 4-8
+    over 4 x 2048 tokens that bf16 sum breaks the 2e-2 rule against the
+    Function on some elements (``check_train_functions`` prints its
+    distance; ROADMAP C13)."""
+    return ref.attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window).to(q.dtype)
+
+
+def check_train_functions(gen) -> dict:
+    """The RMSNorm and FlashAttention Functions at ``FN_RMSNORM`` and
+    ``FN_FLASH``, bf16 and fp32, against autograd through the plain versions
+    (2e-2 / 2e-5, the kernel tests' tolerances; flash's on its inputs widened
+    to fp32, ``widened_attention``): the forward and dx (dq, dk, dv), and
+    rmsnorm's fp32 dscale summed over every row. The elementwise hold on a
+    fault that the gradient gate cannot see (ROADMAP C6). Returns each
+    kernel's largest bf16 forward error."""
+    t0 = time.perf_counter()
+    worst = {"rmsnorm": 0.0, "flash_attention": 0.0}
+    for dtype in DTYPES:
+        for shape, what in FN_RMSNORM:
+            x = randn(gen, *shape, dtype=dtype).requires_grad_()
+            scale = randn(gen, shape[-1], dtype=torch.float32).requires_grad_()
+            fwd, bwd, _ = function_against_plain(gen, lambda a, s: ops.rmsnorm(a, s), ref.rmsnorm_ref, (x, scale),
+                                                 dtype)
+            rows = math.prod(shape[:-1])
+            print(f"check rmsnorm Function {str(dtype)[6:]} rows={rows} d={shape[-1]}"
+                  f"{' (' + what + ' on (B, S, H, D) ' + str(shape) + ', fp32 scale)' if what else ''}: forward "
+                  f"max_abs_err={fwd:.3e}, dx and dscale (summed over {rows} rows) {bwd:.3e}")
+            if dtype == torch.bfloat16:
+                worst["rmsnorm"] = max(worst["rmsnorm"], fwd)
+            del x, scale
+        for b, h, hkv, s, d, window in FN_FLASH:
+            q, k, v = (randn(gen, b, s, n, d, dtype=dtype).requires_grad_() for n in (h, hkv, hkv))
+
+            def views(fn):
+                return lambda q, k, v: fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+                                          window=window)
+
+            with band_paths() as paths:
+                fwd, bwd, bf16_sum = function_against_plain(
+                    gen, views(ops.flash_attention), views(widened_attention), (q, k, v), dtype,
+                    views(ref.attention_ref) if dtype == torch.bfloat16 else None)
+            band = ""
+            if window is not None:
+                require(paths == {"band": 1, "fallback": 0}, f"the windowed backward's banded_attention calls {paths}")
+                band = f", the backward through banded_attention's band (S {s} > window {window} + q_chunk 1024)"
+            shown = "" if bf16_sum is None else (f" (autograd through the plain version on the bf16 inputs, which "
+                                                  f"sums the group's heads in bf16: {bf16_sum:.3e}, not gated)")
+            print(f"check flash_attention Function {str(dtype)[6:]} {(b, h, hkv, s, s, d)} causal=True window={window}"
+                  f", strided (B, S, H, D) views: forward max_abs_err={fwd:.3e}, dq, dk and dv {bwd:.3e} from the "
+                  f"plain version's on the inputs widened to fp32{shown}{band}")
+            if dtype == torch.bfloat16:
+                worst["flash_attention"] = max(worst["flash_attention"], fwd)
+            del q, k, v
+    print(f"check the Functions at the published-width training shapes: ok ({time.perf_counter() - t0:.1f} s)")
     return worst
 
 
@@ -843,7 +1074,9 @@ def check_decode(gen) -> float:
                 (SM_B, SM_H, SM_H, SM_FRAMES, SM_D, v) for v in (SM_FRAMES, SM_FRAMES - 1, 17, 1)] + [
                 (SM_B, SM_H, SM_H, SM_MAX_LEN, SM_D, v) for v in (SM_PROMPT + 1, SM_MAX_LEN)] + [
                 # jamba-1.5-large-398b's decode: group 8 over its 2032-slot cache
-                (JB_B, JB_H, JB_HKV, JB_MAX_LEN, JB_D, v) for v in (JB_PROMPT + 1, JB_MAX_LEN)]
+                (JB_B, JB_H, JB_HKV, JB_MAX_LEN, JB_D, v) for v in (JB_PROMPT + 1, JB_MAX_LEN)] + [
+                # internvl2-2b's decode: group 2 over the 532-slot cache
+                (B, TR_H, TR_HKV, MAX_LEN, D, v) for v in (1, PROMPT + 1, MAX_LEN)]
     for dtype in DTYPES:
         for b, h, hkv, s, d, valid in cases:
             q = randn(gen, b, h, d, dtype=dtype)
@@ -2248,6 +2481,98 @@ def published_phase(seed: int, name_power: str) -> dict:
     return counts
 
 
+def flash_drops_keys_before(n: int):
+    """A flash kernel that drops the first ``n`` positions (a frontend's) as
+    keys: the queries past them attend to the later keys alone, the first
+    ``n`` queries, which have no key left, give 0."""
+
+    def fault(q, k, v, *, causal=True, window=None):
+        tail = ops.flash_attention(q[:, :, n:], k[:, :, n:], v[:, :, n:], causal=causal, window=window)
+        return torch.cat([tail.new_zeros(*tail.shape[:2], n, tail.shape[3]), tail], dim=2)
+
+    return fault
+
+
+def internvl2_serve_phase(seed: int, name_power: str) -> dict:
+    """internvl2-2b served at its published width and depth (24 layers,
+    d_model 2048, GQA 16/8 at head_dim 128) with its frontend: the first 256
+    positions of every prompt are ``frontend_embeds(cfg, 4, seed, 0)``, as
+    the serve launcher feeds them; minitron-8b's traffic (batch 4, prompt
+    500, 32 greedy steps, 532 slots). The main path's launches exact for the
+    run and (``counted_generate``) for the prefill and every step
+    (``serve_launches``: 49 rmsnorm + 24 flash a prefill, 49 + 24 decode a
+    step), every logit finite, the times, peak memory and a profile of a
+    prefill and of a step; then ``logits_gates`` (the plain bf16 path, fp32
+    plain and the fp32 kernel path teacher-forced on the kernel path's
+    tokens over the same embeddings, the weights widened in place) with the
+    planted fault ``flash_drops_keys_before(256)`` named for both gates.
+    Returns the main path's launches."""
+    t_run = time.perf_counter()
+    cfg = get_config(IV_ARCH)
+    per_prefill, per_step = serve_launches(cfg)
+    expected = {k: per_prefill[k] + STEPS * per_step[k] for k in KERNELS}
+    bundle = make_serve_bundle(cfg, max_len=MAX_LEN)
+    t0 = time.perf_counter()
+    params = bundle.model.init(seed, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    print(f"{IV_ARCH} served (published width and depth, bf16): {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"GQA {cfg.num_heads}/{cfg.num_kv_heads} at head_dim {cfg.resolved_head_dim}, vocab {cfg.vocab_size}; "
+          f"{n_params} parameters ({n_params * 2 / 1e9:.2f} GB in bf16, {n_params * 4 / 1e9:.2f} GB in fp32), init "
+          f"{time.perf_counter() - t0:.1f} s; prompt {PROMPT} x{B}, its first {cfg.frontend_positions} positions "
+          f"the frontend's embeddings, {STEPS} decode steps, {MAX_LEN} cache slots")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda")
+    frames = frontend_embeds(cfg, B, seed, 0, "cuda")
+
+    serve.greedy_generate(bundle, params, tokens, 2, frames)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    gen_out = serve.greedy_generate(bundle, params, tokens, STEPS, frames)  # the main path
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{IV_ARCH} main path launches: {counts} (expected {expected})")
+    require(counts == expected, f"{IV_ARCH} launch counts {counts} != {expected}")
+    print(f"{IV_ARCH}: prefill {PROMPT} tokens x{B} ({cfg.frontend_positions} of them the frontend's): "
+          f"{gen_out.prefill_s * 1e3:.3f} ms; decode: {gen_out.decode_s_per_token * 1e3:.3f} ms/token "
+          f"({B / gen_out.decode_s_per_token:.1f} tokens/s); peak memory {peak_gb:.2f} GB [{name_power}]")
+    print(f"card during run: {nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+    for lg in gen_out.logits:
+        require(lg.shape == (B, cfg.padded_vocab) and bool(torch.isfinite(lg).all()), f"{IV_ARCH}: bad logits")
+    require(gen_out.tokens.shape == (B, STEPS), f"{IV_ARCH}: bad token shape")
+    again, _ = counted_generate(bundle, params, tokens, STEPS, frames, per_prefill, per_step, IV_ARCH)
+    print(f"{IV_ARCH} per-step launches: prefill {per_prefill['rmsnorm']} rmsnorm + {per_prefill['flash_attention']} "
+          f"flash, each of {STEPS} decode steps {per_step['rmsnorm']} rmsnorm + {per_step['decode_attention']} decode: "
+          f"ok; the second run's tokens {'equal' if torch.equal(again, gen_out.tokens) else 'NOT equal'} to the "
+          f"first's")
+    print_breakdown(bundle, params, tokens, gen_out.tokens[:, :1], PROMPT, frames)
+
+    plain = make_serve_bundle(cfg, max_len=MAX_LEN, ops=ops.PLAIN)
+    fault = (f"flash_attention drops the frontend's {cfg.frontend_positions} rows as keys",
+             make_serve_bundle(cfg, max_len=MAX_LEN,
+                               ops=planted("flash_attention", flash_drops_keys_before(cfg.frontend_positions))))
+    ops.reset_launch_counts()
+    plain_bf16 = teacher_forced(plain, params, tokens, gen_out.tokens, frames)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    fault_bf16 = teacher_forced(fault[1], params, tokens, gen_out.tokens, frames)
+    _to_float32(params)
+    ops.reset_launch_counts()
+    exact = teacher_forced(plain, params, tokens, gen_out.tokens, frames)
+    require(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    kernel_fp32 = teacher_forced(bundle, params, tokens, gen_out.tokens, frames)
+    require(ops.launch_counts() == expected, f"{IV_ARCH} fp32 kernel-path launches {ops.launch_counts()}")
+    fault_fp32 = teacher_forced(fault[1], params, tokens, gen_out.tokens, frames)
+    del params
+    free_memory()
+    logits_gates(f"{IV_ARCH} ", gen_out.logits, plain_bf16, exact, fp32=("kernels vs plain, fp32", kernel_fp32, exact),
+                 faults=[(fault[0], fault_bf16, fault_fp32, ("bf16", "fp32"))])
+    del bundle, plain, fault
+    free_memory()
+    print(f"{IV_ARCH} served: {time.perf_counter() - t_run:.1f} s")
+    return counts
+
+
 def teacher_forced_by_sequence(bundle, params, prompt, generated) -> list:
     """``teacher_forced`` one sequence at a time, the logits stacked back into
     the batch: the plain attention's fp32 scores for the whole batch at
@@ -2298,10 +2623,48 @@ def print_breakdown(bundle, params, tokens, first, prompt_len: int = PROMPT, fra
 PROFILES = {}
 
 
+def device_times(prof) -> tuple:
+    """A finished profile's device time, read from the profiler's raw
+    (Kineto) events as ``key_averages()`` reads it, without the tree of
+    events that it builds first (~60 us an event on the host: tens of
+    seconds for a host-bound step's ~10^5 kernels and their CPU events):
+    ({kernel name: [ms, count]}, the device ms of the kernels launched by
+    ops inside ``moe.EXPERTS_RANGE`` ranges, None where there is none). A
+    kernel belongs to the CPU op whose correlation id its linked correlation
+    id names, and that op to a range that it starts in on the same thread."""
+    from torch.autograd import DeviceType
+
+    kernels, launched, ops_at, ranges = {}, [], {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.is_async() or e.start_thread_id() != e.end_thread_id():
+            continue
+        if e.device_type() == DeviceType.CUDA:
+            if e.name() != moe_mod.EXPERTS_RANGE and e.duration_ns() > 0:  # not the range's device span
+                entry = kernels.setdefault(e.name(), [0.0, 0])
+                entry[0] += e.duration_ns() / 1e6
+                entry[1] += 1
+                launched.append((e.linked_correlation_id(), e.duration_ns()))
+        elif e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0:
+            ops_at[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+            if e.name() == moe_mod.EXPERTS_RANGE:
+                ranges.setdefault(e.start_thread_id(), []).append((e.start_ns(), e.end_ns()))
+    if not ranges:
+        return kernels, None
+    for spans in ranges.values():
+        spans.sort()
+    experts = 0
+    for corr, ns in launched:
+        thread, at = ops_at.get(corr, (None, 0))
+        spans = ranges.get(thread, ())
+        i = bisect.bisect_right(spans, (at, math.inf)) - 1
+        if i >= 0 and spans[i][0] <= at <= spans[i][1]:
+            experts += ns
+    return kernels, experts / 1e6
+
+
 def profiled(label: str, fn):
     """Run ``fn`` once under torch.profiler; print its host and device times
     (and keep them in ``PROFILES``)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2311,25 +2674,23 @@ def profiled(label: str, fn):
         enqueue = time.perf_counter() - t0
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    families, kernels, other, experts = {}, 0, [], None
-    for e in prof.key_averages():
-        if e.key == moe_mod.EXPERTS_RANGE:  # the profiler range around the expert products
-            if e.device_type == DeviceType.CPU:
-                experts = e.device_time_total / 1e3
-            continue
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            fam = next((f for f, keys in KERNEL_FAMILIES if any(k in e.key for k in keys)), "other")
-            families[fam] = families.get(fam, 0.0) + e.self_device_time_total / 1e3
-            kernels += e.count
-            if fam == "other":
-                other.append((e.self_device_time_total / 1e3, e.count, e.key))
+    t_read = time.perf_counter()
+    by_name, experts = device_times(prof)
+    families, kernels, other = {}, 0, []
+    for name, (ms, count) in by_name.items():
+        fam = next((f for f, keys in KERNEL_FAMILIES if any(k in name for k in keys)), "other")
+        families[fam] = families.get(fam, 0.0) + ms
+        kernels += count
+        if fam == "other":
+            other.append((ms, count, name))
     busy = sum(families.values())
     parts = ", ".join(f"{k} {v:.3f}" for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
     shown = f"device busy {busy:.3f} ms in {kernels} kernels ({parts})" if busy else "device time not measured"
     if experts is not None:
         shown += f"; of which the MoE expert products (3 bmm + SwiGLU a layer) {experts:.3f} ms"
     PROFILES[label] = {"enqueue_ms": enqueue * 1e3, "wall_ms": wall * 1e3, "busy_ms": busy}
-    print(f"profile {label}: host enqueue {enqueue * 1e3:.3f} ms, wall {wall * 1e3:.3f} ms, {shown}")
+    print(f"profile {label}: host enqueue {enqueue * 1e3:.3f} ms, wall {wall * 1e3:.3f} ms, {shown} (the "
+          f"profile read in {time.perf_counter() - t_read:.2f} s)")
     for ms, count, key in sorted(other, reverse=True)[:4]:  # what "other" is made of
         print(f"  other: {ms:.3f} ms in {count} x {key[:90]}")
     return out
@@ -2386,7 +2747,7 @@ def train_batch(cfg, pipe, step: int) -> dict:
     tokens, labels = pipe.batch_at(step)
     batch = {"tokens": torch.from_numpy(tokens).to("cuda"), "labels": torch.from_numpy(labels).to("cuda")}
     if cfg.frontend is not None:
-        batch["frontend_embeds"] = frontend_embeds(cfg, TR_B, pipe.cfg.seed, step, "cuda")
+        batch["frontend_embeds"] = frontend_embeds(cfg, pipe.cfg.global_batch, pipe.cfg.seed, step, "cuda")
     return batch
 
 
@@ -2549,6 +2910,46 @@ def ssd_drops_dbc(x, log_dA, Bm, Cm, *, chunk=256):
     return ops.ssd_scan(x, log_dA, Bm.detach(), Cm.detach(), chunk=chunk)
 
 
+def rmsnorm_qk_norm_ignores_scale(x, scale, *, eps=1e-6):
+    """On qk-norm's rows of 128 (qwen3-32b's head dim; no d_model is 128)
+    the scale is ignored: the output is the normalized row, which at the
+    seeded scale of 1 is the true output, and the scale gets no gradient."""
+    if x.shape[-1] != D:
+        return ops.rmsnorm(x, scale, eps=eps)
+    return ops.rmsnorm(x, torch.ones_like(scale), eps=eps)
+
+
+def flash_maps_heads_by_8(q, k, v, *, causal=True, window=None):
+    """Query head h reads kv head h // 8, a group of 8 where the config's is
+    6 (internlm2-20b's 48 query heads over 8 kv heads)."""
+    idx = torch.arange(q.shape[1], device=q.device) // 8
+    k, v = (t.transpose(1, 2).index_select(2, idx).transpose(1, 2) for t in (k, v))
+    return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def flash_ignores_window(q, k, v, *, causal=True, window=None):
+    """The window is ignored: every query attends to every earlier key."""
+    return ops.flash_attention(q, k, v, causal=causal)
+
+
+class FlashBackwardWithoutWindow(kernel_autograd.FlashAttention):
+    """The flash Function's forward as it is (the kernel, with the window);
+    its backward recomputes the attention without the window."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = kernel_autograd.FlashAttention.forward(ctx, q, k, v, causal, window)
+        ctx.window = None
+        return out
+
+
+def flash_backward_drops_window(q, k, v, *, causal=True, window=None):
+    """The Function's backward takes ``window=None``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashBackwardWithoutWindow.apply(q, k, v, causal, window)
+    return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+
 BOTH, GRADIENT, NONE = ("per-token", "gradient"), ("gradient",), ()
 PLANTED = {  # cell: (fault, the kernel it is planted in, the gates that must fail)
     "internvl2-2b": [
@@ -2578,6 +2979,22 @@ PLANTED = {  # cell: (fault, the kernel it is planted in, the gates that must fa
         ("flash_attention ignores Q K^T's third 64-column box (the rope columns 128-191)", "flash_attention",
          flash_ignores_rope_box, BOTH),
     ],
+    "minitron-8b": [
+        ("flash_attention leaves the last 64 queries unwritten", "flash_attention", flash_leaves_last_tile_unwritten,
+         BOTH),
+    ],
+    "qwen3-32b": [  # at the seeded scale of 1 the forward is the true one: only the scales' gradient shows it
+        ("rmsnorm on qk-norm's rows of 128 ignores its scale", "rmsnorm", rmsnorm_qk_norm_ignores_scale,
+         ("gradient", "q_norm", "k_norm")),
+    ],
+    "internlm2-20b": [
+        ("flash_attention maps query head h to kv head h // 8 (group 8 where it is 6)", "flash_attention",
+         flash_maps_heads_by_8, BOTH),
+    ],
+    DN_ARCH: [
+        ("flash_attention ignores the window", "flash_attention", flash_ignores_window, BOTH),
+        ("flash_attention's backward takes window=None", "flash_attention", flash_backward_drops_window, GRADIENT),
+    ],
 }
 
 
@@ -2604,7 +3021,7 @@ def dropped_per_layer(routes, m, tokens: int) -> list:
     return [int((moe_mod._counts(r.reshape(-1), m.num_experts) - C).clamp(min=0).sum()) for r in routes]
 
 
-def gradient_gate(arch, cfg, bundle, plain, params, pipe, keep: bool = False, rows: int = TR_B, park: bool = False):
+def gradient_gate(arch, cfg, bundle, plain, params, pipe, keep: bool = False, rows=None, park: bool = False):
     """One batch, the seeded weights: the per-token losses and the whole
     gradient through the kernels in bf16 and in fp32, through the plain
     versions in bf16 and in fp32 (the reference: the same weights widened
@@ -2630,9 +3047,14 @@ def gradient_gate(arch, cfg, bundle, plain, params, pipe, keep: bool = False, ro
 
     With ``keep``: returns the bf16 kernel path's loss, gradient and
     forward routes (routed freely), the no-mesh run of ``mesh_gate``. The
-    gates take the first ``rows`` rows of the batch; with ``park`` the fp32
-    kernel path's gradient waits on the host while the reference's is
-    computed (three fp32 trees of deepseek-v3-671b's cell do not fit)."""
+    gates take the first ``rows`` rows of the batch (all of it where None);
+    with ``park`` the fp32 kernel path's gradient waits on the host while the
+    reference's is computed (three fp32 trees of deepseek-v3-671b's cell do
+    not fit).
+
+    A gate that ``PLANTED`` names other than "per-token" and "gradient" is a
+    leaf's name (the last part of its path): every leaf of that name must
+    break the rule, each one held to its own plain bf16 distance."""
     n, tol32 = cfg.num_layers, FP32_GRAD_RTOL[arch]
     moe_layers = moe_layer_count(cfg)
     params32 = tree_map(lambda t: t.float(), params)
@@ -2657,8 +3079,11 @@ def gradient_gate(arch, cfg, bundle, plain, params, pipe, keep: bool = False, ro
     tok32_k, loss_k32, grads_k32, counts32, variants32, routes32 = run(bundle.model, params32)
     require(counts32 == train_launches(cfg), f"{arch} fp32 kernel-path launches {counts32}")
     if park:
+        t_park = time.perf_counter()
         grads_k32 = tree_map(lambda t: t.to("cpu"), grads_k32)
         free_memory()
+        print(f"train {arch} gradient gate: the fp32 kernel path's gradient parked on the host in "
+              f"{time.perf_counter() - t_park:.1f} s")
     held = routes32 or None
     t32, loss32, ref32, counts_ref, _, _ = run(plain.model, params32, held)
     require(sum(counts_ref.values()) == 0, "the plain path launched a kernel")
@@ -2712,11 +3137,16 @@ def gradient_gate(arch, cfg, bundle, plain, params, pipe, keep: bool = False, ro
         for name, model, must_fail in faulty:
             _, tok_f, grad_f, leaf_f, _, _, _ = distances(model, params, replay)
             ratios = {"per-token": tok_f / tok_pl, "gradient": worst_leaf(leaf_f, leaf_pl)[0]}
+            for leaf in (g for g in must_fail if g not in BOTH):  # every leaf of that name
+                named = [leaf_f[p] / max(leaf_pl[p], 1e-30) for p in leaf_pl if p.split("/")[-1] == leaf]
+                require(bool(named), f"{arch}: no gradient leaf named {leaf}")
+                ratios[leaf] = min(named)
             if replay is None:  # the gates route freely
                 faults.append((name, ratios, must_fail))
+            named = "".join(f", the {g} leaves' least {r:.4f}" for g, r in ratios.items() if g not in BOTH)
             print(f"train {arch} planted fault ({label}), {name}: per-token {ratios['per-token']:.4f}, worst leaf "
-                  f"{ratios['gradient']:.4f} (flattened {grad_f / grad_pl:.4f}), caught by "
-                  f"[{', '.join(g for g in BOTH if ratios[g] > FLOOR_RATIO)}], must be by [{', '.join(must_fail)}]")
+                  f"{ratios['gradient']:.4f} (flattened {grad_f / grad_pl:.4f}){named}, caught by "
+                  f"[{', '.join(g for g in ratios if ratios[g] > FLOOR_RATIO)}], must be by [{', '.join(must_fail)}]")
         print(f"train {arch} gradient gate ({label}, {'gated' if replay is None else 'printed'}), relative L2 "
               f"from fp32 plain: per-token losses bf16 kernels {tok_kn:.4e} vs bf16 plain {tok_pl:.4e} (ratio "
               f"{tok_kn / tok_pl:.4f}); the worst leaf's ratio %.4f (%s)" % worst_leaf(leaf_kn, leaf_pl))
@@ -2744,38 +3174,59 @@ def gradient_gate(arch, cfg, bundle, plain, params, pipe, keep: bool = False, ro
     return kept
 
 
-def train_phase(arch: str, seed: int, layers: int = 0, mesh=None) -> tuple:
-    """One training cell (its depth cut to ``layers`` if given): the
-    gradient gate, ``TR_STEPS`` counted steps with the kernels (the main path), as many with
-    the plain versions, their times, memory, energy and a profile; for an MoE
-    cell the routes of every step's forward pass and recompute held equal
-    and the dropped choices per layer. With ``mesh`` (the 1 x 1 mesh) the
+def train_config(arch: str, layers: int = 0):
+    """A training cell's config: the published one, its depth cut to
+    ``layers`` where given."""
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def train_phase(cell: TrainCell, seed: int, mesh=None) -> tuple:
+    """One training cell at its batch and sequence (its depth cut to
+    ``cell.layers`` if given): the gradient gate, ``TR_STEPS`` counted steps
+    with the kernels (the main path), their times, memory, energy and a
+    profile; for an MoE cell the routes of every step's forward pass and
+    recompute held equal and the dropped choices per layer; for a causal
+    window the backward's
+    ``banded_attention`` calls by path. With ``mesh`` (the 1 x 1 mesh) the
     cell runs on it too: ``mesh_gate`` on the gradient gate's weights, batch
     and no-mesh gradient, and ``mesh_trainer`` after the main path. Returns
     the main path's launches and the mesh trainer run's (None without a
     mesh)."""
     t_phase = time.perf_counter()
-    cfg = get_config(arch)
-    if layers:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
-    bundle = make_train_bundle(cfg, lr_schedule=constant(TR_LR))
-    plain = make_train_bundle(cfg, lr_schedule=constant(TR_LR), ops=ops.PLAIN)
-    pipe = SyntheticPipeline(DataConfig(cfg.vocab_size, TR_SEQ, TR_B, seed=seed))
+    arch, tokens_step = cell.arch, cell.batch * cell.seq
+    cfg = train_config(arch, cell.layers)
+    full = get_config(arch)
+    schedule = TR_WARMUP if cell.warmup else constant(TR_LR)
+    bundle = make_train_bundle(cfg, lr_schedule=schedule)
+    plain = make_train_bundle(cfg, lr_schedule=schedule, ops=ops.PLAIN)
+    pipe = SyntheticPipeline(DataConfig(cfg.vocab_size, cell.seq, cell.batch, seed=seed))
     n_params, n_active = cfg.param_count(), cfg.param_count(active_only=True)
     moe_layers = moe_layer_count(cfg)
     t0 = time.perf_counter()
     params = bundle.model.init(seed, "cuda")
     torch.cuda.synchronize()
-    cut = f" (depth cut from {get_config(arch).num_layers})" if layers else ""
+    cut = f" (depth cut from {full.num_layers})" if cell.layers else ""
     moe = (f", {cfg.num_layers - moe_layers} dense + {moe_layers} MoE of {cfg.moe.num_experts} experts top-"
            f"{cfg.moe.top_k} + {cfg.moe.num_shared_experts} shared (capacity "
-           f"{moe_mod._capacity(TR_B * TR_SEQ, cfg.moe)} an expert), {cfg.attention} attention, "
+           f"{moe_mod._capacity(tokens_step, cfg.moe)} an expert), {cfg.attention} attention, "
            f"{n_active / 1e9:.4f} B active" if moe_layers else "")
     depth = f"{cfg.encoder_layers} encoder + {cfg.num_layers} decoder" if cfg.enc_dec else f"{cfg.num_layers}"
-    print(f"train {arch}: {depth} layers{cut}{moe}, d_model {cfg.d_model}, {n_params / 1e9:.4f} B "
+    heads = (f", GQA {cfg.num_heads}/{cfg.num_kv_heads} at head_dim {cfg.resolved_head_dim}"
+             f"{', qk-norm' if cfg.qk_norm else ''}{f', window {cfg.sliding_window}' if cfg.sliding_window else ''}"
+             if cfg.attention == "gqa" and cfg.family in ("dense", "vlm") else "")
+    print(f"train {arch}: {depth} layers{cut}{moe}, d_model {cfg.d_model}{heads}, {n_params / 1e9:.4f} B "
           f"parameters (param_count), {sum(t.numel() for t in leaves(params)) / 1e9:.4f} B in the tree, init "
-          f"{time.perf_counter() - t0:.1f} s; batch {TR_B} x {TR_SEQ}, remat {cfg.remat}, optimizer {cfg.optimizer}")
-    kept = gradient_gate(arch, cfg, bundle, plain, params, pipe, keep=mesh is not None or arch == DOTS_ARCH)
+          f"{time.perf_counter() - t0:.1f} s; batch {cell.batch} x {cell.seq}, remat {cfg.remat}, optimizer "
+          f"{cfg.optimizer}, rate {'warming up over 100 steps to' if cell.warmup else 'a constant'} {TR_LR}")
+    if cell.layers:
+        print(f"train {arch} reduced: num_layers {full.num_layers} → {cfg.num_layers}")
+    torch.cuda.reset_peak_memory_stats()
+    kept = gradient_gate(arch, cfg, bundle, plain, params, pipe, keep=mesh is not None or arch == DOTS_ARCH,
+                         rows=cell.gate_rows)
+    rows = f"{cell.gate_rows} of the batch's {cell.batch} rows" if cell.gate_rows else f"all {cell.batch} rows"
+    print(f"train {arch} gradient gates on {rows}: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({time.perf_counter() - t_phase:.1f} s into the phase)")
     if mesh is not None:
         meshed = make_train_bundle(cfg, mesh, lr_schedule=constant(TR_LR))
         mesh_gate(arch, cfg, bundle, meshed, params, train_batch(cfg, pipe, 0), *kept)
@@ -2804,7 +3255,7 @@ def train_phase(arch: str, seed: int, layers: int = 0, mesh=None) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    with PowerSampler() as power, routed() as routes:
+    with PowerSampler() as power, routed() as routes, band_paths() as paths:
         report = trainer.train()
     require(len(power.samples) >= 2, f"{arch}: {len(power.samples)} power samples")
     counts = ops.launch_counts()
@@ -2818,24 +3269,30 @@ def train_phase(arch: str, seed: int, layers: int = 0, mesh=None) -> tuple:
             f"{arch} train launches {counts}, per step {deltas}")
     if cfg.family == "ssm":
         require(ssd_mod.variant_launches[ssd_mod.GENERIC] == 0, "the bf16 training scan took the generic kernel")
+    if cfg.sliding_window:  # each layer's flash Function backward, every step
+        want = {"band": expected["flash_attention"] // 2, "fallback": 0}
+        print(f"train {arch} backward: banded_attention by path over {TR_STEPS} steps {paths} (expected {want}): "
+              f"S {cell.seq} > window {cfg.sliding_window} + q_chunk 1024 = {cfg.sliding_window + 1024}, the "
+              f"recompute reads only the band's keys")
+        require(paths == want, f"{arch}: the windowed backward's banded_attention calls by path {paths}")
     if moe_layers:
         steps = [routes[i:i + 2 * moe_layers] for i in range(0, len(routes), 2 * moe_layers)]
         same = [recompute_routes_forward(r, moe_layers) for r in steps]
-        drops = [dropped_per_layer(r[:moe_layers], cfg.moe, TR_B * TR_SEQ) for r in steps]
+        drops = [dropped_per_layer(r[:moe_layers], cfg.moe, tokens_step) for r in steps]
         print(f"train {arch} routing: the recompute chose the forward pass's experts in every MoE layer at "
               f"{sum(same)} of {len(steps)} steps; dropped choices per MoE layer of "
-              f"{TR_B * TR_SEQ * cfg.moe.top_k}: step 1 {drops[0]}, step {len(steps)} {drops[-1]}, mean share "
-              f"{np.mean([sum(d) for d in drops]) / (moe_layers * TR_B * TR_SEQ * cfg.moe.top_k):.4%}")
+              f"{tokens_step * cfg.moe.top_k}: step 1 {drops[0]}, step {len(steps)} {drops[-1]}, mean share "
+              f"{np.mean([sum(d) for d in drops]) / (moe_layers * tokens_step * cfg.moe.top_k):.4%}")
         require(len(steps) == TR_STEPS and all(same), f"{arch}: forward and recompute routes differ: {same}")
     first_routes = routes[:moe_layers]  # step 1's forward pass
     del routes
     bundle.step_fn = step_fn
     times = [h["step_s"] for h in trainer.history]
     losses = [h["loss"] for h in trainer.history]
-    flops = 8 * n_active * TR_B * TR_SEQ  # the active parameters: an MoE token meets top_k of the experts
+    flops = 8 * n_active * tokens_step  # the active parameters: an MoE token meets top_k of the experts
     if cfg.enc_dec:  # the encoder's parameters meet the frames, the rest the decoder's tokens
         n_enc = sum(t.numel() for t in leaves(trainer.params["encoder"]))
-        flops = 8 * (n_enc * TR_B * SM_FRAMES + (n_active - n_enc) * TR_B * TR_SEQ)
+        flops = 8 * (n_enc * cell.batch * SM_FRAMES + (n_active - n_enc) * tokens_step)
     bound_s = flops / timing.PEAK_FLOPS[torch.bfloat16]
     energy = (f"energy {power.joules / TR_STEPS:.2f} J/step ({power.watts:.1f} W mean draw over "
               f"{len(power.samples)} samples x {power.seconds:.3f} s, {TR_STEPS} steps)")
@@ -2845,9 +3302,9 @@ def train_phase(arch: str, seed: int, layers: int = 0, mesh=None) -> tuple:
           f"mean {np.mean(steady) * 1e3:.3f} median {np.median(steady) * 1e3:.3f} min {min(steady) * 1e3:.3f} ms; "
           f"bound 8 N T (N {n_active / 1e9:.4f} B active{'; the encoder at T = the frames' if cfg.enc_dec else ''}) "
           f"= {flops:.4e} FLOP at 989 TFLOP/s = {bound_s * 1e3:.3f} ms "
-          f"({bound_s / np.median(steady):.3f} of the median); {TR_B * TR_SEQ / np.median(steady):.1f} tokens/s; "
+          f"({bound_s / np.median(steady):.3f} of the median); {tokens_step / np.median(steady):.1f} tokens/s; "
           f"peak memory {peak_gb:.2f} GB ({base / 1e9:.2f} GB of it allocated before the trainer); {energy}; "
-          f"rollbacks {report['rollbacks']}")
+          f"rollbacks {report['rollbacks']} [{nvidia_smi('name,power.limit')}]")
     profiled(f"train step {arch}", lambda: bundle.step_fn(trainer.params, trainer.opt_state,
                                                           train_batch(cfg, pipe, trainer.step)))
     del trainer
@@ -2856,21 +3313,7 @@ def train_phase(arch: str, seed: int, layers: int = 0, mesh=None) -> tuple:
         dots_trainer(arch, cfg, pipe, seed)
     mesh_counts = None if mesh is None else mesh_trainer(arch, cfg, meshed, pipe, seed, first_routes)
 
-    ops.reset_launch_counts()
-    plain_trainer = Trainer(plain, pipe, quiet)
-    plain_trainer.init_or_restore(seed, "cuda")
-    plain_trainer.train()
-    require(sum(ops.launch_counts().values()) == 0, "the plain training run launched a kernel")
-    plain_losses = [h["loss"] for h in plain_trainer.history]
-    plain_times = [h["step_s"] for h in plain_trainer.history]
-    del plain_trainer
-    free_memory()
-    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
     print(f"train {arch} losses, kernels: " + " ".join(f"{x:.5f}" for x in losses))
-    print(f"train {arch} losses, plain:   " + " ".join(f"{x:.5f}" for x in plain_losses))
-    print(f"train {arch}: largest per-step relative gap kernels vs plain {max(gaps):.4e} (step "
-          f"{int(np.argmax(gaps)) + 1} of {len(gaps)}); plain step time steps 2-{TR_STEPS} median "
-          f"{np.median(plain_times[1:]) * 1e3:.3f} ms [{nvidia_smi('name,power.limit')}]")
     require(all(math.isfinite(x) for x in losses), f"{arch}: non-finite loss {losses}")
     require(losses[-1] < losses[0], f"{arch}: the loss did not fall: {losses[0]} -> {losses[-1]}")
     print(f"train {arch} phase: {time.perf_counter() - t_phase:.1f} s")
@@ -3249,8 +3692,8 @@ def _training_phases(seed: int) -> tuple:
         print(f"mesh: {tuple(mesh.mesh_dim_names)} {mesh.mesh.tolist()} on {mesh.device_type}, a single-rank "
               f"{dist.get_backend()} group (torch {torch.__version__}); the cells {', '.join(MESH_ARCHS)} run on it")
         train_counts, mesh_counts = {}, {k: 0 for k in KERNELS}
-        for arch, layers in TRAIN_CELLS:
-            train_counts[arch], on_mesh = train_phase(arch, seed, layers, mesh if arch in MESH_ARCHS else None)
+        for cell in TRAIN_CELLS:
+            train_counts[cell.arch], on_mesh = train_phase(cell, seed, mesh if cell.arch in MESH_ARCHS else None)
             free_memory()
             if on_mesh is not None:
                 mesh_counts = {k: mesh_counts[k] + on_mesh[k] for k in KERNELS}
@@ -3863,6 +4306,8 @@ def main() -> int:
     gen.manual_seed(0)
     errs = {"rmsnorm": check_rmsnorm(gen), "flash_attention": check_flash(gen),
             "decode_attention": check_decode(gen), "ssd_scan": check_ssd(gen)}
+    for name, err in check_train_functions(gen).items():
+        errs[name] = max(errs[name], err)
     torch.cuda.synchronize()
     times = time_kernels(gen, name_power)
     torch.cuda.synchronize()
@@ -3906,18 +4351,24 @@ def main() -> int:
     free_memory()
     print(f"qwen3-32b and internlm2-20b, runs A and B and the internlm2-20b launcher: "
           f"{time.perf_counter() - t_pub:.1f} s")
+    t_iv = time.perf_counter()
+    internvl_counts = internvl2_serve_phase(args.seed, name_power)
+    launcher_phase(IV_ARCH, B, PROMPT, PUB_LAUNCHER_STEPS, args.seed)
+    free_memory()
+    print(f"internvl2-2b served with its frontend, and its launcher: {time.perf_counter() - t_iv:.1f} s")
 
     train_counts, mesh_counts = training_phases(args.seed)
     train_launcher_phase(args.seed)
     colo_counts, colo_measured = colocation_phase(args.seed, name_power)
     scheduling_phase(colo_measured, name_power)
-    # a kernel's launches: the smoke zoo's launcher runs and the demos', the eight
+    # a kernel's launches: the smoke zoo's launcher runs and the demos', the nine
     # serve paths' (h2o-danube-1.8b's two runs, qwen3-32b's and internlm2-20b's
-    # runs A and B), the four training runs', the mesh runs' and the co-located rounds'
+    # runs A and B, internvl2-2b's with its frontend), the eight training runs',
+    # the mesh runs' and the co-located rounds'
     paths = [("smoke zoo", zoo_counts), ("demos", demo_counts), (ARCH, dense_counts), (MB_ARCH, ssm_counts)] + [
         (f"{DN_ARCH} run {r}", c) for r, c in danube_counts.items()] + [
         (DS_ARCH, deepseek_counts), (SM_ARCH, seamless_counts), (JB_ARCH, jamba_counts)] + list(
-        published_counts.items()) + [
+        published_counts.items()) + [(f"{IV_ARCH} served", internvl_counts)] + [
         (f"mesh serve {a}", c) for a, c in MESH_SERVE_COUNTS.items()] + [
         (f"train {a}", c) for a, c in train_counts.items()] + [("mesh", mesh_counts),
                                                                 ("co-located rounds", colo_counts)]

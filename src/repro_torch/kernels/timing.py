@@ -11,7 +11,9 @@ reference's four rows (``group`` "reference", the shapes of
 ``benchmarks/kernels_bench.py``), the serve and training paths' shapes
 (``chip_smoke.py``'s cells, by config; "published": qwen3-32b and
 internlm2-20b at published width, GQA groups 8 and 6, qwen3-32b's qk-norm
-rows), the decode kernel's ``lse`` output,
+rows; "published train": the dense configs trained at published width, with
+qk-norm's training rows and h2o-danube-1.8b's window at 8192 positions;
+"internvl2": internvl2-2b served), the decode kernel's ``lse`` output,
 the smoke configs' attention ("smoke": flash at head dims (16, 16) and
 (24, 16), decode at 16, at ``chip_smoke.py``'s smoke zoo's batch 2, 40-token
 prompt and 8 decode steps), and shapes that no path runs yet ("a7": flash
@@ -211,6 +213,24 @@ ROWS: List[Row] = [
     flash("published", "internlm2-20b prefill (group 6), the model's views", 4, 48, 8, 500, 500, 128, views=True),
     decode("published", "qwen3-32b decode, the 532-slot cache full", 4, 64, 8, 532, 128),
     decode("published", "internlm2-20b decode (group 6), the 532-slot cache full", 4, 48, 8, 532, 128),
+    # the dense configs trained at published width (8192 tokens a step: 4 x 2048, h2o-danube-1.8b 1 x 8192),
+    # each with its Function's plain backward
+    rms("published train", "minitron-8b training", 8192, 4096, bwd=True),
+    rms("published train", "qwen3-32b training", 8192, 5120, bwd=True),
+    rms("published train", "qwen3-32b training q qk-norm (4 x 2048 tokens, 64 heads)", 524288, 128, bwd=True),
+    rms("published train", "qwen3-32b training k qk-norm (8 heads)", 65536, 128, bwd=True),
+    rms("published train", "internlm2-20b training", 8192, 6144, bwd=True),
+    rms("published train", "h2o-danube-1.8b training (1 x 8192)", 8192, 2560, bwd=True),
+    flash("published train", "minitron-8b training (group 4)", 4, 32, 8, 2048, 2048, 128, views=True, bwd=True),
+    flash("published train", "qwen3-32b training (group 8)", 4, 64, 8, 2048, 2048, 128, views=True, bwd=True),
+    flash("published train", "internlm2-20b training (group 6)", 4, 48, 8, 2048, 2048, 128, views=True, bwd=True),
+    flash("published train", "h2o-danube-1.8b training, window 4096 (the backward through the band)", 1, 32, 8,
+          8192, 8192, 80, views=True, window=4096, bwd=True),
+    # internvl2-2b served with its frontend (batch 4, prompt 500 of which 256 the frontend's, 32 steps)
+    rms("internvl2", "internvl2-2b prefill", 2000, 2048),
+    rms("internvl2", "internvl2-2b decode step", 4, 2048),
+    flash("internvl2", "internvl2-2b prefill (group 2), the model's views", 4, 16, 8, 500, 500, 128, views=True),
+    decode("internvl2", "internvl2-2b decode (group 2), the 532-slot cache full", 4, 16, 8, 532, 128),
     # the decode kernel's log-sum-exp, what a mesh merges
     decode("lse", "minitron-8b decode with lse", 4, 32, 8, 532, 128, lse=True),
     decode("lse", "h2o-danube-1.8b ring with lse", 4, 32, 8, 4096, 80, lse=True),

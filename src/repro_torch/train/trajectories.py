@@ -4,6 +4,8 @@ paths from the same seeded weights and batches.
   PYTHONPATH=src python -m repro_torch.train.trajectories --arch internvl2-2b \\
       --batch 4 --seq 2048 --steps 20 --lr 3e-4 1e-4 --paths kernels plain rmsnorm
 
+``--layers N`` cuts the depth to N layers at the published widths.
+
 A path is ``kernels`` (every forward kernel: the training main path),
 ``plain`` (``kernels.ops.PLAIN``) or one kernel's name (that kernel, the other
 entry points plain). For each constant learning rate, every path trains with
@@ -23,6 +25,7 @@ forward (the kernel paths keep their Functions' backward passes).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import subprocess
 import sys
@@ -81,6 +84,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--layers", type=int, default=0, help="the depth cut to this many layers (0: as configured)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
@@ -100,6 +104,8 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False  # fp32 stays fp32 in the plain versions
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

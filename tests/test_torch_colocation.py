@@ -83,6 +83,17 @@ SEQ, BATCH = 64, 2  # the JAX package's tests/test_system.py::_job
 # ---------------------------------------------------------------- twins of tests/test_system.py
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The smoke shapes gain nothing from intra-op threads; one torch thread
+    keeps the ``-n 6`` workers on a few cores from slowing each other's
+    small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _job(arch, seed=0, ckpt_dir=None, steps_per_epoch=4, target_epochs=2):
     cfg = smoke_config(get_config(arch))
     bundle = make_train_bundle(cfg)

@@ -34,6 +34,17 @@ from repro_torch.launch import dryrun, serve
 from repro_torch.launch import train as train_launcher
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The smoke shapes gain nothing from intra-op threads; one torch thread
+    keeps the ``-n 6`` workers on a few cores from slowing each other's
+    small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def fast(monkeypatch):
     monkeypatch.setenv("REPRO_EXAMPLES_FAST", "1")

@@ -62,6 +62,17 @@ STEP_RTOL = 1e-4
 SERVE_TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The smoke shapes gain nothing from intra-op threads; one torch thread
+    keeps the ``-n 6`` workers on a few cores from slowing each other's
+    small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _JaxEncDec(JaxEncDecModel):
     """The reference model with its residual stream in fp32: ``_constrain``
     (the identity without a mesh) widens the bf16-rounded frames and every

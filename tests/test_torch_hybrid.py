@@ -17,8 +17,9 @@ of 12, shorter than a chunk, 40, a ragged chunk, and 3, shorter than the
 conv width; 4 greedy steps) within 1e-4 in the logits and 1e-5 in the
 caches, with the same greedy tokens and expert routes (after the 3-token prompt,
 whose conv windows the reference's decode cannot take, each step against
-the JAX prefill of the extended sequence); bf16 within 1.5, the
-reference's bound for MoE archs. Also: the layer groups, parameter tree and
+the JAX prefill of the extended sequence); bf16 within 0.5 with the port's
+MoE layers held to the JAX run's expert choices (routed freely, bf16 flips
+near-tied choices; the flips are printed). Also: the layer groups, parameter tree and
 cache layout against the reference's, two periods, a period that does not
 divide the layers, remat around each layer, and both launchers on the CPU.
 """
@@ -59,6 +60,17 @@ B, S, STEPS = 2, 40, 4  # S past the 32-row chunk, not a multiple of it
 LOSS_RTOL, GRAD_RTOL, SSM_GRAD_RTOL, STEP_RTOL = 1e-5, 1e-4, 2e-4, 1e-4
 PERIOD = ("ssm", "ssm", "ssm", "ssm", "attn", "ssm", "ssm", "ssm")
 MOE_POSITIONS = (1, 3, 5, 7)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The smoke shapes gain nothing from intra-op threads; one torch thread
+    keeps the ``-n 6`` workers on a few cores from slowing each other's
+    small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfgs(num_layers=None):
@@ -377,15 +389,73 @@ def test_fp32_serve_matches_jax(prompt, rng, routing):
         assert a.shape == b.shape and (a == b).all(), call
 
 
-def test_bf16_serve_matches_jax(rng, routing):
-    """bf16 within 1.5, ``tests/test_models.py``'s bound for MoE archs (a
-    router near-tie can pick another expert); the flips are printed."""
-    pairs, _, _ = _serve_both("bfloat16", 12, rng)
+def test_bf16_serve_matches_jax(monkeypatch):
+    """bf16, the port's MoE layers held to the JAX run's expert choices call
+    for call (as ``chip_smoke.py::routed`` holds them), within 0.5 of the
+    JAX logits at every step. Routed freely, bf16 rounding flips near-tied
+    router choices at the smoke config's near-uniform routers, and the two
+    part by up to 2.13 over twelve draws of the prompt; held, by at most
+    0.234 (``CHANGES.md``), as far as the JAX package's own bf16 run sits
+    from its fp32 run (0.07-0.30). The free run's flips are printed. The
+    prompt comes from a generator of the test's own."""
+    rng = np.random.default_rng(0)
+    cfg, jcfg = _cfgs()
+    prompt = 12
+    jax_ids, free_ids, held = [], [], {"on": False, "calls": 0}
+    jax_probs, top_k = jmoe.router_probs, moe._top_k
+
+    def jax_(p, x):
+        probs = jax_probs(p, x)
+        jax.debug.callback(lambda a: jax_ids.append(np.asarray(a).reshape(-1, 2)), jax.lax.top_k(probs, 2)[1],
+                           ordered=True)
+        return probs
+
+    def route(probs, k):
+        w, idx = top_k(probs, k)
+        if not held["on"]:
+            free_ids.append(idx.numpy())
+            return w, idx
+        jax.effects_barrier()
+        idx = torch.from_numpy(jax_ids[held["calls"]].astype(np.int64))
+        held["calls"] += 1
+        w = probs.gather(-1, idx)
+        return w / w.sum(dim=-1, keepdim=True), idx
+
+    def port(bundle, step, *args):
+        held["on"] = bundle is hold
+        return (bundle.prefill_fn if step is None else bundle.decode_fn)(*args)
+
+    monkeypatch.setattr(jmoe, "router_probs", jax_)
+    monkeypatch.setattr(moe, "_top_k", route)
+    jmodel = JaxModel(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    free = make_serve_bundle(cfg, max_len=prompt + STEPS)
+    hold = make_serve_bundle(cfg, max_len=prompt + STEPS)
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), "cpu", defs=free.model.param_defs())
+    tokens = rng.integers(0, cfg.vocab_size, (B, prompt)).astype(np.int32)
+    jlogits, jcache = jax.jit(jmodel.prefill, static_argnames="max_len")(jparams, jnp.asarray(tokens),
+                                                                         max_len=prompt + STEPS)
+    jdecode = jax.jit(jmodel.decode_step)
+    (logits, cache), (free_logits, free_cache) = (port(b, None, params, torch.from_numpy(tokens))
+                                                  for b in (hold, free))
+    pairs, free_dist = [(logits, jlogits)], [float((free_logits.float() - torch.from_numpy(np.asarray(
+        jlogits, np.float32))).abs().max())]
+    for i in range(STEPS):
+        nxt = np.asarray(jnp.argmax(jlogits, -1))[:, None].astype(np.int32)
+        jlogits, jcache = jdecode(jparams, jcache, jnp.asarray(nxt), jnp.asarray(prompt + i, jnp.int32))
+        logits, cache = port(hold, i, params, cache, torch.from_numpy(nxt), prompt + i)
+        free_logits, free_cache = port(free, i, params, free_cache, torch.from_numpy(nxt), prompt + i)
+        pairs.append((logits, jlogits))
+        free_dist.append(float((free_logits.float() - torch.from_numpy(np.asarray(jlogits, np.float32))).abs().max()))
+    n = len(MOE_POSITIONS)
+    assert held["calls"] == len(free_ids) == len(jax_ids) == n * (1 + STEPS)
     for logits, jlogits in pairs:
         assert logits.dtype == torch.bfloat16
-        np.testing.assert_allclose(logits.float().numpy(), np.asarray(jlogits, np.float32), atol=1.5, rtol=0)
-    flips = sum(int((a != b).sum()) for a, b in zip(routing["port"], routing["jax"]))
-    print(f"bf16: {flips} of {sum(a.size for a in routing['port'])} (token, choice) pairs routed elsewhere")
+        np.testing.assert_allclose(logits.float().numpy(), np.asarray(jlogits, np.float32), atol=0.5, rtol=0)
+    flips = sum(int((a != b).sum()) for a, b in zip(free_ids, jax_ids))
+    print(f"bf16 routed freely: {flips} of {sum(a.size for a in free_ids)} (token, choice) pairs routed elsewhere, "
+          f"the logits up to {max(free_dist):.3f} from the JAX run's; held to its routes up to "
+          f"{max(float(np.abs(a.float().numpy() - np.asarray(b, np.float32)).max()) for a, b in pairs):.3f}")
 
 
 def test_prefill_then_decode_matches_forward():

@@ -5,8 +5,9 @@ package's ``benchmarks/kernels_bench.py``) on the CPU.
   table of kernels (``PATH_SHAPES``: the serve and training paths, the
   training rows' Functions, the decode kernel's ``lse``), the smoke
   configs' attention (head dims (16, 16) and (24, 16), decode at 16),
-  qwen3-32b's and internlm2-20b's at published width, and the shapes that
-  no path runs yet.
+  qwen3-32b's and internlm2-20b's at published width, the dense configs'
+  training at published width and internvl2-2b's serving, and the shapes
+  that no path runs yet.
 * At the reference's four shapes the plain versions, on the row's own
   inputs, match the JAX package's ``kernels/ref.py`` (bf16 2e-2, the SSD
   scan in fp32 2e-4).
@@ -81,6 +82,20 @@ PUBLISHED_SHAPES = [
     ("decode_attention", dict(b=4, h=64, hkv=8, s=532, d=128, valid=532)),
     ("decode_attention", dict(b=4, h=48, hkv=8, s=532, d=128, valid=532)),
 ]
+# the dense configs trained at published width (with their Functions' backward) and internvl2-2b served
+PUBLISHED_TRAIN_SHAPES = [
+    ("rmsnorm", dict(rows=8192, d=4096, bwd=True)), ("rmsnorm", dict(rows=8192, d=5120, bwd=True)),
+    ("rmsnorm", dict(rows=524288, d=128, bwd=True)), ("rmsnorm", dict(rows=65536, d=128, bwd=True)),
+    ("rmsnorm", dict(rows=8192, d=6144, bwd=True)), ("rmsnorm", dict(rows=8192, d=2560, bwd=True)),
+    ("flash_attention", dict(b=4, h=32, hkv=8, sq=2048, sk=2048, dqk=128, dv=128, causal=True, bwd=True)),
+    ("flash_attention", dict(b=4, h=64, hkv=8, sq=2048, sk=2048, dqk=128, dv=128, causal=True, bwd=True)),
+    ("flash_attention", dict(b=4, h=48, hkv=8, sq=2048, sk=2048, dqk=128, dv=128, causal=True, bwd=True)),
+    ("flash_attention", dict(b=1, h=32, hkv=8, sq=8192, sk=8192, dqk=80, dv=80, causal=True, window=4096,
+                             bwd=True)),
+    ("rmsnorm", dict(rows=2000, d=2048)), ("rmsnorm", dict(rows=4, d=2048)),
+    ("flash_attention", dict(b=4, h=16, hkv=8, sq=500, sk=500, dqk=128, dv=128, causal=True, views=True)),
+    ("decode_attention", dict(b=4, h=16, hkv=8, s=532, d=128, valid=532)),
+]
 # ROADMAP A7's shapes that no path runs yet
 NEW_SHAPES = [
     ("flash_attention", dict(dqk=32, dv=32)), ("decode_attention", dict(d=32)),
@@ -103,7 +118,8 @@ def _has(kernel: str, shape: dict) -> bool:
     return any(r.kernel == kernel and all(r.dims.get(k) == v for k, v in shape.items()) for r in timing.ROWS)
 
 
-@pytest.mark.parametrize("kernel,shape", REFERENCE_SHAPES + PATH_SHAPES + PUBLISHED_SHAPES + NEW_SHAPES + SMOKE_SHAPES)
+@pytest.mark.parametrize("kernel,shape", REFERENCE_SHAPES + PATH_SHAPES + PUBLISHED_SHAPES + PUBLISHED_TRAIN_SHAPES
+                         + NEW_SHAPES + SMOKE_SHAPES)
 def test_rows_cover_the_reference_and_every_path_shape(kernel, shape):
     assert _has(kernel, shape)
 

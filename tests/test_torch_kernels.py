@@ -131,6 +131,17 @@ ODD_RMSNORM = [(300, 128), (700, 64), (1200, 32), (33, 2560), (300, 5120), (257,
                (5, 7168), (2001, 72), (7, 36)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The smoke shapes gain nothing from intra-op threads; one torch thread
+    keeps the ``-n 6`` workers on a few cores from slowing each other's
+    small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tol(dtype: str) -> float:
     return 2e-2 if dtype == "bfloat16" else 2e-5
 

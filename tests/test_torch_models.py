@@ -35,6 +35,17 @@ SSM_TOL = 1e-4
 ARCHS = ["minitron-8b", "mamba2-370m", "jamba-1.5-large-398b"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The smoke shapes gain nothing from intra-op threads; one torch thread
+    keeps the ``-n 6`` workers on a few cores from slowing each other's
+    small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 

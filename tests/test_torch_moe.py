@@ -38,6 +38,17 @@ ARCH = "deepseek-v2-lite-16b"
 B, S = 2, 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The smoke shapes gain nothing from intra-op threads; one torch thread
+    keeps the ``-n 6`` workers on a few cores from slowing each other's
+    small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs():
     return smoke_config(get_config(ARCH)), jax_smoke_config(jax_get_config(ARCH))
 

@@ -56,6 +56,17 @@ GROUP6_ATTN = [(2, 48, 8, 64, 128)]
 GROUP6_DECODE = [(2, 48, 8, 72, 128, v) for v in (1, 65, 72)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The smoke shapes gain nothing from intra-op threads; one torch thread
+    keeps the ``-n 6`` workers on a few cores from slowing each other's
+    small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(arch):
     return (dataclasses.replace(get_config(arch), **NARROW),
             dataclasses.replace(jax_get_config(arch), **NARROW))

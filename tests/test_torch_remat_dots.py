@@ -41,6 +41,17 @@ LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
 B, S = 2, 40
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The smoke shapes gain nothing from intra-op threads; one torch thread
+    keeps the ``-n 6`` workers on a few cores from slowing each other's
+    small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel_l2(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))

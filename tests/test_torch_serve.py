@@ -30,6 +30,17 @@ B, S, STEPS = 2, 12, 4
 CASES = [("minitron-8b", S), ("mamba2-370m", S), ("mamba2-370m", 40)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The smoke shapes gain nothing from intra-op threads; one torch thread
+    keeps the ``-n 6`` workers on a few cores from slowing each other's
+    small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_model(arch):
     jmodel = JaxModel(jax_smoke_config(jax_get_config(arch)))

@@ -62,6 +62,17 @@ STEP_RTOL = 1e-4
 B, S = 2, 40  # S past the smoke window (32) and the SSM chunk (32), not a multiple of it
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The smoke shapes gain nothing from intra-op threads; one torch thread
+    keeps the ``-n 6`` workers on a few cores from slowing each other's
+    small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _grad_rtol(arch, path) -> float:
     """The gradient tolerance of a leaf: 2e-4 for an SSM mixer's (the SSD
     scan's), 1e-4 for the others; a hybrid's ``blocks/l<j>/mixer`` is an SSM
@@ -739,11 +750,15 @@ def _card(rng, shape, dtype, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,d", [(8192, 2048), (8192, 1024), (2001, 1024), (65536, 128), (33, 100)])
+@pytest.mark.parametrize("rows,d", [(8192, 2048), (8192, 1024), (2001, 1024), (65536, 128), (33, 100),
+                                    (8192, 4096), (8192, 5120), (8192, 6144), (8192, 2560), (524288, 128)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_rmsnorm_function_on_the_card(rows, d, dtype, rng, cuda):
     """The training shapes (internvl2-2b's d_model, mamba2-370m's d_model
-    and d_inner), ragged rows, qk-norm's rows of head_dim, a generic width."""
+    and d_inner), ragged rows, qk-norm's rows of head_dim, a generic width;
+    the published-width training cells' d_model (minitron-8b, qwen3-32b,
+    internlm2-20b, h2o-danube-1.8b) and qwen3-32b's q qk-norm at 4 x 2048
+    tokens (524,288 rows, dscale summed over all of them)."""
     from repro_torch.kernels import rmsnorm as mod
 
     x, scale = _card(rng, (rows, d), dtype, cuda), _card(rng, (d,), torch.float32, cuda)
@@ -782,6 +797,32 @@ def test_flash_attention_function_on_the_card(shape, window, dtype, rng, cuda):
     views = lambda fn: lambda q, k, v: fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),  # noqa: E731
                                           causal=True, window=window)
     _against_plain(views(ops.flash_attention), views(ref.attention_ref), (q, k, v), _card_tol(dtype), mod)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,window,dtype", [
+    ((4, 32, 8, 2048, 2048, 128), None, torch.bfloat16),  # minitron-8b's training shape (group 4)
+    ((4, 64, 8, 2048, 2048, 128), None, torch.bfloat16),  # qwen3-32b's (group 8)
+    ((4, 48, 8, 2048, 2048, 128), None, torch.bfloat16),  # internlm2-20b's (group 6)
+    ((4, 48, 8, 2048, 2048, 128), None, torch.float32),
+    ((1, 32, 8, 8192, 8192, 80), 4096, torch.bfloat16),  # h2o-danube-1.8b's: the backward through the band
+    ((1, 32, 8, 8192, 8192, 80), 4096, torch.float32),
+])
+def test_flash_attention_function_at_published_groups_on_the_card(shape, window, dtype, rng, cuda):
+    """The published-width training cells' shapes, as the model passes them,
+    against autograd through the plain version on the inputs widened to fp32
+    (``chip_smoke.py::widened_attention``): the plain version on bf16 inputs
+    repeats the kv heads before widening, so its autograd sums a group's
+    head gradients in bf16 and at groups 4-8 breaks the 2e-2 rule against
+    the Function on some elements (ROADMAP C13)."""
+    import chip_smoke
+    from repro_torch.kernels import flash_attention as mod
+
+    b, h, hkv, s, _, d = shape
+    q, k, v = (_card(rng, (b, s, n, d), dtype, cuda) for n in (h, hkv, hkv))
+    views = lambda fn: lambda q, k, v: fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),  # noqa: E731
+                                          causal=True, window=window)
+    _against_plain(views(ops.flash_attention), views(chip_smoke.widened_attention), (q, k, v), _card_tol(dtype), mod)
 
 
 @pytest.mark.gpu
